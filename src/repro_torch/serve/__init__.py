@@ -1,0 +1,54 @@
+"""Serving subsystem, in PyTorch: micro-batched, multi-tenant exact
+DB-search serving on one card.
+
+``queue.MicroBatchQueue`` groups requests into tenant-homogeneous
+micro-batches; ``cache.QueryHVCache`` memoizes query encodes and
+``cache.BankRegistry`` builds per-tenant banks on first use;
+``db_search.DBSearchServer`` runs the flush-sync loop over the
+``SearchExecutor`` seam, searching through the ``topk_hamming`` or
+``encode_search`` kernels and routing results through target-decoy FDR.
+``repro_torch.launch.serve_db`` is the runnable entry point.
+"""
+
+from repro_torch.serve.cache import BankRegistry, QueryHVCache
+from repro_torch.serve.db_search import (
+    DBSearchServer,
+    FDRSearchResult,
+    QueryEncoder,
+    QueryResult,
+    SearchExecutor,
+    ShardedDatabase,
+    bucket_for,
+    encode_queries,
+    fdr_route,
+    make_buckets,
+    search_database,
+    search_database_encoded,
+    search_database_levels,
+    search_with_fdr,
+    shard_database,
+)
+from repro_torch.serve.queue import LatencyStats, MicroBatchQueue, Request
+
+__all__ = [
+    "BankRegistry",
+    "DBSearchServer",
+    "FDRSearchResult",
+    "LatencyStats",
+    "MicroBatchQueue",
+    "QueryEncoder",
+    "QueryHVCache",
+    "QueryResult",
+    "Request",
+    "SearchExecutor",
+    "ShardedDatabase",
+    "bucket_for",
+    "encode_queries",
+    "fdr_route",
+    "make_buckets",
+    "search_database",
+    "search_database_encoded",
+    "search_database_levels",
+    "search_with_fdr",
+    "shard_database",
+]

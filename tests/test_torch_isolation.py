@@ -1,0 +1,123 @@
+"""The PyTorch port stands alone and never hides the device.
+
+* no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports JAX or
+  the JAX package, and importing the port's serving stack loads no JAX;
+* entry points default to CUDA and raise on a host without it;
+* a CUDA tensor reaching a kernel wrapper launches the kernel or raises:
+  there is no quiet fall back to the plain version.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.hd.encoding import HDEncoderConfig, make_codebooks
+from repro_torch.kernels import _build
+from repro_torch.kernels.encode_search import encode_search
+from repro_torch.kernels.topk_hamming import topk_hamming
+from repro_torch.launch import serve_db
+from repro_torch.serve import QueryEncoder
+from repro_torch.spectra import SyntheticMSConfig, generate_dataset
+
+# small tensors: one intra-op thread leaves the cores to the other test
+# workers
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.serve, repro_torch.launch.serve_db, "
+            "repro_torch.convert; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=300,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
+                                   "launcher"])
+def test_default_device_raises_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    calls = {
+        "codebooks": lambda: make_codebooks(HDEncoderConfig(dim=64)),
+        "dataset": lambda: generate_dataset(SyntheticMSConfig()),
+        "encoder": lambda: QueryEncoder.from_config(
+            dim=64, num_features=8, num_levels=4),
+        "launcher": lambda: serve_db.main(["--reduced"]),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``: it takes the kernel path."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _cuda_looking(a):
+    return torch.from_numpy(a).as_subclass(_CudaLooking)
+
+
+@pytest.mark.parametrize("kernel", ["topk_hamming", "encode_search"])
+def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR",
+                        ROOT / "build" / "never_built_for_this_test")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    if _has_nvcc():
+        pytest.skip("a CUDA toolkit is installed here")
+    _build.load.cache_clear()
+    rng = np.random.default_rng(0)
+    rows = _cuda_looking(rng.integers(-5, 5, (40, 2)).astype(np.int32))
+    before = (topk_hamming.launches, encode_search.launches)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if kernel == "topk_hamming":
+            topk_hamming(rows[:3], rows, dim=64, k=2)
+        else:
+            encode_search(
+                _cuda_looking(np.zeros((3, 8), np.int32)),
+                _cuda_looking(np.ones((8, 64), np.int8)),
+                _cuda_looking(np.ones((4, 64), np.int8)), rows, dim=64, k=2)
+    assert (topk_hamming.launches, encode_search.launches) == before
+
+
+def _has_nvcc():
+    try:
+        _build.find_nvcc()
+    except RuntimeError:
+        return False
+    return True
