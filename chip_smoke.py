@@ -19,10 +19,14 @@ exits non-zero and prints no result line:
    1,162,392 rows (581,196 targets = 145,299 identities x 4, and as many
    m/z-reversed decoys) at D = 8192, 1024 bins, 16 levels, k = 4. Kernel
    launch counts are set to 0 just before each run and read just after;
-   a kernel of the run's path that was never launched fails the run. A
-   served batch of 32 is captured and held against the plain route on
-   the card, then each kernel is timed against its plain version on that
-   batch and bank with CUDA events.
+   a kernel of the run's path that was never launched fails the run.
+   Each run prints how its serving span splits into the traffic
+   generator's sleeps, the device's searches (CUDA events around each
+   batch's search) and host work. A served batch of 32, recorded by a
+   ``SearchExecutor`` subclass handed to the launcher, is held against
+   the plain route on the card; then each kernel is timed with CUDA
+   events on that batch and bank (and on its first rows at each smaller
+   served bucket) beside its plain version.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -49,9 +53,11 @@ QUERIES = 4096
 IPRG_QUERIES = 15_867
 DIM, K, MAX_BATCH = 8192, 4, 32
 
-# H100 SXM: 3.35 TB/s HBM3; POPC throughput is 16 per clock per SM (a
-# quarter of the 64-wide integer pipe), at the SM clock nvidia-smi reports
+# H100 SXM published peaks (dense, 700 W): 3.35 TB/s HBM3 and 1,979 TOP/s
+# int8 on the tensor cores. POPC issues 16 per clock per SM (a quarter of
+# the 64-wide integer pipe): the ceiling of the kernels' current design.
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
 POPC_PER_CLOCK_PER_SM = 16
 
 TPU_KERNELS = {
@@ -150,27 +156,22 @@ def phase_kernels_vs_plain(torch, np):
                                          "version")
 
 
-class Capture:
-    """Wraps a module-level search route of ``repro_torch.serve.db_search``
-    and keeps the inputs and outputs of the first served (non-zero)
-    batch of ``rows`` queries."""
+def recording_executor(rows: int):
+    """A ``SearchExecutor`` subclass that keeps the device batch, bank,
+    encoder and results of the first served batch of ``rows`` queries."""
+    from repro_torch.serve import SearchExecutor
 
-    def __init__(self, module, name, rows):
-        self.module, self.name, self.rows = module, name, rows
-        self.fn = getattr(module, name)
-        self.got = None
-        setattr(module, name, self)
+    class Recording(SearchExecutor):
+        got = None
 
-    def __call__(self, db, *args, **kwargs):
-        out = self.fn(db, *args, **kwargs)
-        batch = args[-2]
-        if (self.got is None and batch.shape[0] == self.rows
-                and bool(batch.any())):
-            self.got = (db, args, kwargs, tuple(t.clone() for t in out))
-        return out
+        def dispatch(self, reqs):
+            h = super().dispatch(reqs)
+            if Recording.got is None and h.n == rows:
+                Recording.got = (h.db, self.server.encoder, h.batch.clone(),
+                                 h.idx.clone(), h.vals.clone())
+            return h
 
-    def restore(self):
-        setattr(self.module, self.name, self.fn)
+    return Recording
 
 
 def time_ms(torch, fn, iters, warmup=1):
@@ -187,14 +188,21 @@ def time_ms(torch, fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(popc: float, nbytes: float, sms: int) -> tuple[float, str]:
-    """The larger of the POPC time at the card's peak POPC rate and the
-    time to move ``nbytes`` at HBM bandwidth, in ms."""
-    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    t_ops = popc / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take, in ms: the larger of ``ops``
+    at the int8 tensor-core peak and ``nbytes`` at HBM bandwidth. The
+    score is a +-1 dot product, which int8 tensor cores compute exactly."""
+    t_ops = ops / INT8_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def popc_pipe_ms(popc: float, sms: int) -> float:
+    """This design's own ceiling: ``popc`` POPCs at 16 per clock per SM
+    and the card's maximum SM clock, in ms."""
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return 1e3 * popc / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
 
 
 def phase_serve(torch, np, fused_e2e: bool):
@@ -207,12 +215,10 @@ def phase_serve(torch, np, fused_e2e: bool):
         topk_hamming_plain,
     )
     from repro_torch.launch import serve_db
-    from repro_torch.serve import db_search
 
     path = "fused-e2e" if fused_e2e else "fused"
     kernel = "encode_search" if fused_e2e else "topk_hamming"
-    cap = Capture(db_search, "search_database_levels" if fused_e2e
-                  else "search_database_encoded", MAX_BATCH)
+    recorder = recording_executor(MAX_BATCH)
     argv = ["--hd-dim", str(DIM), "--identities", str(IDENTITIES),
             "--refs-per-identity", str(REPLICATES), "--queries",
             str(QUERIES), "--k", str(K), "--max-batch", str(MAX_BATCH),
@@ -221,10 +227,7 @@ def phase_serve(torch, np, fused_e2e: bool):
     for fn in serve_db.KERNELS.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    try:
-        s = serve_db.main(argv)
-    finally:
-        cap.restore()
+    s = serve_db.main(argv, executor_cls=recorder)
     launches = {n: fn.launches for n, fn in serve_db.KERNELS.items()}
     wall = time.perf_counter() - t0
     print(json.dumps({
@@ -233,34 +236,47 @@ def phase_serve(torch, np, fused_e2e: bool):
         "identified_at_fdr": s["identified"], "correct": s["correct"],
         "library_s": s["library_s"], "bank_build_s": s["bank_build_s"],
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches, "run_s": wall}))
+        "launches": launches, "batches": s["batches"],
+        "buckets": s["buckets"], "span_s": s["span_s"],
+        "sleep_s": s["sleep_s"], "device_busy_s": s["device_busy_s"],
+        "host_s": s["span_s"] - s["sleep_s"] - s["device_busy_s"],
+        "run_s": wall}))
     check(launches[kernel] > 0, f"{kernel} never launched on the {path} path")
     check(s["count"] == QUERIES, f"{path}: served {s['count']} of {QUERIES}")
-    check(cap.got is not None, f"{path}: no served batch of {MAX_BATCH}")
+    check(recorder.got is not None, f"{path}: no served batch of {MAX_BATCH}")
 
-    db, args, kwargs, (idx, vals) = cap.got
-    R = db.data.shape[0]
+    db, enc, batch, idx, vals = recorder.got
+    R, W = db.data.shape
     if fused_e2e:
-        enc, levels = args[0], args[1].to(torch.int32).contiguous()
-        run = lambda: encode_search(  # noqa: E731
-            levels, enc.id_hvs, enc.level_hvs, db.data, dim=db.dim, k=K,
-            num_valid=db.num_rows, codebook_words=enc.codebook_words)
-        plain = lambda: encode_search_plain(  # noqa: E731
-            levels, enc.id_hvs, enc.level_hvs, db.data, dim=db.dim, k=K,
-            num_valid=db.num_rows)
-        n_present = int((levels > 0).sum())
-        popc = MAX_BATCH * R * db.data.shape[1] + n_present * db.data.shape[1]
-        nbytes = (levels.numel() * 4 + enc.id_hvs.numel()
-                  + enc.level_hvs.numel() + db.data.numel() * 4
-                  + 2 * MAX_BATCH * K * 4)
+        def run(n=MAX_BATCH):
+            return encode_search(batch[:n], enc.id_hvs, enc.level_hvs,
+                                 db.data, dim=db.dim, k=K,
+                                 num_valid=db.num_rows,
+                                 codebook_words=enc.codebook_words)
+
+        def plain():
+            return encode_search_plain(batch, enc.id_hvs, enc.level_hvs,
+                                       db.data, dim=db.dim, k=K,
+                                       num_valid=db.num_rows)
+
+        n_present = int((batch > 0).sum())
+        ops = 2 * (MAX_BATCH * R + n_present) * db.dim
+        popc = MAX_BATCH * R * W + n_present * W
+        nbytes = (batch.numel() * 4 + sum(w.numel() * 4
+                                          for w in enc.codebook_words)
+                  + db.data.numel() * 4 + 2 * MAX_BATCH * K * 4)
     else:
-        q = args[0]
-        run = lambda: topk_hamming(q, db.data, dim=db.dim, k=K,  # noqa: E731
-                                   num_valid=db.num_rows)
-        plain = lambda: topk_hamming_plain(  # noqa: E731
-            q, db.data, dim=db.dim, k=K, num_valid=db.num_rows)
-        popc = MAX_BATCH * R * db.data.shape[1]
-        nbytes = (q.numel() * 4 + db.data.numel() * 4
+        def run(n=MAX_BATCH):
+            return topk_hamming(batch[:n], db.data, dim=db.dim, k=K,
+                                num_valid=db.num_rows)
+
+        def plain():
+            return topk_hamming_plain(batch, db.data, dim=db.dim, k=K,
+                                      num_valid=db.num_rows)
+
+        ops = 2 * MAX_BATCH * R * db.dim
+        popc = MAX_BATCH * R * W
+        nbytes = (batch.numel() * 4 + db.data.numel() * 4
                   + 2 * MAX_BATCH * K * 4)
     p_idx, p_vals = plain()
     served_diff = int((p_idx != idx).sum() + (p_vals != vals).sum())
@@ -273,20 +289,26 @@ def phase_serve(torch, np, fused_e2e: bool):
     check(served_diff == 0, f"{path}: served batch differs from plain route")
     check(mismatches == 0, f"{path}: {kernel} differs from its plain version")
 
-    kernel_ms = time_ms(torch, run, iters=20, warmup=2)
+    ms = time_ms(torch, run, iters=20, warmup=2)
+    # the served buckets below 32 queries, on the same bank
+    bucket_ms = {n: time_ms(torch, lambda n=n: run(n), iters=20, warmup=2)
+                 for n in sorted(s["buckets"]) if n < MAX_BATCH}
     plain_ms = time_ms(torch, plain, iters=2, warmup=0)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit")
-    b_ms, b_by = bound_ms(
-        popc, nbytes, torch.cuda.get_device_properties(0).multi_processor_count)
-    print(f"{path}: {kernel} {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}; {popc:.4g} POPC, {nbytes:.4g} B) "
-          f"at Q={MAX_BATCH}, R={R}; sm clock, power, limit: {clocks}")
+    b_ms, b_by = bound_ms(ops, nbytes)
+    popc_ms = popc_pipe_ms(
+        popc, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"{path}: {kernel} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {ops:.4g} int8 ops, {nbytes:.4g} B), "
+          f"this design's POPC-pipe ceiling {popc_ms:.4f} ms ({popc:.4g} "
+          f"POPC) at Q={MAX_BATCH}, R={R}; by served bucket (Q: ms) "
+          f"{json.dumps(bucket_ms)}; sm clock, power, limit: {clocks}")
     return {
         "name": kernel, "route": "cuda",
         "source": f"src/repro_torch/csrc/{kernel}.cu",
         "replaces": TPU_KERNELS[kernel], "launches": launches[kernel],
         "mismatches": mismatches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by,
         # no single PyTorch call computes a streaming top-k by Hamming
         # distance (with or without the encode)

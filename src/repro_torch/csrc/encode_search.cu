@@ -6,10 +6,13 @@
 // out, bit-identical to encode_levels_batch -> bit-pack -> topk_hamming.
 // The query hypervector never reaches device memory.
 //
-// Bound on the H100: operations. The scan is topk_hamming's (POPC-bound);
-// the encode adds, per block, n_present x D / 32 codebook-word XNORs and
-// bit-sliced adds, with n_present the present bins of a spectrum (~5% of F
-// on the synthetic library).
+// Bound on the H100: bytes, as for topk_hamming (the bank read once; the
+// +-1 dot products fit under it at the int8 tensor-core rate). The encode
+// adds n_present x D products per query, with n_present the present bins of
+// a spectrum (~5% of F on the synthetic library), and the packed codebooks
+// (1 MB). The scan here is topk_hamming's, on the POPC pipe, so this design
+// is capped by the POPC rate, plus each bank split's re-encode of its
+// n_present x D / 32 codebook-word XNORs and bit-sliced adds.
 //
 // Design. The TPU kernel holds the whole (F, D) ID codebook in VMEM (8 MB at
 // F = 1024, D = 8192) and a (BQ, D) accumulator; neither fits in 227 KB of

@@ -7,10 +7,14 @@
 // or past num_valid score INT_MIN but stay candidates. Only (Q, k) reaches
 // device memory.
 //
-// Bound on the H100: operations, not bytes. Each query-row-word costs one
-// XOR, one POPC and one add, and POPC runs at 16 per clock per SM (a
-// quarter of the integer add rate); the bank (1.19 GB at iPRG2012 scale) is
-// read once per launch, at 3.35 TB/s a sixth of the POPC time at Q = 32.
+// Bound on the H100: bytes. The score is a +-1 dot product
+// (dim - 2 * popcount(q ^ r) = <q, r>), which the int8 tensor cores compute
+// exactly at 1,979 dense TOP/s: at Q = 32 against the iPRG2012-scale bank
+// (1,162,392 rows, D = 8192) that is 0.31 ms, under the 0.36 ms it takes to
+// read the 1.19 GB bank once at 3.35 TB/s. This design does not reach that
+// bound: it scores on the POPC pipe (one XOR, one POPC, one add per
+// query-row-word; POPC issues 16 per clock per SM), which caps it at about
+// 2.3 ms at Q = 32. A tensor-core scan is the next step.
 //
 // Design. The TPU carries its running top-k across a sequential R grid
 // axis; Hopper blocks run in no order, so the grid is 2-D (query blocks x

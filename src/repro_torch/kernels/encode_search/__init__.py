@@ -3,7 +3,5 @@ from repro_torch.kernels.encode_search.ops import (
     encode_search_plain,
     pack_codebook,
 )
-from repro_torch.kernels.encode_search.ref import encode_search_ref
 
-__all__ = ["encode_search", "encode_search_plain", "encode_search_ref",
-           "pack_codebook"]
+__all__ = ["encode_search", "encode_search_plain", "pack_codebook"]

@@ -6,7 +6,8 @@ Replaces ``repro.kernels.encode_search.encode_search_pallas`` (TPU kernel
 ``csrc/encode_search.cu``; see its header for the bound on the H100 and
 the design. The kernel reads the codebooks bit-packed
 (:func:`pack_codebook`); callers that search repeatedly pass them in
-``codebook_words`` so they are packed once.
+``codebook_words`` so they are packed once. :func:`encode_search_plain`
+is also the counterpart of the reference's staged ``ref.py`` oracle.
 
 Dispatch: CPU tensors take :func:`encode_search_plain`; CUDA tensors
 launch the kernel or raise. Nothing falls back.
@@ -27,6 +28,7 @@ from repro_torch.kernels.topk_hamming.ops import (
     check_merge_fits,
     check_status,
     pick_block_q,
+    smem_limit,
     split_rows,
     topk_hamming_plain,
     words_per_row,
@@ -144,7 +146,7 @@ def encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
     row_bytes = r.shape[1] * r.element_size()
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    bq = pick_block_q(qstride, k, 4, levels.device)
+    bq = pick_block_q(Q, qstride, k, 4, smem_limit(levels.device))
     check_merge_fits(k, levels.device)
     rows_per_split, splits = split_rows(Q, R, bq, levels.device)
     cand_v = torch.empty((Q, splits, k), dtype=torch.int32,

@@ -2,6 +2,5 @@ from repro_torch.kernels.topk_hamming.ops import (
     topk_hamming,
     topk_hamming_plain,
 )
-from repro_torch.kernels.topk_hamming.ref import topk_hamming_ref
 
-__all__ = ["topk_hamming", "topk_hamming_plain", "topk_hamming_ref"]
+__all__ = ["topk_hamming", "topk_hamming_plain"]

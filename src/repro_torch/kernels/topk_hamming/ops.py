@@ -4,6 +4,8 @@ PyTorch version.
 Replaces ``repro.kernels.topk_hamming.topk_hamming_pallas`` (TPU kernel
 ``topk_hamming.py:_topk_kernel``). The kernel is ``csrc/topk_hamming.cu``;
 see its header for the bound on the H100 and the design.
+:func:`topk_hamming_plain` is also the counterpart of the reference's
+``ref.py`` oracle.
 
 Dispatch: CPU tensors take :func:`topk_hamming_plain`; CUDA tensors
 launch the kernel or raise. Nothing falls back.
@@ -25,7 +27,7 @@ from repro_torch.kernels import _build
 
 TILE_ROWS = 128          # bank rows per tile (hd_common.cuh kTileRows)
 TILE_WORDS = 128 * 36    # shared words of the staged tile (kTileWords)
-BLOCK_Q_CHOICES = (32, 16, 8)
+BLOCK_Q_CHOICES = (8, 16, 32)
 WAVES = 4                # target blocks per SM for the split count
 MERGE_WARPS = 8          # queries per merge block (hd_common.cuh kWarps)
 
@@ -80,19 +82,28 @@ def words_per_row(row_bytes: int) -> tuple[int, int]:
     return wpr, -(-wpr // 4) * 4
 
 
-def pick_block_q(qstride: int, k: int, extra_words: int,
-                 device: torch.device) -> int:
-    """The largest query block whose resident words, bank tile and top-k
-    lists fit in one block's shared memory; raises where none does."""
-    limit = getattr(torch.cuda.get_device_properties(device),
-                    "shared_memory_per_block_optin", 232448)
-    for bq in BLOCK_Q_CHOICES:
-        words = bq * qstride + TILE_WORDS + 2 * bq * k + extra_words
-        if 4 * words <= limit:
-            return bq
-    raise ValueError(
-        f"no query block fits {limit} B of shared memory at row stride "
-        f"{qstride} words and k={k}")
+def smem_limit(device: torch.device) -> int:
+    """Bytes of shared memory one block may opt into on ``device``."""
+    return getattr(torch.cuda.get_device_properties(device),
+                   "shared_memory_per_block_optin", 232448)
+
+
+def pick_block_q(Q: int, qstride: int, k: int, extra_words: int,
+                 limit: int) -> int:
+    """The query block (8, 16 or 32 queries) for a batch of ``Q``: the
+    smallest that covers ``Q``, else the largest, among those whose
+    resident words, bank tile and top-k lists fit in ``limit`` bytes of
+    shared memory. Every query slot of a block is scored whether or not
+    it holds a query, so a block wider than ``Q`` wastes scan work.
+    Raises where no block fits."""
+    fits = [bq for bq in BLOCK_Q_CHOICES
+            if 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + extra_words)
+            <= limit]
+    if not fits:
+        raise ValueError(
+            f"no query block fits {limit} B of shared memory at row stride "
+            f"{qstride} words and k={k}")
+    return next((bq for bq in fits if bq >= Q), fits[-1])
 
 
 def split_rows(Q: int, R: int, bq: int, device: torch.device
@@ -163,7 +174,7 @@ def topk_hamming(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
     check_aligned(q, row_bytes)
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    bq = pick_block_q(qstride, k, 0, q.device)
+    bq = pick_block_q(Q, qstride, k, 0, smem_limit(q.device))
     check_merge_fits(k, q.device)
     rows_per_split, splits = split_rows(Q, R, bq, q.device)
     cand_v = torch.empty((Q, splits, k), dtype=torch.int32, device=q.device)

@@ -9,7 +9,9 @@ through the flush-sync :class:`~repro_torch.serve.DBSearchServer`.
 Reports queries/sec, aggregate and per-tenant p50/p95 latency, cache and
 bank counters, identifications at the requested FDR, the library
 generation + encode time and the hot bank's build time, peak device
-memory and each kernel's launch count.
+memory, each kernel's launch count, and how the serving span splits into
+the traffic generator's sleeps, the device's searches (CUDA events) and
+the host's work.
 
 ``--fused`` searches each bank through the ``topk_hamming`` kernel;
 ``--fused-e2e`` submits raw quantized spectra and runs the
@@ -38,6 +40,7 @@ from repro_torch.serve import (
     BankRegistry,
     DBSearchServer,
     QueryEncoder,
+    SearchExecutor,
     fdr_route,
     search_database_levels,
     search_with_fdr,
@@ -57,7 +60,10 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None):
+def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
+    """Runs the launcher; returns the server summary with the launcher's
+    own keys added. ``executor_cls`` is passed to the server (a subclass
+    of :class:`SearchExecutor` observes the served batches)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reduced", action="store_true",
                     help="small sizes for CPU smoke runs")
@@ -169,7 +175,7 @@ def main(argv=None):
         flush_timeout_s=args.flush_ms / 1e3,
         cache_bytes=int(args.cache_mb * 2**20) or None,
         buckets=args.buckets, fairness_cap=args.fairness_cap,
-        encoder=encoder, fused_e2e=args.fused_e2e)
+        encoder=encoder, fused_e2e=args.fused_e2e, executor_cls=executor_cls)
 
     # build the hot tenant's bank and warm the search + FDR path (and the
     # kernel build) at the largest bucket, so latency measures serving
@@ -203,6 +209,7 @@ def main(argv=None):
     meta = {}  # rid -> (tenant, query row)
     done = []
     sent = 0
+    sleep_s = 0.0  # the traffic generator's idle gaps
     while sent < total:
         burst = int(rng.integers(1, max_batch + 1))
         for _ in range(min(burst, total - sent)):
@@ -213,7 +220,9 @@ def main(argv=None):
             sent += 1
         done.extend(server.step())
         if rng.random() < 0.3:  # idle gap: lets the flush timeout fire
+            t0 = time.perf_counter()
             time.sleep(args.flush_ms / 1e3)
+            sleep_s += time.perf_counter() - t0
             done.extend(server.step())
     done.extend(server.run_until_drained())
     if len(done) != total:
@@ -251,6 +260,15 @@ def main(argv=None):
         print(f"  {tenant}: {ts['count']} reqs, p50 {ts['p50_ms']:.2f} ms, "
               f"p95 {ts['p95_ms']:.2f} ms, "
               f"cache hit rate {ts['cache_hit_rate']:.1%}")
+    # flush-sync: the host waits for each batch, so the serving span
+    # splits into the generator's sleeps, the device's searches and the
+    # rest (host work: batching, cache, copies, FDR, launch overhead)
+    span_s = s["count"] / s["qps"]
+    busy_s = s["device_busy_s"]
+    print(f"serving span {span_s:.4f} s: traffic-generator sleep "
+          f"{sleep_s:.4f} s, device search "
+          + ("not timed (no CUDA device)" if busy_s is None
+             else f"{busy_s:.4f} s, host {span_s - sleep_s - busy_s:.4f} s"))
     print(f"identified at {args.fdr:.0%} FDR: {accepted}/{total} "
           f"({correct} correct identity)")
     launches = {n: fn.launches for n, fn in KERNELS.items()}
@@ -262,6 +280,7 @@ def main(argv=None):
         print(f"peak device memory: {peak / 2**30:.2f} GiB")
     s.update(identified=accepted, correct=correct, total=total,
              library_s=library_s, bank_build_s=bank_build_s,
+             span_s=span_s, sleep_s=sleep_s,
              launches=launches,
              peak_memory_bytes=peak)
     return s

@@ -399,15 +399,20 @@ class QueryResult:
 
 @dataclasses.dataclass
 class BatchHandle:
-    """One dispatched batch's in-flight device work. ``done`` is recorded
-    on the current stream after the search (None on the CPU)."""
+    """One dispatched batch's in-flight device work. ``batch`` is the
+    bucket-padded device batch the route searched (encoded rows, or raw
+    levels on the fused-e2e route). ``start`` and ``done`` are timing
+    events recorded on the current stream around the search (None on the
+    CPU)."""
 
     reqs: list[Request]
     tenant: str
     db: ShardedDatabase
     n: int                # real rows (the rest is bucket padding)
+    batch: torch.Tensor
     idx: torch.Tensor
     vals: torch.Tensor
+    start: torch.cuda.Event | None = None
     done: torch.cuda.Event | None = None
 
 
@@ -419,7 +424,11 @@ class SearchExecutor:
       to the bank's device and launches the search without waiting;
     * ``poll`` asks the batch's CUDA event whether the search finished;
     * ``finalize`` waits for the results, routes FDR, fills per-request
-      results, stamps ``t_done`` and records latency.
+      results, stamps ``t_done``, records latency and adds the search's
+      device time (start to done event) to ``server.device_busy_s``.
+
+    Pass a subclass as ``DBSearchServer(executor_cls=...)`` to observe or
+    replace batches.
     """
 
     def __init__(self, server: "DBSearchServer"):
@@ -436,20 +445,24 @@ class SearchExecutor:
         bucket = bucket_for(n, srv.buckets)
         srv._bucket_counts[bucket] += 1
         dev = db.data.device
-        if srv.encoder is not None and srv.fused_e2e:
-            batch = torch.from_numpy(srv._levels_batch(reqs, bucket)).to(dev)
+        e2e = srv.encoder is not None and srv.fused_e2e
+        batch = torch.from_numpy(
+            srv._levels_batch(reqs, bucket) if e2e
+            else srv._encode_batch(reqs, db, bucket, tenant)).to(dev)
+        start = done = None
+        if dev.type == "cuda":
+            start, done = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+        if e2e:
             idx, vals = search_database_levels(db, srv.encoder, batch, srv.k,
                                                fused_e2e=True)
         else:
-            batch = torch.from_numpy(
-                srv._encode_batch(reqs, db, bucket, tenant)).to(dev)
             idx, vals = search_database_encoded(db, batch, srv.k)
-        done = None
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
+        if done is not None:
             done.record()
-        return BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n, idx=idx,
-                           vals=vals, done=done)
+        return BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n, batch=batch,
+                           idx=idx, vals=vals, start=start, done=done)
 
     def poll(self, handle: BatchHandle) -> bool:
         return True if handle.done is None else handle.done.query()
@@ -459,6 +472,10 @@ class SearchExecutor:
         n = handle.n
         idx = handle.idx[:n].cpu()   # waits for the device
         vals = handle.vals[:n].cpu()
+        if handle.start is not None:
+            srv.device_busy_s = ((srv.device_busy_s or 0.0)
+                                 + handle.start.elapsed_time(handle.done)
+                                 / 1e3)
         routed = fdr_route(handle.db, idx, vals, fdr=srv.fdr)
         t_done = srv._clock()
         live: list[Request] = []
@@ -505,7 +522,8 @@ class DBSearchServer:
                  buckets: int | Sequence[int] | None = None,
                  fairness_cap: int | None = None,
                  encoder: QueryEncoder | None = None,
-                 fused_e2e: bool = False):
+                 fused_e2e: bool = False,
+                 executor_cls: type[SearchExecutor] = SearchExecutor):
         if isinstance(db, BankRegistry):
             self.db = None
             self.banks = db
@@ -537,7 +555,10 @@ class DBSearchServer:
         self.fused_e2e = bool(fused_e2e)
         if self.fused_e2e and encoder is None:
             raise ValueError("fused_e2e=True requires encoder=")
-        self.executor = SearchExecutor(self)
+        self.executor = executor_cls(self)
+        # seconds the device spent searching served batches (None until a
+        # batch ran on a CUDA device)
+        self.device_busy_s: float | None = None
 
     def submit(self, query_hv, tenant: str = "default") -> int:
         """Enqueue one query for ``tenant`` (which must be registered);
@@ -648,6 +669,7 @@ class DBSearchServer:
         s["buckets"] = {int(b): int(c)
                         for b, c in sorted(self._bucket_counts.items())}
         s["mode"] = "flush-sync"
+        s["device_busy_s"] = self.device_busy_s
         s["e2e"] = (None if self.encoder is None else {
             "fused": self.fused_e2e,
             "num_features": self.encoder.num_features,

@@ -20,7 +20,6 @@ from repro_torch.convert import bank_rows_from_numpy, encoder_from_numpy
 from repro_torch.kernels.encode_search import (
     encode_search,
     encode_search_plain,
-    encode_search_ref,
     pack_codebook,
 )
 
@@ -75,13 +74,9 @@ def test_encode_search_matches_reference(Q, R, F, D, m, packed, k, nv, dup):
     lv = torch.from_numpy(levels)
     got = encode_search(lv, enc.id_hvs, enc.level_hvs, r, dim=D, k=k,
                         num_valid=nv)
-    ref = encode_search_ref(lv, enc.id_hvs, enc.level_hvs, r, k=k,
-                            num_valid=nv)
-    for g in (got, ref):
-        np.testing.assert_array_equal(g[0].numpy(), np.asarray(ji))
-        np.testing.assert_array_equal(g[1].numpy(), np.asarray(jv))
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(oi))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ov))
+    for want_i, want_v in ((ji, jv), (oi, ov)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_v))
 
 
 @pytest.mark.parametrize("d", [32, 40, 100])

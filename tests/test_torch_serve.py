@@ -27,6 +27,7 @@ from repro_torch.launch import serve_db
 from repro_torch.serve import (
     BankRegistry,
     DBSearchServer,
+    SearchExecutor,
     encode_queries,
     fdr_route,
     search_database_encoded,
@@ -187,3 +188,26 @@ def test_launcher_serves_on_cpu(flags, capsys):
     assert s["correct"] <= s["identified"] <= s["total"]
     assert "throughput:" in out and "kernel launches:" in out
     assert s["launches"] == {"topk_hamming": 0, "encode_search": 0}
+    # no CUDA device: the split of the serving span names no device time
+    assert "device search not timed" in out
+    assert s["device_busy_s"] is None and 0 <= s["sleep_s"] <= s["span_s"]
+
+
+@pytest.mark.parametrize("flags,width", [(["--fused"], 16),
+                                         (["--fused-e2e"], 256)])
+def test_launcher_hands_executor_cls_to_the_server(flags, width):
+    """A ``SearchExecutor`` subclass sees every served batch, padded to
+    its bucket: packed rows (D = 512, 16 words) on the fused route, raw levels (256 bins) on the fused-e2e route."""
+    seen = []
+
+    class Recording(SearchExecutor):
+        def dispatch(self, reqs):
+            h = super().dispatch(reqs)
+            seen.append((h.n, tuple(h.batch.shape)))
+            return h
+
+    s = serve_db.main(["--reduced", "--device", "cpu", "--queries", "24",
+                       *flags], executor_cls=Recording)
+    assert len(seen) == s["batches"] and sum(n for n, _ in seen) == 24
+    for n, (rows, cols) in seen:
+        assert rows in s["buckets"] and rows >= n and cols == width

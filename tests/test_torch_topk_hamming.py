@@ -14,11 +14,8 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels.topk_hamming import topk_hamming_pallas
 from repro.kernels.topk_hamming.ref import topk_hamming_ref as jref
-from repro_torch.kernels.topk_hamming import (
-    topk_hamming,
-    topk_hamming_plain,
-    topk_hamming_ref,
-)
+from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_plain
+from repro_torch.kernels.topk_hamming.ops import BLOCK_Q_CHOICES, pick_block_q
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers
@@ -49,12 +46,9 @@ def _check(q, rows, d, k, nv):
                                          dim=d, k=k, num_valid=nv)
     oracle = jref(jnp.asarray(q), jnp.asarray(rows), d, k, num_valid=nv)
     got = topk_hamming(_port(q), _port(rows), dim=d, k=k, num_valid=nv)
-    ref = topk_hamming_ref(_port(q), _port(rows), d, k, num_valid=nv)
-    for g in (got, ref):
-        np.testing.assert_array_equal(g[0].numpy(), np.asarray(want_i))
-        np.testing.assert_array_equal(g[1].numpy(), np.asarray(want_v))
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(oracle[0]))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(oracle[1]))
+    for want in ((want_i, want_v), oracle):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
 # (Q, R, D, packed, k, num_valid, duplicate rows)
@@ -94,6 +88,24 @@ def test_plain_is_the_cpu_path_and_counts_no_launch():
     b = topk_hamming_plain(_port(q), _port(rows), dim=64, k=3)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert topk_hamming.launches == before
+
+
+H100_SMEM = 232448  # bytes of shared memory a block may opt into
+
+
+@pytest.mark.parametrize("Q,want", [(1, 8), (8, 8), (9, 16), (16, 16),
+                                    (17, 32), (32, 32), (100, 32)])
+def test_block_q_is_the_smallest_that_covers_the_batch(Q, want):
+    assert pick_block_q(Q, 256, 4, 0, H100_SMEM) == want
+
+
+def test_block_q_shrinks_to_fit_shared_memory():
+    # 32 queries of 2048 words do not fit; 16 do
+    assert pick_block_q(32, 2048, 4, 0, H100_SMEM) == 16
+    assert pick_block_q(32, 256, 4, 0, 4 * 128 * 36 + 4 * 8 * 264) == 8
+    with pytest.raises(ValueError):
+        pick_block_q(8, 256, 4, 0, 4 * 128 * 36)
+    assert BLOCK_Q_CHOICES == (8, 16, 32)
 
 
 @pytest.mark.parametrize("bad", ["k0", "kR", "dtype", "width"])
