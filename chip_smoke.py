@@ -274,6 +274,7 @@ def phase_serve(torch, np, fused_e2e: bool):
             return topk_hamming_plain(batch, db.data, dim=db.dim, k=K,
                                       num_valid=db.num_rows)
 
+        n_present = None
         ops = 2 * MAX_BATCH * R * db.dim
         popc = MAX_BATCH * R * W
         nbytes = (batch.numel() * 4 + db.data.numel() * 4
@@ -301,7 +302,10 @@ def phase_serve(torch, np, fused_e2e: bool):
     print(f"{path}: {kernel} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; {ops:.4g} int8 ops, {nbytes:.4g} B), "
           f"this design's POPC-pipe ceiling {popc_ms:.4f} ms ({popc:.4g} "
-          f"POPC) at Q={MAX_BATCH}, R={R}; by served bucket (Q: ms) "
+          f"POPC) at Q={MAX_BATCH}, R={R}"
+          + ("" if n_present is None
+             else f", {n_present} present bins in the batch")
+          + f"; by served bucket (Q: ms) "
           f"{json.dumps(bucket_ms)}; sm clock, power, limit: {clocks}")
     return {
         "name": kernel, "route": "cuda",
