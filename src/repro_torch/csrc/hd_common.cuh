@@ -3,7 +3,10 @@
 // * the ordered top-k list: (value desc, index asc), kept in shared memory
 //   per query and fed by a warp at a time (better / list_insert / warp_offer);
 // * the streaming tile scorer over a range of bank rows (scan_rows):
-//   XOR + popcount for packed words, __dp4a for int8;
+//   XOR + popcount for packed words, __dp4a for int8; optionally banded,
+//   each query offered only the rows of its own [start, end) band;
+// * the banded blocks' scan window (load_bands / band_window /
+//   split_window);
 // * the Eq. 1 encoder (encode_block): the exact integer sum
 //   sum_f [level_f > 0] LV[level_f, d] * ID[f, d], signed with tie -> -1,
 //   written as packed words or int8 +-1 lanes;
@@ -147,21 +150,45 @@ __device__ __forceinline__ void store_chunk(const uint4 (&pf)[4],
   }
 }
 
+// Whether query band b = [b.x, b.y) meets rows [r0, r1).
+__device__ __forceinline__ bool band_meets(int2 b, int r0, int r1) {
+  return b.x < r1 && b.y > r0 && b.x < b.y;
+}
+
 // Streams bank rows [row_begin, row_end) against the block's BQ = 8 * QPT
 // resident query rows qs (stride qstride words, zero past the row) and
-// offers every scored row to the owning warp's per-query top-k lists.
+// offers the scored rows to the owning warp's per-query top-k lists.
 // Warp w owns queries w*QPT .. w*QPT + QPT - 1; lane l scores rows
 // tile0 + l + 32j. Rows at or past num_valid score INT_MIN but stay
-// candidates. Must be called by the whole block.
+// candidates. With band (shared memory, one [start, end) per query;
+// nullptr for none) a query is offered only the rows of its band, a warp
+// whose queries have no band row in a tile skips scoring it, and a tile
+// that no band of the block meets is not read. Must be called by the whole
+// block.
 template <int MODE, int QPT>
 __device__ void scan_rows(const uint32_t* qs, int qstride, int nq,
                           const unsigned char* r, int row_bytes, int wpr,
                           int row_begin, int row_end, int num_valid, int dim,
-                          uint32_t* rt, int* lv, int* li, int k) {
+                          const int2* band, uint32_t* rt, int* lv, int* li,
+                          int k) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nchunks = (wpr + kChunkWords - 1) / kChunkWords;
   for (int tile0 = row_begin; tile0 < row_end; tile0 += kTileRows) {
+    const int tile1 = min(tile0 + kTileRows, row_end);
+    if (band != nullptr) {
+      bool any = false;
+      for (int i = 0; i < nq; ++i) any |= band_meets(band[i], tile0, tile1);
+      if (!any) continue;  // block-uniform: no band of the block meets the tile
+    }
+    bool live = band == nullptr;  // warp-uniform
+    if (!live) {
+#pragma unroll
+      for (int a = 0; a < QPT; ++a) {
+        const int qloc = warp * QPT + a;
+        live |= qloc < nq && band_meets(band[qloc], tile0, tile1);
+      }
+    }
     int acc[QPT][kRowsPerLane];
 #pragma unroll
     for (int a = 0; a < QPT; ++a)
@@ -175,6 +202,7 @@ __device__ void scan_rows(const uint32_t* qs, int qstride, int nq,
       store_chunk(pf, rt);
       __syncthreads();
       if (c + 1 < nchunks) load_chunk(pf, r, row_bytes, tile0, row_end, c + 1);
+      if (!live) continue;  // the barriers above stay block-wide
       const int cw = min(kChunkWords, wpr - c * kChunkWords);
       const int nquads = (cw + 3) / 4;
       for (int wq = 0; wq < nquads; ++wq) {
@@ -204,15 +232,60 @@ __device__ void scan_rows(const uint32_t* qs, int qstride, int nq,
     for (int a = 0; a < QPT; ++a) {
       const int qloc = warp * QPT + a;
       if (qloc >= nq) continue;  // warp-uniform
+      int2 b = make_int2(row_begin, row_end);
+      if (band != nullptr) {
+        b = band[qloc];
+        if (!band_meets(b, tile0, tile1)) continue;  // warp-uniform
+      }
 #pragma unroll
       for (int j = 0; j < kRowsPerLane; ++j) {
         const int row = tile0 + lane + 32 * j;
         int s = MODE == kPacked ? dim - 2 * acc[a][j] : acc[a][j];
         if (row >= num_valid) s = INT_MIN;
-        warp_offer(lv + qloc * k, li + qloc * k, k, row < row_end, s, row);
+        warp_offer(lv + qloc * k, li + qloc * k, k,
+                   row < tile1 && row >= b.x && row < b.y, s, row);
       }
     }
   }
+}
+
+// Band b of the block's queries q0 .. q0 + nq - 1 into shared memory:
+// band[i] = [starts[q0 + i], ends[q0 + i]) of that band's (nbands, Q)
+// arrays; empty past nq.
+__device__ __forceinline__ void load_bands(const int* __restrict__ starts,
+                                           const int* __restrict__ ends,
+                                           int Q, int b, int q0, int nq,
+                                           int bq, int2* band) {
+  for (int i = threadIdx.x; i < bq; i += blockDim.x) {
+    const size_t at = static_cast<size_t>(b) * Q + q0 + i;
+    band[i] = i < nq ? make_int2(starts[at], ends[at]) : make_int2(0, 0);
+  }
+}
+
+// The rows a banded block must scan: from the lowest start to the highest
+// end over its non-empty bands ([0, 0) when all are empty).
+__device__ __forceinline__ int2 band_window(const int2* band, int nq) {
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int i = 0; i < nq; ++i) {
+    if (band[i].x < band[i].y) {
+      lo = min(lo, band[i].x);
+      hi = max(hi, band[i].y);
+    }
+  }
+  return lo < hi ? make_int2(lo, hi) : make_int2(0, 0);
+}
+
+// Split `split` of `splits` equal pieces of window w, each a whole number
+// of tiles (the last one shorter, some possibly empty).
+__device__ __forceinline__ int2 split_window(int2 w, int split, int splits) {
+  const long long span = w.y - w.x;
+  const long long per = (span + splits - 1) / splits;
+  const long long chunk = (per + kTileRows - 1) / kTileRows * kTileRows;
+  long long begin = w.x + split * chunk;
+  if (begin > w.y) begin = w.y;
+  long long end = begin + chunk;
+  if (end > w.y) end = w.y;
+  return make_int2(static_cast<int>(begin), static_cast<int>(end));
 }
 
 // Writes the block's lists to the (Q, splits, k) candidate buffers. Each

@@ -1,14 +1,18 @@
-"""Streaming top-k Hamming search: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Streaming top-k Hamming search, exact and banded: the CUDA kernels'
+wrappers and their plain PyTorch versions.
 
 Replaces ``repro.kernels.topk_hamming.topk_hamming_pallas`` (TPU kernel
-``topk_hamming.py:_topk_kernel``). The kernel is ``csrc/topk_hamming.cu``;
-see its header for the bound on the H100 and the design.
-:func:`topk_hamming_plain` is also the counterpart of the reference's
-``ref.py`` oracle.
+``topk_hamming.py:_topk_kernel``) and ``topk_hamming_banded_pallas``
+(``topk_hamming.py:_topk_banded_kernel``, the OMS twin: each query
+scores only the rows of its own precursor bands). Both kernels are in
+``csrc/topk_hamming.cu``; see its header for the bound on the H100 and
+the design. :func:`topk_hamming_plain` and
+:func:`topk_hamming_banded_plain` are also the counterparts of the
+reference's ``ref.py`` oracles; :func:`canonicalize_overflow_slots` is
+the reference's function of that name.
 
-Dispatch: CPU tensors take :func:`topk_hamming_plain`; CUDA tensors
-launch the kernel or raise. Nothing falls back.
+Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
+kernels or raise. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,6 +30,10 @@ from repro_torch.core.hd.similarity import (
 from repro_torch.kernels import _build
 
 TILE_ROWS = 128          # bank rows per tile (hd_common.cuh kTileRows)
+BANDED_BLOCK_Q = 8       # queries per block of the banded kernels, and the
+                         # block the OMS plan prices its tile budget for: the
+                         # server sorts each batch by precursor, so 8
+                         # adjacent queries keep a block's window narrow
 TILE_WORDS = 128 * 36    # shared words of the staged tile (kTileWords)
 BLOCK_Q_CHOICES = (8, 16, 32)
 WAVES = 4                # target blocks per SM for the split count
@@ -191,3 +199,190 @@ def topk_hamming(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
 
 
 topk_hamming.launches = 0
+
+
+# --------------------------------------------------------------------------
+# banded (OMS) search
+# --------------------------------------------------------------------------
+
+def canonicalize_overflow_slots(idx: torch.Tensor, vals: torch.Tensor,
+                                starts: torch.Tensor, ends: torch.Tensor,
+                                num_rows) -> torch.Tensor:
+    """Rewrites the ``INT32_MIN``-valued slots of a banded top-k to the
+    masked full matrix's overflow indices.
+
+    A top-k over a matrix masked outside the bands fills the slots past
+    the bands' width with the lowest *masked* rows (ties at the sentinel
+    go to the lower row). The banded kernels never visit most masked rows
+    and leave filler indices there; this writes the m-th smallest row
+    outside the bands into the m-th such slot, so the result is
+    bit-identical to the masked matrix's.
+
+    starts/ends: (B, Q) (or (Q,)) ascending disjoint bands per query,
+    clipped to ``num_rows``. Returns idx with the sentinel slots
+    rewritten."""
+    if starts.ndim == 1:
+        starts, ends = starts[None], ends[None]
+    starts = starts.to(torch.int64)
+    ends = ends.to(torch.int64)
+    sentinel = vals == INT32_MIN
+    k = idx.shape[1]
+    n_real = (~sentinel).sum(dim=1, keepdim=True)
+    m = torch.arange(k, device=idx.device)[None, :] - n_real  # rank among masked
+    # masked rows form B + 1 runs: [0, s_0), [e_0, s_1), ..., [e_{B-1}, rows)
+    run_start = [torch.zeros_like(starts[0])]
+    run_len = []
+    for b in range(starts.shape[0]):
+        run_len.append(starts[b] - run_start[-1])
+        run_start.append(ends[b])
+    run_len.append(num_rows - run_start[-1])
+    col = torch.zeros_like(m)
+    cum = torch.zeros_like(starts[0])
+    done = torch.zeros_like(sentinel)
+    for rs, rl in zip(run_start, run_len):
+        in_run = ~done & (m < (cum + rl)[:, None])
+        col = torch.where(in_run, rs[:, None] + (m - cum[:, None]), col)
+        done |= in_run
+        cum = cum + rl
+    return torch.where(sentinel, col.to(idx.dtype), idx)
+
+
+def clip_bands(starts, lens, num_valid: int, Q: int, device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, Q) int32 band bounds ``[s, e)`` on ``device``, clipped as the
+    reference clips them: ``s = clip(start, 0, nv)``,
+    ``e = clip(start + len, s, nv)``. (Q,) inputs are one band."""
+    s0 = torch.as_tensor(starts, device=device).to(torch.int32)
+    ln = torch.as_tensor(lens, device=device).to(torch.int32)
+    if s0.ndim == 1:
+        s0, ln = s0[None], ln[None]
+    if s0.ndim != 2 or s0.shape != ln.shape or s0.shape[1] != Q:
+        raise ValueError(f"starts/lens must be ({Q},) or (B, {Q}), got "
+                         f"{tuple(s0.shape)}/{tuple(ln.shape)}")
+    nv = max(int(num_valid), 0)
+    s = s0.clamp(0, nv)
+    e = torch.maximum(s0 + ln, s).clamp(max=nv)
+    return s.contiguous(), e.contiguous()
+
+
+def topk_hamming_banded_plain(q: torch.Tensor, r: torch.Tensor, starts, lens,
+                              *, dim: int, k: int,
+                              num_valid: int | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: the (Q, R) score matrix masked to ``INT32_MIN``
+    outside each query's bands ``[start, start + len)`` (the union over
+    bands) and at or past ``num_valid``, then
+    :func:`topk_value_desc_index_asc`. Its overflow slots are the
+    canonical ones. Returns (idx, vals), int32."""
+    _check_operands(q, r, k)
+    R = r.shape[0]
+    s, e = clip_bands(starts, lens, _num_valid(num_valid, R), q.shape[0],
+                      q.device)
+    scores = scores_plain(q, r, dim)
+    col = torch.arange(R, dtype=torch.int32, device=q.device)[None, :]
+    band = torch.zeros(scores.shape, dtype=torch.bool, device=q.device)
+    for b in range(s.shape[0]):
+        band |= (col >= s[b][:, None]) & (col < e[b][:, None])
+    scores.masked_fill_(~band, INT32_MIN)
+    vals, idx = topk_value_desc_index_asc(scores, k)
+    return idx.to(torch.int32), vals
+
+
+def check_banded_fits(qstride: int, k: int, extra_words: int,
+                      device: torch.device) -> None:
+    """Raises where a banded block (8 queries' words, the bank tile, the
+    top-k lists and band bounds) does not fit in shared memory."""
+    bq = BANDED_BLOCK_Q
+    need = 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + 2 * bq
+                + extra_words)
+    if need > smem_limit(device):
+        raise ValueError(f"a banded block needs {need} B of shared memory "
+                         f"at row stride {qstride} words and k={k}")
+
+
+def banded_splits(Q: int, R: int, bands: int, num_tiles: int | None,
+                  device: torch.device) -> int:
+    """Splits of each (query block, band) scan window: enough that the
+    grid holds about ``WAVES`` blocks per SM, and no more than the tile
+    budget ``num_tiles`` (the whole bank's tiles when None), so a window
+    of that budget gives every split at least one tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-R // TILE_ROWS)
+    budget = tiles if num_tiles is None else max(1, min(int(num_tiles), tiles))
+    blocks = -(-Q // BANDED_BLOCK_Q) * bands
+    return max(1, min(-(-WAVES * sms // blocks), budget))
+
+
+def _banded_launcher():
+    fn = _build.load("topk_hamming").topk_hamming_banded_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p, i, i, p, p, p, p, p]
+    fn.restype = i
+    return fn
+
+
+def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
+                        dim: int, k: int, num_valid: int | None = None,
+                        num_tiles: int | None = None,
+                        canonicalize: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Banded streaming top-k: each query scores only the bank rows in its
+    bands ``[starts[b, q], starts[b, q] + lens[b, q])`` below
+    ``num_valid`` (an OMS precursor window per bank block, over a
+    precursor-sorted bank). ``starts``/``lens`` are (Q,) for one band or
+    (B, Q) for B ascending disjoint bands, searched in one launch.
+
+    Equal to :func:`topk_hamming_banded_plain` in every slot whose value
+    is not ``INT32_MIN``; with ``canonicalize`` (the default) the
+    remaining slots are rewritten by :func:`canonicalize_overflow_slots`
+    and the whole result is bit-identical. Callers that merge several
+    searches and canonicalize once, globally, pass ``canonicalize=False``.
+
+    num_tiles: the plan's per-band tile budget of an 8-query block
+    (``repro_torch.serve.oms.plan_candidates``); it only sizes the grid.
+    Each block derives its scan window on the device from its own
+    queries' bands, so no band row is skipped whatever the budget.
+
+    CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/topk_hamming.cu`` (counted in ``topk_hamming_banded.launches``)
+    or raise."""
+    if not q.is_cuda and q.device.type == "cpu":
+        return topk_hamming_banded_plain(q, r, starts, lens, dim=dim, k=k,
+                                         num_valid=num_valid)
+    if not q.is_cuda:
+        raise ValueError(f"unsupported device {q.device}")
+    packed = _check_operands(q, r, k)
+    if not (q.is_contiguous() and r.is_contiguous()):
+        raise ValueError("topk_hamming_banded needs contiguous operands")
+    launch = _banded_launcher()
+    Q, R = q.shape[0], r.shape[0]
+    s, e = clip_bands(starts, lens, _num_valid(num_valid, R), Q, q.device)
+    vals = torch.empty((Q, k), dtype=torch.int32, device=q.device)
+    idx = torch.empty_like(vals)
+    if Q == 0:
+        return idx, vals
+    row_bytes = q.shape[1] * q.element_size()
+    check_aligned(q, row_bytes)
+    check_aligned(r, row_bytes)
+    wpr, qstride = words_per_row(row_bytes)
+    check_banded_fits(qstride, k, 0, q.device)
+    check_merge_fits(k, q.device)
+    bands = s.shape[0]
+    splits = banded_splits(Q, R, bands, num_tiles, q.device)
+    cand_v = torch.empty((Q, bands * splits, k), dtype=torch.int32,
+                         device=q.device)
+    cand_i = torch.empty_like(cand_v)
+    with torch.cuda.device(q.device):  # the launch targets the current device
+        err = launch(q.data_ptr(), r.data_ptr(), Q, R, row_bytes, wpr, qstride,
+                     0 if packed else 1, int(dim), int(k), s.data_ptr(),
+                     e.data_ptr(), bands, splits, cand_v.data_ptr(),
+                     cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    check_status(err, "topk_hamming_banded")
+    topk_hamming_banded.launches += 1
+    if canonicalize:
+        idx = canonicalize_overflow_slots(idx, vals, s, e, R)
+    return idx, vals
+
+
+topk_hamming_banded.launches = 0

@@ -1,4 +1,5 @@
-"""Multi-tenant exact DB-search serving launcher, in PyTorch, on one card.
+"""Multi-tenant DB-search serving launcher, exact or open-modification,
+in PyTorch, on one card.
 
 HD-encodes one synthetic spectral library (+ m/z-reversed decoys) per
 tenant, registers them in a lazy
@@ -15,10 +16,16 @@ the host's work.
 
 ``--fused`` searches each bank through the ``topk_hamming`` kernel;
 ``--fused-e2e`` submits raw quantized spectra and runs the
-``encode_search`` kernel. Runs on CUDA unless ``--device cpu``.
+``encode_search`` kernel. ``--oms`` serves open-modification search:
+banks are precursor-sorted, each query carries its precursor and scans
+only its window (``query - ref`` in ``(-tolerance, open-tol)``), through
+the banded twins of those kernels, and the run prints its candidate and
+scanned fractions. Runs on CUDA unless ``--device cpu``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced --fused
+  PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced --oms \\
+      --device cpu --fused-e2e
   PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced \\
       --device cpu --tenants 4 --cache-mb 16 --buckets 3 --fairness-cap 8
 """
@@ -34,14 +41,21 @@ import torch
 from repro_torch.core import SpecPCMConfig, encode_and_pack
 from repro_torch.core.hd.encoding import quantize_levels
 from repro_torch.device import resolve_device
-from repro_torch.kernels.encode_search import encode_search
-from repro_torch.kernels.topk_hamming import topk_hamming
+from repro_torch.kernels.encode_search import (
+    encode_search,
+    encode_search_banded,
+)
+from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
 from repro_torch.serve import (
     BankRegistry,
     DBSearchServer,
+    OMSConfig,
     QueryEncoder,
     SearchExecutor,
     fdr_route,
+    oms_plan,
+    oms_search_levels,
+    oms_search_with_fdr,
     search_database_levels,
     search_with_fdr,
 )
@@ -52,7 +66,9 @@ from repro_torch.spectra import (
     make_decoys,
 )
 
-KERNELS = {"topk_hamming": topk_hamming, "encode_search": encode_search}
+KERNELS = {"topk_hamming": topk_hamming, "encode_search": encode_search,
+           "topk_hamming_banded": topk_hamming_banded,
+           "encode_search_banded": encode_search_banded}
 
 
 def _sync(dev: torch.device) -> None:
@@ -100,6 +116,18 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     ap.add_argument("--max-banks", type=int, default=None,
                     help="LRU-evict cold built banks beyond this many "
                          "(default: keep all)")
+    ap.add_argument("--oms", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="open-modification serving: banks are "
+                         "precursor-sorted and each query scans only its "
+                         "precursor window (query - ref in "
+                         "(-tolerance, open-tol))")
+    ap.add_argument("--tolerance", type=float, default=20.0,
+                    help="precursor tolerance on the light side (and both "
+                         "sides for exact search)")
+    ap.add_argument("--open-tol", type=float, default=200.0,
+                    help="how much heavier than a reference an OMS query "
+                         "may be (the modification-mass budget)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without one)")
     args = ap.parse_args(argv)
@@ -132,21 +160,31 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     registry = BankRegistry(pack=pack, max_banks=args.max_banks,
                             fused=args.fused)
 
-    datasets, query_pools = {}, {}
+    # OMS traffic: modified queries carry a heavier precursor (a
+    # phospho-like mass addition), the case the open window exists for
+    oms_cfg = (OMSConfig(tol=args.tolerance, open_tol=args.open_tol)
+               if args.oms else None)
+    mod_range = (60.0, 0.75 * args.open_tol) if args.oms else (0.0, 0.0)
+
+    datasets, query_pools, precursor_pools = {}, {}, {}
     t0 = time.perf_counter()
     for t in range(args.tenants):
         tenant = f"tenant{t}"
         ms = SyntheticMSConfig(num_identities=n_id,
                                spectra_per_identity=per_id,
-                               num_bins=num_bins, seed=args.seed + 31 * t)
+                               num_bins=num_bins, seed=args.seed + 31 * t,
+                               modification_mass_range=mod_range)
         ds = generate_dataset(ms, device=dev)
         refs_hv = encode_and_pack(ds.spectra, cfg)
         decoys_hv = encode_and_pack(make_decoys(ds.spectra), cfg)
-        registry.register(tenant, refs_hv, decoys=decoys_hv, pin=t == 0)
+        registry.register(
+            tenant, refs_hv, decoys=decoys_hv, pin=t == 0,
+            precursor=ds.precursor.cpu().numpy() if args.oms else None)
         qs = generate_query_set(ds, ms, num_queries=n_q,
                                 seed=args.seed + 31 * t + 1)
         datasets[tenant] = (ds.identity.cpu().numpy(),
                             qs.identity.cpu().numpy())
+        precursor_pools[tenant] = qs.precursor.cpu().numpy()
         if args.fused_e2e:
             # raw quantized spectra: the server encodes on the device
             query_pools[tenant] = quantize_levels(
@@ -162,7 +200,7 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
           f"{library_s:.3f} s")
     print(f"{args.tenants} tenant bank(s) registered (lazy; built on first "
           f"request), D={dim}, pack={pack}, fused={args.fused}, "
-          f"fused_e2e={args.fused_e2e}, mode=flush-sync")
+          f"oms={args.oms}, fused_e2e={args.fused_e2e}, mode=flush-sync")
 
     # every tenant encodes with the same SpecPCMConfig, so one query-side
     # codebook bundle serves the whole fleet
@@ -174,7 +212,7 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         registry, k=args.k, fdr=args.fdr, max_batch_size=max_batch,
         flush_timeout_s=args.flush_ms / 1e3,
         cache_bytes=int(args.cache_mb * 2**20) or None,
-        buckets=args.buckets, fairness_cap=args.fairness_cap,
+        buckets=args.buckets, fairness_cap=args.fairness_cap, oms=oms_cfg,
         encoder=encoder, fused_e2e=args.fused_e2e, executor_cls=executor_cls)
 
     # build the hot tenant's bank and warm the search + FDR path (and the
@@ -187,12 +225,25 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     print(f"bank tenant0: {db0.num_rows} rows ({db0.num_decoys} decoys), "
           f"{db0.data.numel() * db0.data.element_size() / 2**20:.1f} MiB "
           f"on {dev}, built in {bank_build_s:.3f} s")
+    warm_prec = (np.sort(np.resize(precursor_pools["tenant0"], max_batch))
+                 if args.oms else None)
     if args.fused_e2e:
         warm_q = torch.zeros((max_batch, num_bins), dtype=torch.int32,
                              device=dev)
-        idx, vals = search_database_levels(db0, encoder, warm_q, args.k,
-                                           fused_e2e=True)
-        fdr_route(db0, idx, vals, fdr=args.fdr)
+        if args.oms:
+            plan = oms_plan(db0, warm_prec, oms_cfg)
+            idx, vals = oms_search_levels(db0, encoder, warm_q, plan, args.k,
+                                          fused_e2e=True)
+            fdr_route(db0, idx, vals, fdr=args.fdr,
+                      valid=torch.from_numpy(plan.has_candidate).to(dev))
+        else:
+            idx, vals = search_database_levels(db0, encoder, warm_q, args.k,
+                                               fused_e2e=True)
+            fdr_route(db0, idx, vals, fdr=args.fdr)
+    elif args.oms:
+        oms_search_with_fdr(db0, torch.zeros((max_batch, dim),
+                                             dtype=torch.int8, device=dev),
+                            warm_prec, k=args.k, fdr=args.fdr, cfg=oms_cfg)
     else:
         search_with_fdr(db0, torch.zeros((max_batch, dim), dtype=torch.int8,
                                          device=dev), k=args.k, fdr=args.fdr)
@@ -215,7 +266,10 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         for _ in range(min(burst, total - sent)):
             tenant = tenant_names[int(rng.choice(args.tenants, p=probs))]
             qi = int(rng.integers(0, query_pools[tenant].shape[0]))
-            rid = server.submit(query_pools[tenant][qi], tenant=tenant)
+            rid = server.submit(
+                query_pools[tenant][qi], tenant=tenant,
+                precursor=(float(precursor_pools[tenant][qi])
+                           if args.oms else None))
             meta[rid] = (tenant, qi)
             sent += 1
         done.extend(server.step())
@@ -260,6 +314,12 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         print(f"  {tenant}: {ts['count']} reqs, p50 {ts['p50_ms']:.2f} ms, "
               f"p95 {ts['p95_ms']:.2f} ms, "
               f"cache hit rate {ts['cache_hit_rate']:.1%}")
+    o = s["oms"]
+    if o is not None:
+        print(f"oms: window (-{o['tol']:g}, +{o['open_tol']:g}), candidate "
+              f"fraction {o['candidate_fraction']:.3f}, scanned fraction "
+              f"{o['scanned_fraction']:.3f}, {o['no_candidate']} queries "
+              f"with empty windows")
     # flush-sync: the host waits for each batch, so the serving span
     # splits into the generator's sleeps, the device's searches and the
     # rest (host work: batching, cache, copies, FDR, launch overhead)

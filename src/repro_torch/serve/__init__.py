@@ -1,12 +1,13 @@
-"""Serving subsystem, in PyTorch: micro-batched, multi-tenant exact
-DB-search serving on one card.
+"""Serving subsystem, in PyTorch: micro-batched, multi-tenant exact and
+open-modification DB-search serving on one card.
 
 ``queue.MicroBatchQueue`` groups requests into tenant-homogeneous
 micro-batches; ``cache.QueryHVCache`` memoizes query encodes and
 ``cache.BankRegistry`` builds per-tenant banks on first use;
 ``db_search.DBSearchServer`` runs the flush-sync loop over the
 ``SearchExecutor`` seam, searching through the ``topk_hamming`` or
-``encode_search`` kernels and routing results through target-decoy FDR.
+``encode_search`` kernels (their banded twins in OMS mode, planned by
+``oms``) and routing results through target-decoy FDR.
 ``repro_torch.launch.serve_db`` is the runnable entry point.
 """
 
@@ -22,12 +23,18 @@ from repro_torch.serve.db_search import (
     encode_queries,
     fdr_route,
     make_buckets,
+    oms_plan,
+    oms_search,
+    oms_search_encoded,
+    oms_search_levels,
+    oms_search_with_fdr,
     search_database,
     search_database_encoded,
     search_database_levels,
     search_with_fdr,
     shard_database,
 )
+from repro_torch.serve.oms import OMSConfig, OMSPlan, PrecursorIndex
 from repro_torch.serve.queue import LatencyStats, MicroBatchQueue, Request
 
 __all__ = [
@@ -36,6 +43,9 @@ __all__ = [
     "FDRSearchResult",
     "LatencyStats",
     "MicroBatchQueue",
+    "OMSConfig",
+    "OMSPlan",
+    "PrecursorIndex",
     "QueryEncoder",
     "QueryHVCache",
     "QueryResult",
@@ -46,6 +56,11 @@ __all__ = [
     "encode_queries",
     "fdr_route",
     "make_buckets",
+    "oms_plan",
+    "oms_search",
+    "oms_search_encoded",
+    "oms_search_levels",
+    "oms_search_with_fdr",
     "search_database",
     "search_database_encoded",
     "search_database_levels",

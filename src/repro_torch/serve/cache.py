@@ -23,7 +23,9 @@ stores the deterministic output of
 :func:`repro_torch.serve.db_search.encode_queries`, never scores or results.
 
 Counterpart of ``repro.serve.cache`` without the streaming-ingestion
-(delta append / compaction) part of the registry.
+(delta append / compaction) part of the registry. A tenant registered
+with ``precursor=`` gets an OMS bank (precursor-sorted blocks; see
+:mod:`repro_torch.serve.oms`).
 """
 
 from __future__ import annotations
@@ -141,6 +143,8 @@ class _BankSpec:
     decoys: Any | None
     dim: int
     pinned: bool = False
+    precursor: Any | None = None
+    decoy_precursor: Any | None = None
 
 
 class BankRegistry:
@@ -168,11 +172,14 @@ class BankRegistry:
         self.evictions = 0
 
     def register(self, tenant: str, refs, decoys=None, *,
-                 pin: bool = False) -> None:
+                 pin: bool = False, precursor=None,
+                 decoy_precursor=None) -> None:
         """Record a tenant's bank recipe (no packing happens yet).
-        Re-registering replaces the spec and drops any stale built bank."""
+        Re-registering replaces the spec and drops any stale built bank.
+        ``precursor`` (and ``decoy_precursor``) make it an OMS bank."""
         self._specs[tenant] = _BankSpec(
-            refs=refs, decoys=decoys, dim=int(refs.shape[-1]), pinned=pin)
+            refs=refs, decoys=decoys, dim=int(refs.shape[-1]), pinned=pin,
+            precursor=precursor, decoy_precursor=decoy_precursor)
         self._built.pop(tenant, None)
 
     def adopt(self, tenant: str, db, *, pin: bool = True) -> None:
@@ -205,7 +212,9 @@ class BankRegistry:
                     f"evicted; re-register or adopt it again")
             from repro_torch.serve.db_search import shard_database
             db = shard_database(spec.refs, decoys=spec.decoys,
-                                pack=self.pack, fused=self.fused)
+                                pack=self.pack, fused=self.fused,
+                                precursor=spec.precursor,
+                                decoy_precursor=spec.decoy_precursor)
             self.builds += 1
             self._built[tenant] = db
         else:

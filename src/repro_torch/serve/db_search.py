@@ -1,7 +1,9 @@
 """HD database search and its serving loop, in PyTorch: per-shard top-k,
-k-merge, target-decoy FDR, micro-batched multi-tenant serving.
+k-merge, open-modification search, target-decoy FDR, micro-batched
+multi-tenant serving.
 
-Counterpart of the exact-search slice of ``repro.serve.db_search``. One
+Counterpart of ``repro.serve.db_search`` without its mesh, delta-bank and
+clustering parts. One
 card holds the whole bank, so there is no mesh: a bank is searched whole,
 or split into ``emulate_shards`` row blocks that run the identical
 local-top-k / merge pipeline one after another (the reference's tier-1
@@ -15,6 +17,17 @@ route (``fused=True`` banks) streams the rows through the
 levels through the ``encode_search`` kernel, so the query hypervector
 never reaches device memory. All are bit-identical: indices, scores and
 tie order.
+
+**Open-modification search (OMS).** A bank built with ``precursor=``
+stores each block (decoys, then targets) sorted by precursor mass
+(:mod:`repro_torch.serve.oms`). A batch's host-side plan gives every
+query one ``[start, start + len)`` row range per block; the OMS routes
+mask rows outside those bands (unfused) or scan only them (the banded
+``topk_hamming_banded`` and ``encode_search_banded`` kernels, one launch
+per shard for both bands), merge, rewrite the ``INT32_MIN`` overflow
+slots of windows narrower than k to the masked matrix's rows, and
+translate the rows back through the sort permutation. Results are
+bit-identical to masking the full score matrix over the sorted bank.
 
 **Bit-identity of the merge.** Ties go to the lower row. Each shard's
 top-k lists tied rows in ascending global order and the merge
@@ -58,9 +71,21 @@ from repro_torch.core.hd.similarity import (
     hamming_similarity_packed,
     topk_value_desc_index_asc,
 )
+from repro_torch.kernels.topk_hamming.ops import BANDED_BLOCK_Q
 from repro_torch.serve.cache import BankRegistry, QueryHVCache
+from repro_torch.serve.oms import (
+    OMSConfig,
+    OMSPlan,
+    PrecursorIndex,
+    build_precursor_index,
+    plan_candidates,
+)
 from repro_torch.serve.queue import LatencyStats, MicroBatchQueue, Request
 from repro_torch.spectra.fdr import fdr_filter
+
+_OMS_ALIGN = 128  # shard_rows alignment of OMS banks (the 128-row tile the
+                  # plan prices), so a band clipped to a shard spans no more
+                  # tiles than the plan's budget
 
 
 # --------------------------------------------------------------------------
@@ -107,6 +132,56 @@ def _merge_topk(cand_vals, cand_idx, k: int):
     return torch.gather(cand_idx, 1, pos), vals
 
 
+def _local_oms_topk(q_enc, refs_local, base: int, k: int, num_rows: int,
+                    dim: int, packed: bool, starts, ends):
+    """Unfused per-shard OMS top-k: the shard's full score matrix masked to
+    ``INT32_MIN`` outside every query's bands (global sorted-layout rows
+    ``[starts[b], ends[b])``, each (B, Q)) and past ``num_rows``. This is
+    the masked-matrix oracle restricted to one shard."""
+    scores = _local_scores(q_enc, refs_local, dim=dim, packed=packed)
+    col = base + torch.arange(refs_local.shape[0], dtype=torch.int32,
+                              device=scores.device)[None, :]
+    band = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
+    for b in range(starts.shape[0]):
+        band |= (col >= starts[b][:, None]) & (col < ends[b][:, None])
+    scores.masked_fill_(~(band & (col < num_rows)), INT32_MIN)
+    vals, local_idx = topk_value_desc_index_asc(scores, k)
+    return vals, local_idx.to(torch.int32) + base
+
+
+def _shard_bands(starts, ends, base: int, shard_rows: int):
+    """Global (B, Q) bands -> the shard's local [start, len) bands."""
+    s_l = (starts - base).clamp(0, shard_rows)
+    e_l = torch.maximum(ends - base, s_l).clamp(max=shard_rows)
+    return s_l, e_l - s_l
+
+
+def _local_oms_topk_fused(q_enc, refs_local, base: int, k: int, num_rows: int,
+                          dim: int, starts, ends, num_tiles: int):
+    """Banded-kernel twin of ``_local_oms_topk``: one
+    ``topk_hamming_banded`` launch over both bands. Overflow slots keep
+    the kernel's fillers (``canonicalize=False``); the caller rewrites
+    them once, after the merge."""
+    from repro_torch.kernels.topk_hamming import topk_hamming_banded
+    shard_rows = refs_local.shape[0]
+    s_l, l_l = _shard_bands(starts, ends, base, shard_rows)
+    idx, vals = topk_hamming_banded(
+        q_enc, refs_local, s_l, l_l, dim=dim, k=k,
+        num_valid=_shard_num_valid(num_rows, base, shard_rows),
+        num_tiles=num_tiles, canonicalize=False)
+    return vals, idx + base
+
+
+def _local_oms(q_enc, refs_local, base: int, k: int, num_rows: int, dim: int,
+               packed: bool, fused: bool, starts, ends, num_tiles: int):
+    """Per-shard OMS top-k, fused or unfused: (vals, global_idx)."""
+    if fused:
+        return _local_oms_topk_fused(q_enc, refs_local, base, k, num_rows,
+                                     dim, starts, ends, num_tiles)
+    return _local_oms_topk(q_enc, refs_local, base, k, num_rows, dim, packed,
+                           starts, ends)
+
+
 # --------------------------------------------------------------------------
 # the bank
 # --------------------------------------------------------------------------
@@ -119,6 +194,11 @@ class ShardedDatabase:
     ``num_rows``), int32 bit-packed words when ``packed``, else int8;
     rows ``[0, num_decoys)`` are decoys, ``[num_decoys, num_rows)``
     targets.
+
+    With ``oms`` set (built with ``precursor=``) each block is stored
+    sorted by precursor mass; ``oms.perm`` maps sorted rows back to the
+    original rows, and ``perm`` is its copy on the bank's device. The OMS
+    routes translate their results, so callers see original rows.
     """
 
     data: torch.Tensor
@@ -129,6 +209,8 @@ class ShardedDatabase:
     packed: bool
     emulated_shards: int = 1
     fused: bool = False
+    oms: PrecursorIndex | None = None
+    perm: torch.Tensor | None = None
 
     @property
     def num_shards(self) -> int:
@@ -141,7 +223,10 @@ class ShardedDatabase:
 def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
                    pack: bool | str = "auto",
                    emulate_shards: int | None = None,
-                   fused: bool = False) -> ShardedDatabase:
+                   fused: bool = False,
+                   precursor: np.ndarray | None = None,
+                   decoy_precursor: np.ndarray | None = None
+                   ) -> ShardedDatabase:
     """Build a :class:`ShardedDatabase` from bipolar (R, D) reference HVs,
     on their device.
 
@@ -149,7 +234,13 @@ def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
     pack: True / False / "auto" (bit-pack whenever D % 32 == 0).
     emulate_shards: split the bank into this many equal row blocks,
       searched one after another and merged.
-    fused: search each shard with the ``topk_hamming`` kernel.
+    fused: search each shard with the ``topk_hamming`` kernel (the
+      ``topk_hamming_banded`` kernel on the OMS routes).
+    precursor: optional (R,) target precursor masses; enables the OMS
+      routes. Each block is stored sorted by precursor (decoys still
+      before targets) and the permutation is kept.
+    decoy_precursor: the decoys' masses; defaults to ``precursor``
+      (m/z-reversed decoys keep their target's mass).
     """
     dim = int(refs.shape[-1])
     blocks = [refs]
@@ -160,6 +251,26 @@ def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
         num_decoys = int(decoys.shape[0])
         blocks = [decoys, refs]
     num_rows = sum(int(b.shape[0]) for b in blocks)
+
+    oms_index = None
+    if precursor is not None:
+        prec = np.asarray(precursor, np.float32).reshape(-1)
+        if prec.shape[0] != int(refs.shape[0]):
+            raise ValueError(f"precursor has {prec.shape[0]} entries for "
+                             f"{int(refs.shape[0])} refs")
+        dprec = None
+        if decoys is not None:
+            dprec = prec if decoy_precursor is None else np.asarray(
+                decoy_precursor, np.float32).reshape(-1)
+            if dprec.shape[0] != num_decoys:
+                raise ValueError(f"decoy_precursor has {dprec.shape[0]} "
+                                 f"entries for {num_decoys} decoys")
+        oms_index = build_precursor_index(prec, dprec)
+        # each block sorts within itself: permute block by block
+        bounds = oms_index.block_bounds
+        blocks = [b[torch.from_numpy(
+            oms_index.perm[bounds[i]:bounds[i + 1]] - bounds[i]).to(
+                b.device, torch.int64)] for i, b in enumerate(blocks)]
     if pack == "auto":
         packed = dim % 32 == 0
     else:
@@ -171,13 +282,17 @@ def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
                        for b in blocks])
     n = int(emulate_shards or 1)
     shard_rows = -(-num_rows // n)
+    if oms_index is not None and n > 1:
+        shard_rows = -(-shard_rows // _OMS_ALIGN) * _OMS_ALIGN
     pad_rows = n * shard_rows - num_rows
     if pad_rows:
         store = nnf.pad(store, (0, 0, 0, pad_rows))
-    return ShardedDatabase(data=store.contiguous(), num_rows=num_rows,
-                           num_decoys=num_decoys, dim=dim,
-                           shard_rows=shard_rows, packed=packed,
-                           emulated_shards=n, fused=bool(fused))
+    return ShardedDatabase(
+        data=store.contiguous(), num_rows=num_rows, num_decoys=num_decoys,
+        dim=dim, shard_rows=shard_rows, packed=packed, emulated_shards=n,
+        fused=bool(fused), oms=oms_index,
+        perm=None if oms_index is None else torch.from_numpy(
+            oms_index.perm).to(store.device))
 
 
 def encode_queries(db: ShardedDatabase, queries: torch.Tensor
@@ -233,6 +348,83 @@ def search_database(db: ShardedDatabase, queries: torch.Tensor, k: int
     """Top-k of (Q, D) bipolar queries, bit-identical to ``topk_search``
     over the unsharded bank."""
     return search_database_encoded(db, encode_queries(db, queries), k)
+
+
+# --------------------------------------------------------------------------
+# open-modification search (OMS) routes
+# --------------------------------------------------------------------------
+
+def oms_plan(db: ShardedDatabase, query_prec: np.ndarray,
+             cfg: OMSConfig | None = None) -> OMSPlan:
+    """Host-side candidate plan of one query batch against an OMS bank:
+    per-query per-block ``[start, len)`` ranges in the sorted layout and
+    the tile budget of an 8-query block."""
+    if db.oms is None:
+        raise ValueError("bank was built without precursor=; OMS search "
+                         "needs shard_database(..., precursor=...)")
+    return plan_candidates(db.oms, np.asarray(query_prec),
+                           cfg or OMSConfig(),
+                           num_rows_padded=db.num_shards * db.shard_rows,
+                           block_q=BANDED_BLOCK_Q)
+
+
+def _plan_bands(db: ShardedDatabase, plan: OMSPlan
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plan's (B, Q) global bands ``[starts, ends)`` on the bank's
+    device."""
+    starts = torch.from_numpy(plan.starts).to(db.data.device)
+    return starts, starts + torch.from_numpy(plan.lens).to(db.data.device)
+
+
+def oms_search_encoded(db: ShardedDatabase, q_enc: torch.Tensor,
+                       plan: OMSPlan, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """OMS top-k over already-encoded queries, ordered as ``plan``'s: every
+    query scores only the bank rows inside its precursor window.
+    Bit-identical (tie order and overflow slots included) to masking the
+    full score matrix over the sorted bank outside the plan's bands,
+    taking the top-k and translating the rows through ``db.oms.perm``.
+    Returns original bank rows (decoys still ``< db.num_decoys``)."""
+    if db.oms is None:
+        raise ValueError("bank was built without precursor=")
+    _check_k(db, k)
+    starts, ends = _plan_bands(db, plan)
+    idx, vals = _over_shards(db, k, lambda refs_local, base: _local_oms(
+        q_enc, refs_local, base, k, db.num_rows, db.dim, db.packed, db.fused,
+        starts, ends, int(plan.num_tiles)))
+    return _oms_finish(db, idx, vals, starts, ends)
+
+
+def _oms_finish(db: ShardedDatabase, idx, vals, starts, ends):
+    """Shared OMS tail: the merged search's overflow slots -> the masked
+    matrix's ascending masked rows, then every (now in-range) sorted row
+    -> its original bank row."""
+    from repro_torch.kernels.topk_hamming import canonicalize_overflow_slots
+    s_c = starts.clamp(0, db.num_rows)
+    e_c = torch.maximum(ends, s_c).clamp(max=db.num_rows)
+    idx = canonicalize_overflow_slots(idx, vals, s_c, e_c, db.num_rows)
+    return db.perm[idx.to(torch.int64)], vals
+
+
+def oms_search(db: ShardedDatabase, queries: torch.Tensor,
+               query_prec: np.ndarray, k: int, cfg: OMSConfig | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor, OMSPlan]:
+    """Open-modification top-k of (Q, D) bipolar queries: (indices over
+    original bank rows, scores, plan)."""
+    plan = oms_plan(db, query_prec, cfg)
+    idx, vals = oms_search_encoded(db, encode_queries(db, queries), plan, k)
+    return idx, vals, plan
+
+
+def oms_search_with_fdr(db: ShardedDatabase, queries: torch.Tensor,
+                        query_prec: np.ndarray, k: int, fdr: float = 0.01,
+                        cfg: OMSConfig | None = None) -> "FDRSearchResult":
+    """OMS search + target-decoy FDR. Queries whose window is empty are
+    left out of the FDR estimate and rejected."""
+    idx, vals, plan = oms_search(db, queries, query_prec, k, cfg)
+    return fdr_route(db, idx, vals, fdr=fdr,
+                     valid=torch.from_numpy(plan.has_candidate).to(
+                         idx.device))
 
 
 # --------------------------------------------------------------------------
@@ -313,6 +505,45 @@ def search_database_levels(db: ShardedDatabase, enc: QueryEncoder,
         levels, enc, refs_local, base, k, db.num_rows, db.dim))
 
 
+def _local_oms_e2e(levels, enc: QueryEncoder, refs_local, base: int, k: int,
+                   num_rows: int, dim: int, starts, ends, num_tiles: int):
+    """Fused per-shard OMS encode + top-k: one ``encode_search_banded``
+    launch over both bands; overflow fillers stay for the caller."""
+    from repro_torch.kernels.encode_search import encode_search_banded
+    shard_rows = refs_local.shape[0]
+    s_l, l_l = _shard_bands(starts, ends, base, shard_rows)
+    idx, vals = encode_search_banded(
+        levels, enc.id_hvs, enc.level_hvs, refs_local, s_l, l_l, dim=dim,
+        k=k, num_valid=_shard_num_valid(num_rows, base, shard_rows),
+        num_tiles=num_tiles, canonicalize=False,
+        codebook_words=enc.codebook_words)
+    return vals, idx + base
+
+
+def oms_search_levels(db: ShardedDatabase, enc: QueryEncoder,
+                      levels: torch.Tensor, plan: OMSPlan, k: int, *,
+                      fused_e2e: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """OMS top-k straight from raw (Q, F) levels, ordered as ``plan``'s
+    queries (precursor-sorted): staged (Eq. 1 encode ->
+    :func:`oms_search_encoded`) or, with ``fused_e2e``, one
+    ``encode_search_banded`` launch per shard. Both end in the shared
+    overflow and permutation tail and are bit-identical."""
+    levels = levels.to(torch.int32).contiguous()
+    _check_levels(db, enc, levels)
+    if db.oms is None:
+        raise ValueError("bank was built without precursor=")
+    if not fused_e2e:
+        hv = encode_levels_batch(levels, enc.id_hvs, enc.level_hvs)
+        return oms_search_encoded(db, encode_queries(db, hv), plan, k)
+    _check_k(db, k)
+    starts, ends = _plan_bands(db, plan)
+    idx, vals = _over_shards(db, k, lambda refs_local, base: _local_oms_e2e(
+        levels, enc, refs_local, base, k, db.num_rows, db.dim, starts, ends,
+        int(plan.num_tiles)))
+    return _oms_finish(db, idx, vals, starts, ends)
+
+
 # --------------------------------------------------------------------------
 # FDR routing over merged results
 # --------------------------------------------------------------------------
@@ -328,16 +559,28 @@ class FDRSearchResult:
     is_target: np.ndarray  # (Q,) rank-0 candidate is a target (and valid)
     accept: np.ndarray     # (Q,) passed FDR
     match: np.ndarray      # (Q,) accepted target row or -1
+    valid: np.ndarray | None = None  # (Q,) had >= 1 candidate (OMS)
 
 
 def fdr_route(db: ShardedDatabase, indices: torch.Tensor,
-              scores: torch.Tensor, fdr: float = 0.01) -> FDRSearchResult:
-    """Target-decoy competition on rank 0 + the FDR filter over the batch."""
-    nd = db.num_decoys
+              scores: torch.Tensor, fdr: float = 0.01,
+              valid: torch.Tensor | None = None,
+              num_decoys: int | None = None) -> FDRSearchResult:
+    """Target-decoy competition on rank 0 + the FDR filter over the batch.
+
+    valid: (Q,) bool for OMS batches; False marks an empty candidate
+    window. Such queries are left out of the target/decoy counts, never
+    accepted, and reported with ``is_target=False``.
+    num_decoys: overrides ``db.num_decoys`` for results in a wider row
+    space than ``db``'s."""
+    nd = db.num_decoys if num_decoys is None else int(num_decoys)
     top_idx = indices[:, 0]
     top_val = scores[:, 0]
     is_target = top_idx >= nd
-    accept = fdr_filter(top_val.to(torch.float32), is_target, fdr=fdr)
+    accept = fdr_filter(top_val.to(torch.float32), is_target, fdr=fdr,
+                        valid=valid)
+    if valid is not None:
+        is_target = is_target & valid
     match = torch.where(accept & is_target, top_idx - nd,
                         torch.full_like(top_idx, -1))
 
@@ -346,7 +589,8 @@ def fdr_route(db: ShardedDatabase, indices: torch.Tensor,
 
     return FDRSearchResult(
         indices=host(indices), scores=host(scores),
-        is_target=host(is_target), accept=host(accept), match=host(match))
+        is_target=host(is_target), accept=host(accept), match=host(match),
+        valid=None if valid is None else host(valid))
 
 
 def search_with_fdr(db: ShardedDatabase, queries: torch.Tensor, k: int,
@@ -395,15 +639,18 @@ class QueryResult:
     is_target: bool
     accept: bool
     match: int           # accepted target-library row or -1
+    has_candidate: bool = True  # precursor window non-empty (OMS mode)
 
 
 @dataclasses.dataclass
 class BatchHandle:
     """One dispatched batch's in-flight device work. ``batch`` is the
     bucket-padded device batch the route searched (encoded rows, or raw
-    levels on the fused-e2e route). ``start`` and ``done`` are timing
-    events recorded on the current stream around the search (None on the
-    CPU)."""
+    levels on the fused-e2e route; precursor-sorted in OMS mode, in the
+    order of ``plan``). ``start`` and ``done`` are timing events recorded
+    on the current stream around the search (None on the CPU). OMS
+    batches carry their plan, ``valid`` (has_candidate, submit order) and
+    ``inv`` (the permutation that unsorts the results)."""
 
     reqs: list[Request]
     tenant: str
@@ -414,18 +661,23 @@ class BatchHandle:
     vals: torch.Tensor
     start: torch.cuda.Event | None = None
     done: torch.cuda.Event | None = None
+    plan: OMSPlan | None = None
+    valid: np.ndarray | None = None
+    inv: np.ndarray | None = None
 
 
 class SearchExecutor:
     """The device executor behind the dispatch / poll / finalize seam.
 
     * ``dispatch`` stamps ``t_dispatch``, assembles the bucket-padded
-      batch (through the query-HV cache on the encoded routes), copies it
-      to the bank's device and launches the search without waiting;
+      batch (through the query-HV cache on the encoded routes), in OMS
+      mode sorts it by precursor and plans it, copies it to the bank's
+      device and launches the search without waiting;
     * ``poll`` asks the batch's CUDA event whether the search finished;
-    * ``finalize`` waits for the results, routes FDR, fills per-request
-      results, stamps ``t_done``, records latency and adds the search's
-      device time (start to done event) to ``server.device_busy_s``.
+    * ``finalize`` waits for the results, unsorts OMS batches, routes
+      FDR, fills per-request results, stamps ``t_done``, records latency
+      and adds the search's device time (start to done event) to
+      ``server.device_busy_s``.
 
     Pass a subclass as ``DBSearchServer(executor_cls=...)`` to observe or
     replace batches.
@@ -446,15 +698,28 @@ class SearchExecutor:
         srv._bucket_counts[bucket] += 1
         dev = db.data.device
         e2e = srv.encoder is not None and srv.fused_e2e
-        batch = torch.from_numpy(
-            srv._levels_batch(reqs, bucket) if e2e
-            else srv._encode_batch(reqs, db, bucket, tenant)).to(dev)
+        host = (srv._levels_batch(reqs, bucket) if e2e
+                else srv._encode_batch(reqs, db, bucket, tenant))
+        plan = valid = inv = None
+        if srv.oms is not None:
+            host, plan, inv = self._sort_and_plan(reqs, db, host, bucket)
+            valid = plan.has_candidate[:n][inv]
+            srv._oms_batches += 1
+            srv._oms_cand_frac += plan.candidate_fraction
+            srv._oms_scan_frac += plan.scanned_fraction
+            srv._oms_no_candidate += int((~valid).sum())
+        batch = torch.from_numpy(host).to(dev)
         start = done = None
         if dev.type == "cuda":
             start, done = (torch.cuda.Event(enable_timing=True)
                            for _ in range(2))
             start.record()
-        if e2e:
+        if plan is not None and e2e:
+            idx, vals = oms_search_levels(db, srv.encoder, batch, plan, srv.k,
+                                          fused_e2e=True)
+        elif plan is not None:
+            idx, vals = oms_search_encoded(db, batch, plan, srv.k)
+        elif e2e:
             idx, vals = search_database_levels(db, srv.encoder, batch, srv.k,
                                                fused_e2e=True)
         else:
@@ -462,7 +727,24 @@ class SearchExecutor:
         if done is not None:
             done.record()
         return BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n, batch=batch,
-                           idx=idx, vals=vals, start=start, done=done)
+                           idx=idx, vals=vals, start=start, done=done,
+                           plan=plan, valid=valid, inv=inv)
+
+    def _sort_and_plan(self, reqs: list[Request], db: ShardedDatabase,
+                       host: np.ndarray, bucket: int
+                       ) -> tuple[np.ndarray, OMSPlan, np.ndarray]:
+        """OMS: sorts the batch's real rows by precursor (neighbouring
+        masses share the banded kernels' tiles; pad rows take the highest
+        real precursor) and plans it. Returns (sorted batch, plan, the
+        permutation that unsorts). FDR routing is order-independent."""
+        n = len(reqs)
+        prec = np.asarray([r.precursor for r in reqs], np.float32)
+        order = np.argsort(prec, kind="stable")
+        inv = np.argsort(order, kind="stable")
+        prec_padded = np.concatenate(
+            [prec[order], np.full(bucket - n, prec[order][-1], np.float32)])
+        plan = oms_plan(db, prec_padded, self.server.oms)
+        return np.concatenate([host[:n][order], host[n:]]), plan, inv
 
     def poll(self, handle: BatchHandle) -> bool:
         return True if handle.done is None else handle.done.query()
@@ -476,7 +758,12 @@ class SearchExecutor:
             srv.device_busy_s = ((srv.device_busy_s or 0.0)
                                  + handle.start.elapsed_time(handle.done)
                                  / 1e3)
-        routed = fdr_route(handle.db, idx, vals, fdr=srv.fdr)
+        valid = None
+        if handle.inv is not None:
+            inv = torch.from_numpy(handle.inv)
+            idx, vals = idx[inv], vals[inv]
+            valid = torch.from_numpy(handle.valid)
+        routed = fdr_route(handle.db, idx, vals, fdr=srv.fdr, valid=valid)
         t_done = srv._clock()
         live: list[Request] = []
         for i, r in enumerate(handle.reqs):
@@ -485,7 +772,9 @@ class SearchExecutor:
             r.result = QueryResult(
                 indices=routed.indices[i], scores=routed.scores[i],
                 is_target=bool(routed.is_target[i]),
-                accept=bool(routed.accept[i]), match=int(routed.match[i]))
+                accept=bool(routed.accept[i]), match=int(routed.match[i]),
+                has_candidate=(True if routed.valid is None
+                               else bool(routed.valid[i])))
             r.t_done = t_done
             live.append(r)
         if live:
@@ -512,6 +801,12 @@ class DBSearchServer:
     :class:`LatencyStats`. With ``fused_e2e=True`` the levels go to the
     fused encode->search kernel and skip the cache (nothing intermediate
     exists to memoize).
+
+    With ``oms=`` (an :class:`OMSConfig`; banks built with
+    ``precursor=``) every request carries its precursor mass, and each
+    batch is sorted by it, planned, and searched on the OMS routes; a
+    query with an empty window comes back rejected with
+    ``has_candidate=False``.
     """
 
     def __init__(self, db: ShardedDatabase | BankRegistry, *, k: int = 4,
@@ -521,6 +816,7 @@ class DBSearchServer:
                  cache_bytes: int | None = 64 << 20,
                  buckets: int | Sequence[int] | None = None,
                  fairness_cap: int | None = None,
+                 oms: OMSConfig | None = None,
                  encoder: QueryEncoder | None = None,
                  fused_e2e: bool = False,
                  executor_cls: type[SearchExecutor] = SearchExecutor):
@@ -551,6 +847,11 @@ class DBSearchServer:
         self._tenant_cache: dict[str, list[int]] = {}  # tenant -> [hits, misses]
         self._bucket_counts: collections.Counter[int] = collections.Counter()
         self._clock = clock
+        self.oms = oms
+        self._oms_batches = 0
+        self._oms_cand_frac = 0.0
+        self._oms_scan_frac = 0.0
+        self._oms_no_candidate = 0
         self.encoder = encoder
         self.fused_e2e = bool(fused_e2e)
         if self.fused_e2e and encoder is None:
@@ -560,9 +861,11 @@ class DBSearchServer:
         # batch ran on a CUDA device)
         self.device_busy_s: float | None = None
 
-    def submit(self, query_hv, tenant: str = "default") -> int:
+    def submit(self, query_hv, tenant: str = "default",
+               precursor: float | None = None) -> int:
         """Enqueue one query for ``tenant`` (which must be registered);
-        returns the request id."""
+        returns the request id. OMS servers need the query's precursor
+        mass."""
         dim = self.banks.dim(tenant)  # KeyError for unknown tenants
         if self.encoder is not None:
             if self.encoder.dim != dim:
@@ -576,7 +879,9 @@ class DBSearchServer:
             q = np.asarray(query_hv, dtype=np.int8)
             if q.shape != (dim,):
                 raise ValueError(f"query shape {q.shape} != ({dim},)")
-        return self.queue.submit(q, tenant=tenant)
+        if self.oms is not None and precursor is None:
+            raise ValueError("OMS serving mode requires precursor= on submit")
+        return self.queue.submit(q, tenant=tenant, precursor=precursor)
 
     def _encode_rows(self, db: ShardedDatabase, qs: torch.Tensor
                      ) -> torch.Tensor:
@@ -675,4 +980,16 @@ class DBSearchServer:
             "num_features": self.encoder.num_features,
             "num_levels": self.encoder.num_levels,
         })
+        s["oms"] = None
+        if self.oms is not None:
+            nb = max(self._oms_batches, 1)
+            s["oms"] = {
+                "tol": self.oms.tol,
+                "open_tol": self.oms.open_tol,
+                "open_search": self.oms.open_search,
+                "batches": self._oms_batches,
+                "candidate_fraction": self._oms_cand_frac / nb,
+                "scanned_fraction": self._oms_scan_frac / nb,
+                "no_candidate": self._oms_no_candidate,
+            }
         return s

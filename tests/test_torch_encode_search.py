@@ -1,6 +1,7 @@
-"""The port's ``encode_search`` (CPU path) against the JAX package's
-``encode_search_pallas`` (interpret mode on the CPU) and its staged
-``ref.py`` oracle, on the same codebooks, levels and banks.
+"""The port's ``encode_search`` and ``encode_search_banded`` (CPU paths)
+against the JAX package's ``encode_search_pallas`` and
+``encode_search_banded_pallas`` (interpret mode on the CPU) and their
+staged ``ref.py`` oracles, on the same codebooks, levels and banks.
 
 Tolerance: exact (indices, scores, tie order, sentinel-masked slots).
 The CUDA kernel itself is held against the plain version on the card by
@@ -14,11 +15,17 @@ import torch
 
 from repro.core.hd.encoding import encode_levels_batch as jencode
 from repro.core.hd.similarity import bitpack_bipolar as jpack
-from repro.kernels.encode_search import encode_search_pallas
+from repro.kernels.encode_search import (
+    encode_search_banded_pallas,
+    encode_search_pallas,
+)
 from repro.kernels.encode_search import encode_search_ref as jref
+from repro.kernels.encode_search.ref import encode_search_banded_ref as jbref
 from repro_torch.convert import bank_rows_from_numpy, encoder_from_numpy
 from repro_torch.kernels.encode_search import (
     encode_search,
+    encode_search_banded,
+    encode_search_banded_plain,
     encode_search_plain,
     pack_codebook,
 )
@@ -136,3 +143,55 @@ def test_levels_past_the_codebook_follow_the_staged_oracle():
                            bank_rows_from_numpy(bank, device=CPU), dim=d, k=3)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(oi))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(ov))
+
+
+# (Q, R, F, D, m, packed, k, num_valid, duplicate rows, num_tiles)
+BANDED_CASES = [
+    (7, 300, 20, 64, 5, True, 4, None, False, None),    # ragged Q and R
+    (9, 260, 16, 32, 4, True, 5, 200, False, 2),        # num_valid, tight budget
+    (4, 12, 16, 32, 4, True, 10, None, True, None),     # ties, bands < k
+    (5, 90, 11, 40, 4, False, 5, None, False, None),    # int8, D % 32 != 0
+]
+
+
+@pytest.mark.parametrize("Q,R,F,D,m,packed,k,nv,dup,nt", BANDED_CASES)
+def test_encode_search_banded_matches_reference(Q, R, F, D, m, packed, k, nv,
+                                                dup, nt):
+    rng = np.random.default_rng(Q * 17 + R + F + D)
+    idh, lvh, levels, bank = _inputs(rng, Q, R, F, D, m, packed, dup)
+    rows = bank.shape[0]
+    if nt is None:
+        starts = rng.integers(-2, rows, Q).astype(np.int32)
+        lens = rng.integers(0, rows // 2 + 1, Q).astype(np.int32)
+        lens[0] = 0                                  # an empty band
+    else:  # every band inside the 2-tile budget of its 8-query block
+        starts = rng.integers(100, 130, Q).astype(np.int32)
+        lens = rng.integers(0, 120, Q).astype(np.int32)
+    ji, jv = encode_search_banded_pallas(
+        jnp.asarray(levels), jnp.asarray(idh), jnp.asarray(lvh),
+        jnp.asarray(bank), jnp.asarray(starts), jnp.asarray(lens), dim=D,
+        k=k, num_valid=nv, num_tiles=nt)
+    oi, ov = jbref(jnp.asarray(levels), jnp.asarray(idh), jnp.asarray(lvh),
+                   jnp.asarray(bank), starts, lens, k=k, num_valid=nv)
+    enc = encoder_from_numpy(idh, lvh, device=CPU)
+    got = encode_search_banded(
+        torch.from_numpy(levels), enc.id_hvs, enc.level_hvs,
+        bank_rows_from_numpy(bank, device=CPU), torch.from_numpy(starts),
+        torch.from_numpy(lens), dim=D, k=k, num_valid=nv, num_tiles=nt)
+    for want_i, want_v in ((ji, jv), (oi, ov)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_v))
+
+
+def test_banded_plain_is_the_cpu_path_and_counts_no_launch():
+    rng = np.random.default_rng(4)
+    idh, lvh, levels, bank = _inputs(rng, 3, 30, 8, 32, 4, True, False)
+    args = (torch.from_numpy(levels), torch.from_numpy(idh),
+            torch.from_numpy(lvh), bank_rows_from_numpy(bank, device=CPU),
+            torch.tensor([0, 5, 9], dtype=torch.int32),
+            torch.tensor([10, 0, 21], dtype=torch.int32))
+    before = encode_search_banded.launches
+    a = encode_search_banded(*args, dim=32, k=3)
+    b = encode_search_banded_plain(*args, dim=32, k=3)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert encode_search_banded.launches == before

@@ -19,8 +19,11 @@ import torch
 
 from repro_torch.core.hd.encoding import HDEncoderConfig, make_codebooks
 from repro_torch.kernels import _build
-from repro_torch.kernels.encode_search import encode_search
-from repro_torch.kernels.topk_hamming import topk_hamming
+from repro_torch.kernels.encode_search import (
+    encode_search,
+    encode_search_banded,
+)
+from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
 from repro_torch.launch import serve_db
 from repro_torch.serve import QueryEncoder
 from repro_torch.spectra import SyntheticMSConfig, generate_dataset
@@ -52,7 +55,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.serve, repro_torch.launch.serve_db, "
+    code = ("import sys, repro_torch.serve, repro_torch.serve.oms, "
+            "repro_torch.spectra.preprocess, repro_torch.launch.serve_db, "
             "repro_torch.convert; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
@@ -91,7 +95,9 @@ def _cuda_looking(a):
     return torch.from_numpy(a).as_subclass(_CudaLooking)
 
 
-@pytest.mark.parametrize("kernel", ["topk_hamming", "encode_search"])
+@pytest.mark.parametrize("kernel", ["topk_hamming", "encode_search",
+                                    "topk_hamming_banded",
+                                    "encode_search_banded"])
 def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR",
                         ROOT / "build" / "never_built_for_this_test")
@@ -103,16 +109,24 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     _build.load.cache_clear()
     rng = np.random.default_rng(0)
     rows = _cuda_looking(rng.integers(-5, 5, (40, 2)).astype(np.int32))
-    before = (topk_hamming.launches, encode_search.launches)
+    codebooks = (_cuda_looking(np.zeros((3, 8), np.int32)),
+                 _cuda_looking(np.ones((8, 64), np.int8)),
+                 _cuda_looking(np.ones((4, 64), np.int8)))
+    bands = (_cuda_looking(np.zeros(3, np.int32)),
+             _cuda_looking(np.full(3, 20, np.int32)))
+    kernels = (topk_hamming, encode_search, topk_hamming_banded,
+               encode_search_banded)
+    before = [fn.launches for fn in kernels]
     with pytest.raises(RuntimeError, match="nvcc"):
         if kernel == "topk_hamming":
             topk_hamming(rows[:3], rows, dim=64, k=2)
+        elif kernel == "encode_search":
+            encode_search(*codebooks, rows, dim=64, k=2)
+        elif kernel == "topk_hamming_banded":
+            topk_hamming_banded(rows[:3], rows, *bands, dim=64, k=2)
         else:
-            encode_search(
-                _cuda_looking(np.zeros((3, 8), np.int32)),
-                _cuda_looking(np.ones((8, 64), np.int8)),
-                _cuda_looking(np.ones((4, 64), np.int8)), rows, dim=64, k=2)
-    assert (topk_hamming.launches, encode_search.launches) == before
+            encode_search_banded(*codebooks, rows, *bands, dim=64, k=2)
+    assert [fn.launches for fn in kernels] == before
 
 
 def _has_nvcc():

@@ -187,7 +187,9 @@ def test_launcher_serves_on_cpu(flags, capsys):
     assert s["count"] == s["total"] == 24 * (2 if "--tenants" in flags else 1)
     assert s["correct"] <= s["identified"] <= s["total"]
     assert "throughput:" in out and "kernel launches:" in out
-    assert s["launches"] == {"topk_hamming": 0, "encode_search": 0}
+    assert s["launches"] == {"topk_hamming": 0, "encode_search": 0,
+                             "topk_hamming_banded": 0,
+                             "encode_search_banded": 0}
     # no CUDA device: the split of the serving span names no device time
     assert "device search not timed" in out
     assert s["device_busy_s"] is None and 0 <= s["sleep_s"] <= s["span_s"]

@@ -1,5 +1,8 @@
-"""The port's ``topk_hamming`` (CPU path) against the JAX package's
-``topk_hamming_pallas`` (interpret mode on the CPU) and its ``ref.py``.
+"""The port's ``topk_hamming`` and ``topk_hamming_banded`` (CPU paths)
+against the JAX package's ``topk_hamming_pallas`` and
+``topk_hamming_banded_pallas`` (interpret mode on the CPU) and their
+``ref.py`` oracles; ``canonicalize_overflow_slots`` against the
+reference's.
 
 Tolerance: exact (indices, scores, tie order, sentinel-masked slots).
 The CUDA kernel itself is held against the plain version on the card by
@@ -12,9 +15,21 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
-from repro.kernels.topk_hamming import topk_hamming_pallas
+from repro.kernels.topk_hamming import canonicalize_overflow_slots as jcanon
+from repro.kernels.topk_hamming import (
+    topk_hamming_banded_pallas,
+    topk_hamming_pallas,
+)
+from repro.kernels.topk_hamming.ref import topk_hamming_banded_ref as jbref
 from repro.kernels.topk_hamming.ref import topk_hamming_ref as jref
-from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_plain
+from repro_torch.core.hd.similarity import INT32_MIN
+from repro_torch.kernels.topk_hamming import (
+    canonicalize_overflow_slots,
+    topk_hamming,
+    topk_hamming_banded,
+    topk_hamming_banded_plain,
+    topk_hamming_plain,
+)
 from repro_torch.kernels.topk_hamming.ops import BLOCK_Q_CHOICES, pick_block_q
 
 # small tensors: one intra-op thread leaves the cores to the other test
@@ -120,3 +135,157 @@ def test_wrapper_rejects_bad_operands(bad):
         r = torch.zeros((5, 3), dtype=torch.int32)
     with pytest.raises(ValueError):
         topk_hamming(q, r, dim=64, k=k)
+
+
+# --------------------------------------------------------------------------
+# banded (OMS) search
+# --------------------------------------------------------------------------
+
+def _bands(rng, q, r, kind):
+    """(starts, lens) per query: random mixes of empty, narrow and wide
+    bands, or one named edge case."""
+    if kind == "random":
+        starts = rng.integers(-3, r + 1, q)
+        lens = np.minimum(rng.integers(0, r + 1, q), r + 3 - starts)
+    elif kind == "empty":
+        starts, lens = rng.integers(0, r, q), np.zeros(q, np.int64)
+    elif kind == "narrow":      # narrower than k: overflow slots
+        starts, lens = rng.integers(0, r - 3, q), rng.integers(0, 3, q)
+    elif kind == "far_apart":   # one 8-query block, bands at both ends
+        starts = np.where(np.arange(q) % 2 == 0, 0, r - 40)
+        lens = np.full(q, 30)
+    elif kind == "past_valid":  # bands running past num_valid and R
+        starts, lens = rng.integers(r // 2, r, q), np.full(q, r)
+    return starts.astype(np.int32), lens.astype(np.int32)
+
+
+# (Q, R, D, packed, k, num_valid, duplicate rows, bands)
+BANDED_CASES = [
+    (7, 300, 64, True, 5, None, False, "random"),      # ragged Q and R
+    (9, 130, 32, True, 4, 100, False, "past_valid"),   # num_valid < R
+    (5, 200, 64, True, 6, None, False, "empty"),       # every band empty
+    (8, 150, 64, True, 7, None, False, "narrow"),      # bands narrower than k
+    (8, 260, 32, True, 3, None, False, "far_apart"),   # far apart, one block
+    (6, 40, 64, True, 8, None, True, "random"),        # duplicate rows: ties
+    (5, 90, 40, False, 5, 70, False, "random"),        # int8, D % 32 != 0
+    (3, 51, 100, False, 51, None, True, "narrow"),     # int8, k = R, ties
+]
+
+
+def _check_banded(q, rows, starts, lens, d, k, nv, num_tiles=None):
+    jq, jr, js, jl = (jnp.asarray(a) for a in (q, rows, starts, lens))
+    want = topk_hamming_banded_pallas(jq, jr, js, jl, dim=d, k=k,
+                                      num_valid=nv, num_tiles=num_tiles)
+    oracle = jbref(jq, jr, js, jl, d, k, num_valid=nv)
+    got = topk_hamming_banded(_port(q), _port(rows), torch.from_numpy(starts),
+                              torch.from_numpy(lens), dim=d, k=k,
+                              num_valid=nv, num_tiles=num_tiles)
+    for w in (want, oracle):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(w[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(w[1]))
+
+
+@pytest.mark.parametrize("Q,R,D,packed,k,nv,dup,kind", BANDED_CASES)
+def test_banded_matches_reference(Q, R, D, packed, k, nv, dup, kind):
+    rng = np.random.default_rng(Q * 100 + R + D + k)
+    q, rows = _operands(rng, Q, R // 3 if dup else R, D, packed, dup)
+    starts, lens = _bands(rng, Q, rows.shape[0], kind)
+    _check_banded(q, rows, starts, lens, D, k, nv)
+
+
+def test_banded_tile_budget_from_the_plan():
+    """Bands crossing 128-row tiles under the tightest budget the plan's
+    contract allows, one tile more, and none."""
+    rng = np.random.default_rng(0)
+    q, rows = _operands(rng, 12, 520, 96, True)
+    starts = (rng.integers(0, 3, 12) * 128 + 100).astype(np.int32)
+    lens = np.minimum(rng.integers(60, 200, 12), 520 - starts).astype(
+        np.int32)
+    tight = max(-(-int((starts + lens)[i:i + 8].max()) // 128)
+                - int(starts[i:i + 8].min()) // 128 for i in (0, 8))
+    for nt in (tight, tight + 1, None):
+        _check_banded(q, rows, starts, lens, 96, 5, None, nt)
+
+
+@settings(max_examples=4, deadline=None)
+@given(st.integers(1, 20), st.integers(1, 260), st.integers(1, 9))
+def test_banded_random_shapes(q, r, k):
+    k = min(k, r)
+    rng = np.random.default_rng(q * 7919 + r * 131 + k)
+    qs, rows = _operands(rng, q, r, 64, True)
+    starts, lens = _bands(rng, q, r, "random")
+    _check_banded(qs, rows, starts, lens, 64, k, None)
+
+
+def test_two_bands_match_the_reference_routes():
+    """(B, Q) bands in one call equal the reference's masked per-shard
+    oracle and its two-launch banded route after canonicalization."""
+    from repro.serve.db_search import _local_oms_topk, _local_oms_topk_fused
+    rng = np.random.default_rng(5)
+    Q, R, d, k = 9, 300, 64, 6
+    q, rows = _operands(rng, Q, R, d, True)
+    s0 = rng.integers(0, 120, Q)
+    s1 = rng.integers(150, 280, Q)
+    starts = np.stack([s0, s1]).astype(np.int32)
+    ends = np.stack([s0 + rng.integers(0, 30, Q),
+                     np.minimum(s1 + rng.integers(0, 40, Q), R)]).astype(
+                         np.int32)
+    js, je = jnp.asarray(starts), jnp.asarray(ends)
+    ov, oi = _local_oms_topk(jnp.asarray(q), jnp.asarray(rows), 0, k, R, d,
+                             True, js, je)
+    fv, fi = _local_oms_topk_fused(jnp.asarray(q), jnp.asarray(rows), 0, k,
+                                   R, d, js, je, num_tiles=3)
+    fi = jcanon(fi, fv, js, je, R)
+    got_i, got_v = topk_hamming_banded(
+        _port(q), _port(rows), torch.from_numpy(starts),
+        torch.from_numpy(ends - starts), dim=d, k=k, num_tiles=3)
+    for wi, wv in ((oi, ov), (fi, fv)):
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("bands", [1, 2])
+def test_canonicalize_overflow_slots_matches_reference(bands):
+    """Sentinel slots rewritten to the masked rows, for bands wider and
+    narrower than k and empty bands, against the reference's function on
+    the same filler indices."""
+    rng = np.random.default_rng(bands)
+    Q, R, k = 16, 64, 9
+    cuts = np.sort(rng.integers(0, R + 1, (Q, 2 * bands)), axis=1)
+    starts = cuts[:, 0::2].T.astype(np.int32)
+    ends = cuts[:, 1::2].T.astype(np.int32)
+    ends[:, :3] = starts[:, :3]                  # empty bands
+    n_real = np.minimum((ends - starts).sum(0), k)
+    vals = np.full((Q, k), INT32_MIN, np.int32)
+    idx = rng.integers(R, 2 * R, (Q, k)).astype(np.int32)  # fillers
+    for i in range(Q):
+        vals[i, :n_real[i]] = np.sort(rng.integers(-50, 50, n_real[i]))[::-1]
+        idx[i, :n_real[i]] = rng.integers(0, R, n_real[i])
+    want = jcanon(jnp.asarray(idx), jnp.asarray(vals), jnp.asarray(starts),
+                  jnp.asarray(ends), R)
+    got = canonicalize_overflow_slots(
+        torch.from_numpy(idx), torch.from_numpy(vals),
+        torch.from_numpy(starts if bands > 1 else starts[0]),
+        torch.from_numpy(ends if bands > 1 else ends[0]), R)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_banded_plain_is_the_cpu_path_and_counts_no_launch():
+    rng = np.random.default_rng(3)
+    q, rows = _operands(rng, 4, 50, 64, True)
+    starts, lens = _bands(rng, 4, 50, "random")
+    args = (_port(q), _port(rows), torch.from_numpy(starts),
+            torch.from_numpy(lens))
+    before = topk_hamming_banded.launches
+    a = topk_hamming_banded(*args, dim=64, k=3, canonicalize=False)
+    b = topk_hamming_banded_plain(*args, dim=64, k=3)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert topk_hamming_banded.launches == before
+
+
+def test_banded_wrapper_rejects_bad_bands():
+    q = torch.zeros((3, 2), dtype=torch.int32)
+    r = torch.zeros((9, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        topk_hamming_banded(q, r, torch.zeros(4, dtype=torch.int32),
+                            torch.zeros(4, dtype=torch.int32), dim=64, k=2)
