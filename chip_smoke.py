@@ -15,8 +15,11 @@ exits non-zero and prints no result line:
    duplicate rows; for the banded kernels also empty bands, bands
    narrower than k, bands crossing splits and running past num_valid,
    two bands, no tile budget and the plan's tight one, and bands far
-   apart inside one 8-query block). Tolerance: exact (integer indices
-   and scores).
+   apart inside one 8-query block; for ``hamming_pop`` Q = R = 1, ragged
+   Q and R, W = 1, 2, 3 and 64, rows off a 16-byte boundary, all-zero and
+   all-ones words, q = r, and the served buckets 4 / 8 / 16 / 32 against
+   1,000 and 3,000 centroids). Tolerance: exact (integer indices, scores
+   and similarities).
 3. Serving at iPRG2012 scale: ``repro_torch.launch.serve_db.main`` four
    times, ``--fused`` (the ``topk_hamming`` kernel), ``--fused-e2e``
    (``encode_search``), ``--oms --fused`` (``topk_hamming_banded``) and
@@ -35,6 +38,23 @@ exits non-zero and prints no result line:
    each kernel is timed with CUDA events on that batch and bank (and, at
    each smaller served bucket, on evenly spaced rows of it) beside its
    plain version.
+4. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
+   tenants, each streaming one paper-average precursor bucket (10,624
+   spectra = 1,328 identities x 8) at D = 2048, 1024 bins, 16 levels,
+   threshold 0.36 D, max batch 32, consolidation every 2,048 spectra.
+   The ``hamming_pop`` count is set to 0 just before the run and read
+   just after. The run's batches, recorded by a ``SearchExecutor``
+   subclass, are replayed through clusterers whose distance step is the
+   plain version, on the card: every assignment (cluster id, spawn flag,
+   distance) and each tenant's summary must be equal. Then
+   ``hamming_pop`` is timed at the served shape (each bucket against the
+   largest final centroid bank) beside its plain version, one served
+   distance step and ``torch._int_mm`` on the unpacked operands.
+5. One bucket batch-wise: the kernel's pairwise distances over 10,624
+   encoded spectra and complete linkage at 0.36 D must give the labels,
+   merges and cluster count of the same pipeline over the plain distance
+   function; prints the pairwise kernel's time, bound, plain and
+   ``torch._int_mm`` times and the linkage's seconds.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -75,6 +95,7 @@ TPU_KERNELS = {
         "src/repro/kernels/topk_hamming/topk_hamming.py:165",
     "encode_search_banded":
         "src/repro/kernels/encode_search/encode_search.py:176",
+    "hamming_pop": "src/repro/kernels/hamming_pop/hamming_pop.py:20",
 }
 # iPRG2012's OMS candidate fraction (core/imc/energy.py DATASETS)
 IPRG_CANDIDATE_FRACTION = 0.025
@@ -168,6 +189,35 @@ def banded_case(np, rng, Q, R, kind, num_tiles):
     return starts.astype(np.int32), lens.astype(np.int32), num_tiles
 
 
+# hamming_pop cases: (Q, R, W, layout); ragged Q and R against the 64 x 64
+# tile, W = 1, 3 and 64, W % 4 != 0, rows off a 16-byte boundary, all-zero
+# and all-ones words, q = r (the pairwise shape), and the served buckets
+# against grown centroid banks
+HAMMING_EDGE_CASES = [
+    (1, 1, 1, "random"), (1, 1000, 64, "random"), (70, 130, 3, "random"),
+    (65, 64, 64, "random"), (33, 200, 2, "random"), (40, 77, 64, "offset"),
+    (5, 300, 64, "zeros_ones"), (500, 500, 64, "same"),
+] + [(q, c, 64, "random") for q in (4, 8, 16, 32) for c in (1000, 3000)]
+
+
+def hamming_case(torch, Q, R, W, layout):
+    """(q, r) int32 word operands on the card for one hamming_pop case."""
+    g = torch.Generator().manual_seed(Q * 1000 + R + W)
+
+    def words(rows):
+        flat = torch.randint(-2**31, 2**31, (rows * W + 1,), generator=g,
+                             dtype=torch.int64).to(torch.int32).cuda()
+        # "offset": rows start one word past a 16-byte boundary
+        return (flat[1:] if layout == "offset" else flat[:-1]).view(rows, W)
+
+    q, r = words(Q), words(R)
+    if layout == "zeros_ones":
+        q, r = torch.zeros_like(q), torch.full_like(r, -1)
+    elif layout == "same":
+        r = q
+    return q, r
+
+
 def phase_kernels_vs_plain(torch, np):
     from repro_torch.core.hd.similarity import INT32_MIN, bitpack_bipolar
     from repro_torch.kernels.encode_search import (
@@ -176,6 +226,7 @@ def phase_kernels_vs_plain(torch, np):
         encode_search_banded_plain,
         encode_search_plain,
     )
+    from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
     from repro_torch.kernels.topk_hamming import (
         topk_hamming,
         topk_hamming_banded,
@@ -242,10 +293,15 @@ def phase_kernels_vs_plain(torch, np):
                                  num_valid=nv, num_tiles=nt),
             encode_search_banded_plain(lev, idh, lvh, r, starts, lens, dim=D,
                                        k=k, num_valid=nv))
+    for Q, R, W, layout in HAMMING_EDGE_CASES:
+        q, r = hamming_case(torch, Q, R, W, layout)
+        mismatches["hamming_pop"] += int(
+            (hamming_pop(q, r, dim=32 * W)
+             != hamming_pop_plain(q, r, dim=32 * W)).sum())
     torch.cuda.synchronize()
-    print(f"kernels vs plain: {len(EDGE_CASES)} exact and "
-          f"{len(BANDED_EDGE_CASES)} banded cases, mismatches "
-          f"{json.dumps(mismatches)}")
+    print(f"kernels vs plain: {len(EDGE_CASES)} exact, "
+          f"{len(BANDED_EDGE_CASES)} banded and {len(HAMMING_EDGE_CASES)} "
+          f"hamming_pop cases, mismatches {json.dumps(mismatches)}")
     check(not any(mismatches.values()), "kernel disagrees with its plain "
                                          "version")
 
@@ -534,6 +590,251 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
     }
 
 
+# the clustering configuration: two tenants, each streaming one
+# paper-average precursor bucket (core/imc/energy.py: 10,624 spectra,
+# here 1,328 identities x 8 replicates) at D = 2048, 1024 bins, 16 levels,
+# threshold 0.36 D, max batch 32 (4 buckets), 5 ms flush
+CLUSTER_IDENTITIES, CLUSTER_REPLICATES, CLUSTER_DIM = 1328, 8, 2048
+CLUSTER_ARGV = ["--identities", str(CLUSTER_IDENTITIES),
+                "--spectra-per-identity", str(CLUSTER_REPLICATES),
+                "--tenants", "2", "--consolidate-every", "2048",
+                "--device", "cuda"]
+
+
+def cluster_recorder():
+    """A ``SearchExecutor`` subclass that keeps the server and, per
+    finalized clustering batch, (tenant, HVs, assignments)."""
+    from repro_torch.serve import SearchExecutor
+
+    class Recording(SearchExecutor):
+        server = None
+        batches = []
+
+        def _dispatch_cluster(self, reqs, tenant):
+            Recording.server = self.server
+            return super()._dispatch_cluster(reqs, tenant)
+
+        def _finalize_cluster(self, handle):
+            live = super()._finalize_cluster(handle)
+            Recording.batches.append((handle.tenant,
+                                      handle.hvs[:handle.n].copy(),
+                                      [r.result for r in handle.reqs]))
+            return live
+
+    return Recording
+
+
+def unpacked_int_mm_ms(torch, a, b):
+    """``torch._int_mm`` of two unpacked int8 operands (the same function
+    up to (D + dot) / 2), with its rows padded to a multiple of 8 (and
+    above 16) as the call requires; returns (ms, padded shape)."""
+    def pad(t, mult, least=0):
+        rows = max(least, -(-t.shape[0] // mult) * mult)
+        return torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[0]))
+
+    a8, b8 = pad(a, 8, 17), pad(b, 8)
+    return (time_ms(torch, lambda: torch._int_mm(a8, b8.t()), iters=20,
+                    warmup=2), (a8.shape[0], b8.shape[0]))
+
+
+def phase_serve_cluster(torch, np):
+    import gc
+
+    from repro_torch.core.hd.clustering import cross_distances
+    from repro_torch.core.hd.similarity import bitpack_bipolar
+    from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
+    from repro_torch.launch import serve_cluster
+    from repro_torch.serve import StreamingClusterer
+
+    recorder = cluster_recorder()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    hamming_pop.launches = 0
+    t0 = time.perf_counter()
+    s = serve_cluster.main(CLUSTER_ARGV, executor_cls=recorder)
+    launches = hamming_pop.launches
+    wall = time.perf_counter() - t0
+    total = 2 * CLUSTER_IDENTITIES * CLUSTER_REPLICATES
+    server = recorder.server
+    line = {
+        "path": "serve_cluster", "spectra": s["count"], "spectra_per_s":
+        s["qps"], "p50_ms": s["p50_ms"], "p95_ms": s["p95_ms"],
+        "batches": s["batches"], "buckets": s["buckets"],
+        "launches": {"hamming_pop": launches},
+        "tenants": {t: {k: q[k] for k in (
+            "clusters", "spawned", "merges", "consolidations",
+            "clustered_ratio", "incorrect_ratio")}
+            for t, q in s["cluster_quality"].items()},
+        "span_s": s["span_s"], "sleep_s": s["sleep_s"],
+        "device_busy_s": s["device_busy_s"], "decide_s": s["decide_s"],
+        "consolidate_s": s["consolidate_s"],
+        "other_host_s": (s["span_s"] - s["sleep_s"] - s["device_busy_s"]
+                         - s["decide_s"] - s["consolidate_s"]),
+        "library_s": s["library_s"],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "run_s": wall}
+    print(json.dumps(line))
+    check(launches > 0, "hamming_pop never launched on the serve_cluster path")
+    check(s["count"] == total, f"serve_cluster: served {s['count']} of {total}")
+
+    # the same batches, in the same order, through clusterers whose
+    # distance step is the plain version, on the card
+    t0 = time.perf_counter()
+    replay = {}
+    differing = 0
+    for tenant, hvs, want in recorder.batches:
+        cl = replay.get(tenant)
+        if cl is None:
+            cl = replay[tenant] = StreamingClusterer(
+                server.clustering, "cuda", hamming=hamming_pop_plain)
+        c0, version = cl.num_clusters, cl.struct_version
+        d = cl.snapshot_distances(hvs)
+        got = cl.assign_batch(hvs, None if d is None else d.cpu().numpy(),
+                              c0, version)
+        differing += sum((a.cluster_id, a.spawned, a.distance)
+                         != (b.cluster_id, b.spawned, b.distance)
+                         for a, b in zip(got, want))
+    same_state = all(replay[t].summary() == server.clusterers[t].summary()
+                     for t in server.clusterers)
+    print(f"serve_cluster: {len(recorder.batches)} recorded batches replayed "
+          f"through the plain distance function on the card in "
+          f"{time.perf_counter() - t0:.2f} s: {differing} differing "
+          f"assignment entries, tenant summaries equal: {same_state}")
+    check(differing == 0 and same_state,
+          "serve_cluster differs from its plain-path replay")
+
+    # the served shape: each bucket against the largest final centroid bank
+    tenant = max(server.clusterers,
+                 key=lambda t: server.clusterers[t].num_clusters)
+    cl = server.clusterers[tenant]
+    bank = cl.device_bank()
+    C, W = bank.shape
+    hv32 = next(h for t, h, _ in recorder.batches
+                if t == tenant and len(h) == 32)
+    q = bitpack_bipolar(torch.from_numpy(hv32).cuda())
+    want = hamming_pop_plain(q, bank, dim=CLUSTER_DIM)
+    got = hamming_pop(q, bank, dim=CLUSTER_DIM)
+    max_abs_err = int((got.to(torch.int64) - want.to(torch.int64))
+                      .abs().max())
+    mismatches = int((got != want).sum())
+    check(mismatches == 0, "hamming_pop differs from its plain version at "
+                           "the served shape")
+    ms = {n: time_ms(torch, lambda n=n: hamming_pop(q[:n], bank,
+                                                     dim=CLUSTER_DIM),
+                     iters=200, warmup=5) for n in (4, 8, 16, 32)}
+    plain_ms = time_ms(torch, lambda: hamming_pop_plain(q, bank,
+                                                         dim=CLUSTER_DIM),
+                       iters=5, warmup=1)
+    # a served batch's distance step, whole and by piece: the events take
+    # in the host's launch gaps between the small kernels
+    pack_ms = time_ms(torch, lambda: bitpack_bipolar(
+        torch.from_numpy(hv32).cuda()), iters=50, warmup=2)
+    dist_ms = time_ms(torch, lambda: cross_distances(q, bank,
+                                                     dim=CLUSTER_DIM),
+                      iters=50, warmup=2)
+
+    def served_step():
+        cl._dirty.update(range(32))  # as after a batch that touched 32 rows
+        return cl.snapshot_distances(hv32)
+
+    step_ms = time_ms(torch, served_step, iters=50, warmup=2)
+    print(f"serve_cluster: one served distance step (32 changed centroid "
+          f"rows rewritten, the batch copied and packed, hamming_pop, the "
+          f"float distances) {step_ms:.4f} ms; of it, copying and packing "
+          f"32 HVs {pack_ms:.4f} ms and the distances from packed words "
+          f"{dist_ms:.4f} ms")
+    cent = torch.from_numpy(cl._cent.copy()).cuda()
+    lib_ms, lib_shape = unpacked_int_mm_ms(
+        torch, torch.from_numpy(hv32).cuda(), cent)
+    ops = 2 * 32 * C * CLUSTER_DIM
+    nbytes = (32 + C) * W * 4 + 32 * C * 4
+    b_ms, b_by = bound_ms(ops, nbytes)
+    print(f"serve_cluster: hamming_pop at the served shape against "
+          f"{tenant}'s final {C} centroids ({W} words): by bucket (Q: ms) "
+          f"{json.dumps(ms)}, plain {plain_ms:.4f} ms, torch._int_mm on the "
+          f"unpacked operands {lib_ms:.4f} ms (padded to {lib_shape}), "
+          f"bound {b_ms:.6f} ms ({b_by}; {ops:.4g} int8 ops, {nbytes:.4g} "
+          f"B) at Q=32; kernel vs plain: {mismatches} mismatches; sm "
+          f"clock, power, limit: {nvidia_smi('clocks.sm,power.draw,power.limit')}")
+    return {
+        "name": "hamming_pop", "route": "cuda",
+        "source": "src/repro_torch/csrc/hamming_pop.cu",
+        "replaces": TPU_KERNELS["hamming_pop"], "launches": launches,
+        "mismatches": mismatches, "max_abs_err": max_abs_err,
+        "ms": ms[32], "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms,
+        "shape": f"Q=32 x C={C}, W={W} (served)", "served_step_ms": step_ms,
+    }
+
+
+def phase_bucket(torch, np, entry):
+    """One paper-average bucket batch-wise: the kernel's pairwise distances
+    and complete linkage at 0.36 D, against the same pipeline over the
+    plain distance function; adds the pairwise shape's numbers to the
+    kernel's ``entry``."""
+    from repro_torch.core import SpecPCMConfig, encode_and_pack
+    from repro_torch.core.hd.clustering import (
+        complete_linkage,
+        pairwise_distances,
+    )
+    from repro_torch.core.hd.similarity import bitpack_bipolar
+    from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
+    from repro_torch.spectra import SyntheticMSConfig, generate_dataset
+
+    n = CLUSTER_IDENTITIES * CLUSTER_REPLICATES
+    ds = generate_dataset(SyntheticMSConfig(
+        num_identities=CLUSTER_IDENTITIES,
+        spectra_per_identity=CLUSTER_REPLICATES, num_bins=1024, seed=0),
+        device="cuda")
+    hv = encode_and_pack(ds.spectra, SpecPCMConfig(
+        hd_dim=CLUSTER_DIM, mlc_bits=1, num_levels=16, ideal=True, seed=0))
+    del ds
+    words = bitpack_bipolar(hv)
+    W = words.shape[1]
+    thr = 0.36 * CLUSTER_DIM
+    k_ms = time_ms(torch, lambda: hamming_pop(words, words, dim=CLUSTER_DIM),
+                   iters=10, warmup=2)
+    p_ms = time_ms(torch, lambda: hamming_pop_plain(words, words,
+                                                     dim=CLUSTER_DIM),
+                   iters=1, warmup=0)
+    lib_ms, lib_shape = unpacked_int_mm_ms(torch, hv, hv)
+    ops = 2 * n * n * CLUSTER_DIM
+    nbytes = n * W * 4 + n * n * 4
+    b_ms, b_by = bound_ms(ops, nbytes)
+    popc_ms = popc_pipe_ms(
+        n * n * W, torch.cuda.get_device_properties(0).multi_processor_count)
+    results, linkage_s = {}, {}
+    for name, fn in (("kernel", None), ("plain", hamming_pop_plain)):
+        dist = pairwise_distances(words, dim=CLUSTER_DIM, hamming=fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = complete_linkage(dist, thr)
+        torch.cuda.synchronize()
+        linkage_s[name] = time.perf_counter() - t0
+        results[name] = res
+        del dist
+    a, b = results["kernel"], results["plain"]
+    same = (torch.equal(a.labels, b.labels) and a.num_merges == b.num_merges
+            and a.num_clusters == b.num_clusters)
+    print(f"bucket: N={n} (the paper's average precursor bucket), D="
+          f"{CLUSTER_DIM}, threshold {thr:g}: hamming_pop pairwise "
+          f"{k_ms:.4f} ms (Q=R={n}, W={W}), plain {p_ms:.2f} ms, "
+          f"torch._int_mm on the unpacked operands {lib_ms:.4f} ms (padded "
+          f"to {lib_shape}), bound {b_ms:.4f} ms ({b_by}; {ops:.4g} int8 "
+          f"ops, {nbytes:.4g} B), this design's POPC-pipe ceiling "
+          f"{popc_ms:.4f} ms; complete linkage {linkage_s['kernel']:.2f} s "
+          f"(plain-distance run {linkage_s['plain']:.2f} s), "
+          f"{a.num_merges} merges, {a.num_clusters} clusters; labels, "
+          f"merges and clusters equal to the plain pipeline: {same}")
+    check(same, "linkage over kernel distances differs from the plain "
+                "pipeline")
+    entry.update(pairwise_ms=k_ms, pairwise_plain_ms=p_ms,
+                 pairwise_bound_ms=b_ms, pairwise_bound_by=b_by,
+                 pairwise_library_ms=lib_ms,
+                 pairwise_shape=f"Q=R={n}, W={W}",
+                 linkage_s=linkage_s["kernel"], linkage_merges=a.num_merges)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -559,6 +860,12 @@ def main() -> int:
           f"candidate fraction {IPRG_CANDIDATE_FRACTION}")
     kernels = [phase_serve(torch, np, fused_e2e=e2e, oms=oms)
                for oms in (False, True) for e2e in (False, True)]
+    print(f"clustering: {CLUSTER_IDENTITIES} identities x "
+          f"{CLUSTER_REPLICATES} spectra per tenant, one paper-average "
+          f"bucket each (core/imc/energy.py), 2 tenants; not cut")
+    entry = phase_serve_cluster(torch, np)
+    phase_bucket(torch, np, entry)
+    kernels.append(entry)
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,11 @@
+from repro_torch.core.hd.clustering import (
+    ClusteringResult,
+    clustered_spectra_ratio,
+    complete_linkage,
+    cross_distances,
+    incorrect_clustering_ratio,
+    pairwise_distances,
+)
 from repro_torch.core.hd.encoding import (
     HDEncoderConfig,
     encode_batch,
@@ -19,14 +27,20 @@ from repro_torch.core.hd.similarity import (
 
 __all__ = [
     "INT32_MIN",
+    "ClusteringResult",
     "HDEncoderConfig",
     "bitpack_bipolar",
+    "clustered_spectra_ratio",
+    "complete_linkage",
+    "cross_distances",
     "dot_similarity",
     "encode_batch",
     "encode_levels_batch",
     "hamming_similarity_packed",
+    "incorrect_clustering_ratio",
     "make_codebooks",
     "pack_dimensions",
+    "pairwise_distances",
     "popcount32",
     "quantize_levels",
     "topk_search",

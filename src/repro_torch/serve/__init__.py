@@ -1,5 +1,6 @@
 """Serving subsystem, in PyTorch: micro-batched, multi-tenant exact and
-open-modification DB-search serving on one card.
+open-modification DB-search serving, and streaming spectral clustering,
+on one card.
 
 ``queue.MicroBatchQueue`` groups requests into tenant-homogeneous
 micro-batches; ``cache.QueryHVCache`` memoizes query encodes and
@@ -7,12 +8,21 @@ micro-batches; ``cache.QueryHVCache`` memoizes query encodes and
 ``db_search.DBSearchServer`` runs the flush-sync loop over the
 ``SearchExecutor`` seam, searching through the ``topk_hamming`` or
 ``encode_search`` kernels (their banded twins in OMS mode, planned by
-``oms``) and routing results through target-decoy FDR.
-``repro_torch.launch.serve_db`` is the runnable entry point.
+``oms``) and routing results through target-decoy FDR; clustering
+requests go to per-tenant ``clustering.StreamingClusterer`` state, whose
+distance step is the ``hamming_pop`` kernel.
+``repro_torch.launch.serve_db`` and ``repro_torch.launch.serve_cluster``
+are the runnable entry points.
 """
 
 from repro_torch.serve.cache import BankRegistry, QueryHVCache
+from repro_torch.serve.clustering import (
+    ClusterAssignment,
+    ClusteringConfig,
+    StreamingClusterer,
+)
 from repro_torch.serve.db_search import (
+    ClusterBatchHandle,
     DBSearchServer,
     FDRSearchResult,
     QueryEncoder,
@@ -39,6 +49,9 @@ from repro_torch.serve.queue import LatencyStats, MicroBatchQueue, Request
 
 __all__ = [
     "BankRegistry",
+    "ClusterAssignment",
+    "ClusterBatchHandle",
+    "ClusteringConfig",
     "DBSearchServer",
     "FDRSearchResult",
     "LatencyStats",
@@ -52,6 +65,7 @@ __all__ = [
     "Request",
     "SearchExecutor",
     "ShardedDatabase",
+    "StreamingClusterer",
     "bucket_for",
     "encode_queries",
     "fdr_route",

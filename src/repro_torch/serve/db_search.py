@@ -2,12 +2,11 @@
 k-merge, open-modification search, target-decoy FDR, micro-batched
 multi-tenant serving.
 
-Counterpart of ``repro.serve.db_search`` without its mesh, delta-bank and
-clustering parts. One
-card holds the whole bank, so there is no mesh: a bank is searched whole,
-or split into ``emulate_shards`` row blocks that run the identical
-local-top-k / merge pipeline one after another (the reference's tier-1
-stand-in for its shard_map path).
+Counterpart of ``repro.serve.db_search`` without its mesh and delta-bank
+parts. One card holds the whole bank, so there is no mesh: a bank is
+searched whole, or split into ``emulate_shards`` row blocks that run the
+identical local-top-k / merge pipeline one after another (the
+reference's tier-1 stand-in for its shard_map path).
 
 **Routes.** Per shard, the unfused route materialises the (Q, rows)
 score matrix and takes :func:`topk_value_desc_index_asc`; the fused
@@ -45,6 +44,10 @@ from :class:`~repro_torch.serve.queue.MicroBatchQueue`, banks from a
 in a :class:`~repro_torch.serve.cache.QueryHVCache`, pads batches to a
 bucket ladder, and runs device work behind :class:`SearchExecutor`'s
 dispatch / poll / finalize seam (flush-sync: dispatch, then finalize).
+Clustering requests (``submit_cluster``) are a second kind on the same
+queue: per-tenant :class:`~repro_torch.serve.clustering.StreamingClusterer`
+state, a distance launch at dispatch and the assign-or-spawn loop at
+finalize.
 """
 
 from __future__ import annotations
@@ -71,8 +74,10 @@ from repro_torch.core.hd.similarity import (
     hamming_similarity_packed,
     topk_value_desc_index_asc,
 )
+from repro_torch.device import resolve_device
 from repro_torch.kernels.topk_hamming.ops import BANDED_BLOCK_Q
 from repro_torch.serve.cache import BankRegistry, QueryHVCache
+from repro_torch.serve.clustering import ClusteringConfig, StreamingClusterer
 from repro_torch.serve.oms import (
     OMSConfig,
     OMSPlan,
@@ -666,6 +671,33 @@ class BatchHandle:
     inv: np.ndarray | None = None
 
 
+@dataclasses.dataclass
+class ClusterBatchHandle:
+    """One dispatched clustering batch. ``dists`` is the (bucket, c0)
+    device distance matrix against the tenant's snapshot (None when the
+    tenant had no cluster yet); ``start`` and ``done`` are timing events
+    around its launch (None on the CPU). The sequential assign-or-spawn
+    decision runs on the host at finalize."""
+
+    reqs: list[Request]
+    tenant: str
+    n: int                       # real rows (the rest is bucket padding)
+    hvs: np.ndarray              # (bucket, D) int8 batch
+    dists: torch.Tensor | None
+    c0: int                      # clusters covered by the snapshot
+    struct_version: int          # clusterer structure at dispatch
+    start: torch.cuda.Event | None = None
+    done: torch.cuda.Event | None = None
+
+
+def _add_device_time(srv: "DBSearchServer", start, done) -> None:
+    """Adds the device time between two recorded events (waited for) to
+    ``srv.device_busy_s``."""
+    if start is not None:
+        srv.device_busy_s = ((srv.device_busy_s or 0.0)
+                             + start.elapsed_time(done) / 1e3)
+
+
 class SearchExecutor:
     """The device executor behind the dispatch / poll / finalize seam.
 
@@ -679,6 +711,10 @@ class SearchExecutor:
       and adds the search's device time (start to done event) to
       ``server.device_busy_s``.
 
+    Clustering batches (``kind == "cluster"``) launch the tenant's
+    snapshot distances at dispatch, timed the same way, and run the
+    assign-or-spawn loop at finalize.
+
     Pass a subclass as ``DBSearchServer(executor_cls=...)`` to observe or
     replace batches.
     """
@@ -686,12 +722,14 @@ class SearchExecutor:
     def __init__(self, server: "DBSearchServer"):
         self.server = server
 
-    def dispatch(self, reqs: list[Request]) -> BatchHandle:
+    def dispatch(self, reqs: list[Request]) -> BatchHandle | ClusterBatchHandle:
         srv = self.server
         t = srv._clock()
         for r in reqs:
             r.t_dispatch = t
         tenant = reqs[0].tenant
+        if reqs[0].kind == "cluster":
+            return self._dispatch_cluster(reqs, tenant)
         db = srv.banks.get(tenant)  # lazy build on first use
         n = len(reqs)
         bucket = bucket_for(n, srv.buckets)
@@ -746,18 +784,72 @@ class SearchExecutor:
         plan = oms_plan(db, prec_padded, self.server.oms)
         return np.concatenate([host[:n][order], host[n:]]), plan, inv
 
-    def poll(self, handle: BatchHandle) -> bool:
+    def _dispatch_cluster(self, reqs: list[Request], tenant: str
+                          ) -> ClusterBatchHandle:
+        """Clustering dispatch: launch the batch-vs-centroids distances
+        against the tenant's current snapshot; the assign-or-spawn loop
+        runs at finalize."""
+        srv = self.server
+        cl = srv.clusterers.get(tenant)
+        if cl is None:
+            cl = srv.clusterers[tenant] = StreamingClusterer(
+                srv.clustering, srv.cluster_device)
+        n = len(reqs)
+        bucket = bucket_for(n, srv.buckets)
+        srv._bucket_counts[bucket] += 1
+        hvs = np.zeros((bucket, srv.clustering.dim), np.int8)
+        for i, r in enumerate(reqs):
+            hvs[i] = r.query
+        start = done = None
+        if cl.num_clusters and cl.device.type == "cuda":
+            start, done = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+        c0, version = cl.num_clusters, cl.struct_version
+        dists = cl.snapshot_distances(hvs)
+        if done is not None:
+            done.record()
+        return ClusterBatchHandle(reqs=reqs, tenant=tenant, n=n, hvs=hvs,
+                                  dists=dists, c0=c0, struct_version=version,
+                                  start=start, done=done)
+
+    def poll(self, handle: BatchHandle | ClusterBatchHandle) -> bool:
         return True if handle.done is None else handle.done.query()
 
-    def finalize(self, handle: BatchHandle) -> list[Request]:
+    def _finalize_cluster(self, handle: ClusterBatchHandle) -> list[Request]:
+        srv = self.server
+        cl = srv.clusterers[handle.tenant]
+        dists = (None if handle.dists is None
+                 else handle.dists[:handle.n].cpu().numpy())  # waits
+        _add_device_time(srv, handle.start, handle.done)
+        assigns = cl.assign_batch(handle.hvs[:handle.n], dists, handle.c0,
+                                  handle.struct_version)
+        t_done = srv._clock()
+        live: list[Request] = []
+        for r, a in zip(handle.reqs, assigns):
+            if r.cancelled:
+                # the spectrum still entered the cluster state; only the
+                # response is dropped
+                continue
+            r.result = a
+            r.t_done = t_done
+            live.append(r)
+        srv._cluster_requests += len(live)
+        if live:
+            srv.stats.record_batch(live)
+            srv.tenant_stats.setdefault(
+                handle.tenant, LatencyStats()).record_batch(live)
+        return live
+
+    def finalize(self, handle: BatchHandle | ClusterBatchHandle
+                 ) -> list[Request]:
+        if isinstance(handle, ClusterBatchHandle):
+            return self._finalize_cluster(handle)
         srv = self.server
         n = handle.n
         idx = handle.idx[:n].cpu()   # waits for the device
         vals = handle.vals[:n].cpu()
-        if handle.start is not None:
-            srv.device_busy_s = ((srv.device_busy_s or 0.0)
-                                 + handle.start.elapsed_time(handle.done)
-                                 / 1e3)
+        _add_device_time(srv, handle.start, handle.done)
         valid = None
         if handle.inv is not None:
             inv = torch.from_numpy(handle.inv)
@@ -807,6 +899,14 @@ class DBSearchServer:
     batch is sorted by it, planned, and searched on the OMS routes; a
     query with an empty window comes back rejected with
     ``has_candidate=False``.
+
+    With ``clustering=`` (a :class:`ClusteringConfig`), ``submit_cluster``
+    enqueues spectra for per-tenant streaming assign-or-spawn clustering,
+    a second request kind sharing the queue, fairness policy and buckets
+    with search; its results are :class:`ClusterAssignment` objects and
+    its centroid snapshots live on ``cluster_device``. Clustering tenants
+    need no bank: a server over an empty :class:`BankRegistry` serves
+    clustering alone.
     """
 
     def __init__(self, db: ShardedDatabase | BankRegistry, *, k: int = 4,
@@ -819,7 +919,9 @@ class DBSearchServer:
                  oms: OMSConfig | None = None,
                  encoder: QueryEncoder | None = None,
                  fused_e2e: bool = False,
-                 executor_cls: type[SearchExecutor] = SearchExecutor):
+                 executor_cls: type[SearchExecutor] = SearchExecutor,
+                 clustering: ClusteringConfig | None = None,
+                 cluster_device: str | torch.device = "cuda"):
         if isinstance(db, BankRegistry):
             self.db = None
             self.banks = db
@@ -856,9 +958,14 @@ class DBSearchServer:
         self.fused_e2e = bool(fused_e2e)
         if self.fused_e2e and encoder is None:
             raise ValueError("fused_e2e=True requires encoder=")
+        self.clustering = clustering
+        self.cluster_device = (None if clustering is None
+                               else resolve_device(cluster_device))
+        self.clusterers: dict[str, StreamingClusterer] = {}
+        self._cluster_requests = 0
         self.executor = executor_cls(self)
-        # seconds the device spent searching served batches (None until a
-        # batch ran on a CUDA device)
+        # seconds the device spent on served batches' searches and
+        # clustering distances (None until a batch ran on a CUDA device)
         self.device_busy_s: float | None = None
 
     def submit(self, query_hv, tenant: str = "default",
@@ -882,6 +989,21 @@ class DBSearchServer:
         if self.oms is not None and precursor is None:
             raise ValueError("OMS serving mode requires precursor= on submit")
         return self.queue.submit(q, tenant=tenant, precursor=precursor)
+
+    def submit_cluster(self, query_hv, tenant: str = "default") -> int:
+        """Enqueue one spectrum HV (D,) for the clustering endpoint (the
+        server must hold a ``clustering=`` config). Clustering tenants are
+        independent of bank tenants; state is created on first use. The
+        result is a :class:`ClusterAssignment`."""
+        if self.clustering is None:
+            raise ValueError("server was built without clustering=; pass a "
+                             "ClusteringConfig to serve the clustering "
+                             "endpoint")
+        q = np.asarray(query_hv, dtype=np.int8)
+        if q.shape != (self.clustering.dim,):
+            raise ValueError(
+                f"query shape {q.shape} != ({self.clustering.dim},)")
+        return self.queue.submit(q, tenant=tenant, kind="cluster")
 
     def _encode_rows(self, db: ShardedDatabase, qs: torch.Tensor
                      ) -> torch.Tensor:
@@ -975,6 +1097,10 @@ class DBSearchServer:
                         for b, c in sorted(self._bucket_counts.items())}
         s["mode"] = "flush-sync"
         s["device_busy_s"] = self.device_busy_s
+        s["clustering"] = (None if self.clustering is None else {
+            "requests": self._cluster_requests,
+            "tenants": {t: c.summary() for t, c in self.clusterers.items()},
+        })
         s["e2e"] = (None if self.encoder is None else {
             "fused": self.fused_e2e,
             "num_features": self.encoder.num_features,

@@ -23,9 +23,16 @@ from repro_torch.kernels.encode_search import (
     encode_search,
     encode_search_banded,
 )
+from repro_torch.kernels.hamming_pop import hamming_pop
 from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
-from repro_torch.launch import serve_db
-from repro_torch.serve import QueryEncoder
+from repro_torch.launch import serve_cluster, serve_db
+from repro_torch.serve import (
+    BankRegistry,
+    ClusteringConfig,
+    DBSearchServer,
+    QueryEncoder,
+    StreamingClusterer,
+)
 from repro_torch.spectra import SyntheticMSConfig, generate_dataset
 
 # small tensors: one intra-op thread leaves the cores to the other test
@@ -57,6 +64,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.serve.oms, "
             "repro_torch.spectra.preprocess, repro_torch.launch.serve_db, "
+            "repro_torch.launch.serve_cluster, repro_torch.serve.clustering, "
+            "repro_torch.core.hd.clustering, repro_torch.kernels.hamming_pop, "
             "repro_torch.convert; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
@@ -68,7 +77,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
-                                   "launcher"])
+                                   "launcher", "cluster_launcher",
+                                   "clusterer", "cluster_server"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -78,6 +88,12 @@ def test_default_device_raises_without_cuda(entry):
         "encoder": lambda: QueryEncoder.from_config(
             dim=64, num_features=8, num_levels=4),
         "launcher": lambda: serve_db.main(["--reduced"]),
+        "cluster_launcher": lambda: serve_cluster.main(["--reduced"]),
+        "clusterer": lambda: StreamingClusterer(
+            ClusteringConfig(dim=64, threshold=4.0)),
+        "cluster_server": lambda: DBSearchServer(
+            BankRegistry(), clustering=ClusteringConfig(dim=64,
+                                                        threshold=4.0)),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -97,7 +113,7 @@ def _cuda_looking(a):
 
 @pytest.mark.parametrize("kernel", ["topk_hamming", "encode_search",
                                     "topk_hamming_banded",
-                                    "encode_search_banded"])
+                                    "encode_search_banded", "hamming_pop"])
 def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR",
                         ROOT / "build" / "never_built_for_this_test")
@@ -115,7 +131,7 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     bands = (_cuda_looking(np.zeros(3, np.int32)),
              _cuda_looking(np.full(3, 20, np.int32)))
     kernels = (topk_hamming, encode_search, topk_hamming_banded,
-               encode_search_banded)
+               encode_search_banded, hamming_pop)
     before = [fn.launches for fn in kernels]
     with pytest.raises(RuntimeError, match="nvcc"):
         if kernel == "topk_hamming":
@@ -124,6 +140,8 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
             encode_search(*codebooks, rows, dim=64, k=2)
         elif kernel == "topk_hamming_banded":
             topk_hamming_banded(rows[:3], rows, *bands, dim=64, k=2)
+        elif kernel == "hamming_pop":
+            hamming_pop(rows[:3], rows, dim=64)
         else:
             encode_search_banded(*codebooks, rows, *bands, dim=64, k=2)
     assert [fn.launches for fn in kernels] == before
