@@ -18,9 +18,27 @@ exits non-zero and prints no result line:
    apart inside one 8-query block; for ``hamming_pop`` Q = R = 1, ragged
    Q and R, W = 1, 2, 3 and 64, rows off a 16-byte boundary, all-zero and
    all-ones words, q = r, and the served buckets 4 / 8 / 16 / 32 against
-   1,000 and 3,000 centroids). Tolerance: exact (integer indices, scores
-   and similarities).
-3. Serving at iPRG2012 scale: ``repro_torch.launch.serve_db.main`` four
+   1,000 and 3,000 centroids; for ``hd_encode`` ragged B, F and D,
+   all-absent rows, sign ties and levels past m - 1, at several launch
+   shapes; for ``imc_mvm`` integer and float weights, exact .5 points of
+   part / lsb, saturated codes, ragged Q, R and Dp, a 64-column array and
+   every compiled output tile). Tolerance: exact (integer indices, scores,
+   similarities and HVs; ``imc_mvm`` rounds every float32 step as its
+   plain version does).
+3. The autotuner: ``repro_torch.launch.tune.main`` in-process at the
+   served shapes (``tune/sweep.py``), into a temporary file. The six swept
+   kernels' launch counts are set to 0 just before and read just after; a
+   kernel never launched fails the run, as does a candidate whose result
+   differs from the default's, a worst tuned-vs-default ratio under 1.0,
+   or a table left active. Prints the measured ceilings beside the
+   published ones and each op's default and tuned microseconds. Then
+   ``hd_encode`` (B = 32, F = 1,024, D = 8,192) and ``imc_mvm`` (Q = 32
+   against 581,196 rows at Dp = 2,731, 6.35 GB of float32 weights) are
+   held against their plain versions at those shapes and timed beside
+   them, and ``imc_mvm`` beside one float32 ``torch.matmul`` (TF32 off)
+   over the same tile dot products without the ADC; the weights are
+   freed after.
+4. Serving at iPRG2012 scale (no tuning table active): ``repro_torch.launch.serve_db.main`` four
    times, ``--fused`` (the ``topk_hamming`` kernel), ``--fused-e2e``
    (``encode_search``), ``--oms --fused`` (``topk_hamming_banded``) and
    ``--oms --fused-e2e`` (``encode_search_banded``; the OMS runs at the
@@ -38,7 +56,7 @@ exits non-zero and prints no result line:
    each kernel is timed with CUDA events on that batch and bank (and, at
    each smaller served bucket, on evenly spaced rows of it) beside its
    plain version.
-4. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
+5. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
    tenants, each streaming one paper-average precursor bucket (10,624
    spectra = 1,328 identities x 8) at D = 2048, 1024 bins, 16 levels,
    threshold 0.36 D, max batch 32, consolidation every 2,048 spectra.
@@ -50,7 +68,7 @@ exits non-zero and prints no result line:
    ``hamming_pop`` is timed at the served shape (each bucket against the
    largest final centroid bank) beside its plain version, one served
    distance step and ``torch._int_mm`` on the unpacked operands.
-5. One bucket batch-wise: the kernel's pairwise distances over 10,624
+6. One bucket batch-wise: the kernel's pairwise distances over 10,624
    encoded spectra and complete linkage at 0.36 D must give the labels,
    merges and cluster count of the same pipeline over the plain distance
    function; prints the pairwise kernel's time, bound, plain and
@@ -81,11 +99,13 @@ QUERIES = 4096
 IPRG_QUERIES = 15_867
 DIM, K, MAX_BATCH = 8192, 4, 32
 
-# H100 SXM published peaks (dense, 700 W): 3.35 TB/s HBM3 and 1,979 TOP/s
-# int8 on the tensor cores. POPC issues 16 per clock per SM (a quarter of
-# the 64-wide integer pipe): the ceiling of the kernels' current design.
+# H100 SXM published peaks (dense, 700 W): 3.35 TB/s HBM3, 1,979 TOP/s
+# int8 on the tensor cores and 67 TFLOP/s float32 outside them. POPC
+# issues 16 per clock per SM (a quarter of the 64-wide integer pipe): the
+# ceiling of the search kernels' current design.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FP32_OPS_PER_S = 67e12
 POPC_PER_CLOCK_PER_SM = 16
 
 TPU_KERNELS = {
@@ -96,6 +116,8 @@ TPU_KERNELS = {
     "encode_search_banded":
         "src/repro/kernels/encode_search/encode_search.py:176",
     "hamming_pop": "src/repro/kernels/hamming_pop/hamming_pop.py:20",
+    "hd_encode": "src/repro/kernels/hd_encode/hd_encode.py:60",
+    "imc_mvm": "src/repro/kernels/imc_mvm/imc_mvm.py:24",
 }
 # iPRG2012's OMS candidate fraction (core/imc/energy.py DATASETS)
 IPRG_CANDIDATE_FRACTION = 0.025
@@ -200,6 +222,67 @@ HAMMING_EDGE_CASES = [
 ] + [(q, c, 64, "random") for q in (4, 8, 16, 32) for c in (1000, 3000)]
 
 
+# hd_encode cases: (B, F, D, m, layout, block_b, block_d): ragged B, F and
+# D, all-absent rows, sign ties (two present bins), levels past m - 1, and
+# several launch shapes
+HD_ENCODE_EDGE_CASES = [
+    (32, 1024, 8192, 16, "sparse", None, None),
+    (5, 37, 100, 8, "past_m", None, None),
+    (13, 300, 1000, 16, "sparse", 4, 256),
+    (9, 64, 96, 4, "absent", 2, 32),
+    (7, 2, 64, 4, "ties", 1, 8192),
+]
+
+# imc_mvm cases: (Q, R, Dp, weights, full_scale, tile_cols, block_q,
+# block_r): noisy packed levels, integer weights, exact .5 points of
+# part / lsb (lsb = 2), saturated codes, ragged Q, R and Dp, a 64-column
+# array, and every compiled tile size along each axis
+IMC_EDGE_CASES = [
+    (32, 4000, 2731, "noisy", 135.7645, 128, None, None),
+    (9, 70, 300, "integer", 135.76, 128, 8, 32),
+    (17, 300, 257, "integer", 62.0, 128, 16, 64),
+    (8, 129, 128, "saturate", 31.0, 128, 32, 128),
+    (40, 515, 1000, "normal", 128.0, 64, 64, 256),
+]
+
+
+def hd_encode_case(torch, np, B, F, D, m, layout):
+    """(levels, id_hvs, level_hvs) on the card for one hd_encode case."""
+    rng = np.random.default_rng(B * 1000 + F + D)
+    idh = rng.choice([-1, 1], size=(F, D)).astype(np.int8)
+    lvh = rng.choice([-1, 1], size=(m, D)).astype(np.int8)
+    lev = rng.integers(0, m, size=(B, F))
+    if layout == "sparse":
+        lev[:, rng.random(F) < 0.9] = 0
+    elif layout == "past_m":
+        lev[:, :5] = m + 2
+    elif layout == "absent":
+        lev[::2] = 0
+    elif layout == "ties":
+        lev = rng.integers(1, m, size=(B, F))
+    return (torch.from_numpy(lev.astype(np.int32)).cuda(),
+            torch.from_numpy(idh).cuda(), torch.from_numpy(lvh).cuda())
+
+
+def imc_case(torch, np, Q, R, Dp, kind):
+    """(queries, weights) float32 on the card for one imc_mvm case."""
+    rng = np.random.default_rng(Q * 1000 + R + Dp)
+    if kind in ("integer", "saturate"):
+        q = rng.integers(-4, 5, size=(Q, Dp)).astype(np.float32)
+        w = rng.integers(-3, 4, size=(R, Dp)).astype(np.float32)
+        if kind == "saturate":
+            w = np.sign(q[:1]) * 3 + 0 * w
+    elif kind == "noisy":
+        q = (2 * rng.binomial(3, 0.5, size=(Q, Dp)) - 3).astype(np.float32)
+        w = (2 * rng.binomial(3, 0.5, size=(R, Dp)) - 3) * (
+            1 + 0.1716 * rng.standard_normal((R, Dp)))
+    else:
+        q = rng.standard_normal((Q, Dp)) * 2
+        w = rng.standard_normal((R, Dp))
+    return (torch.from_numpy(np.ascontiguousarray(q, np.float32)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(w, np.float32)).cuda())
+
+
 def hamming_case(torch, Q, R, W, layout):
     """(q, r) int32 word operands on the card for one hamming_pop case."""
     g = torch.Generator().manual_seed(Q * 1000 + R + W)
@@ -227,6 +310,8 @@ def phase_kernels_vs_plain(torch, np):
         encode_search_plain,
     )
     from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
+    from repro_torch.kernels.hd_encode import hd_encode, hd_encode_plain
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
     from repro_torch.kernels.topk_hamming import (
         topk_hamming,
         topk_hamming_banded,
@@ -298,12 +383,189 @@ def phase_kernels_vs_plain(torch, np):
         mismatches["hamming_pop"] += int(
             (hamming_pop(q, r, dim=32 * W)
              != hamming_pop_plain(q, r, dim=32 * W)).sum())
+    for B, F, D, m, layout, bb, bd in HD_ENCODE_EDGE_CASES:
+        lev, idh, lvh = hd_encode_case(torch, np, B, F, D, m, layout)
+        mismatches["hd_encode"] += int(
+            (hd_encode(lev, idh, lvh, block_b=bb, block_d=bd)
+             != hd_encode_plain(lev, idh, lvh)).sum())
+    for Q, R, Dp, kind, fs, tc, bq, br in IMC_EDGE_CASES:
+        q, w = imc_case(torch, np, Q, R, Dp, kind)
+        mismatches["imc_mvm"] += int(
+            (imc_mvm(q, w, full_scale=fs, tile_cols=tc, block_q=bq,
+                     block_r=br)
+             != imc_mvm_plain(q, w, full_scale=fs, tile_cols=tc)).sum())
     torch.cuda.synchronize()
     print(f"kernels vs plain: {len(EDGE_CASES)} exact, "
-          f"{len(BANDED_EDGE_CASES)} banded and {len(HAMMING_EDGE_CASES)} "
-          f"hamming_pop cases, mismatches {json.dumps(mismatches)}")
+          f"{len(BANDED_EDGE_CASES)} banded, {len(HAMMING_EDGE_CASES)} "
+          f"hamming_pop, {len(HD_ENCODE_EDGE_CASES)} hd_encode and "
+          f"{len(IMC_EDGE_CASES)} imc_mvm cases, mismatches "
+          f"{json.dumps(mismatches)}")
     check(not any(mismatches.values()), "kernel disagrees with its plain "
                                          "version")
+
+
+def phase_tune(torch, np):
+    """The autotuner at the served shapes, then ``hd_encode`` and
+    ``imc_mvm`` timed at the sweep's shapes; returns their kernel entries."""
+    import gc
+    import os
+    import tempfile
+
+    import torch.nn.functional as nnf
+
+    from repro_torch.kernels.encode_search import (
+        encode_search,
+        encode_search_banded,
+    )
+    from repro_torch.kernels.hd_encode import hd_encode, hd_encode_plain
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.kernels.topk_hamming import (
+        topk_hamming,
+        topk_hamming_banded,
+    )
+    from repro_torch.launch import roofline, tune
+    from repro_torch.tune import sweep
+    from repro_torch.tune import table as tune_table
+
+    swept = {"topk_hamming": topk_hamming,
+             "topk_hamming_banded": topk_hamming_banded,
+             "encode_search": encode_search,
+             "encode_search_banded": encode_search_banded,
+             "hd_encode": hd_encode, "imc_mvm": imc_mvm}
+    check(tuple(swept) == sweep.OPS, "chip_smoke's swept kernels are not "
+                                      "the sweep's ops")
+    tune_table.reset()
+    for fn in swept.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "table.json")
+        t0 = time.perf_counter()
+        table = tune.main(["--out", out, "--iters", "3"])
+        wall = time.perf_counter() - t0
+        launches = {op: fn.launches for op, fn in swept.items()}
+        loaded = tune_table.load_table(out)
+    ratio = sweep.tuned_vs_default_ratio(table)
+    ops = {}
+    rejected = 0
+    for op, buckets in table.ops.items():
+        for bucket, e in buckets.items():
+            rejected += sum("rejected" in c for c in e["candidates"])
+            ops[op] = {"bucket": bucket, "default_us": e["default_us"],
+                       "tuned_us": e["us"], "blocks": e["blocks"],
+                       "candidates": len(e["candidates"])}
+    ceil = table.ceilings
+    print(json.dumps({
+        "path": "tune", "wall_s": wall, "device_kind": table.device_kind,
+        "ceilings": {"peak_flops": ceil["peak_flops"],
+                     "hbm_bw": ceil["hbm_bw"], "matmul": ceil["matmul"]},
+        "published": {"peak_flops_bf16": roofline.PEAK_FLOPS,
+                      "peak_flops_fp32": FP32_OPS_PER_S,
+                      "hbm_bw": roofline.HBM_BW},
+        "ops": ops, "launches": launches, "rejected_candidates": rejected,
+        "worst_tuned_vs_default": ratio}))
+    check(all(launches[op] > 0 for op in swept),
+          f"a swept kernel was never launched on the tune path: {launches}")
+    check(loaded is not None and set(loaded.ops) == set(swept)
+          and loaded.device_kind == torch.cuda.get_device_name(0),
+          "the written table does not load back whole")
+    check(rejected == 0, "a sweep candidate differs from the default's "
+                         "result")
+    check(ratio >= 1.0, f"worst tuned-vs-default ratio {ratio} < 1.0")
+    # the serving phases run on the fixed rules
+    check(tune_table.active_table() is None
+          and not os.environ.get(tune_table.ENV_VAR),
+          "a tuning table is active after the sweep")
+
+    entries = []
+    lev, idh, lvh, words = sweep.encoder_operands(False, "cuda")
+    B, F = lev.shape
+    D = idh.shape[1]
+    got = hd_encode(lev, idh, lvh, codebook_words=words)
+    want = hd_encode_plain(lev, idh, lvh)
+    mism = int((got != want).sum())
+    check(mism == 0, "hd_encode differs from its plain version at the "
+                     "sweep's shape")
+    ms = time_ms(torch, lambda: hd_encode(lev, idh, lvh,
+                                          codebook_words=words),
+                 iters=200, warmup=5)
+    plain_ms = time_ms(torch, lambda: hd_encode_plain(lev, idh, lvh),
+                       iters=2, warmup=1)
+    n_present = int((lev > 0).sum())
+    b_ms, b_by = bound_ms(2 * n_present * D,
+                          lev.numel() * 4 + sum(w.numel() * 4 for w in words)
+                          + B * D)
+    print(f"tune: hd_encode at B={B}, F={F}, D={D} ({n_present} present "
+          f"bins): {ms:.4f} ms per launch (200 back to back), plain "
+          f"{plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}); kernel vs "
+          f"plain: {mism} mismatches; no single PyTorch call computes Eq. 1 "
+          f"with its sign; sm clock, power, limit: "
+          f"{nvidia_smi('clocks.sm,power.draw,power.limit')}")
+    entries.append({
+        "name": "hd_encode", "route": "cuda",
+        "source": "src/repro_torch/csrc/hd_encode.cu",
+        "replaces": TPU_KERNELS["hd_encode"],
+        "launches": launches["hd_encode"], "mismatches": mism,
+        "max_abs_err": int((got.to(torch.int32) - want.to(torch.int32))
+                           .abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": f"B={B}, F={F}, D={D} (tune sweep)"})
+    del lev, idh, lvh, words, got, want
+
+    qf, wf, fs = sweep.imc_operands(False, "cuda")
+    Q, Dp = qf.shape
+    R = wf.shape[0]
+    got = imc_mvm(qf, wf, full_scale=fs)
+    t0 = time.perf_counter()
+    want = imc_mvm_plain(qf, wf, full_scale=fs)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    mism = int((got != want).sum())
+    max_abs_err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "imc_mvm gave non-finite scores")
+    check(mism == 0, "imc_mvm differs from its plain version at the sweep's "
+                     "shape")
+    del want
+    ms = time_ms(torch, lambda: imc_mvm(qf, wf, full_scale=fs), iters=10,
+                 warmup=2)
+    # the yardstick: the same tile dot products as one float32 batched
+    # matmul (TF32 off), no DAC or ADC; its layouts made beforehand
+    T = -(-Dp // 128)
+    pad = T * 128 - Dp
+    q3 = nnf.pad(qf.round().clamp(-3, 3), (0, pad)).view(Q, T, 128)
+    q3 = q3.transpose(0, 1).contiguous()
+    w3 = nnf.pad(wf, (0, pad)).view(R, T, 128).permute(1, 2, 0).contiguous()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_ms = time_ms(torch, lambda: torch.matmul(q3, w3), iters=10,
+                         warmup=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    del q3, w3
+    b_ms, b_by = bound_ms(2 * Q * R * Dp, (Q + R) * Dp * 4 + Q * R * 4,
+                          FP32_OPS_PER_S)
+    print(f"tune: imc_mvm at Q={Q}, R={R}, Dp={Dp} ({wf.numel() * 4 / 1e9:.3f}"
+          f" GB of weights): {ms:.4f} ms, plain {plain_ms:.1f} ms (one "
+          f"call), float32 torch.matmul over the same tile dot products "
+          f"(TF32 off, no ADC) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{2 * Q * R * Dp:.4g} float32 ops at {FP32_OPS_PER_S:.3g}/s, "
+          f"{(Q + R) * Dp * 4 + Q * R * 4:.4g} B); kernel vs plain: {mism} "
+          f"mismatches; sm clock, power, limit: "
+          f"{nvidia_smi('clocks.sm,power.draw,power.limit')}")
+    entries.append({
+        "name": "imc_mvm", "route": "cuda",
+        "source": "src/repro_torch/csrc/imc_mvm.cu",
+        "replaces": TPU_KERNELS["imc_mvm"], "launches": launches["imc_mvm"],
+        "mismatches": mism, "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+        "library": f"float32 torch.matmul ({T}, {Q}, 128) x ({T}, 128, "
+                   f"{R}), TF32 off, no ADC",
+        "shape": f"Q={Q}, R={R}, Dp={Dp} (tune sweep)"})
+    del qf, wf, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries
 
 
 def recording_executor(rows: int):
@@ -339,11 +601,13 @@ def time_ms(torch, fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+def bound_ms(ops: float, nbytes: float, ops_per_s: float = INT8_OPS_PER_S
+             ) -> tuple[float, str]:
     """The least time the card could take, in ms: the larger of ``ops``
-    at the int8 tensor-core peak and ``nbytes`` at HBM bandwidth. The
-    score is a +-1 dot product, which int8 tensor cores compute exactly."""
-    t_ops = ops / INT8_OPS_PER_S
+    at ``ops_per_s`` (by default the int8 tensor-core peak: the search
+    score and Eq. 1 are +-1 products, which int8 tensor cores compute
+    exactly) and ``nbytes`` at HBM bandwidth."""
+    t_ops = ops / ops_per_s
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -853,6 +1117,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build(_build)
     phase_kernels_vs_plain(torch, np)
+    tuned = phase_tune(torch, np)
     print(f"reduced: queries {QUERIES} per run of iPRG2012's {IPRG_QUERIES} "
           f"(time limit); bank rows {2 * IDENTITIES * REPLICATES} (full), "
           f"D={DIM}; the OMS window (-20, +200) over synthetic precursors "
@@ -866,6 +1131,7 @@ def main() -> int:
     entry = phase_serve_cluster(torch, np)
     phase_bucket(torch, np, entry)
     kernels.append(entry)
+    kernels += tuned
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -57,8 +57,8 @@ __global__ void __launch_bounds__(hd::kThreads)
   __syncthreads();
   // the bank tile is free until the scan starts: it holds the compacted
   // present-feature list meanwhile
-  hd::encode_block<MODE>(levels, q0, nq, BQ, F, m, id_words, lv_words, wc, D,
-                         qs, qstride, reinterpret_cast<int2*>(rt),
+  hd::encode_block<MODE>(levels, q0, nq, BQ, F, m, id_words, lv_words, wc,
+                         wc, D, qs, qstride, reinterpret_cast<int2*>(rt),
                          hd::kTileWords / 2, counter);
   __syncthreads();
 
@@ -101,7 +101,7 @@ __global__ void __launch_bounds__(hd::kThreads)
       hd::split_window(hd::band_window(band, nq), blockIdx.y, splits);
   if (rows.x < rows.y) {  // block-uniform: a block with no rows skips the encode
     hd::encode_block<MODE>(levels, q0, nq, BQ, F, m, id_words, lv_words, wc,
-                           D, qs, qstride, reinterpret_cast<int2*>(rt),
+                           wc, D, qs, qstride, reinterpret_cast<int2*>(rt),
                            hd::kTileWords / 2, counter);
     __syncthreads();
     hd::scan_rows<MODE, 1>(qs, qstride, nq, r, row_bytes, wpr, rows.x, rows.y,

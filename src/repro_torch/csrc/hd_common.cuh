@@ -386,9 +386,12 @@ __device__ __forceinline__ uint32_t sliced_greater(
 // Eq. 1 for the block's BQ queries (rows q0 .. q0 + nq - 1 of levels), into
 // qs: packed words (MODE kPacked) or int8 +-1 lanes, 4 dims a word (kInt8).
 //
-// id_words (F, wc) and lv_words (m, wc) are the bit-packed codebooks
-// (+1 -> bit 1; pad bits 0). The product LV[l, d] * ID[f, d] is +1 exactly
-// when the two bits agree, so over the n present features of a query
+// id_words (F, .) and lv_words (m, .) are the bit-packed codebooks
+// (+1 -> bit 1; pad bits 0), rows cb_stride words apart; words [0, wc) of
+// each row are encoded, into dims [0, D) (a caller encoding a slice of the
+// dims passes pointers offset to its first word). The product
+// LV[l, d] * ID[f, d] is +1 exactly when the two bits agree, so over the
+// n present features of a query
 //   acc[d] = 2 * agree[d] - n,   and   acc[d] > 0  <=>  agree[d] > n / 2.
 // agree[d] is counted exactly for 32 dims at once in bit-sliced counters;
 // levels past m - 1 read LV[m - 1]. The present-feature list is compacted
@@ -399,8 +402,8 @@ __device__ void encode_block(const int* __restrict__ levels, int q0, int nq,
                              int bq, int F, int m,
                              const uint32_t* __restrict__ id_words,
                              const uint32_t* __restrict__ lv_words, int wc,
-                             int D, uint32_t* qs, int qstride, int2* scratch,
-                             int cap, int* counter) {
+                             int cb_stride, int D, uint32_t* qs, int qstride,
+                             int2* scratch, int cap, int* counter) {
   for (int qi = 0; qi < bq; ++qi) {
     if (qi >= nq) break;  // block-uniform
     const int* lrow = levels + static_cast<size_t>(q0 + qi) * F;
@@ -424,8 +427,8 @@ __device__ void encode_block(const int* __restrict__ levels, int q0, int nq,
         if (w < wc) {
           for (int e = 0; e < n; ++e) {
             const int2 fl = scratch[e];
-            sliced_add(planes, ~(__ldg(id_words + static_cast<size_t>(fl.x) * wc + w) ^
-                                 __ldg(lv_words + static_cast<size_t>(fl.y) * wc + w)));
+            sliced_add(planes, ~(__ldg(id_words + static_cast<size_t>(fl.x) * cb_stride + w) ^
+                                 __ldg(lv_words + static_cast<size_t>(fl.y) * cb_stride + w)));
           }
         }
         __syncthreads();  // scratch is rewritten by the next feature chunk

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("topk_hamming", "encode_search", "hamming_pop")
+KERNELS = ("topk_hamming", "encode_search", "hamming_pop", "hd_encode",
+           "imc_mvm")
 
 
 def find_nvcc() -> str:

@@ -12,8 +12,12 @@ the design. The kernels read the codebooks bit-packed
 and :func:`encode_search_banded_plain` are also the counterparts of the
 reference's staged ``ref.py`` oracles.
 
-Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
-kernels or raise. Nothing falls back.
+Launch knobs (``block_q``, ``waves``) resolve as ``topk_hamming``'s do
+(``kernels.block_utils``); the banded kernel has ``waves`` only.
+
+Dispatch: CPU tensors take the plain versions (explicit knobs are checked,
+then ignored); CUDA tensors launch the kernels or raise. Nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as nnf
 from repro_torch.core.hd.encoding import encode_levels_batch
 from repro_torch.core.hd.similarity import bitpack_bipolar
 from repro_torch.kernels import _build
+from repro_torch.kernels.block_utils import check_overrides, resolve_blocks
 from repro_torch.kernels.topk_hamming.ops import (
     banded_splits,
     canonicalize_overflow_slots,
@@ -34,9 +39,9 @@ from repro_torch.kernels.topk_hamming.ops import (
     check_merge_fits,
     check_status,
     clip_bands,
-    pick_block_q,
+    plan_scan,
+    sm_count,
     smem_limit,
-    split_rows,
     topk_hamming_banded_plain,
     topk_hamming_plain,
     words_per_row,
@@ -140,17 +145,22 @@ def encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
                   level_hvs: torch.Tensor, r: torch.Tensor, *, dim: int,
                   k: int, num_valid: int | None = None,
                   codebook_words: tuple[torch.Tensor, torch.Tensor] | None
-                  = None) -> tuple[torch.Tensor, torch.Tensor]:
+                  = None, block_q: int | None = None,
+                  waves: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused query pipeline: raw (Q, F) levels -> (idx (Q, k), vals (Q, k))
     int32, bit-identical to :func:`encode_search_plain` (tie order and
     ``num_valid`` masking included). ``r`` is a packed (R, D/32) int32
     bank or an int8 (R, D) bank.
 
     codebook_words: ``(pack_codebook(id_hvs), pack_codebook(level_hvs))``
-    when the caller holds them; packed here otherwise. CPU tensors run
-    the plain version; CUDA tensors launch ``csrc/encode_search.cu``
-    (counted in ``encode_search.launches``) or raise."""
+    when the caller holds them; packed here otherwise. block_q / waves:
+    launch knobs, as for ``topk_hamming``. CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/encode_search.cu`` (counted in
+    ``encode_search.launches``) or raise."""
+    knobs = {"block_q": block_q, "waves": waves}
     if not levels.is_cuda and levels.device.type == "cpu":
+        check_overrides("encode_search", knobs)
         return encode_search_plain(levels, id_hvs, level_hvs, r, dim=dim,
                                    k=k, num_valid=num_valid)
     packed, id_words, lv_words = _check_kernel_operands(
@@ -159,6 +169,7 @@ def encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
     F, D = id_hvs.shape
     wc = id_words.shape[1]
     Q, R = levels.shape[0], r.shape[0]
+    cfg = resolve_blocks("encode_search", (Q, R, F), knobs, levels.device)
     vals = torch.empty((Q, k), dtype=torch.int32, device=levels.device)
     idx = torch.empty_like(vals)
     if Q == 0:
@@ -166,9 +177,10 @@ def encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
     row_bytes = r.shape[1] * r.element_size()
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    bq = pick_block_q(Q, qstride, k, 4, smem_limit(levels.device))
+    bq, rows_per_split, splits = plan_scan(
+        Q, R, qstride, k, 4, smem_limit(levels.device),
+        sm_count(levels.device), cfg["block_q"], cfg["waves"])
     check_merge_fits(k, levels.device)
-    rows_per_split, splits = split_rows(Q, R, bq, levels.device)
     cand_v = torch.empty((Q, splits, k), dtype=torch.int32,
                          device=levels.device)
     cand_i = torch.empty_like(cand_v)
@@ -217,17 +229,20 @@ def encode_search_banded(levels: torch.Tensor, id_hvs: torch.Tensor,
                          num_tiles: int | None = None,
                          canonicalize: bool = True,
                          codebook_words: tuple[torch.Tensor, torch.Tensor]
-                         | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                         | None = None, waves: int | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Banded fused query pipeline: raw (Q, F) levels, each spectrum
     scoring only the bank rows of its bands. Same contract as
     ``topk_hamming_banded`` (bands, clipping, ``num_tiles``,
-    ``canonicalize``) with the encode fused in, and bit-identical to
-    :func:`encode_search_banded_plain` in the same way.
+    ``canonicalize``, ``waves``) with the encode fused in, and
+    bit-identical to :func:`encode_search_banded_plain` in the same way.
 
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/encode_search.cu`` (counted in
     ``encode_search_banded.launches``) or raise."""
+    knobs = {"waves": waves}
     if not levels.is_cuda and levels.device.type == "cpu":
+        check_overrides("encode_search_banded", knobs)
         return encode_search_banded_plain(levels, id_hvs, level_hvs, r,
                                           starts, lens, dim=dim, k=k,
                                           num_valid=num_valid)
@@ -239,6 +254,8 @@ def encode_search_banded(levels: torch.Tensor, id_hvs: torch.Tensor,
     Q, R = levels.shape[0], r.shape[0]
     nv = R if num_valid is None else min(int(num_valid), R)
     s, e = clip_bands(starts, lens, nv, Q, levels.device)
+    cfg = resolve_blocks("encode_search_banded", (Q, R, F), knobs,
+                         levels.device)
     vals = torch.empty((Q, k), dtype=torch.int32, device=levels.device)
     idx = torch.empty_like(vals)
     if Q == 0:
@@ -249,7 +266,8 @@ def encode_search_banded(levels: torch.Tensor, id_hvs: torch.Tensor,
     check_banded_fits(qstride, k, 4, levels.device)
     check_merge_fits(k, levels.device)
     bands = s.shape[0]
-    splits = banded_splits(Q, R, bands, num_tiles, levels.device)
+    splits = banded_splits(Q, R, bands, num_tiles, sm_count(levels.device),
+                           cfg["waves"])
     cand_v = torch.empty((Q, bands * splits, k), dtype=torch.int32,
                          device=levels.device)
     cand_i = torch.empty_like(cand_v)

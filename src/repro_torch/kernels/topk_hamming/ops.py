@@ -11,7 +11,14 @@ the design. :func:`topk_hamming_plain` and
 reference's ``ref.py`` oracles; :func:`canonicalize_overflow_slots` is
 the reference's function of that name.
 
-Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
+Launch shape: the query block (``block_q``) and the split count (``waves``,
+target blocks per SM) resolve through ``kernels.block_utils``: an explicit
+argument, else the active tuning table, else the fixed rules
+(:func:`pick_block_q`, 4 blocks per SM). They change the time, never the
+result.
+
+Dispatch: CPU tensors take the plain versions (explicit knobs are checked,
+then ignored: the plain versions have no blocks); CUDA tensors launch the
 kernels or raise. Nothing falls back.
 """
 
@@ -28,6 +35,11 @@ from repro_torch.core.hd.similarity import (
     topk_value_desc_index_asc,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels.block_utils import (
+    AUTO,
+    check_overrides,
+    resolve_blocks,
+)
 
 TILE_ROWS = 128          # bank rows per tile (hd_common.cuh kTileRows)
 BANDED_BLOCK_Q = 8       # queries per block of the banded kernels, and the
@@ -36,7 +48,6 @@ BANDED_BLOCK_Q = 8       # queries per block of the banded kernels, and the
                          # adjacent queries keep a block's window narrow
 TILE_WORDS = 128 * 36    # shared words of the staged tile (kTileWords)
 BLOCK_Q_CHOICES = (8, 16, 32)
-WAVES = 4                # target blocks per SM for the split count
 MERGE_WARPS = 8          # queries per merge block (hd_common.cuh kWarps)
 
 
@@ -96,6 +107,16 @@ def smem_limit(device: torch.device) -> int:
                    "shared_memory_per_block_optin", 232448)
 
 
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def block_smem(bq: int, qstride: int, k: int, extra_words: int) -> int:
+    """Shared bytes of a ``bq``-query block: its resident words, the bank
+    tile and the top-k lists."""
+    return 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + extra_words)
+
+
 def pick_block_q(Q: int, qstride: int, k: int, extra_words: int,
                  limit: int) -> int:
     """The query block (8, 16 or 32 queries) for a batch of ``Q``: the
@@ -105,8 +126,7 @@ def pick_block_q(Q: int, qstride: int, k: int, extra_words: int,
     it holds a query, so a block wider than ``Q`` wastes scan work.
     Raises where no block fits."""
     fits = [bq for bq in BLOCK_Q_CHOICES
-            if 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + extra_words)
-            <= limit]
+            if block_smem(bq, qstride, k, extra_words) <= limit]
     if not fits:
         raise ValueError(
             f"no query block fits {limit} B of shared memory at row stride "
@@ -114,15 +134,32 @@ def pick_block_q(Q: int, qstride: int, k: int, extra_words: int,
     return next((bq for bq in fits if bq >= Q), fits[-1])
 
 
-def split_rows(Q: int, R: int, bq: int, device: torch.device
+def split_rows(Q: int, R: int, bq: int, sms: int, waves: int
                ) -> tuple[int, int]:
     """(rows per split, splits): enough bank splits that the grid holds
-    about ``WAVES`` blocks per SM, each split a whole number of tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    about ``waves`` blocks per SM, each split a whole number of tiles."""
     tiles = -(-R // TILE_ROWS)
-    want = max(1, -(-WAVES * sms // -(-Q // bq)))
+    want = max(1, -(-waves * sms // -(-Q // bq)))
     rows = -(-tiles // min(want, tiles)) * TILE_ROWS
     return rows, -(-R // rows)
+
+
+def plan_scan(Q: int, R: int, qstride: int, k: int, extra_words: int,
+              limit: int, sms: int, block_q: int, waves: int
+              ) -> tuple[int, int, int]:
+    """(query block, rows per split, splits) of one exact launch.
+    ``block_q`` 0 picks the block by the batch (:func:`pick_block_q`); an
+    explicit block whose shared memory exceeds ``limit`` raises."""
+    if block_q == AUTO:
+        bq = pick_block_q(Q, qstride, k, extra_words, limit)
+    else:
+        bq = block_q
+        need = block_smem(bq, qstride, k, extra_words)
+        if need > limit:
+            raise ValueError(f"block_q={bq} needs {need} B of shared memory "
+                             f"at row stride {qstride} words and k={k}; the "
+                             f"card allows {limit}")
+    return (bq, *split_rows(Q, R, bq, sms, waves))
 
 
 def check_merge_fits(k: int, device: torch.device) -> None:
@@ -155,17 +192,23 @@ def _launcher():
 
 
 def topk_hamming(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
-                 num_valid: int | None = None
+                 num_valid: int | None = None, block_q: int | None = None,
+                 waves: int | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streaming top-k: (Q, W) x (R, W) int32 words (or (Q, D) x (R, D)
     int8) -> (idx (Q, k), vals (Q, k)) int32, ordered (score desc, row
     asc) as ``lax.top_k`` orders them. Rows at or past ``num_valid`` score
     ``INT32_MIN`` and stay candidates.
 
+    block_q / waves: launch knobs (``kernels.block_utils``); None
+    resolves through the tuning table to the fixed rules.
+
     CPU tensors run :func:`topk_hamming_plain`; CUDA tensors launch
     ``csrc/topk_hamming.cu`` on the current stream (counted in
     ``topk_hamming.launches``) or raise."""
+    knobs = {"block_q": block_q, "waves": waves}
     if not q.is_cuda and q.device.type == "cpu":
+        check_overrides("topk_hamming", knobs)
         return topk_hamming_plain(q, r, dim=dim, k=k, num_valid=num_valid)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
@@ -174,6 +217,7 @@ def topk_hamming(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
         raise ValueError("topk_hamming needs contiguous operands")
     launch = _launcher()
     Q, R = q.shape[0], r.shape[0]
+    cfg = resolve_blocks("topk_hamming", (Q, R, q.shape[1]), knobs, q.device)
     vals = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     idx = torch.empty_like(vals)
     if Q == 0:
@@ -182,9 +226,10 @@ def topk_hamming(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
     check_aligned(q, row_bytes)
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    bq = pick_block_q(Q, qstride, k, 0, smem_limit(q.device))
+    bq, rows_per_split, splits = plan_scan(
+        Q, R, qstride, k, 0, smem_limit(q.device), sm_count(q.device),
+        cfg["block_q"], cfg["waves"])
     check_merge_fits(k, q.device)
-    rows_per_split, splits = split_rows(Q, R, bq, q.device)
     cand_v = torch.empty((Q, splits, k), dtype=torch.int32, device=q.device)
     cand_i = torch.empty_like(cand_v)
     with torch.cuda.device(q.device):  # the launch targets the current device
@@ -301,16 +346,15 @@ def check_banded_fits(qstride: int, k: int, extra_words: int,
 
 
 def banded_splits(Q: int, R: int, bands: int, num_tiles: int | None,
-                  device: torch.device) -> int:
+                  sms: int, waves: int) -> int:
     """Splits of each (query block, band) scan window: enough that the
-    grid holds about ``WAVES`` blocks per SM, and no more than the tile
+    grid holds about ``waves`` blocks per SM, and no more than the tile
     budget ``num_tiles`` (the whole bank's tiles when None), so a window
     of that budget gives every split at least one tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-R // TILE_ROWS)
     budget = tiles if num_tiles is None else max(1, min(int(num_tiles), tiles))
     blocks = -(-Q // BANDED_BLOCK_Q) * bands
-    return max(1, min(-(-WAVES * sms // blocks), budget))
+    return max(1, min(-(-waves * sms // blocks), budget))
 
 
 def _banded_launcher():
@@ -324,7 +368,7 @@ def _banded_launcher():
 def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
                         dim: int, k: int, num_valid: int | None = None,
                         num_tiles: int | None = None,
-                        canonicalize: bool = True
+                        canonicalize: bool = True, waves: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Banded streaming top-k: each query scores only the bank rows in its
     bands ``[starts[b, q], starts[b, q] + lens[b, q])`` below
@@ -343,10 +387,15 @@ def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
     Each block derives its scan window on the device from its own
     queries' bands, so no band row is skipped whatever the budget.
 
+    waves: the launch knob (``kernels.block_utils``); None resolves
+    through the tuning table to 4 blocks per SM.
+
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/topk_hamming.cu`` (counted in ``topk_hamming_banded.launches``)
     or raise."""
+    knobs = {"waves": waves}
     if not q.is_cuda and q.device.type == "cpu":
+        check_overrides("topk_hamming_banded", knobs)
         return topk_hamming_banded_plain(q, r, starts, lens, dim=dim, k=k,
                                          num_valid=num_valid)
     if not q.is_cuda:
@@ -357,6 +406,8 @@ def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
     launch = _banded_launcher()
     Q, R = q.shape[0], r.shape[0]
     s, e = clip_bands(starts, lens, _num_valid(num_valid, R), Q, q.device)
+    cfg = resolve_blocks("topk_hamming_banded", (Q, R, q.shape[1]), knobs,
+                         q.device)
     vals = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     idx = torch.empty_like(vals)
     if Q == 0:
@@ -368,7 +419,8 @@ def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
     check_banded_fits(qstride, k, 0, q.device)
     check_merge_fits(k, q.device)
     bands = s.shape[0]
-    splits = banded_splits(Q, R, bands, num_tiles, q.device)
+    splits = banded_splits(Q, R, bands, num_tiles, sm_count(q.device),
+                           cfg["waves"])
     cand_v = torch.empty((Q, bands * splits, k), dtype=torch.int32,
                          device=q.device)
     cand_i = torch.empty_like(cand_v)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (exact and banded top-k, and the full Hamming
-similarity of clustering) against their plain PyTorch versions, and the
-clustering path around the latter, on the card.
+"""The port's CUDA kernels (exact and banded top-k, the full Hamming
+similarity of clustering, the Eq. 1 encoder and the analog PCM MVM)
+against their plain PyTorch versions, the clustering path around the
+Hamming kernel, and the tuner's launch knobs, on the card.
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import). Run on a machine
@@ -8,9 +9,10 @@ with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance: exact. Indices, scores, similarities and labels are
+Tolerance: exact. Indices, scores, similarities, HVs and labels are
 integers, distances integers or halves, and the order (score desc, row
-asc) is total.
+asc) is total; ``imc_mvm`` and its plain version round every float32
+step alike, so they agree bit for bit too.
 """
 
 import numpy as np
@@ -37,7 +39,11 @@ from repro_torch.kernels.topk_hamming import (
     topk_hamming_plain,
 )
 
+from repro_torch.kernels.hd_encode import hd_encode, hd_encode_plain
+from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
 from repro_torch.serve import ClusteringConfig, StreamingClusterer
+from repro_torch.tune import sweep as tune_sweep
+from repro_torch.tune import table as tune_table
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers
@@ -282,3 +288,127 @@ def test_streaming_clusterer_on_the_card_matches_its_plain_replay(cuda):
         out.append(([(a.cluster_id, a.spawned, a.distance) for a in got],
                     cl.summary()))
     assert out[0] == out[1]
+
+
+# (B, F, D, m, layout, block_b, block_d): ragged B, F and D, all-absent
+# rows, sign ties, levels past m - 1, and several launch shapes
+HD_ENCODE_CASES = [
+    (32, 1024, 8192, 16, "sparse", None, None),
+    (5, 37, 100, 8, "past_m", None, None),
+    (13, 300, 1000, 16, "sparse", 4, 256),
+    (9, 64, 96, 4, "absent", 2, 32),
+    (7, 2, 64, 4, "ties", 1, 8192),
+    (33, 128, 8192, 16, "sparse", 3, 1024),
+]
+
+
+def _hd_operands(rng, B, F, D, m, layout):
+    idh = rng.choice([-1, 1], size=(F, D)).astype(np.int8)
+    lvh = rng.choice([-1, 1], size=(m, D)).astype(np.int8)
+    lev = rng.integers(0, m, size=(B, F))
+    if layout == "sparse":
+        lev[:, rng.random(F) < 0.9] = 0
+    elif layout == "past_m":
+        lev[:, :5] = m + 2
+    elif layout == "absent":
+        lev[::2] = 0
+    elif layout == "ties":           # two present bins: acc in {-2, 0, 2}
+        lev = rng.integers(1, m, size=(B, F))
+    return (torch.from_numpy(lev.astype(np.int32)), torch.from_numpy(idh),
+            torch.from_numpy(lvh))
+
+
+@pytest.mark.parametrize("B,F,D,m,layout,bb,bd", HD_ENCODE_CASES)
+def test_hd_encode_kernel_matches_plain(cuda, B, F, D, m, layout, bb, bd):
+    rng = np.random.default_rng(B * 1000 + F + D)
+    lev, idh, lvh = (t.to(cuda) for t in _hd_operands(rng, B, F, D, m,
+                                                       layout))
+    before = hd_encode.launches
+    got = hd_encode(lev, idh, lvh, block_b=bb, block_d=bd)
+    want = hd_encode_plain(lev, idh, lvh)
+    torch.cuda.synchronize()
+    assert hd_encode.launches == before + 1
+    assert torch.equal(got, want)
+    if layout == "absent":
+        assert bool((got[::2] == -1).all())
+
+
+# (Q, R, Dp, weights, full_scale, tile_cols, block_q, block_r): integer
+# and float weights, exact .5 points of part / lsb (lsb = 2), saturation,
+# ragged Q, R and Dp, another array width, and every compiled tile shape
+IMC_CASES = [
+    (32, 4000, 2731, "noisy", 135.7645, 128, None, None),
+    (9, 70, 300, "integer", 135.76, 128, 8, 32),
+    (17, 300, 257, "integer", 62.0, 128, 16, 64),       # .5 points
+    (8, 129, 128, "saturate", 31.0, 128, 32, 128),
+    (40, 515, 1000, "normal", 128.0, 64, 64, 256),
+    (3, 33, 5, "normal", 10.0, 128, 32, 32),
+]
+
+
+def _imc_operands(rng, Q, R, Dp, kind):
+    if kind in ("integer", "saturate"):
+        q = rng.integers(-4, 5, size=(Q, Dp)).astype(np.float32)
+        w = rng.integers(-3, 4, size=(R, Dp)).astype(np.float32)
+        if kind == "saturate":
+            w = np.sign(q[:1]) * 3 + 0 * w
+    elif kind == "noisy":
+        q = (2 * rng.binomial(3, 0.5, size=(Q, Dp)) - 3).astype(np.float32)
+        w = (2 * rng.binomial(3, 0.5, size=(R, Dp)) - 3) * (
+            1 + 0.1716 * rng.standard_normal((R, Dp)))
+    else:
+        q = rng.standard_normal((Q, Dp)) * 2
+        w = rng.standard_normal((R, Dp))
+    return (torch.from_numpy(np.ascontiguousarray(q, np.float32)),
+            torch.from_numpy(np.ascontiguousarray(w, np.float32)))
+
+
+@pytest.mark.parametrize("Q,R,Dp,kind,fs,tc,bq,br", IMC_CASES)
+def test_imc_mvm_kernel_matches_plain(cuda, Q, R, Dp, kind, fs, tc, bq, br):
+    rng = np.random.default_rng(Q * 1000 + R + Dp)
+    q, w = (t.to(cuda) for t in _imc_operands(rng, Q, R, Dp, kind))
+    before = imc_mvm.launches
+    got = imc_mvm(q, w, full_scale=fs, tile_cols=tc, block_q=bq,
+                  block_r=br)
+    want = imc_mvm_plain(q, w, full_scale=fs, tile_cols=tc)
+    torch.cuda.synchronize()
+    assert imc_mvm.launches == before + 1
+    assert torch.equal(got, want)
+    if kind == "saturate":   # every tile's code sits at +-31
+        assert float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("op", tune_sweep.OPS)
+def test_every_quick_candidate_is_bit_identical_to_the_default(cuda, op):
+    shape, run = tune_sweep._workload(op, True, cuda)
+    want = run(tune_sweep.DEFAULTS[op])
+    for cand in tune_sweep._candidates(op, True):
+        assert tune_sweep._same_result(want, run(cand)), cand
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_served_fused_batch_is_the_same_with_a_table_active(cuda, shards):
+    from repro_torch.serve import search_database_encoded, shard_database
+    rng = np.random.default_rng(shards)
+    refs = torch.from_numpy(rng.choice([-1, 1], size=(3000, 8192)).astype(
+        np.int8)).to(cuda)
+    queries = bitpack_bipolar(torch.from_numpy(rng.choice(
+        [-1, 1], size=(32, 8192)).astype(np.int8)).to(cuda))
+    db = shard_database(refs, emulate_shards=shards, fused=True)
+    tune_table.reset()
+    try:
+        before = topk_hamming.launches
+        idx0, val0 = search_database_encoded(db, queries, 4)
+        table = tune_table.TuningTable(
+            device_kind=tune_table.device_kind(cuda))
+        table.set_entry("topk_hamming", (32, db.shard_rows, 256),
+                        {"block_q": 8, "waves": 1})
+        tune_table.set_active_table(table)
+        assert tune_table.lookup_blocks("topk_hamming",
+                                        (32, db.shard_rows, 256), cuda)
+        idx1, val1 = search_database_encoded(db, queries, 4)
+        torch.cuda.synchronize()
+    finally:
+        tune_table.reset()
+    assert topk_hamming.launches == before + 2 * shards
+    assert torch.equal(idx0, idx1) and torch.equal(val0, val1)

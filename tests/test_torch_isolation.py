@@ -24,8 +24,11 @@ from repro_torch.kernels.encode_search import (
     encode_search_banded,
 )
 from repro_torch.kernels.hamming_pop import hamming_pop
+from repro_torch.kernels.hd_encode import hd_encode
+from repro_torch.kernels.imc_mvm import imc_mvm
 from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
 from repro_torch.launch import serve_cluster, serve_db
+from repro_torch.launch import tune as tune_cli
 from repro_torch.serve import (
     BankRegistry,
     ClusteringConfig,
@@ -66,6 +69,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.spectra.preprocess, repro_torch.launch.serve_db, "
             "repro_torch.launch.serve_cluster, repro_torch.serve.clustering, "
             "repro_torch.core.hd.clustering, repro_torch.kernels.hamming_pop, "
+            "repro_torch.kernels.hd_encode, repro_torch.kernels.imc_mvm, "
+            "repro_torch.kernels.block_utils, repro_torch.tune, "
+            "repro_torch.launch.tune, repro_torch.launch.roofline, "
             "repro_torch.convert; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
@@ -78,7 +84,8 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
                                    "launcher", "cluster_launcher",
-                                   "clusterer", "cluster_server"])
+                                   "clusterer", "cluster_server",
+                                   "tune_launcher"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -94,6 +101,8 @@ def test_default_device_raises_without_cuda(entry):
         "cluster_server": lambda: DBSearchServer(
             BankRegistry(), clustering=ClusteringConfig(dim=64,
                                                         threshold=4.0)),
+        "tune_launcher": lambda: tune_cli.main(["--quick", "--out",
+                                                "unused.json"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -113,7 +122,8 @@ def _cuda_looking(a):
 
 @pytest.mark.parametrize("kernel", ["topk_hamming", "encode_search",
                                     "topk_hamming_banded",
-                                    "encode_search_banded", "hamming_pop"])
+                                    "encode_search_banded", "hamming_pop",
+                                    "hd_encode", "imc_mvm"])
 def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR",
                         ROOT / "build" / "never_built_for_this_test")
@@ -131,7 +141,7 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     bands = (_cuda_looking(np.zeros(3, np.int32)),
              _cuda_looking(np.full(3, 20, np.int32)))
     kernels = (topk_hamming, encode_search, topk_hamming_banded,
-               encode_search_banded, hamming_pop)
+               encode_search_banded, hamming_pop, hd_encode, imc_mvm)
     before = [fn.launches for fn in kernels]
     with pytest.raises(RuntimeError, match="nvcc"):
         if kernel == "topk_hamming":
@@ -142,6 +152,11 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
             topk_hamming_banded(rows[:3], rows, *bands, dim=64, k=2)
         elif kernel == "hamming_pop":
             hamming_pop(rows[:3], rows, dim=64)
+        elif kernel == "hd_encode":
+            hd_encode(*codebooks)
+        elif kernel == "imc_mvm":
+            floats = _cuda_looking(np.ones((5, 130), np.float32))
+            imc_mvm(floats, floats, full_scale=10.0)
         else:
             encode_search_banded(*codebooks, rows, *bands, dim=64, k=2)
     assert [fn.launches for fn in kernels] == before
