@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.hd.encoding import encode_levels_batch
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_utils import check_overrides, resolve_blocks
 from repro_torch.kernels.encode_search.ops import MAX_FEATURES, pack_codebook
@@ -49,27 +50,13 @@ def _check_operands(levels, id_hvs, level_hvs) -> None:
 
 
 def hd_encode_plain(levels: torch.Tensor, id_hvs: torch.Tensor,
-                    level_hvs: torch.Tensor, *, chunk_elems: int = 1 << 27
-                    ) -> torch.Tensor:
-    """The plain version, an int32 sum as ``hd_encode_ref`` writes it:
-    ``acc[b, d] = sum_f [l > 0] LV[min(l, m - 1), d] * ID[f, d]`` over the
-    (B, F, D) products, ``chunk_elems`` bounding each block of rows; then
-    ``acc > 0 ? 1 : -1`` as int8."""
+                    level_hvs: torch.Tensor) -> torch.Tensor:
+    """The plain version: the port's Eq. 1 encoder
+    (``core.hd.encoding.encode_levels_batch``), the sum
+    ``acc[b, d] = sum_f [l > 0] LV[min(l, m - 1), d] * ID[f, d]`` in int32,
+    then ``acc > 0 ? 1 : -1`` as int8."""
     _check_operands(levels, id_hvs, level_hvs)
-    B, F = levels.shape
-    m, D = level_hvs.shape
-    out = torch.empty((B, D), dtype=torch.int8, device=levels.device)
-    ids = id_hvs.to(torch.int32)
-    lvs = level_hvs.to(torch.int32)
-    step = max(1, chunk_elems // max(F * D, 1))
-    for b0 in range(0, B, step):
-        lv = levels[b0:b0 + step].to(torch.int64)
-        present = (lv > 0).to(torch.int32)
-        rows = lvs[lv.clamp(0, m - 1)]                         # (b, F, D)
-        acc = (present[:, :, None] * rows * ids[None]).sum(
-            dim=1, dtype=torch.int32)
-        out[b0:b0 + step] = torch.where(acc > 0, 1, -1).to(torch.int8)
-    return out
+    return encode_levels_batch(levels, id_hvs, level_hvs)
 
 
 def _launcher():

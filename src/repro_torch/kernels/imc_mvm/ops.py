@@ -45,6 +45,7 @@ from repro_torch.kernels.block_utils import check_overrides, resolve_blocks
 from repro_torch.kernels.topk_hamming.ops import check_status, smem_limit
 
 MAX_GRID_Y = 65535    # CUDA's limit on the grid's query-tile axis
+CHUNK_ROWS = 1 << 16  # weight rows per block of the plain version
 
 
 def lsb_of(full_scale: float, adc_levels: int) -> float:
@@ -72,13 +73,12 @@ def _check_operands(queries, weights, tile_cols, dac_limit, adc_levels
 
 def imc_mvm_plain(queries: torch.Tensor, weights: torch.Tensor, *,
                   full_scale: float, tile_cols: int = 128,
-                  dac_limit: int = 3, adc_levels: int = 31,
-                  chunk_rows: int = 1 << 16) -> torch.Tensor:
+                  dac_limit: int = 3, adc_levels: int = 31) -> torch.Tensor:
     """The plain version: per-tile partials summed column by column (a
     float32 multiply, then a float32 add, each rounded), then the ADC,
     then a sequential accumulation over the tiles, t = 0 first, each step
     ``code * lsb + acc`` rounded once (in float64, where it is exact, then
-    to float32); weights in blocks of ``chunk_rows`` rows. (Q, Dp) x
+    to float32); weights in blocks of :data:`CHUNK_ROWS` rows. (Q, Dp) x
     (R, Dp) -> (Q, R) float32."""
     _check_operands(queries, weights, tile_cols, dac_limit, adc_levels)
     dev = queries.device
@@ -94,8 +94,8 @@ def imc_mvm_plain(queries: torch.Tensor, weights: torch.Tensor, *,
     lsb = torch.tensor(lsb_of(full_scale, adc_levels), dtype=torch.float32,
                        device=dev)
     out = torch.empty((Q, R), dtype=torch.float32, device=dev)
-    for r0 in range(0, R, chunk_rows):
-        w = nnf.pad(weights[r0:r0 + chunk_rows].to(torch.float32), (0, pad))
+    for r0 in range(0, R, CHUNK_ROWS):
+        w = nnf.pad(weights[r0:r0 + CHUNK_ROWS].to(torch.float32), (0, pad))
         # (tile_cols, rows, T): each column's slice contiguous
         wt = w.view(-1, T, tile_cols).permute(2, 0, 1).contiguous()
         part = torch.zeros((Q, wt.shape[1], T), dtype=torch.float32,
@@ -107,7 +107,7 @@ def imc_mvm_plain(queries: torch.Tensor, weights: torch.Tensor, *,
         for t in range(T):
             acc = (acc.to(torch.float64) + code[:, :, t].to(torch.float64)
                    * lsb.to(torch.float64)).to(torch.float32)
-        out[:, r0:r0 + chunk_rows] = acc
+        out[:, r0:r0 + CHUNK_ROWS] = acc
     return out
 
 

@@ -25,7 +25,7 @@ import argparse
 import json
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS_FP32
 from repro_torch.tune.sweep import (
     FULL_REDUCED,
     OPS,
@@ -68,10 +68,10 @@ def main(argv=None):
     print(f"device_kind: {table.device_kind}")
     if table.ceilings:
         print("ceilings: peak %.2f GFLOP/s (%s), hbm %.2f GB/s; published "
-              "H100 SXM: %.0f GFLOP/s bf16, %.0f GB/s"
-              % (table.ceilings["peak_flops"] / 1e9,
+              "H100 SXM: %.0f GFLOP/s float32, %.0f GB/s"
+              % (table.ceilings["peak_flops_fp32"] / 1e9,
                  table.ceilings["matmul"], table.ceilings["hbm_bw"] / 1e9,
-                 PEAK_FLOPS / 1e9, HBM_BW / 1e9))
+                 PEAK_FLOPS_FP32 / 1e9, HBM_BW / 1e9))
     for op, buckets in table.ops.items():
         for bucket, entry in buckets.items():
             us, dus = entry.get("us"), entry.get("default_us")

@@ -64,6 +64,71 @@ def median_seconds(fn, device: torch.device, *, warmup: int = 1,
     return times[len(times) // 2]
 
 
+def _sleep_cycles_per_s(device: torch.device) -> float:
+    """Clock cycles per second of ``torch.cuda._sleep`` on ``device``."""
+    cycles = 10_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / (start.elapsed_time(end) / 1e3)
+
+
+def burst_seconds(fn, device: torch.device, *, calls: int, iters: int,
+                  warmup: int = 1) -> list[float]:
+    """Seconds per ``fn()``, one sample per burst of ``calls`` back-to-back
+    calls.
+
+    On the card each burst is queued behind a device-side wait
+    (``torch.cuda._sleep``) that outlasts the host's time to issue it, so
+    the CUDA events around the burst time the device's work alone: a call
+    whose kernel is shorter than its wrapper's host work is timed on the
+    kernel, not on the host. A burst the host did not queue in time (its
+    start event had already fired) is timed again behind a longer wait.
+    ``fn`` must not synchronize. On the CPU, the host clock around each
+    burst."""
+    for _ in range(warmup):
+        fn()
+    samples: list[float] = []
+    if device.type != "cuda":
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            samples.append((time.perf_counter() - t0) / calls)
+        return samples
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cycles = int((2 * issue_s + 1e-3) * _sleep_cycles_per_s(device))
+        retries = 0
+        while len(samples) < iters:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(calls):
+                fn()
+            queued = not start.query()
+            end.record()
+            end.synchronize()
+            if queued:
+                samples.append(start.elapsed_time(end) / 1e3 / calls)
+                continue
+            retries += 1
+            if retries > 8:
+                raise RuntimeError("the host could not queue a burst ahead "
+                                   "of the device")
+            cycles *= 2
+    return samples
+
+
 def measure_peak_flops(sizes: tuple[int, ...] | None = None, iters: int = 5,
                        device: str | torch.device = "cuda") -> dict:
     """Peak achieved float32 FLOP/s from a growing-matmul sweep (TF32 off).
@@ -106,8 +171,8 @@ def measure_mem_bandwidth(sizes_mb: tuple[float, ...] | None = None,
 def measure_ceilings(quick: bool = False,
                      device: str | torch.device = "cuda") -> dict:
     """Both sweeps -> the ``ceilings`` dict a tuning table persists
-    (``peak_flops`` / ``hbm_bw`` in SI units, the per-size curves, and the
-    matmul precision). ``quick`` shrinks the sweeps to the reference's
+    (``peak_flops_fp32`` / ``hbm_bw`` in SI units, the per-size curves,
+    and the matmul precision). ``quick`` shrinks the sweeps to the reference's
     quick sizes, for CPU runs: the ceilings are then lower bounds, and on
     the card the small arrays sit in L2."""
     sizes = (256, 512, 1024) if quick else (1024, 2048, 4096, 8192)
@@ -116,7 +181,7 @@ def measure_ceilings(quick: bool = False,
     flops = measure_peak_flops(sizes, iters=iters, device=device)
     bw = measure_mem_bandwidth(mbs, iters=iters, device=device)
     return {
-        "peak_flops": flops["peak_flops"],
+        "peak_flops_fp32": flops["peak_flops"],
         "hbm_bw": bw["hbm_bw"],
         "flops_by_size": {str(k): v for k, v in flops["by_size"].items()},
         "bw_by_size_mb": {str(k): v for k, v in bw["by_size_mb"].items()},

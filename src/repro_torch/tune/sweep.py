@@ -3,8 +3,11 @@
 Counterpart of ``repro.tune.sweep``. For each op one representative
 workload per shape bucket is timed under a small grid of candidate knobs
 (the default always among them). The winner is persisted to the tuning
-table only when it beats the default by :data:`WIN_MARGIN`: measurement
-noise never displaces the default rule.
+table only when every one of its timed samples beats every one of the
+default's by :data:`WIN_MARGIN`: measurement noise never displaces the
+default rule. Times are the device's (``microbench.burst_seconds``): the
+wrappers' host work is not timed, so a launch-bound kernel is tuned on
+its kernel.
 
 Every candidate is passed as explicit knobs, so an already-active table
 cannot steer the sweep that is about to replace it, and every candidate's
@@ -38,12 +41,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.block_utils import DEFAULTS
-from repro_torch.tune.microbench import measure_ceilings, median_seconds
+from repro_torch.tune.microbench import burst_seconds, measure_ceilings
 from repro_torch.tune.table import TuningTable, device_kind
 
-WIN_MARGIN = 0.03  # a candidate must be >= 3% faster to displace the default
-CALLS = 5          # back-to-back calls per timed sample: on the card the
-                   # host's per-call work then overlaps the device's
+WIN_MARGIN = 0.03  # a candidate's slowest sample must be >= 3% faster
+                   # than the default's fastest to displace the default
+CALLS = 5          # back-to-back calls per timed sample
 
 OPS = ("topk_hamming", "topk_hamming_banded", "encode_search",
        "encode_search_banded", "hd_encode", "imc_mvm")
@@ -269,45 +272,55 @@ def _same_result(a, b) -> bool:
                                       for x, y in zip(la, lb))
 
 
+def _spread(samples: list[float]) -> float:
+    """(slowest - fastest) / median of a candidate's samples."""
+    med = float(np.median(samples))
+    return (max(samples) - min(samples)) / med if med > 0 else 0.0
+
+
 def sweep_op(op: str, *, quick: bool = True, iters: int = 3,
              device: str | torch.device = "cuda") -> dict:
     """Time every candidate knob set for ``op``'s workload.
 
-    Returns ``{"shape", "blocks", "us", "default_us", "candidates"}``:
-    ``blocks`` is the default unless a candidate was both bit-identical
-    to it and at least :data:`WIN_MARGIN` faster. Time per call: the
-    median of ``iters`` samples of :data:`CALLS` back-to-back calls, after
-    a warm-up (CUDA events on the card)."""
+    Returns ``{"shape", "blocks", "us", "default_us", "default_spread",
+    "candidates"}``: ``blocks`` is the default unless a candidate was both
+    bit-identical to it and faster in every sample, its slowest at least
+    :data:`WIN_MARGIN` under the default's fastest (the fastest such
+    median wins). Time per call: the median of ``iters`` samples of
+    :data:`CALLS` back-to-back calls, after a warm-up; each candidate's
+    spread, ``(slowest - fastest) / median``, is reported with it."""
     dev = resolve_device(device)
     shape, run = _workload(op, quick, dev)
     default = dict(DEFAULTS[op])
     oracle = run(default)
 
-    def us(blocks):
-        def calls():
-            for _ in range(CALLS):
-                run(blocks)
-        return 1e6 * median_seconds(calls, dev, iters=iters) / CALLS
+    def samples_us(blocks):
+        return [1e6 * t for t in burst_seconds(lambda: run(blocks), dev,
+                                               calls=CALLS, iters=iters)]
 
-    default_us = us(default)
+    base = samples_us(default)
+    default_us = float(np.median(base))
     best, best_us = default, default_us
     report = []
     for cand in _candidates(op, quick):
         if cand == default:
-            report.append({"blocks": cand, "us": default_us})
+            report.append({"blocks": cand, "us": default_us,
+                           "spread": _spread(base)})
             continue
         if not _same_result(oracle, run(cand)):
             report.append({"blocks": cand, "us": None,
                            "rejected": "result mismatch vs default config"})
             continue
-        t = us(cand)
-        report.append({"blocks": cand, "us": t})
-        if t < best_us and t < default_us * (1.0 - WIN_MARGIN):
+        got = samples_us(cand)
+        t = float(np.median(got))
+        report.append({"blocks": cand, "us": t, "spread": _spread(got)})
+        if t < best_us and max(got) < min(base) * (1.0 - WIN_MARGIN):
             best, best_us = cand, t
     del run, oracle
     gc.collect()  # the workload's tensors (6.35 GB of imc_mvm weights)
     return {"shape": shape, "blocks": best, "us": best_us,
-            "default_us": default_us, "candidates": report}
+            "default_us": default_us, "default_spread": _spread(base),
+            "candidates": report}
 
 
 def build_tuning_table(out_path=None, *, quick: bool = True, ops=None,
@@ -315,8 +328,8 @@ def build_tuning_table(out_path=None, *, quick: bool = True, ops=None,
                        device: str | torch.device = "cuda") -> TuningTable:
     """Measure ceilings, sweep every op, persist the winning knobs.
 
-    The entries carry the measured ``us`` / ``default_us`` pair and each
-    op's candidate report."""
+    The entries carry the measured ``us`` / ``default_us`` pair, the
+    default's spread and each op's candidate report."""
     dev = resolve_device(device)
     ceilings = {} if skip_ceilings else measure_ceilings(quick=quick,
                                                           device=dev)
@@ -327,6 +340,7 @@ def build_tuning_table(out_path=None, *, quick: bool = True, ops=None,
         res = sweep_op(op, quick=quick, iters=iters, device=dev)
         table.set_entry(op, res["shape"], res["blocks"], us=res["us"],
                         default_us=res["default_us"],
+                        default_spread=res["default_spread"],
                         candidates=res["candidates"])
     if out_path is not None:
         table.save(out_path)

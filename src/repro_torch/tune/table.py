@@ -9,7 +9,7 @@ same shape-bucket strings. A table is one JSON file written by
     {
       "schema": 1,
       "device_kind": "NVIDIA H100 80GB HBM3",
-      "ceilings": {"peak_flops": 5.1e13, "hbm_bw": 2.9e12, ...},
+      "ceilings": {"peak_flops_fp32": 5.1e13, "hbm_bw": 2.9e12, ...},
       "ops": {
         "topk_hamming": {
           "32x2097152x256": {

@@ -15,6 +15,8 @@ asc) is total; ``imc_mvm`` and its plain version round every float32
 step alike, so they agree bit for bit too.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -412,3 +414,23 @@ def test_served_fused_batch_is_the_same_with_a_table_active(cuda, shards):
         tune_table.reset()
     assert topk_hamming.launches == before + 2 * shards
     assert torch.equal(idx0, idx1) and torch.equal(val0, val1)
+
+
+def test_burst_seconds_hides_the_hosts_issue_time(cuda):
+    from repro_torch.tune.microbench import burst_seconds
+    lev, idh, lvh, words = tune_sweep.encoder_operands(True, cuda)
+
+    def call():
+        hd_encode(lev, idh, lvh, codebook_words=words)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        call()
+    host_s = (time.perf_counter() - t0) / 50
+    torch.cuda.synchronize()
+    samples = burst_seconds(call, cuda, calls=50, iters=3)
+    assert len(samples) == 3 and all(t > 0 for t in samples)
+    # a quick-shape encode is launch-bound: the device time per call is
+    # below what the host takes to issue it
+    assert sorted(samples)[1] < host_s

@@ -124,8 +124,8 @@ def test_plain_version_equals_the_port_encoder(B, F, D, m):
 def test_plain_version_is_the_same_in_row_chunks():
     lev, idh, lvh = (torch.from_numpy(a) for a in _operands(
         5, 11, 30, 64, 8, "uniform"))
-    assert torch.equal(hd_encode_plain(lev, idh, lvh, chunk_elems=1),
-                       hd_encode_plain(lev, idh, lvh))
+    assert torch.equal(hd_encode_plain(lev, idh, lvh),
+                       encode_levels_batch(lev, idh, lvh, chunk_elems=1))
 
 
 @pytest.mark.parametrize("knobs", [{"block_b": 4, "block_d": 256},

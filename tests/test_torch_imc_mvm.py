@@ -30,6 +30,7 @@ from repro.kernels.imc_mvm import imc_mvm_pallas
 from repro.kernels.imc_mvm.ref import imc_mvm_ref
 from repro_torch.convert import imc_weights_from_numpy
 from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+from repro_torch.kernels.imc_mvm import ops as imc_ops
 from repro_torch.kernels.imc_mvm.ops import lsb_of
 
 # small tensors: one intra-op thread leaves the cores to the other test
@@ -186,11 +187,12 @@ def test_lsb_is_rounded_once_from_double():
     assert lsb_of(62.0, 31) == 2.0
 
 
-def test_plain_version_is_the_same_in_row_chunks():
+def test_plain_version_is_the_same_in_row_chunks(monkeypatch):
     q, w = _noisy(3, 7, 50, 300)
-    a = imc_mvm_plain(torch.from_numpy(q), torch.from_numpy(w),
-                      full_scale=FS, chunk_rows=7)
     b = imc_mvm_plain(torch.from_numpy(q), torch.from_numpy(w),
+                      full_scale=FS)
+    monkeypatch.setattr(imc_ops, "CHUNK_ROWS", 7)
+    a = imc_mvm_plain(torch.from_numpy(q), torch.from_numpy(w),
                       full_scale=FS)
     assert torch.equal(a, b)
 

@@ -479,6 +479,32 @@ def test_candidates_hold_the_default_and_only_valid_knobs(op):
             cands)
 
 
+def test_a_winner_must_win_in_every_sample(monkeypatch):
+    from repro_torch.tune import sweep
+    default = sweep.DEFAULTS["imc_mvm"]
+    cands = [c for c in sweep._candidates("imc_mvm", True) if c != default]
+    # the default's samples, then each other candidate's, in grid order:
+    # the first is faster in its median but not in every sample, the
+    # second is faster in every sample by more than the margin
+    seq = iter([[10e-6, 10.2e-6, 10.4e-6], [5e-6, 5e-6, 11e-6],
+                [9.5e-6] * 3] + [[20e-6] * 3] * len(cands))
+    monkeypatch.setattr(sweep, "burst_seconds",
+                        lambda fn, dev, calls, iters: next(seq))
+    res = sweep.sweep_op("imc_mvm", quick=True, iters=3, device="cpu")
+    assert res["blocks"] == cands[1]
+    assert res["us"] == pytest.approx(9.5)
+    assert res["default_spread"] == pytest.approx(0.4 / 10.2)
+
+
+def test_burst_seconds_times_each_burst_per_call():
+    from repro_torch.tune.microbench import burst_seconds
+    n = []
+    samples = burst_seconds(lambda: n.append(1), CPU, calls=4, iters=3,
+                            warmup=2)
+    assert len(samples) == 3 and all(t >= 0 for t in samples)
+    assert len(n) == 2 + 4 * 3
+
+
 def test_sweep_rejects_a_candidate_that_changes_the_result(monkeypatch):
     from repro_torch.tune import sweep
     shape, run = sweep._workload("imc_mvm", True, "cpu")
@@ -523,21 +549,23 @@ def test_build_tuning_table_records_ceilings(tmp_path):
     assert active_profile(CPU) == HardwareProfile()
     table = build_tuning_table(tmp_path / "t.json", quick=True,
                                ops=("imc_mvm",), iters=1, device="cpu")
-    assert table.ceilings["peak_flops"] > 0
+    assert table.ceilings["peak_flops_fp32"] > 0
     assert table.ceilings["hbm_bw"] > 0
     assert table.ceilings["matmul"] == "float32, TF32 off"
     set_active_table(table)
     prof = active_profile(CPU)
     assert prof.source == "measured"
-    assert prof.peak_flops == table.ceilings["peak_flops"]
+    assert prof.peak_flops_fp32 == table.ceilings["peak_flops_fp32"]
+    # one precision per field: the bf16 peak is never replaced
+    assert prof.peak_flops == HardwareProfile().peak_flops
     assert prof.hbm_bw == table.ceilings["hbm_bw"]
     assert prof.link_bw == HardwareProfile().link_bw
 
 
 def test_default_profile_is_the_h100_sxm():
     prof = HardwareProfile()
-    assert (prof.peak_flops, prof.hbm_bw, prof.link_bw) == (989e12, 3.35e12,
-                                                            450e9)
+    assert (prof.peak_flops, prof.peak_flops_fp32, prof.hbm_bw,
+            prof.link_bw) == (989e12, 67e12, 3.35e12, 450e9)
     assert prof.source == "default:h100-sxm"
 
 
