@@ -22,9 +22,14 @@ exits non-zero and prints no result line:
    all-absent rows, sign ties and levels past m - 1, at several launch
    shapes; for ``imc_mvm`` integer and float weights, exact .5 points of
    part / lsb, saturated codes, ragged Q, R and Dp, a 64-column array and
-   every compiled output tile). Tolerance: exact (integer indices, scores,
-   similarities and HVs; ``imc_mvm`` rounds every float32 step as its
-   plain version does).
+   every compiled output tile; for ``decode_attention`` the reference's
+   test shapes, G = 1 at hd = 256, G = 48, valid_len 0 / 1 / 70 of 128 /
+   S, S off every chunk multiple and the served shape, plus rows past
+   valid_len set to 127, which must leave the output bit-identical).
+   Tolerance: exact (integer indices, scores, similarities and HVs;
+   ``imc_mvm`` rounds every float32 step as its plain version does), and
+   rtol / atol 2e-4 for ``decode_attention`` (float32 softmax and dots in
+   another order; the reference's own kernel-vs-oracle tolerance).
 3. The autotuner: ``repro_torch.launch.tune.main`` in-process at the
    served shapes (``tune/sweep.py``), into a temporary file. The six swept
    kernels' launch counts are set to 0 just before and read just after; a
@@ -73,6 +78,22 @@ exits non-zero and prints no result line:
    merges and cluster count of the same pipeline over the plain distance
    function; prints the pairwise kernel's time, bound, plain and
    ``torch._int_mm`` times and the linkage's seconds.
+7. LM decode serving: ``repro_torch.launch.serve.main`` on Qwen2-7B at full
+   width and depth (bfloat16, the port's seeded parameters) with the int8
+   KV store (``--kv-quant``), batch 32, a 1,024-token prompt from the
+   token pipeline, 64 greedy tokens. The ``decode_attention`` count is set
+   to 0 just before and must read 28 layers x 63 steps after, with the
+   plain version called 0 times; one decode step must run under the
+   sync debug mode "error" (no host synchronization). A teacher-forced replay of the same
+   decode with the plain attention on the card must agree: per step,
+   max |logits difference| at most 2**-4 of the largest |logit|, and every
+   differing greedy token a near tie. Prints prefill seconds, decode
+   ms/step p50/p95, tokens/s, the device's share of a step (kernel time
+   from ``torch.profiler`` over three steps against the served p50) and
+   its largest kernels, peak memory,
+   the kernel at valid_len 1,025 and 1,088 beside its bound, its plain
+   version and one ``scaled_dot_product_attention`` call over the
+   dequantized cache, and the per-step weight-read bound.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -118,6 +139,8 @@ TPU_KERNELS = {
     "hamming_pop": "src/repro/kernels/hamming_pop/hamming_pop.py:20",
     "hd_encode": "src/repro/kernels/hd_encode/hd_encode.py:60",
     "imc_mvm": "src/repro/kernels/imc_mvm/imc_mvm.py:24",
+    "decode_attention":
+        "src/repro/kernels/decode_attention/decode_attention.py:23",
 }
 # iPRG2012's OMS candidate fraction (core/imc/energy.py DATASETS)
 IPRG_CANDIDATE_FRACTION = 0.025
@@ -246,6 +269,38 @@ IMC_EDGE_CASES = [
 ]
 
 
+# decode_attention cases: (B, S, KV, G, hd, valid lengths): the
+# reference's test shapes (tests/test_kernels.py), G = 1 at hd = 256,
+# granite's MQA G = 48, valid_len 1 / 70 of 128 / S, S off every chunk
+# multiple, valid_len 0 (uniform weights), and the served shape at the
+# first and last decode steps. Tolerance rtol / atol 2e-4 (float32; the
+# reference's own kernel-vs-oracle tolerance).
+DECODE_EDGE_CASES = [
+    (1, 128, 1, 4, 32, (128,)), (2, 256, 2, 8, 64, (256, 77)),
+    (2, 96, 4, 7, 16, (96,)), (2, 300, 2, 1, 256, (300, 129)),
+    (1, 200, 1, 48, 128, (200, 64)), (1, 128, 2, 4, 32, (1, 70, 128)),
+    (3, 333, 2, 3, 64, (333, 65, 0)), (32, 1088, 4, 7, 128, (1025, 1088)),
+]
+DECODE_RTOL = DECODE_ATOL = 2e-4
+
+
+def decode_case(torch, np, B, S, KV, G, hd, seed=0):
+    """(q, k8, v8, k_scale, v_scale) on the card for one decode case."""
+    rng = np.random.default_rng(seed + B * S + G * hd)
+    q = rng.normal(size=(B, KV, G, hd)).astype(np.float32) * hd ** -0.5
+    k8 = rng.integers(-127, 128, (B, S, KV, hd), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (B, S, KV, hd), dtype=np.int8)
+    ks = rng.uniform(0.005, 0.5, (B, S, KV)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, (B, S, KV)).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (q, k8, v8, ks, vs)]
+
+
+def close_count(torch, got, want, rtol, atol) -> int:
+    """Elements of ``got`` outside ``atol + rtol * |want|``, or not finite."""
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    return int((bad | ~torch.isfinite(got)).sum())
+
+
 def hd_encode_case(torch, np, B, F, D, m, layout):
     """(levels, id_hvs, level_hvs) on the card for one hd_encode case."""
     rng = np.random.default_rng(B * 1000 + F + D)
@@ -303,6 +358,10 @@ def hamming_case(torch, Q, R, W, layout):
 
 def phase_kernels_vs_plain(torch, np):
     from repro_torch.core.hd.similarity import INT32_MIN, bitpack_bipolar
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
     from repro_torch.kernels.encode_search import (
         encode_search,
         encode_search_banded,
@@ -394,12 +453,33 @@ def phase_kernels_vs_plain(torch, np):
             (imc_mvm(q, w, full_scale=fs, tile_cols=tc, block_q=bq,
                      block_r=br)
              != imc_mvm_plain(q, w, full_scale=fs, tile_cols=tc)).sum())
+    decode_err = 0.0
+    for B, S, KV, G, hd, valid in DECODE_EDGE_CASES:
+        ops = decode_case(torch, np, B, S, KV, G, hd)
+        for vl in valid:
+            got = decode_attention(*ops, vl)
+            want = decode_attention_plain(*ops, vl)
+            mismatches["decode_attention"] += close_count(
+                torch, got, want, DECODE_RTOL, DECODE_ATOL)
+            decode_err = max(decode_err, float((got - want).abs().max()))
+    # rows at or past valid_len set to 127 must leave the output
+    # bit-identical (their weight is exactly 0)
+    q, k8, v8, ks, vs = decode_case(torch, np, 2, 200, 2, 7, 128, seed=5)
+    out = decode_attention(q, k8, v8, ks, vs, 70)
+    k8[:, 70:] = 127
+    v8[:, 70:] = 127
+    tail_diff = int((decode_attention(q, k8, v8, ks, vs, 70) != out).sum())
     torch.cuda.synchronize()
     print(f"kernels vs plain: {len(EDGE_CASES)} exact, "
           f"{len(BANDED_EDGE_CASES)} banded, {len(HAMMING_EDGE_CASES)} "
-          f"hamming_pop, {len(HD_ENCODE_EDGE_CASES)} hd_encode and "
-          f"{len(IMC_EDGE_CASES)} imc_mvm cases, mismatches "
-          f"{json.dumps(mismatches)}")
+          f"hamming_pop, {len(HD_ENCODE_EDGE_CASES)} hd_encode, "
+          f"{len(IMC_EDGE_CASES)} imc_mvm and {len(DECODE_EDGE_CASES)} "
+          f"decode_attention cases, mismatches {json.dumps(mismatches)} "
+          f"(decode_attention: elements outside rtol/atol "
+          f"{DECODE_RTOL}/{DECODE_ATOL}, max |err| {decode_err:.3g}; "
+          f"masked-tail perturbation: {tail_diff} differing elements)")
+    check(tail_diff == 0, "decode_attention output moved with rows past "
+                          "valid_len")
     check(not any(mismatches.values()), "kernel disagrees with its plain "
                                          "version")
 
@@ -1107,6 +1187,234 @@ def phase_bucket(torch, np, entry):
                  linkage_s=linkage_s["kernel"], linkage_merges=a.num_merges)
 
 
+# the LM serving configuration: Qwen2-7B at full width and depth (28
+# layers, d_model 3,584, 28 query heads over 4 KV heads, head_dim 128,
+# d_ff 18,944, vocab 152,064), bfloat16, int8 KV store, the port's seeded
+# parameters; the reference's decode_32k shape (batch 128 x 32,768) is
+# cut to what one card holds
+LM_BATCH, LM_PROMPT, LM_GEN = 32, 1024, 64
+LM_ARGV = ["--arch", "qwen2_7b", "--kv-quant", "--batch", str(LM_BATCH),
+           "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN),
+           "--device", "cuda"]
+# teacher-forced replay on the plain attention: per step, max |logits
+# difference| at most this share of the step's largest |logit|. The
+# kernel and the plain version agree to float32 rounding, but the
+# attention output is rounded to bfloat16 and one changed rounding moves
+# every later bfloat16 activation of the step through 28 residual layers.
+LM_REPLAY_SHARE = 2.0 ** -4
+
+
+def profile_device_ms(torch, fn, steps):
+    """Device milliseconds per ``fn()`` (every kernel, copy and fill the
+    profiler traced over ``steps`` calls) and the eight largest by kernel
+    name; ``(None, {})`` when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            per[e.key[:60]] = us / 1e3 / steps
+    top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
+    return (sum(per.values()) or None), top
+
+
+def phase_serve_lm(torch, np):
+    """Qwen2-7B decode serving with the int8 KV store through
+    ``repro_torch.launch.serve.main``; returns the ``decode_attention``
+    kernel entry."""
+    import gc
+
+    import torch.nn.functional as nnf
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.launch import serve
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_attention.launches = 0
+    decode_attention_plain.calls = 0
+    t0 = time.perf_counter()
+    run = serve.main(LM_ARGV, keep_logits=True)
+    wall = time.perf_counter() - t0
+    launches = decode_attention.launches
+    plain_calls = decode_attention_plain.calls
+    cfg, model, params = run.model.cfg, run.model, run.params
+    steps = LM_GEN - 1
+    B, S = run.batch["tokens"].shape
+    check(launches == cfg.num_layers * steps,
+          f"decode_attention launched {launches} times, not "
+          f"{cfg.num_layers} layers x {steps} steps")
+    check(run.launches == launches, "the launcher's launch count differs")
+    check(plain_calls == 0, f"the plain decode attention ran {plain_calls} "
+                            f"times on the card's main path")
+    check(tuple(run.tokens.shape) == (B, LM_GEN)
+          and int(run.tokens.min()) >= 0
+          and int(run.tokens.max()) < cfg.padded_vocab,
+          "generated tokens out of shape or range")
+    check(all(bool(torch.isfinite(lg).all()) for lg in run.logits),
+          "non-finite decode logits")
+
+    # teacher-forced replay: the same prompt and the served tokens, with
+    # the plain decode attention on the card
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    cache = model.init_cache(B, S + LM_GEN)
+    logits, cache = prefill(params, run.batch, cache)
+    prefill_agree = int((logits.argmax(-1).to(torch.int32)
+                         == run.tokens[:, :1]).sum())
+    max_diff, share, disagree, unexplained = [], [], 0, 0
+    for i in range(steps):
+        lp, cache = decode(params, run.tokens[:, i:i + 1], cache, S + i,
+                           decode_attention_plain)
+        served = run.logits[i]
+        diff = (lp - served).abs().amax(dim=(1, 2))           # per row
+        max_diff.append(float(diff.max()))
+        share.append(max_diff[-1] / float(served.abs().max()))
+        replay_tok = lp.argmax(-1)[:, 0]
+        served_tok = run.tokens[:, i + 1].long()
+        off = replay_tok != served_tok
+        disagree += int(off.sum())
+        if bool(off.any()):
+            # a flip must be a near tie: the served logits of the two
+            # tokens closer than twice the row's difference
+            sv = served[:, 0]
+            rows = off.nonzero()[:, 0]
+            gap = (sv[rows, served_tok[rows]] - sv[rows, replay_tok[rows]])
+            unexplained += int((gap > 2 * diff[rows]).sum())
+    check(plain_calls == 0 and decode_attention_plain.calls
+          == cfg.num_layers * steps, "the replay did not run the plain "
+                                     "decode attention")
+    print(json.dumps({
+        "path": "lm replay", "steps": steps, "tokens": B * steps,
+        "prefill_tokens_agreeing": prefill_agree,
+        "greedy_tokens_disagreeing": disagree,
+        "disagreements_not_near_ties": unexplained,
+        "max_abs_dlogits_per_step": max_diff,
+        "worst_share_of_max_logit": max(share),
+        "tolerance_share": LM_REPLAY_SHARE}))
+    check(max(share) <= LM_REPLAY_SHARE, "decode logits on the kernel differ "
+                                         "from the plain replay past the "
+                                         "stated tolerance")
+    check(unexplained == 0, "a greedy token differs from the plain replay "
+                            "where the logits are not near a tie")
+    check(prefill_agree == B, "the prefill's greedy tokens are not "
+                              "reproducible")
+
+    # the decode loop reads nothing back: one step under the sync debug
+    # mode "error" raises at any synchronizing call
+    last = S + steps - 1
+    tok = run.tokens[:, steps - 1:steps]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode(params, tok, cache, last)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the device's share of a decode step: the kernels' device time over
+    # three steps (torch.profiler; a step's ~2,000 launches overflow the
+    # launch queue, so it cannot be queued whole behind a device wait)
+    # against the served step, host issue included
+    device_step_ms, top = profile_device_ms(
+        torch, lambda: decode(params, tok, cache, last), steps=3)
+    p50, p95 = run.step_percentile_ms(0.5), run.step_percentile_ms(0.95)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    print(json.dumps({
+        "path": "lm serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "batch": B, "prompt": S, "gen": LM_GEN, "kv_cache": "int8",
+        "wall_s": wall, "prefill_s": run.prefill_s,
+        "decode_s": run.decode_s, "decode_ms_p50": p50,
+        "decode_ms_p95": p95, "decode_tokens_per_s": run.decode_tokens_per_s,
+        "device_step_ms": device_step_ms,
+        "device_share_of_decode_step": (None if device_step_ms is None
+                                        else device_step_ms / p50),
+        "device_ms_per_step_by_kernel": top,
+        "peak_gb": run.peak_bytes / 1e9,
+        "weight_gb": weight_bytes / 1e9,
+        "weight_read_bound_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
+        "launches": launches, "sm clock, power, limit":
+            nvidia_smi("clocks.sm,power.draw,power.limit")}))
+
+    # the kernel at the served shape, on layer 0's filled cache
+    c = cache[0]
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    G = cfg.num_heads // KV
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, KV, G, hd), generator=g, device="cuda") * hd ** -0.5
+    ops = (q, c.k, c.v, c.k_scale, c.v_scale)
+    size = c.k.shape[1]
+    timed = {}
+    for vl in (S + 1, size):
+        got = decode_attention(*ops, vl)
+        want = decode_attention_plain(*ops, vl)
+        bad = close_count(torch, got, want, DECODE_RTOL, DECODE_ATOL)
+        err = float((got - want).abs().max())
+        check(bad == 0, f"decode_attention differs from its plain version "
+                        f"on the served cache at valid_len {vl}")
+        ms = time_ms(torch, lambda vl=vl: decode_attention(*ops, vl),
+                     iters=200, warmup=10)
+        plain_ms = time_ms(torch, lambda vl=vl: decode_attention_plain(
+            *ops, vl), iters=5, warmup=1)
+        # the yardstick: one SDPA call (GQA, boolean mask of the valid
+        # positions) over the dequantized float32 K/V, dequant not timed
+        kf = (c.k.float() * c.k_scale[..., None]).transpose(1, 2)
+        vf = (c.v.float() * c.v_scale[..., None]).transpose(1, 2)
+        qh = q.reshape(B, KV * G, 1, hd)
+        mask = (torch.arange(size, device="cuda") < vl)[None, None, None]
+
+        def sdpa():
+            return nnf.scaled_dot_product_attention(
+                qh, kf, vf, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+        lib_err = float((sdpa().reshape(B, KV, G, hd) - got).abs().max())
+        lib_ms = time_ms(torch, sdpa, iters=200, warmup=10)
+        del kf, vf
+        nbytes = (2 * B * vl * KV * hd + 2 * 4 * B * vl * KV
+                  + 2 * 4 * B * KV * G * hd)
+        flops = 4 * B * KV * G * hd * vl
+        b_ms, b_by = bound_ms(flops, nbytes, FP32_OPS_PER_S)
+        timed[vl] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         library_max_abs_err=lib_err, bytes=nbytes,
+                         flops=flops)
+        print(f"lm: decode_attention at B={B}, S={size}, KV={KV}, G={G}, "
+              f"hd={hd}, valid_len {vl}: {ms:.4f} ms (200 launches), plain "
+              f"{plain_ms:.4f} ms, SDPA over dequantized float32 K/V "
+              f"{lib_ms:.4f} ms (max |diff| {lib_err:.3g}), bound "
+              f"{b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP float32); kernel vs plain max "
+              f"|err| {err:.3g}; sm clock, power, limit: "
+              f"{nvidia_smi('clocks.sm,power.draw,power.limit')}")
+    served = timed[size]
+    entry = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": TPU_KERNELS["decode_attention"], "launches": launches,
+        "max_abs_err": served["max_abs_err"], "ms": served["ms"],
+        "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
+        "bound_by": served["bound_by"], "library_ms": served["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(enable_gqa, boolean mask) over dequantized float32 K/V",
+        "shape": f"B={B}, S={size}, KV={KV}, G={G}, hd={hd}, valid_len "
+                 f"{size} (Qwen2-7B decode, last step)",
+        "at_valid_len": {str(k): v for k, v in timed.items()}}
+    del run, params, cache, logits, ops, c, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1140,6 +1448,12 @@ def main() -> int:
     phase_bucket(torch, np, entry)
     kernels.append(entry)
     kernels += tuned
+    print(f"reduced: Qwen2-7B at full width and depth, batch {LM_BATCH} x "
+          f"prompt {LM_PROMPT} + {LM_GEN} generated tokens instead of the "
+          f"reference's decode_32k shape (batch 128 x 32,768: 124 GB of "
+          f"int8 cache alone, and a (B, H, S, S) prefill logit buffer); "
+          f"parameters are the port's seeded random draw")
+    kernels.append(phase_serve_lm(torch, np))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Carries arrays of the JAX package across to the port, as numpy.
 
 ``jax.random`` draws cannot be reproduced by ``torch.Generator``s, so
-parity runs hand the reference's codebooks and banks to the port through
-these functions; both packages then search the same codebooks and bank.
-Packed uint32 words become their int32 bit-views (the port's storage
-convention); int8 hypervectors stay int8; the PCM array's programmed
-weights stay float32. A tuning table does not cross: it is keyed by
-device kind and names the kernels' own launch knobs.
+parity runs hand the reference's codebooks, banks and LM parameters to
+the port through these functions; both packages then compute on the same
+values. Packed uint32 words become their int32 bit-views (the port's
+storage convention); int8 hypervectors stay int8; the PCM array's
+programmed weights stay float32; LM matrices take the model's dtype. A
+tuning table does not cross: it is keyed by device kind and names the
+kernels' own launch knobs.
 """
 
 from __future__ import annotations
@@ -48,3 +49,44 @@ def imc_weights_from_numpy(weights, device: str | torch.device = "cuda"
                          f"{a.shape}")
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(
         resolve_device(device))
+
+
+def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
+                         dtype: torch.dtype | None = None):
+    """The JAX package's LM parameter tree (numpy leaves, layers stacked on
+    a leading ``layer`` axis, as ``repro.models.transformer.init_lm``
+    makes it) as the port's :class:`~repro_torch.models.transformer.LM`.
+
+    Matrices, biases, ``embed`` and ``lm_head`` are stored in ``dtype``
+    (default ``cfg.dtype``): the reference casts each of them to that dtype
+    before every use, so the values are the same. Norm scales and biases
+    stay float32, as ``apply_norm`` computes in float32."""
+    from torch import nn
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import _dtype, _param
+
+    dev = resolve_device(device)
+    dt = dtype or _dtype(cfg)
+    T.block_kind(cfg)  # raises for a family the port does not serve yet
+
+    def tensor(a, norm=False):
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=dev, dtype=torch.float32 if norm else dt)
+
+    def group(tree, i, norm):
+        return nn.ParameterDict({name: _param(tensor(a[i], norm))
+                                 for name, a in tree.items()})
+
+    layers = params["layers"]
+    if set(layers) != {"norm1", "attn", "norm2", "ffn"}:
+        raise ValueError(f"expected a dense decoder's layers, got "
+                         f"{sorted(layers)}")
+    blocks = [nn.ModuleDict({name: group(layers[name], i, name.startswith(
+        "norm")) for name in ("norm1", "attn", "norm2", "ffn")})
+        for i in range(cfg.num_layers)]
+    final = nn.ParameterDict({name: _param(tensor(a, True)) for name, a in
+                              params["final_norm"].items()})
+    head = params.get("lm_head")
+    return T.LM(tensor(params["embed"]), blocks, final,
+                None if head is None else tensor(head))

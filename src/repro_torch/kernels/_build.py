@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("topk_hamming", "encode_search", "hamming_pop", "hd_encode",
-           "imc_mvm")
+           "imc_mvm", "decode_attention")
 
 
 def find_nvcc() -> str:

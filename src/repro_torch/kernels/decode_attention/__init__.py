@@ -1,0 +1,6 @@
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_plain,
+)
+
+__all__ = ["decode_attention", "decode_attention_plain"]

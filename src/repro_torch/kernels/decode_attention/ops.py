@@ -1,0 +1,143 @@
+"""One-token GQA decode attention over an int8 KV store: the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+Replaces ``repro.kernels.decode_attention.decode_attention_pallas`` (TPU
+kernel ``decode_attention.py:_decode_attn_kernel``), the fused form of the
+int8 branch of ``repro.models.layers.attention_decode``. The kernel is
+``csrc/decode_attention.cu``; see its header for the bound on the H100 and
+the design. :func:`decode_attention_plain` is the port of the reference's
+``ref.py`` oracle: two float32 einsums and a softmax. The reference pads
+K/V to a multiple of its chunk on every call; the kernel masks the ragged
+tail itself, so a decode step never copies the cache.
+
+``valid_len`` is a Python int (positions ``< valid_len`` attend), so a
+decode loop passes it without reading anything back from the card. With
+``valid_len = 0`` every position is masked and both versions return the
+uniform average over all S positions, as the reference does.
+
+Dispatch: CPU tensors take the plain version; CUDA tensors launch the
+kernel or raise. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.topk_hamming.ops import check_status
+
+MAX_HEAD_DIM = 256
+SMEM_LIMIT = 232_448   # bytes of shared memory one block may use (sm_90)
+
+
+def _check_operands(q, k8, v8, k_scale, v_scale) -> None:
+    if q.ndim != 4 or k8.ndim != 4:
+        raise ValueError(f"expected q (B, KV, G, hd) and k8 (B, S, KV, hd), "
+                         f"got {tuple(q.shape)} and {tuple(k8.shape)}")
+    B, KV, G, hd = q.shape
+    S = k8.shape[1]
+    if (tuple(k8.shape) != (B, S, KV, hd) or v8.shape != k8.shape
+            or tuple(k_scale.shape) != (B, S, KV)
+            or v_scale.shape != k_scale.shape):
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k8 "
+                         f"{tuple(k8.shape)}, v8 {tuple(v8.shape)}, scales "
+                         f"{tuple(k_scale.shape)} {tuple(v_scale.shape)}")
+    if (q.dtype != torch.float32 or k8.dtype != torch.int8
+            or v8.dtype != torch.int8 or k_scale.dtype != torch.float32
+            or v_scale.dtype != torch.float32):
+        raise ValueError(f"expected float32 q and scales and int8 K/V, got "
+                         f"{q.dtype}, {k8.dtype}, {v8.dtype}, "
+                         f"{k_scale.dtype}, {v_scale.dtype}")
+    devs = {t.device for t in (q, k8, v8, k_scale, v_scale)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+
+
+def decode_attention_plain(q: torch.Tensor, k8: torch.Tensor,
+                           v8: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor, valid_len: int
+                           ) -> torch.Tensor:
+    """The plain version: q (B, KV, G, hd) float32 (rope'd and scaled by
+    ``hd**-0.5``), k8 / v8 (B, S, KV, hd) int8, scales (B, S, KV) float32
+    -> (B, KV, G, hd) float32. Counts its calls in
+    ``decode_attention_plain.calls``."""
+    _check_operands(q, k8, v8, k_scale, v_scale)
+    decode_attention_plain.calls += 1
+    logits = torch.einsum("bngk,bsnk->bngs", q, k8.float())
+    logits = logits * k_scale.transpose(1, 2)[:, :, None, :]
+    mask = torch.arange(k8.shape[1], device=q.device) < int(valid_len)
+    logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    w = w * v_scale.transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bngs,bsnk->bngk", w, v8.float())
+
+
+decode_attention_plain.calls = 0
+
+
+@functools.cache
+def _launcher():
+    lib = _build.load("decode_attention")
+    fn = lib.decode_attention_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p]
+    fn.restype = i
+    smem = lib.decode_attention_smem_bytes
+    smem.argtypes = [i, i]
+    smem.restype = ctypes.c_longlong
+    return fn, smem
+
+
+def decode_attention(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                     k_scale: torch.Tensor, v_scale: torch.Tensor,
+                     valid_len: int) -> torch.Tensor:
+    """Decode attention of one token per sequence over an int8 KV store.
+
+    q (B, KV, G, hd) float32, already rope'd and multiplied by
+    ``hd**-0.5``; k8, v8 (B, S, KV, hd) int8; k_scale, v_scale (B, S, KV)
+    float32; positions ``< valid_len`` attend. Returns (B, KV, G, hd)
+    float32.
+
+    CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch
+    ``csrc/decode_attention.cu`` on the current stream (counted in
+    ``decode_attention.launches``) or raise. The kernel takes any S and
+    G, and hd a multiple of 16 up to 256."""
+    if not q.is_cuda and q.device.type == "cpu":
+        return decode_attention_plain(q, k8, v8, k_scale, v_scale, valid_len)
+    if not q.is_cuda:
+        raise ValueError(f"unsupported device {q.device}")
+    _check_operands(q, k8, v8, k_scale, v_scale)
+    B, KV, G, hd = q.shape
+    S = k8.shape[1]
+    if hd % 16 or not 16 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd}: the kernel takes a multiple of 16 "
+                         f"up to {MAX_HEAD_DIM}")
+    if S == 0:
+        raise ValueError("an empty KV store (S = 0) has nothing to attend")
+    if not all(t.is_contiguous() for t in (q, k8, v8, k_scale, v_scale)):
+        raise ValueError("decode_attention needs contiguous operands")
+    if k8.data_ptr() % 16 or v8.data_ptr() % 16:
+        raise ValueError("decode_attention needs K/V on 16-byte boundaries")
+    launch, smem_bytes = _launcher()
+    if smem_bytes(G, hd) > SMEM_LIMIT:
+        raise ValueError(f"G={G} heads of width {hd} need "
+                         f"{smem_bytes(G, hd)} bytes of shared memory, over "
+                         f"{SMEM_LIMIT}")
+    out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    if B == 0 or KV == 0 or G == 0:
+        return out
+    valid = max(0, min(int(valid_len), S))
+    with torch.cuda.device(q.device):  # the launch targets the current device
+        err = launch(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+                     k_scale.data_ptr(), v_scale.data_ptr(), B, S, KV, G, hd,
+                     valid, out.data_ptr(),
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    check_status(err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,188 @@
+"""Batched LM serving launcher (``repro.launch.serve``): prefill + decode
+loop with a KV cache, on one device.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_7b \
+      --reduced --device cpu --kv-quant --batch 2 --prompt-len 16 --gen 4
+
+The flags are the reference's (``--arch --reduced --batch --prompt-len
+--gen --temperature``) plus ``--device`` (default ``cuda``; asking for it
+without a card raises) and ``--kv-quant``, the reference's own switch for
+the int8 KV store (``kv_quant_int8``, as its dry run sets it), whose decode
+attention runs the ``decode_attention`` kernel on the card. Parameters are
+the port's own seeded draw (seed 0), prompts the synthetic token pipeline
+(step 0). The decode loop reads nothing back from the card: the greedy
+(or Gumbel-sampled) token stays on the device and the position is a
+Python int. On the card, prefill and every decode step are timed with
+CUDA events; on the CPU with the host clock.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.models.model_zoo import Model, build_model
+from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+SAMPLE_SEED = 1
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one serving run produced and how long it took."""
+    model: Model
+    params: torch.nn.Module
+    batch: dict                 # the prompt, {"tokens": (B, S)}
+    tokens: torch.Tensor        # (B, gen) generated ids
+    prefill_s: float
+    step_ms: list[float]        # one per decode step
+    decode_s: float
+    clock: str                  # "cuda events" or "host"
+    peak_bytes: int | None      # CUDA max_memory_allocated, None on the CPU
+    launches: int               # decode_attention launches in the run
+    logits: list | None = None  # per decode step (B, 1, V), when kept
+
+    @property
+    def decode_tokens_per_s(self) -> float:
+        steps = len(self.step_ms)
+        return self.tokens.shape[0] * steps / self.decode_s if steps else 0.0
+
+    def step_percentile_ms(self, q: float) -> float:
+        return float(torch.quantile(torch.tensor(self.step_ms,
+                                                 dtype=torch.float64), q))
+
+
+class _Clock:
+    """CUDA events on the card (recorded without a sync), the host clock
+    on the CPU; ``intervals_s()`` synchronizes once at the end."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def intervals_s(self) -> list[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) / 1e3
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+def generate(model: Model, params, batch: dict, gen: int,
+             temperature: float = 0.0, keep_logits: bool = False
+             ) -> ServeRun:
+    """Prefill ``batch`` then decode ``gen - 1`` tokens, as the reference's
+    launcher does; returns the tokens and the timings."""
+    dev = model.device
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache = model.init_cache(B, S + gen)
+    prefill = make_prefill(model)
+    decode = make_decode_step(model)
+    sampler = torch.Generator(device=dev).manual_seed(SAMPLE_SEED)
+
+    def pick(logits):
+        if temperature > 0:   # Gumbel-max: jax.random.categorical's method
+            u = torch.rand(logits.shape, generator=sampler, device=dev)
+            logits = logits / temperature - torch.log(-torch.log(u))
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    launches0 = decode_attention.launches
+    pre = _Clock(dev)
+    pre.mark()
+    logits, cache = prefill(params, batch, cache)
+    tok = pick(logits)
+    pre.mark()
+    out_tokens, kept = [tok], [] if keep_logits else None
+    steps = _Clock(dev)
+    steps.mark()
+    for i in range(gen - 1):
+        logits, cache = decode(params, tok, cache, S + i)
+        tok = pick(logits)
+        out_tokens.append(tok)
+        if keep_logits:
+            kept.append(logits)
+        steps.mark()
+    step_s = steps.intervals_s()
+    prefill_s = pre.intervals_s()[0]
+    return ServeRun(
+        model=model, params=params, batch=batch,
+        tokens=torch.cat(out_tokens, dim=1), prefill_s=prefill_s,
+        step_ms=[1e3 * s for s in step_s], decode_s=sum(step_s),
+        clock="cuda events" if dev.type == "cuda" else "host",
+        peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else None),
+        launches=decode_attention.launches - launches0, logits=kept)
+
+
+def main(argv=None, keep_logits: bool = False) -> ServeRun:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV store (decode attention on the "
+                         "decode_attention kernel)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.kv_quant:
+        cfg = dataclasses.replace(cfg, kv_quant_int8=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        if cfg.kv_quant_int8:   # set-up: the kernel builds before timing
+            _build.load("decode_attention")
+    model = build_model(cfg, device)
+    params = model.init(seed=0)
+    pipe = TokenPipeline(batch=args.batch, seq=args.prompt_len,
+                         vocab=cfg.vocab_size)
+    batch = pipe.get_for(cfg, 0, device)
+    run = generate(model, params, batch, args.gen, args.temperature,
+                   keep_logits)
+
+    steps = len(run.step_ms)
+    print(f"model: {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}, kv cache "
+          f"{'int8' if cfg.kv_quant_int8 else cfg.dtype}, device {device} "
+          f"(timed by {run.clock})")
+    print(f"prefill: {run.prefill_s:.3f}s for {args.batch}x{args.prompt_len}")
+    if steps:
+        print(f"decode:  {run.decode_s:.3f}s for {steps} steps "
+              f"({1000 * run.decode_s / steps:.1f} ms/tok; p50 "
+              f"{run.step_percentile_ms(0.5):.3f} ms, p95 "
+              f"{run.step_percentile_ms(0.95):.3f} ms per step; "
+              f"{run.decode_tokens_per_s:.1f} tokens/s)")
+    peak = ("not measured on the cpu" if run.peak_bytes is None
+            else f"{run.peak_bytes / 2**30:.2f} GiB")
+    print(f"peak memory: {peak}; decode_attention launches: {run.launches}")
+    print("generated token ids (first row):", run.tokens[0][:16].tolist())
+    return run
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,409 @@
+"""Core transformer layers of the dense decoder (``repro.models.layers``):
+norms, RoPE, GQA attention (full / chunked / prefill / decode against a
+KV cache) and the dense FFN variants (SwiGLU / GeGLU / GELU).
+
+Parameters are ``nn.ParameterDict``s keyed by the JAX package's names
+(``wq`` (D, H, hd), ``wo`` (H, hd, D), ``w_gate`` (D, F), ...), so a layer
+reads ``p["wq"]`` as the reference does. Matrices and biases are stored in
+``cfg.dtype``, norm scales in float32; the reference keeps float32
+parameters and casts each to the activation dtype before use, which is the
+same value.
+
+On one device the reference's ``dist.sharding.constrain`` is the identity
+(no mesh is set), so it has no counterpart here. The int8 branch of
+:func:`attention_decode` calls the hand-written ``decode_attention``
+kernel; the bfloat16 ``KVCache`` branch stays plain PyTorch, as the
+reference computes it in XLA. Caches are updated in place: a decode step
+writes one slot of each layer's cache instead of returning a new cache.
+
+Not ported yet (ROADMAP.md, Queue 1 item 12): the MoE layer
+(``init_moe`` / ``apply_moe``) and the IMC-routed down-projection
+(``_imc_linear``); configurations that reach them raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import decode_attention
+
+Params = nn.ParameterDict
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _normal(shape, std: float, cfg: ArchConfig, device, generator
+            ) -> nn.Parameter:
+    """A float32 normal draw times ``std``, cast to ``cfg.dtype``: one
+    matrix at a time, so a full-width model never holds its float32
+    weights at once."""
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return _param(w.mul_(std).to(_dtype(cfg)))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ArchConfig, d: int | None = None, device="cpu") -> Params:
+    d = d or cfg.d_model
+    p = {"scale": _param(torch.ones(d, device=device))}
+    if cfg.norm == "layernorm":
+        p["bias"] = _param(torch.zeros(d, device=device))
+    return nn.ParameterDict(p)
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    # theta stays a Python scalar: a tensor made from it on the card would
+    # be a host-to-device copy, which synchronizes the stream
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs          # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ArchConfig, device="cpu",
+                   generator: torch.Generator | None = None) -> Params:
+    """The reference's distributions: normal x ``d**-0.5`` for wq / wk / wv,
+    normal x ``(h * hd)**-0.5`` for wo, zero QKV biases."""
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    s = d ** -0.5
+    p = {
+        "wq": _normal((d, h, hd), s, cfg, device, generator),
+        "wk": _normal((d, kv, hd), s, cfg, device, generator),
+        "wv": _normal((d, kv, hd), s, cfg, device, generator),
+        "wo": _normal((h, hd, d), (h * hd) ** -0.5, cfg, device, generator),
+    }
+    if cfg.qkv_bias:
+        dt = _dtype(cfg)
+        p["bq"] = _param(torch.zeros((h, hd), dtype=dt, device=device))
+        p["bk"] = _param(torch.zeros((kv, hd), dtype=dt, device=device))
+        p["bv"] = _param(torch.zeros((kv, hd), dtype=dt, device=device))
+    return nn.ParameterDict(p)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (B*S, D) x (D, H*hd) product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bqhk,hkd->bqd")."""
+    return out.flatten(-2) @ wo.to(out.dtype).flatten(0, 1)
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ArchConfig,
+         positions: torch.Tensor, use_rope: bool = True):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _group_q(q: torch.Tensor, num_kv: int) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, KV, G, hd): query heads grouped by kv head,
+    so GQA never materializes repeated K/V."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, num_kv, h // num_kv, hd)
+
+
+def _causal_band_mask(sq: int, skv: int, q_off: int, window: int,
+                      device="cpu") -> torch.Tensor:
+    """(sq, skv) bool mask: kv position j visible from query position
+    (q_off + i) if j <= q_off+i and (window == 0 or j > q_off+i - window)."""
+    qi = torch.arange(sq, device=device)[:, None] + q_off
+    kj = torch.arange(skv, device=device)[None, :]
+    m = kj <= qi
+    if window:
+        m = m & (kj > qi - window)
+    return m
+
+
+def attention_full(q, k, v, cfg: ArchConfig, q_off: int = 0,
+                   causal: bool = True) -> torch.Tensor:
+    """Materialized-scores attention, the prefill route up to 8,192
+    positions. The (B, KV, G, Sq, S) logits are converted, masked and
+    normalised one buffer at a time, so at most two of them are alive."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = _group_q(q, kv)
+    logits = torch.einsum("bqngk,bsnk->bngqs", qg, k)
+    logits = logits.div_(hd ** 0.5).float()
+    if causal:
+        mask = _causal_band_mask(sq, k.shape[1], q_off, cfg.sliding_window,
+                                 q.device)
+        logits.masked_fill_(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    del logits
+    w = w.to(q.dtype)
+    out = torch.einsum("bngqs,bsnk->bqngk", w, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def attention_chunked(q, k, v, cfg: ArchConfig, chunk: int = 1024,
+                      causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the reference's jnp-level
+    FlashAttention), the prefill route past 8,192 positions: memory is
+    O(Sq * chunk) instead of O(Sq * S)."""
+    h = cfg.num_heads
+    hd = q.shape[-1]
+    b, sq = q.shape[0], q.shape[1]
+    kv = k.shape[2]
+    g = h // kv
+    skv = k.shape[1]
+    chunk = min(chunk, skv)
+    if skv % chunk:
+        raise ValueError(f"kv length {skv} is not a multiple of the chunk "
+                         f"{chunk}")
+    qg = _group_q(q, kv).float()               # (b, sq, kv, g, hd)
+    scale = hd ** -0.5
+    m = torch.full((b, kv, g, sq), float("-inf"), device=q.device)
+    denom = torch.zeros((b, kv, g, sq), device=q.device)
+    acc = torch.zeros((b, kv, g, sq, hd), device=q.device)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    for c0 in range(0, skv, chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        logits = torch.einsum("bqngk,bsnk->bngqs", qg, kb.float()) * scale
+        kj = c0 + torch.arange(chunk, device=q.device)[None, :]
+        mask = kj <= qi
+        if cfg.sliding_window:
+            mask = mask & (kj > qi - cfg.sliding_window)
+        if causal:
+            logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bngqs,bsnk->bngqk", p, vb.float())
+        m = m_new
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    # (b, kv, g, sq, hd) -> (b, sq, h, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor  # (B, S_max, KV, hd)
+    v: torch.Tensor
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """int8 KV store with per-(batch, position, kv-head) scales: half the
+    bytes of a bfloat16 cache per decode step, with the scales factoring
+    out of the QK dot product per position."""
+    k: torch.Tensor        # (B, S, KV, hd) int8
+    v: torch.Tensor        # (B, S, KV, hd) int8
+    k_scale: torch.Tensor  # (B, S, KV) float32
+    v_scale: torch.Tensor  # (B, S, KV) float32
+
+
+def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, KV, hd) -> int8 codes + per-(B, S, KV) scale."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+                  device="cpu"):
+    """For sliding-window layers the cache is bounded by the window. K, V
+    and their scales are separate buffers (they are written in place)."""
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, size, kv, hd)
+    if cfg.kv_quant_int8:
+        return QuantKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.ones((batch, size, kv), device=device),
+            v_scale=torch.ones((batch, size, kv), device=device))
+    dt = dtype or _dtype(cfg)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device))
+
+
+def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
+    """Full-sequence causal attention that also fills the KV cache (in
+    place: its first min(S, size) slots take the last positions' K/V, as
+    the reference writes them)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    if s <= 8192:
+        out = attention_full(q, k, v, cfg)
+    else:
+        out = attention_chunked(q, k, v, cfg)
+    size = cache.k.shape[1]
+    n = min(s, size)
+    if isinstance(cache, QuantKVCache):
+        k8, ks = _kv_quant(k[:, -size:])
+        v8, vs = _kv_quant(v[:, -size:])
+        cache.k[:, :n] = k8
+        cache.v[:, :n] = v8
+        cache.k_scale[:, :n] = ks
+        cache.v_scale[:, :n] = vs
+    else:
+        cache.k[:, :n] = k[:, -size:]
+        cache.v[:, :n] = v[:, -size:]
+    return _out_proj(out, p["wo"]), cache
+
+
+Attend = Callable[..., torch.Tensor]
+
+
+def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache,
+                     pos: int, attend: Attend | None = None):
+    """One-token decode against the KV cache, written in place.
+
+    x: (B, 1, D); pos: the new token's absolute position (a Python int, so
+    the decode loop reads nothing back from the card). Sliding-window
+    layers use the cache as a ring buffer of size ``window``. With a
+    ``QuantKVCache`` the attention runs in ``attend`` (by default the
+    ``decode_attention`` kernel) on q grouped to (B, KV, G, hd) in float32
+    and scaled by ``hd**-0.5``, over ``valid_len = min(pos + 1, size)``
+    positions: the whole ring once it has wrapped, else the slots up to
+    ``pos``, exactly the reference's mask. ``attend`` lets a caller swap
+    in the plain version on the same device."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    kv = cfg.num_kv_heads
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    size = cache.k.shape[1]
+    slot = pos % size if cfg.sliding_window else pos
+    valid_len = min(pos + 1, size)
+    if isinstance(cache, QuantKVCache):
+        k8, ks = _kv_quant(k)
+        v8, vs = _kv_quant(v)
+        cache.k[:, slot] = k8[:, 0]
+        cache.v[:, slot] = v8[:, 0]
+        cache.k_scale[:, slot] = ks[:, 0]
+        cache.v_scale[:, slot] = vs[:, 0]
+        qg = _group_q(q, kv)[:, 0].float() * hd ** -0.5     # (b, kv, g, hd)
+        out = (attend or decode_attention)(
+            qg.contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
+            valid_len)
+    else:
+        cache.k[:, slot] = k[:, 0]
+        cache.v[:, slot] = v[:, 0]
+        qg = _group_q(q, kv)[:, 0].float()                  # (b, kv, g, hd)
+        logits = torch.einsum("bngk,bsnk->bngs", qg,
+                              cache.k.float()) / (hd ** 0.5)
+        valid = torch.arange(size, device=x.device) < valid_len
+        logits = torch.where(valid, logits, -1e30)
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bngs,bsnk->bngk", w, cache.v.float())
+    out = out.reshape(b, 1, h, hd).to(x.dtype)
+    return _out_proj(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# FFN (dense)
+# ---------------------------------------------------------------------------
+
+def init_ffn(cfg: ArchConfig, d_ff: int | None = None, device="cpu",
+             generator: torch.Generator | None = None) -> Params:
+    """The reference's distributions: normal x ``d**-0.5`` into the FFN,
+    normal x ``f**-0.5`` out of it, zero biases."""
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    s_in, s_out = d ** -0.5, f ** -0.5
+    if cfg.activation in ("swiglu", "geglu"):
+        p = {
+            "w_gate": _normal((d, f), s_in, cfg, device, generator),
+            "w_up": _normal((d, f), s_in, cfg, device, generator),
+            "w_down": _normal((f, d), s_out, cfg, device, generator),
+        }
+    else:
+        dt = _dtype(cfg)
+        p = {
+            "w_up": _normal((d, f), s_in, cfg, device, generator),
+            "w_down": _normal((f, d), s_out, cfg, device, generator),
+            "b_up": _param(torch.zeros(f, dtype=dt, device=device)),
+            "b_down": _param(torch.zeros(d, dtype=dt, device=device)),
+        }
+    return nn.ParameterDict(p)
+
+
+def apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The gate's activation and product are taken in place (each
+    elementwise step rounds as its out-of-place form), which keeps the
+    (tokens, d_ff) buffers of a full-width prefill to two."""
+    dt = x.dtype
+    if cfg.imc_linear:
+        raise NotImplementedError(
+            "the IMC-routed down-projection (_imc_linear) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 12)")
+    if cfg.activation in ("swiglu", "geglu"):
+        h = x @ p["w_gate"].to(dt)
+        u = x @ p["w_up"].to(dt)
+        if cfg.activation == "swiglu":
+            F.silu(h, inplace=True)
+        else:
+            h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        h.mul_(u)
+        del u
+    else:
+        h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt),
+                   approximate="tanh")
+    y = h @ p["w_down"].to(dt)
+    if "b_down" in p:
+        y = y + p["b_down"].to(dt)
+    return y

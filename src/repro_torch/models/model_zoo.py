@@ -1,0 +1,54 @@
+"""Unified Model API (``repro.models.model_zoo``) for the families the
+port serves: the dense decoder-only LM.
+
+``build_model(cfg)`` returns a :class:`Model` on a device (CUDA unless the
+caller asks for the CPU; asking for CUDA without a card raises) with
+``init``, ``init_cache``, ``prefill`` and ``decode_step``. Inputs follow
+the reference: ``{"tokens": (B, S) int}``. The training loss waits for
+the training slice (ROADMAP.md, Queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import Attend
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    device: torch.device
+
+    # ---- init -------------------------------------------------------------
+    def init(self, seed: int = 0) -> T.LM:
+        """Parameters drawn from a ``torch.Generator`` seeded with ``seed``
+        on the model's device."""
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        return T.init_lm(self.cfg, self.device, g)
+
+    # ---- serving ----------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> list:
+        return T.init_cache(self.cfg, batch, max_len, self.device)
+
+    @torch.no_grad()
+    def prefill(self, params: T.LM, batch: dict, cache,
+                last_only: bool = False):
+        return T.forward_prefill(params, batch["tokens"], self.cfg, cache,
+                                 last_only=last_only)
+
+    @torch.no_grad()
+    def decode_step(self, params: T.LM, token: torch.Tensor, cache,
+                    pos: int, attend: Attend | None = None):
+        return T.forward_decode(params, token, self.cfg, cache, pos, attend)
+
+
+def build_model(cfg: ArchConfig, device: str | torch.device = "cuda"
+                ) -> Model:
+    T.block_kind(cfg)  # raises for a family the port does not serve yet
+    return Model(cfg=cfg, device=resolve_device(device))

@@ -1,0 +1,151 @@
+"""Model assembly of the dense decoder-only family
+(``repro.models.transformer``): blocks, the LM's parameters, KV caches,
+prefill and decode.
+
+The reference stacks its layers' parameters on a leading ``layer`` axis
+and scans over them (``lax.scan``); here the layers are an
+``nn.ModuleList`` walked by a Python loop, and the cache is a list with
+one ``KVCache`` / ``QuantKVCache`` per layer, updated in place.
+
+The MoE, SSM, hybrid, encoder-decoder and VLM families are not ported yet
+(ROADMAP.md, Queue 1 item 12); building or running one raises.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def block_kind(cfg: ArchConfig) -> str:
+    if cfg.family != "dense" or cfg.is_encoder_decoder or cfg.is_moe:
+        raise NotImplementedError(
+            f"the {cfg.family} family ({cfg.name}) is not ported yet; the "
+            f"port runs dense decoder-only models (ROADMAP.md, Queue 1 "
+            f"item 12)")
+    return "attn_ffn"
+
+
+def init_block(cfg: ArchConfig, kind: str, device="cpu",
+               generator: torch.Generator | None = None) -> nn.ModuleDict:
+    if kind != "attn_ffn":
+        raise ValueError(kind)
+    return nn.ModuleDict({
+        "norm1": L.init_norm(cfg, device=device),
+        "attn": L.init_attention(cfg, device, generator),
+        "norm2": L.init_norm(cfg, device=device),
+        "ffn": L.init_ffn(cfg, device=device, generator=generator),
+    })
+
+
+def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
+                        kind: str, cache):
+    if kind != "attn_ffn":
+        raise ValueError(kind)
+    h = L.apply_norm(p["norm1"], x, cfg)
+    attn, cache = L.attention_prefill(p["attn"], h, cfg, cache)
+    x = x + attn
+    h = L.apply_norm(p["norm2"], x, cfg)
+    return x + L.apply_ffn(p["ffn"], h, cfg), cache
+
+
+def apply_block_decode(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
+                       kind: str, cache, pos: int,
+                       attend: L.Attend | None = None):
+    if kind != "attn_ffn":
+        raise ValueError(kind)
+    h = L.apply_norm(p["norm1"], x, cfg)
+    attn, cache = L.attention_decode(p["attn"], h, cfg, cache, pos, attend)
+    x = x + attn
+    h = L.apply_norm(p["norm2"], x, cfg)
+    return x + L.apply_ffn(p["ffn"], h, cfg), cache
+
+
+class LM(nn.Module):
+    """The decoder-only LM's parameters under the reference's names:
+    ``embed`` (V, D), ``layers`` (one ``ModuleDict`` per layer),
+    ``final_norm`` and, unless embeddings are tied, ``lm_head`` (D, V).
+    ``lm["embed"]`` reads as ``params["embed"]`` does in the reference."""
+
+    def __init__(self, embed: torch.Tensor, layers: list[nn.ModuleDict],
+                 final_norm: nn.ParameterDict,
+                 lm_head: torch.Tensor | None = None):
+        super().__init__()
+        self.embed = L._param(embed)
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = final_norm
+        self.lm_head = None if lm_head is None else L._param(lm_head)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+def init_lm(cfg: ArchConfig, device="cpu",
+            generator: torch.Generator | None = None) -> LM:
+    """The port's own initialisation, drawn from ``generator`` on
+    ``device``. It cannot reproduce ``jax.random``; it meets the
+    reference's distributions: embed and lm_head normal x ``D**-0.5``,
+    the attention and FFN scales of ``layers.init_attention`` /
+    ``init_ffn``, zero biases, unit norms. Each matrix is drawn in float32
+    and cast to ``cfg.dtype`` before the next is drawn."""
+    kind = block_kind(cfg)
+    V, D = cfg.padded_vocab, cfg.d_model
+    embed = L._normal((V, D), D ** -0.5, cfg, device, generator)
+    layers = [init_block(cfg, kind, device, generator)
+              for _ in range(cfg.num_layers)]
+    lm_head = None
+    if not cfg.tie_embeddings:
+        lm_head = L._normal((D, V), D ** -0.5, cfg, device, generator)
+    return LM(embed, layers, L.init_norm(cfg, device=device), lm_head)
+
+
+def embed_tokens(p: LM, tokens: torch.Tensor, cfg: ArchConfig
+                 ) -> torch.Tensor:
+    return p["embed"][tokens].to(L._dtype(cfg))
+
+
+def unembed(p: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ p["embed"].to(x.dtype).t()
+    else:
+        logits = x @ p["lm_head"].to(x.dtype)
+    return logits.float()
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cpu"
+               ) -> list:
+    """One cache per layer."""
+    block_kind(cfg)
+    return [L.init_kv_cache(cfg, batch, max_len, device=device)
+            for _ in range(cfg.num_layers)]
+
+
+def forward_prefill(p: LM, tokens: torch.Tensor, cfg: ArchConfig, cache,
+                    last_only: bool = False):
+    """tokens (B, S) -> logits (B, S, V) float32 and the filled cache.
+    With ``last_only`` only the last position is unembedded (B, 1, V): the
+    same values for that position without a (B, S, V) buffer, which is
+    what serving keeps."""
+    kind = block_kind(cfg)
+    x = embed_tokens(p, tokens, cfg)
+    for i, lp in enumerate(p.layers):
+        x, cache[i] = apply_block_prefill(lp, x, cfg, kind, cache[i])
+    if last_only:
+        x = x[:, -1:]
+    x = L.apply_norm(p["final_norm"], x, cfg)
+    return unembed(p, x, cfg), cache
+
+
+def forward_decode(p: LM, token: torch.Tensor, cfg: ArchConfig, cache,
+                   pos: int, attend: L.Attend | None = None):
+    """token: (B, 1) int; pos: the absolute position, a Python int."""
+    kind = block_kind(cfg)
+    x = embed_tokens(p, token, cfg)
+    for i, lp in enumerate(p.layers):
+        x, cache[i] = apply_block_decode(lp, x, cfg, kind, cache[i], pos,
+                                         attend)
+    x = L.apply_norm(p["final_norm"], x, cfg)
+    return unembed(p, x, cfg), cache

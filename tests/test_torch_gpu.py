@@ -1,7 +1,8 @@
 """The port's CUDA kernels (exact and banded top-k, the full Hamming
-similarity of clustering, the Eq. 1 encoder and the analog PCM MVM)
-against their plain PyTorch versions, the clustering path around the
-Hamming kernel, and the tuner's launch knobs, on the card.
+similarity of clustering, the Eq. 1 encoder, the analog PCM MVM and the
+int8-KV decode attention) against their plain PyTorch versions, the
+clustering path around the Hamming kernel, the tuner's launch knobs, and
+LM decoding through the attention kernel, on the card.
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import). Run on a machine
@@ -9,7 +10,8 @@ with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance: exact. Indices, scores, similarities, HVs and labels are
+Tolerance: exact, except decode attention (float32 softmax and dots
+summed in another order: rtol / atol 2e-4). Indices, scores, similarities, HVs and labels are
 integers, distances integers or halves, and the order (score desc, row
 asc) is total; ``imc_mvm`` and its plain version round every float32
 step alike, so they agree bit for bit too.
@@ -434,3 +436,137 @@ def test_burst_seconds_hides_the_hosts_issue_time(cuda):
     # a quick-shape encode is launch-bound: the device time per call is
     # below what the host takes to issue it
     assert sorted(samples)[1] < host_s
+
+
+# decode_attention cases: (B, S, KV, G, hd, valid lengths); the reference's
+# test shapes, G = 1 at hd = 256, granite's G = 48, valid_len 1 / 70 / S,
+# S off every chunk multiple, valid_len 0 and the served shape. Tolerance:
+# rtol / atol 2e-4 (float32; the reference's kernel-vs-oracle tolerance).
+DECODE_CASES = [
+    (1, 128, 1, 4, 32, (128,)), (2, 256, 2, 8, 64, (256, 77)),
+    (2, 96, 4, 7, 16, (96,)), (2, 300, 2, 1, 256, (300, 129)),
+    (1, 200, 1, 48, 128, (200, 64)), (1, 128, 2, 4, 32, (1, 70, 128)),
+    (3, 333, 2, 3, 64, (333, 65, 0)), (32, 1088, 4, 7, 128, (1025, 1088)),
+]
+
+
+def _decode_operands(cuda, B, S, KV, G, hd, seed=0):
+    rng = np.random.default_rng(seed + B * S + G * hd)
+    q = rng.normal(size=(B, KV, G, hd)).astype(np.float32) * hd ** -0.5
+    k8 = rng.integers(-127, 128, (B, S, KV, hd), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (B, S, KV, hd), dtype=np.int8)
+    ks = rng.uniform(0.005, 0.5, (B, S, KV)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, (B, S, KV)).astype(np.float32)
+    return [torch.from_numpy(a).to(cuda) for a in (q, k8, v8, ks, vs)]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,valid", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain(cuda, B, S, KV, G, hd, valid):
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    ops = _decode_operands(cuda, B, S, KV, G, hd)
+    for vl in valid:
+        before = decode_attention.launches
+        got = decode_attention(*ops, vl)
+        want = decode_attention_plain(*ops, vl)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_decode_attention_masked_tail_is_bit_identical(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention
+    q, k8, v8, ks, vs = _decode_operands(cuda, 2, 200, 2, 7, 128, seed=5)
+    out = decode_attention(q, k8, v8, ks, vs, 70)
+    k8b, v8b = k8.clone(), v8.clone()
+    k8b[:, 70:] = 127
+    v8b[:, 70:] = 127
+    assert torch.equal(decode_attention(q, k8b, v8b, ks, vs, 70), out)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 272])
+def test_decode_attention_raises_on_unsupported_head_dim(cuda, hd):
+    from repro_torch.kernels.decode_attention import decode_attention
+    ops = _decode_operands(cuda, 1, 16, 1, 2, hd)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(*ops, 8)
+    assert decode_attention.launches == before
+
+
+def test_attention_decode_on_cuda_launches_the_kernel(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config("qwen2_7b"), num_layers=1,
+                              kv_quant_int8=True)
+    p = L.init_attention(cfg, cuda,
+                         torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn(4, 40, cfg.d_model, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).to(torch.bfloat16)
+    caches = [L.init_kv_cache(cfg, 4, 48, device=cuda) for _ in range(2)]
+    for c in caches:
+        L.attention_prefill(p, x[:, :32], cfg, c)
+    before = decode_attention.launches
+    calls = decode_attention_plain.calls
+    for pos in range(32, 40):
+        y_k, _ = L.attention_decode(p, x[:, pos:pos + 1], cfg, caches[0], pos)
+        y_p, _ = L.attention_decode(p, x[:, pos:pos + 1], cfg, caches[1], pos,
+                                    decode_attention_plain)
+        torch.cuda.synchronize()
+        # bf16 outputs of float32 attention outputs within 2e-4 of each
+        # other: at most a rounding step of the bf16 result apart
+        torch.testing.assert_close(y_k.float(), y_p.float(), rtol=1e-2,
+                                   atol=1e-2)
+    assert decode_attention.launches == before + 8
+    assert decode_attention_plain.calls == calls + 8
+    assert torch.equal(caches[0].k, caches[1].k)
+
+
+def test_serve_launcher_reduced_kv_quant_on_cuda(cuda, capsys):
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.launch import serve
+    calls = decode_attention_plain.calls
+    run = serve.main(["--arch", "qwen2_7b", "--reduced", "--kv-quant",
+                      "--batch", "4", "--prompt-len", "24", "--gen", "6"])
+    out = capsys.readouterr().out
+    assert run.launches == run.model.cfg.num_layers * 5
+    assert decode_attention_plain.calls == calls
+    assert run.tokens.shape == (4, 6) and run.tokens.is_cuda
+    assert run.clock == "cuda events" and run.peak_bytes > 0
+    assert "decode_attention launches: 10" in out
+
+
+def test_decode_step_makes_no_host_sync(cuda):
+    """The decode loop reads nothing back from the card: a decode step
+    (int8 KV store, the kernel) runs under the sync debug mode "error"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_config("qwen2_7b").reduced(),
+                              kv_quant_int8=True, dtype="bfloat16")
+    model = build_model(cfg, cuda)
+    params = model.init(seed=0)
+    batch = TokenPipeline(2, 16, cfg.vocab_size).get(0, cuda)
+    cache = model.init_cache(2, 20)
+    logits, cache = model.prefill(params, batch, cache, last_only=True)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.decode_step(params, tok, cache, 16)
+        tok = logits.argmax(-1).to(torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tok.shape == (2, 1)

@@ -23,12 +23,19 @@ from repro_torch.kernels.encode_search import (
     encode_search,
     encode_search_banded,
 )
+from repro_torch.configs import get_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+)
 from repro_torch.kernels.hamming_pop import hamming_pop
 from repro_torch.kernels.hd_encode import hd_encode
 from repro_torch.kernels.imc_mvm import imc_mvm
 from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
-from repro_torch.launch import serve_cluster, serve_db
+from repro_torch.launch import serve, serve_cluster, serve_db
 from repro_torch.launch import tune as tune_cli
+from repro_torch.models.model_zoo import build_model
 from repro_torch.serve import (
     BankRegistry,
     ClusteringConfig,
@@ -72,7 +79,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.hd_encode, repro_torch.kernels.imc_mvm, "
             "repro_torch.kernels.block_utils, repro_torch.tune, "
             "repro_torch.launch.tune, repro_torch.launch.roofline, "
-            "repro_torch.convert; "
+            "repro_torch.convert, repro_torch.launch.serve, "
+            "repro_torch.models.model_zoo, repro_torch.data.tokens, "
+            "repro_torch.kernels.decode_attention; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -85,7 +94,8 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
                                    "launcher", "cluster_launcher",
                                    "clusterer", "cluster_server",
-                                   "tune_launcher"])
+                                   "tune_launcher", "lm_launcher",
+                                   "lm_model", "tokens"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -103,6 +113,10 @@ def test_default_device_raises_without_cuda(entry):
                                                         threshold=4.0)),
         "tune_launcher": lambda: tune_cli.main(["--quick", "--out",
                                                 "unused.json"]),
+        "lm_launcher": lambda: serve.main(["--arch", "qwen2_7b",
+                                           "--reduced", "--kv-quant"]),
+        "lm_model": lambda: build_model(get_config("qwen2_7b").reduced()),
+        "tokens": lambda: TokenPipeline(2, 8, 256).get(0),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -123,7 +137,8 @@ def _cuda_looking(a):
 @pytest.mark.parametrize("kernel", ["topk_hamming", "encode_search",
                                     "topk_hamming_banded",
                                     "encode_search_banded", "hamming_pop",
-                                    "hd_encode", "imc_mvm"])
+                                    "hd_encode", "imc_mvm",
+                                    "decode_attention"])
 def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR",
                         ROOT / "build" / "never_built_for_this_test")
@@ -141,8 +156,10 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     bands = (_cuda_looking(np.zeros(3, np.int32)),
              _cuda_looking(np.full(3, 20, np.int32)))
     kernels = (topk_hamming, encode_search, topk_hamming_banded,
-               encode_search_banded, hamming_pop, hd_encode, imc_mvm)
+               encode_search_banded, hamming_pop, hd_encode, imc_mvm,
+               decode_attention)
     before = [fn.launches for fn in kernels]
+    plain_calls = decode_attention_plain.calls
     with pytest.raises(RuntimeError, match="nvcc"):
         if kernel == "topk_hamming":
             topk_hamming(rows[:3], rows, dim=64, k=2)
@@ -157,9 +174,18 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
         elif kernel == "imc_mvm":
             floats = _cuda_looking(np.ones((5, 130), np.float32))
             imc_mvm(floats, floats, full_scale=10.0)
+        elif kernel == "decode_attention":
+            decode_attention(
+                _cuda_looking(np.ones((2, 2, 7, 16), np.float32)),
+                _cuda_looking(np.ones((2, 9, 2, 16), np.int8)),
+                _cuda_looking(np.ones((2, 9, 2, 16), np.int8)),
+                _cuda_looking(np.ones((2, 9, 2), np.float32)),
+                _cuda_looking(np.ones((2, 9, 2), np.float32)), 5)
         else:
             encode_search_banded(*codebooks, rows, *bands, dim=64, k=2)
     assert [fn.launches for fn in kernels] == before
+    # a CUDA tensor never reaches the plain version
+    assert decode_attention_plain.calls == plain_calls
 
 
 def _has_nvcc():
