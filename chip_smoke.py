@@ -16,18 +16,22 @@ exits non-zero and prints no result line:
    narrower than k, bands crossing splits and running past num_valid,
    two bands, no tile budget and the plan's tight one, and bands far
    apart inside one 8-query block; for ``hamming_pop`` Q = R = 1, ragged
-   Q and R, W = 1, 2, 3 and 64, rows off a 16-byte boundary, all-zero and
-   all-ones words, q = r, and the served buckets 4 / 8 / 16 / 32 against
-   1,000 and 3,000 centroids; for ``hd_encode`` ragged B, F and D,
+   Q and R, Q or R under one 16 x 8 fragment, W = 1, 2, 3, 64, 65 and 130,
+   rows off a 16-byte boundary, all-zero and all-ones words, dim < 32 W
+   with random padding bits, q = r, and the served buckets 4 / 8 / 16 / 32
+   against 1,000 and 3,000 centroids; for ``hd_encode`` ragged B, F and D,
    all-absent rows, sign ties and levels past m - 1, at several launch
    shapes; for ``imc_mvm`` integer and float weights, exact .5 points of
-   part / lsb, saturated codes, ragged Q, R and Dp, a 64-column array and
-   every compiled output tile; for ``decode_attention`` the reference's
+   part / lsb, saturated codes, ragged Q, R and Dp, a 64-column array,
+   every compiled output tile, a partial that a float64 sum would round
+   twice, weight rows off a 16-byte boundary, one 43-column tile, and
+   Q = 1 and 33; for ``decode_attention`` the reference's
    test shapes, G = 1 at hd = 256, G = 48, valid_len 0 / 1 / 70 of 128 /
    S, S off every chunk multiple and the served shape, plus rows past
    valid_len set to 127, which must leave the output bit-identical).
    Tolerance: exact (integer indices, scores, similarities and HVs;
-   ``imc_mvm`` rounds every float32 step as its plain version does), and
+   ``imc_mvm`` and its plain version round every float32 fused
+   multiply-add alike), and
    rtol / atol 2e-4 for ``decode_attention`` (float32 softmax and dots in
    another order; the reference's own kernel-vs-oracle tolerance).
 3. The autotuner: ``repro_torch.launch.tune.main`` in-process at the
@@ -76,8 +80,9 @@ exits non-zero and prints no result line:
 6. One bucket batch-wise: the kernel's pairwise distances over 10,624
    encoded spectra and complete linkage at 0.36 D must give the labels,
    merges and cluster count of the same pipeline over the plain distance
-   function; prints the pairwise kernel's time, bound, plain and
-   ``torch._int_mm`` times and the linkage's seconds.
+   function, and the pairwise distances must equal the plain version's;
+   prints the pairwise kernel's time, bound, plain and ``torch._int_mm``
+   times and the linkage's seconds.
 7. LM decode serving: ``repro_torch.launch.serve.main`` on Qwen2-7B at full
    width and depth (bfloat16, the port's seeded parameters) with the int8
    KV store (``--kv-quant``), batch 32, a 1,024-token prompt from the
@@ -234,15 +239,25 @@ def banded_case(np, rng, Q, R, kind, num_tiles):
     return starts.astype(np.int32), lens.astype(np.int32), num_tiles
 
 
-# hamming_pop cases: (Q, R, W, layout); ragged Q and R against the 64 x 64
-# tile, W = 1, 3 and 64, W % 4 != 0, rows off a 16-byte boundary, all-zero
-# and all-ones words, q = r (the pairwise shape), and the served buckets
-# against grown centroid banks
+# hamming_pop cases: (Q, R, W, layout); ragged Q and R against the
+# 128 x 128 block, Q or R under one 16 x 8 fragment, W = 1, 3, 65 and
+# 130 (off every 8-word chunk), W % 4 != 0, rows off a 16-byte boundary,
+# all-zero and all-ones words, dim < 32 W with random padding bits, q = r
+# (the pairwise shape), and the served buckets against grown centroid banks
 HAMMING_EDGE_CASES = [
     (1, 1, 1, "random"), (1, 1000, 64, "random"), (70, 130, 3, "random"),
     (65, 64, 64, "random"), (33, 200, 2, "random"), (40, 77, 64, "offset"),
     (5, 300, 64, "zeros_ones"), (500, 500, 64, "same"),
+    (3, 5, 64, "random"), (50, 6, 65, "random"), (40, 300, 65, "random"),
+    (129, 90, 130, "offset"), (33, 200, 64, "pad_bits"),
+    (130, 129, 3, "pad_bits"), (2048, 2048, 64, "same"),
 ] + [(q, c, 64, "random") for q in (4, 8, 16, 32) for c in (1000, 3000)]
+
+
+def hamming_dim(W: int, layout: str) -> int:
+    """The case's dim: 32 W, or 13 fewer bits with the padding bits left
+    random ("pad_bits")."""
+    return 32 * W - (13 if layout == "pad_bits" else 0)
 
 
 # hd_encode cases: (B, F, D, m, layout, block_b, block_d): ragged B, F and
@@ -257,15 +272,24 @@ HD_ENCODE_EDGE_CASES = [
 ]
 
 # imc_mvm cases: (Q, R, Dp, weights, full_scale, tile_cols, block_q,
-# block_r): noisy packed levels, integer weights, exact .5 points of
-# part / lsb (lsb = 2), saturated codes, ragged Q, R and Dp, a 64-column
-# array, and every compiled tile size along each axis
+# block_r, adc_levels): noisy packed levels, integer weights, exact .5
+# points of part / lsb (lsb = 2), saturated codes, ragged Q, R and Dp, a
+# 64-column array, every compiled tile size along each axis, the
+# double-rounding case (a partial of -2**-60 from a cancellation, then
+# 3 * (1 + 2**-23), with lsb = 2**-22 so each float32 ulp of a partial is
+# its own code), float weights at Dp = 2,731 (rows off 16-byte
+# boundaries) with R odd, one ragged 43-column tile, and Q = 1 and 33
 IMC_EDGE_CASES = [
-    (32, 4000, 2731, "noisy", 135.7645, 128, None, None),
-    (9, 70, 300, "integer", 135.76, 128, 8, 32),
-    (17, 300, 257, "integer", 62.0, 128, 16, 64),
-    (8, 129, 128, "saturate", 31.0, 128, 32, 128),
-    (40, 515, 1000, "normal", 128.0, 64, 64, 256),
+    (32, 4000, 2731, "noisy", 135.7645, 128, None, None, 31),
+    (9, 70, 300, "integer", 135.76, 128, 8, 32, 31),
+    (17, 300, 257, "integer", 62.0, 128, 16, 64, 31),
+    (8, 129, 128, "saturate", 31.0, 128, 32, 128, 31),
+    (40, 515, 1000, "normal", 128.0, 64, 64, 256, 31),
+    (4, 300, 300, "fma_tie", 4.0, 128, None, None, 2 ** 24),
+    (32, 1003, 2731, "noisy", 135.7645, 128, None, None, 31),
+    (32, 700, 43, "noisy", 135.7645, 128, None, None, 31),
+    (1, 500, 300, "noisy", 135.7645, 128, None, None, 31),
+    (33, 300, 2731, "noisy", 135.7645, 128, None, None, 31),
 ]
 
 
@@ -327,10 +351,18 @@ def imc_case(torch, np, Q, R, Dp, kind):
         w = rng.integers(-3, 4, size=(R, Dp)).astype(np.float32)
         if kind == "saturate":
             w = np.sign(q[:1]) * 3 + 0 * w
-    elif kind == "noisy":
+    elif kind in ("noisy", "fma_tie"):
         q = (2 * rng.binomial(3, 0.5, size=(Q, Dp)) - 3).astype(np.float32)
         w = (2 * rng.binomial(3, 0.5, size=(R, Dp)) - 3) * (
             1 + 0.1716 * rng.standard_normal((R, Dp)))
+        if kind == "fma_tie":   # columns 0-2 of each tile, even rows
+            w[::2] = 0
+            for c0 in range(0, Dp - 2, 128):
+                q[:, c0:c0 + 3] = [1, -1, 3]
+                w[::2, c0:c0 + 3] = [2.0 ** -37, 2.0 ** -37 * (1 + 2.0 ** -23),
+                                     1 + 2.0 ** -23]
+            # scaled by powers of two, which keep the rounding structure
+            w[::2] *= 2.0 ** -(np.arange(0, R, 2) % 4)[:, None]
     else:
         q = rng.standard_normal((Q, Dp)) * 2
         w = rng.standard_normal((R, Dp))
@@ -439,20 +471,22 @@ def phase_kernels_vs_plain(torch, np):
                                        k=k, num_valid=nv))
     for Q, R, W, layout in HAMMING_EDGE_CASES:
         q, r = hamming_case(torch, Q, R, W, layout)
+        dim = hamming_dim(W, layout)
         mismatches["hamming_pop"] += int(
-            (hamming_pop(q, r, dim=32 * W)
-             != hamming_pop_plain(q, r, dim=32 * W)).sum())
+            (hamming_pop(q, r, dim=dim)
+             != hamming_pop_plain(q, r, dim=dim)).sum())
     for B, F, D, m, layout, bb, bd in HD_ENCODE_EDGE_CASES:
         lev, idh, lvh = hd_encode_case(torch, np, B, F, D, m, layout)
         mismatches["hd_encode"] += int(
             (hd_encode(lev, idh, lvh, block_b=bb, block_d=bd)
              != hd_encode_plain(lev, idh, lvh)).sum())
-    for Q, R, Dp, kind, fs, tc, bq, br in IMC_EDGE_CASES:
+    for Q, R, Dp, kind, fs, tc, bq, br, adc in IMC_EDGE_CASES:
         q, w = imc_case(torch, np, Q, R, Dp, kind)
         mismatches["imc_mvm"] += int(
             (imc_mvm(q, w, full_scale=fs, tile_cols=tc, block_q=bq,
-                     block_r=br)
-             != imc_mvm_plain(q, w, full_scale=fs, tile_cols=tc)).sum())
+                     block_r=br, adc_levels=adc)
+             != imc_mvm_plain(q, w, full_scale=fs, tile_cols=tc,
+                              adc_levels=adc)).sum())
     decode_err = 0.0
     for B, S, KV, G, hd, valid in DECODE_EDGE_CASES:
         ops = decode_case(torch, np, B, S, KV, G, hd)
@@ -997,6 +1031,7 @@ def phase_serve_cluster(torch, np):
     from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
     from repro_torch.launch import serve_cluster
     from repro_torch.serve import StreamingClusterer
+    from repro_torch.tune.microbench import burst_seconds
 
     recorder = cluster_recorder()
     gc.collect()
@@ -1074,6 +1109,10 @@ def phase_serve_cluster(torch, np):
     ms = {n: time_ms(torch, lambda n=n: hamming_pop(q[:n], bank,
                                                      dim=CLUSTER_DIM),
                      iters=200, warmup=5) for n in (4, 8, 16, 32)}
+    # the kernel alone: the same launches queued behind a device wait
+    dev_ms = {n: 1e3 * sorted(burst_seconds(
+        lambda n=n: hamming_pop(q[:n], bank, dim=CLUSTER_DIM),
+        torch.device("cuda"), calls=200, iters=3))[1] for n in (4, 8, 16, 32)}
     plain_ms = time_ms(torch, lambda: hamming_pop_plain(q, bank,
                                                          dim=CLUSTER_DIM),
                        iters=5, warmup=1)
@@ -1103,7 +1142,8 @@ def phase_serve_cluster(torch, np):
     b_ms, b_by = bound_ms(ops, nbytes)
     print(f"serve_cluster: hamming_pop at the served shape against "
           f"{tenant}'s final {C} centroids ({W} words): by bucket (Q: ms) "
-          f"{json.dumps(ms)}, plain {plain_ms:.4f} ms, torch._int_mm on the "
+          f"{json.dumps(ms)} (with the host's issue hidden "
+          f"{json.dumps(dev_ms)}), plain {plain_ms:.4f} ms, torch._int_mm on the "
           f"unpacked operands {lib_ms:.4f} ms (padded to {lib_shape}), "
           f"bound {b_ms:.6f} ms ({b_by}; {ops:.4g} int8 ops, {nbytes:.4g} "
           f"B) at Q=32; kernel vs plain: {mismatches} mismatches; sm "
@@ -1116,6 +1156,7 @@ def phase_serve_cluster(torch, np):
         "ms": ms[32], "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms,
         "shape": f"Q=32 x C={C}, W={W} (served)", "served_step_ms": step_ms,
+        "device_ms": dev_ms[32],
     }
 
 
@@ -1144,6 +1185,9 @@ def phase_bucket(torch, np, entry):
     words = bitpack_bipolar(hv)
     W = words.shape[1]
     thr = 0.36 * CLUSTER_DIM
+    pair_mism = int((hamming_pop(words, words, dim=CLUSTER_DIM)
+                     != hamming_pop_plain(words, words, dim=CLUSTER_DIM))
+                    .sum())
     k_ms = time_ms(torch, lambda: hamming_pop(words, words, dim=CLUSTER_DIM),
                    iters=10, warmup=2)
     p_ms = time_ms(torch, lambda: hamming_pop_plain(words, words,
@@ -1153,8 +1197,6 @@ def phase_bucket(torch, np, entry):
     ops = 2 * n * n * CLUSTER_DIM
     nbytes = n * W * 4 + n * n * 4
     b_ms, b_by = bound_ms(ops, nbytes)
-    popc_ms = popc_pipe_ms(
-        n * n * W, torch.cuda.get_device_properties(0).multi_processor_count)
     results, linkage_s = {}, {}
     for name, fn in (("kernel", None), ("plain", hamming_pop_plain)):
         dist = pairwise_distances(words, dim=CLUSTER_DIM, hamming=fn)
@@ -1170,17 +1212,21 @@ def phase_bucket(torch, np, entry):
             and a.num_clusters == b.num_clusters)
     print(f"bucket: N={n} (the paper's average precursor bucket), D="
           f"{CLUSTER_DIM}, threshold {thr:g}: hamming_pop pairwise "
-          f"{k_ms:.4f} ms (Q=R={n}, W={W}), plain {p_ms:.2f} ms, "
+          f"{k_ms:.4f} ms (Q=R={n}, W={W}; {pair_mism} mismatches against "
+          f"its plain version), plain {p_ms:.2f} ms, "
           f"torch._int_mm on the unpacked operands {lib_ms:.4f} ms (padded "
           f"to {lib_shape}), bound {b_ms:.4f} ms ({b_by}; {ops:.4g} int8 "
-          f"ops, {nbytes:.4g} B), this design's POPC-pipe ceiling "
-          f"{popc_ms:.4f} ms; complete linkage {linkage_s['kernel']:.2f} s "
+          f"ops, {nbytes:.4g} B; {b_ms / k_ms:.1%} of it reached); "
+          f"complete linkage {linkage_s['kernel']:.2f} s "
           f"(plain-distance run {linkage_s['plain']:.2f} s), "
           f"{a.num_merges} merges, {a.num_clusters} clusters; labels, "
           f"merges and clusters equal to the plain pipeline: {same}")
+    check(pair_mism == 0, "hamming_pop differs from its plain version at "
+                          "the pairwise shape")
     check(same, "linkage over kernel distances differs from the plain "
                 "pipeline")
     entry.update(pairwise_ms=k_ms, pairwise_plain_ms=p_ms,
+                 pairwise_mismatches=pair_mism,
                  pairwise_bound_ms=b_ms, pairwise_bound_by=b_by,
                  pairwise_library_ms=lib_ms,
                  pairwise_shape=f"Q=R={n}, W={W}",

@@ -27,8 +27,9 @@ The knobs:
   split across blocks; it sets the split count, never the result.
 * ``block_b`` / ``block_d`` of ``hd_encode``: queries per block and dims
   per block, the latter in whole 32-dim packed codebook words.
-* ``block_q`` / ``block_r`` of ``imc_mvm``: the output tile, 8 warps x 1,
-  2, 4 or 8 queries each by 32 lanes x 1, 2, 4 or 8 rows each.
+* ``block_q`` / ``block_r`` of ``imc_mvm``: the output tile; a warp
+  covers 8, 16 or 32 queries (2, 4 or 8 a lane; two warps at 64) by 32
+  rows, so block_r sets 1, 2, 4 or 8 warps along the rows.
 
 ``imc_mvm``'s ``tile_cols`` is not a knob: it is the PCM array's column
 count, and another value computes another function.

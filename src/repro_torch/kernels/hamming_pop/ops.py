@@ -3,9 +3,10 @@ plain PyTorch version.
 
 Replaces ``repro.kernels.hamming_pop.hamming_pop_pallas`` (TPU kernel
 ``hamming_pop.py:_hamming_kernel``), the distance step of clustering.
-The kernel is ``csrc/hamming_pop.cu``; see its header for the bound on
-the H100 and the design. :func:`hamming_pop_plain` is also the
-counterpart of the reference's ``ref.py`` oracle. The reference pads Q
+The kernel is ``csrc/hamming_pop.cu`` (int8 tensor cores); see its
+header for the bound on the H100 and the design.
+:func:`hamming_pop_plain` is also the counterpart of the reference's
+``ref.py`` oracle. The reference pads Q
 and R to 128 and W to 32 and slices the result; the kernel masks the
 ragged edges itself, with the same results.
 
@@ -23,7 +24,7 @@ from repro_torch.core.hd.similarity import hamming_similarity_packed
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_hamming.ops import check_status
 
-TILE = 64             # output rows and columns per block (hamming_pop.cu)
+BLOCK_Q = 128         # output rows per block (hamming_pop.cu)
 MAX_GRID_Y = 65535    # CUDA's limit on the grid's query-tile axis
 
 
@@ -71,8 +72,8 @@ def hamming_pop(q: torch.Tensor, r: torch.Tensor, *, dim: int
         raise ValueError("hamming_pop needs contiguous operands")
     Q, W = q.shape
     R = r.shape[0]
-    if -(-Q // TILE) > MAX_GRID_Y:
-        raise ValueError(f"Q={Q} exceeds {MAX_GRID_Y * TILE} rows")
+    if -(-Q // BLOCK_Q) > MAX_GRID_Y:
+        raise ValueError(f"Q={Q} exceeds {MAX_GRID_Y * BLOCK_Q} rows")
     launch = _launcher()
     out = torch.empty((Q, R), dtype=torch.int32, device=q.device)
     if Q == 0 or R == 0:

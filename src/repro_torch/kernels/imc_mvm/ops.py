@@ -10,18 +10,20 @@ codes times ``lsb`` accumulate tile by tile. The kernel is
 ``csrc/imc_mvm.cu``; see its header for the bound on the H100 and the
 design.
 
-Both versions take each partial sum in the same order (column by column,
-a rounded multiply and a rounded add each) and accumulate the tiles in
-order, t = 0 first, each step ``code * lsb + acc`` rounded once, as the
-reference's kernel accumulates (XLA fuses that multiply-add), so on the
-same inputs they agree bit for bit. The reference sums each tile's dot
-product in XLA's order, so against it float weights agree to a
-tolerance; integer-valued weights make the partials exact and the results
-bit-identical to the reference's kernel. (The reference's oracles
-``imc_mvm_ref`` and ``imc_mvm_reference`` round ``code * lsb`` before
-summing, so they differ from its kernel, and from the port, by an ulp.)
-``lsb`` is ``full_scale / adc_levels`` in double, rounded once to float32,
-as the reference's Python scalar is.
+Both versions take each partial sum as a chain of fused multiply-adds,
+``part = fmaf(a_c, w_c, part)`` column by column, c = 0 first (one
+rounding per column: the kernel's FMA pipe issues one instruction per
+product, where a separate rounded multiply and add took two), and
+accumulate the tiles in order, t = 0 first, each step
+``fmaf(code, lsb, acc)``, as the reference's kernel accumulates (XLA
+fuses that multiply-add). So on the same inputs they agree bit for bit.
+The reference sums each tile's dot product in XLA's order, so against it
+float weights agree to a tolerance; integer-valued weights make the
+partials exact and the results bit-identical to the reference's kernel.
+(The reference's oracles ``imc_mvm_ref`` and ``imc_mvm_reference`` round
+``code * lsb`` before summing, so they differ from its kernel, and from
+the port, by an ulp.) ``lsb`` is ``full_scale / adc_levels`` in double,
+rounded once to float32, as the reference's Python scalar is.
 
 ``tile_cols`` is the array's column count (``ArrayConfig.cols``), not a
 launch knob: another value computes another function. The launch knobs
@@ -42,10 +44,11 @@ import torch.nn.functional as nnf
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_utils import check_overrides, resolve_blocks
-from repro_torch.kernels.topk_hamming.ops import check_status, smem_limit
+from repro_torch.kernels.topk_hamming.ops import check_status
 
 MAX_GRID_Y = 65535    # CUDA's limit on the grid's query-tile axis
 CHUNK_ROWS = 1 << 16  # weight rows per block of the plain version
+DAC_LIMIT_MAX = 1 << 24  # integers from 2**24 + 1 up are not all exact in float32
 
 
 def lsb_of(full_scale: float, adc_levels: int) -> float:
@@ -69,17 +72,41 @@ def _check_operands(queries, weights, tile_cols, dac_limit, adc_levels
     if dac_limit < 0 or adc_levels < 1:
         raise ValueError(f"dac_limit={dac_limit} and adc_levels={adc_levels} "
                          f"must be >= 0 and >= 1")
+    if dac_limit >= DAC_LIMIT_MAX:
+        raise ValueError(f"dac_limit={dac_limit} must be < 2**24: the "
+                         f"kernel clamps the DAC-rounded query to it in "
+                         f"float32, where larger integers are not exact")
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``fmaf(a, b, c)`` elementwise on float32 tensors: ``a * b + c``
+    rounded once to float32 (round to nearest, ties to even), as the CUDA
+    FMA computes it.
+
+    The product of two float32 values is exact in float64. A TwoSum gives
+    the float64 sum ``s`` and its exact error ``e``; where ``e != 0`` and
+    ``s``'s last mantissa bit is even, ``s`` moves one ulp toward ``e``
+    (rounding to odd), so the one cast to float32 rounds the exact value,
+    never a float64 tie that rounding had made."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    to_odd = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.copysign(torch.full_like(s, float("inf")), e)
+    return torch.where(to_odd, torch.nextafter(s, toward), s).float()
 
 
 def imc_mvm_plain(queries: torch.Tensor, weights: torch.Tensor, *,
                   full_scale: float, tile_cols: int = 128,
                   dac_limit: int = 3, adc_levels: int = 31) -> torch.Tensor:
-    """The plain version: per-tile partials summed column by column (a
-    float32 multiply, then a float32 add, each rounded), then the ADC,
-    then a sequential accumulation over the tiles, t = 0 first, each step
-    ``code * lsb + acc`` rounded once (in float64, where it is exact, then
-    to float32); weights in blocks of :data:`CHUNK_ROWS` rows. (Q, Dp) x
-    (R, Dp) -> (Q, R) float32."""
+    """The plain version: per-tile partials as a chain of float32 fused
+    multiply-adds over the tile's columns (:func:`fma_f32`), then the
+    ADC, then a sequential accumulation over the tiles, t = 0 first, each
+    step ``fmaf(code, lsb, acc)``; weights in blocks of
+    :data:`CHUNK_ROWS` rows. (Q, Dp) x (R, Dp) -> (Q, R) float32."""
     _check_operands(queries, weights, tile_cols, dac_limit, adc_levels)
     dev = queries.device
     q = torch.clamp(torch.round(queries.to(torch.float32)), -dac_limit,
@@ -101,22 +128,25 @@ def imc_mvm_plain(queries: torch.Tensor, weights: torch.Tensor, *,
         part = torch.zeros((Q, wt.shape[1], T), dtype=torch.float32,
                            device=dev)
         for c in range(tile_cols):
-            part = part + qt[:, None, :, c] * wt[c][None]
+            part = fma_f32(qt[:, None, :, c], wt[c][None], part)
         code = torch.clamp(torch.round(part / lsb), -adc_levels, adc_levels)
         acc = torch.zeros((Q, wt.shape[1]), dtype=torch.float32, device=dev)
         for t in range(T):
-            acc = (acc.to(torch.float64) + code[:, :, t].to(torch.float64)
-                   * lsb.to(torch.float64)).to(torch.float32)
+            acc = fma_f32(code[:, :, t], lsb, acc)
         out[:, r0:r0 + CHUNK_ROWS] = acc
     return out
 
 
 def _launcher():
-    fn = _build.load("imc_mvm").imc_mvm_launch
+    lib = _build.load("imc_mvm")
+    fn = lib.imc_mvm_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p, p]
+    fn.argtypes = [p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p, p, p]
     fn.restype = i
-    return fn
+    scratch = lib.imc_mvm_scratch_floats
+    scratch.argtypes = [i, i, i, i]
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def imc_mvm(queries: torch.Tensor, weights: torch.Tensor, *,
@@ -144,25 +174,28 @@ def imc_mvm(queries: torch.Tensor, weights: torch.Tensor, *,
                          f"and {weights.dtype}")
     if not (queries.is_contiguous() and weights.is_contiguous()):
         raise ValueError("imc_mvm needs contiguous operands")
+    if weights.data_ptr() % 16:
+        raise ValueError("imc_mvm needs weights that start on a 16-byte "
+                         "boundary (it copies each row's span in aligned "
+                         "16-byte quads)")
     Q, Dp = queries.shape
     R = weights.shape[0]
-    launch = _launcher()
+    launch, scratch_floats = _launcher()
     cfg = resolve_blocks("imc_mvm", (Q, R, Dp), knobs, queries.device)
     bq, br = cfg["block_q"], cfg["block_r"]
-    need = 4 * tile_cols * (bq + br + 1)
-    if need > smem_limit(queries.device):
-        raise ValueError(f"block_q={bq}, block_r={br} at tile_cols="
-                         f"{tile_cols} need {need} B of shared memory; the "
-                         f"card allows {smem_limit(queries.device)}")
     if -(-Q // bq) > MAX_GRID_Y:
         raise ValueError(f"Q={Q} exceeds {MAX_GRID_Y * bq} queries")
     out = torch.empty((Q, R), dtype=torch.float32, device=queries.device)
     if Q == 0 or R == 0:
         return out
+    # the DAC-rounded queries in the kernel's per-chunk layout
+    scratch = torch.empty(scratch_floats(Q, Dp, tile_cols, bq),
+                          dtype=torch.float32, device=queries.device)
     with torch.cuda.device(queries.device):  # the launch targets the current device
         err = launch(queries.data_ptr(), weights.data_ptr(), Q, R, Dp,
                      tile_cols, int(dac_limit), int(adc_levels),
-                     lsb_of(full_scale, adc_levels), bq, br, out.data_ptr(),
+                     lsb_of(full_scale, adc_levels), bq, br,
+                     scratch.data_ptr(), out.data_ptr(),
                      torch.cuda.current_stream(queries.device).cuda_stream)
     check_status(err, "imc_mvm")
     imc_mvm.launches += 1

@@ -280,9 +280,11 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 
 
 def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
-    """Full-sequence causal attention that also fills the KV cache (in
-    place: its first min(S, size) slots take the last positions' K/V, as
-    the reference writes them)."""
+    """Full-sequence causal attention that also fills the KV cache in
+    place: position ``p`` of the last ``min(S, size)`` lands in slot
+    ``p % size``, the slot decode writes it to. (The reference writes the
+    kept tail to slots ``0..size-1``, which misaligns the sliding-window
+    ring when S > size and S % size != 0; the port follows the ring.)"""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
@@ -292,16 +294,21 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
         out = attention_chunked(q, k, v, cfg)
     size = cache.k.shape[1]
     n = min(s, size)
+    shift = s % size if s > size else 0
+
+    def ring(t):
+        return torch.roll(t, shift, dims=1) if shift else t
+
     if isinstance(cache, QuantKVCache):
         k8, ks = _kv_quant(k[:, -size:])
         v8, vs = _kv_quant(v[:, -size:])
-        cache.k[:, :n] = k8
-        cache.v[:, :n] = v8
-        cache.k_scale[:, :n] = ks
-        cache.v_scale[:, :n] = vs
+        cache.k[:, :n] = ring(k8)
+        cache.v[:, :n] = ring(v8)
+        cache.k_scale[:, :n] = ring(ks)
+        cache.v_scale[:, :n] = ring(vs)
     else:
-        cache.k[:, :n] = k[:, -size:]
-        cache.v[:, :n] = v[:, -size:]
+        cache.k[:, :n] = ring(k[:, -size:])
+        cache.v[:, :n] = ring(v[:, -size:])
     return _out_proj(out, p["wo"]), cache
 
 
@@ -320,13 +327,18 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache,
     and scaled by ``hd**-0.5``, over ``valid_len = min(pos + 1, size)``
     positions: the whole ring once it has wrapped, else the slots up to
     ``pos``, exactly the reference's mask. ``attend`` lets a caller swap
-    in the plain version on the same device."""
+    in the plain version on the same device. Without a window, a ``pos``
+    past the cache raises a ``ValueError`` (the reference's clamped write
+    would overwrite the last slot)."""
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     kv = cfg.num_kv_heads
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
     size = cache.k.shape[1]
+    if not cfg.sliding_window and pos >= size:
+        raise ValueError(f"decode position {pos} is past the KV cache's "
+                         f"{size} positions (no sliding window)")
     slot = pos % size if cfg.sliding_window else pos
     valid_len = min(pos + 1, size)
     if isinstance(cache, QuantKVCache):

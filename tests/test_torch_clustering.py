@@ -200,3 +200,34 @@ def test_quality_ratios_match_reference(seed):
              jclust.incorrect_clustering_ratio(jl, jt))]:
         assert got.dtype == torch.float32
         assert got.item() == float(want)
+
+
+def _pm1_slots(words: np.ndarray, staged: int) -> np.ndarray:
+    """The tensor-core kernel's expansion (``csrc/hamming_pop.cu``): each
+    of ``staged`` words (zero past the real ones) to 32 int8 values, k-slot
+    s (4 bytes) holding bits s, s + 8, s + 16, s + 24 as +-1."""
+    rows, w = words.shape
+    padded = np.zeros((rows, staged), np.uint32)
+    padded[:, :w] = words
+    bits = (padded[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    order = np.array([s + 8 * b for s in range(8) for b in range(4)])
+    return (2 * bits[:, :, order].astype(np.int64) - 1).reshape(rows, -1)
+
+
+@pytest.mark.parametrize("Q,R,W,short", [(5, 7, 1, 0), (9, 33, 3, 13),
+                                         (17, 20, 65, 13), (3, 4, 8, 31),
+                                         (16, 8, 130, 5)])
+def test_plus_minus_one_dot_identity_matches_reference(Q, R, W, short):
+    """dim - (32 x staged - <+-1 q, +-1 r>) / 2 equals the reference's
+    ``hamming_pop_ref`` with dim < 32 W and random padding bits, whatever
+    the words staged past W (the kernel stages whole 8-word chunks)."""
+    rng = np.random.default_rng(Q * 100 + R + W + short)
+    q, r = _words(rng, Q, W), _words(rng, R, W)
+    dim = 32 * W - short
+    staged = -(-W // 8) * 8
+    dot = _pm1_slots(q, staged) @ _pm1_slots(r, staged).T
+    got = dim - (32 * staged - dot) // 2
+    want = np.asarray(hamming_pop_ref(jnp.asarray(q), jnp.asarray(r), dim))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        hamming_pop(_t(q), _t(r), dim=dim).numpy(), want)

@@ -382,6 +382,82 @@ def test_imc_mvm_kernel_matches_plain(cuda, Q, R, Dp, kind, fs, tc, bq, br):
         assert float(got.abs().max()) > 0
 
 
+# edge cases of the fused-partial kernel: (Q, R, Dp, full_scale, adc_levels,
+# layout): the double-rounding partial (-2**-60 from a cancellation, then
+# 3 * (1 + 2**-23), with lsb = 2**-22 so each float32 ulp of a partial is
+# its own code), float weights at Dp = 2,731 (rows off 16-byte boundaries)
+# with R % 4 = 1, 2 and 3 and R < 4, one ragged 43-column tile, and
+# Q = 1 and 33
+IMC_EDGE_CASES = [
+    (4, 300, 300, 4.0, 2 ** 24, "fma_tie"),
+    (32, 1001, 2731, 135.7645, 31, "noisy"),
+    (32, 1002, 2731, 135.7645, 31, "noisy"),
+    (32, 1003, 2731, 135.7645, 31, "noisy"),
+    (5, 3, 300, 135.7645, 31, "noisy"),
+    (32, 700, 43, 135.7645, 31, "noisy"),
+    (1, 500, 300, 135.7645, 31, "noisy"),
+    (33, 300, 2731, 135.7645, 31, "noisy"),
+]
+
+
+@pytest.mark.parametrize("Q,R,Dp,fs,adc,kind", IMC_EDGE_CASES)
+def test_imc_mvm_edge_cases_match_plain(cuda, Q, R, Dp, fs, adc, kind):
+    rng = np.random.default_rng(Q * 1000 + R + Dp)
+    q, w = _imc_operands(rng, Q, R, Dp, "noisy")
+    if kind == "fma_tie":   # columns 0-2 of each tile, even rows
+        w[::2] = 0
+        for c0 in range(0, Dp - 2, 128):
+            q[:, c0:c0 + 3] = torch.tensor([1.0, -1.0, 3.0])
+            w[::2, c0:c0 + 3] = torch.tensor(
+                [2.0 ** -37, 2.0 ** -37 * (1 + 2.0 ** -23), 1 + 2.0 ** -23])
+    q, w = q.to(cuda), w.to(cuda)
+    got = imc_mvm(q, w, full_scale=fs, adc_levels=adc)
+    want = imc_mvm_plain(q, w, full_scale=fs, adc_levels=adc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if kind == "fma_tie":   # three tiles of 3 + 2**-22, accumulated by FMA
+        assert float(got[0, 0]) == float(np.float32(
+            np.float32(np.float32(3 + 2.0 ** -22) * 2) + (3 + 2.0 ** -22)))
+
+
+def test_imc_mvm_rejects_weights_off_a_16_byte_boundary(cuda):
+    q = torch.zeros((2, 8), device=cuda)
+    w = torch.zeros(3 * 8 + 1, device=cuda)[1:].view(3, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        imc_mvm(q, w, full_scale=10.0)
+
+
+# hamming_pop edge cases of the tensor-core kernel: (Q, R, W, dim offset,
+# layout): Q or R under one 16 x 8 fragment, W = 1, 3, 65 and 130 (off
+# every 8-word chunk), dim < 32 W with random padding bits, and q = r at
+# a pairwise shape over many blocks
+HAMMING_EDGE_CASES = [
+    (3, 5, 64, 0, "random"), (50, 6, 65, 0, "random"),
+    (40, 300, 65, 0, "random"), (129, 90, 130, 0, "offset"),
+    (2, 2, 1, 0, "random"), (31, 33, 3, 0, "random"),
+    (33, 200, 64, 13, "random"), (130, 129, 3, 13, "random"),
+    (2048, 2048, 64, 0, "same"),
+]
+
+
+@pytest.mark.parametrize("Q,R,W,short,layout", HAMMING_EDGE_CASES)
+def test_hamming_pop_edge_cases_match_plain(cuda, Q, R, W, short, layout):
+    g = torch.Generator().manual_seed(Q * 1000 + R + W + short)
+
+    def words(rows):
+        flat = torch.randint(-2**31, 2**31, (rows * W + 1,), generator=g,
+                             dtype=torch.int64).to(torch.int32).to(cuda)
+        return (flat[1:] if layout == "offset" else flat[:-1]).view(rows, W)
+
+    q = words(Q)
+    r = q if layout == "same" else words(R)
+    dim = 32 * W - short
+    got = hamming_pop(q, r, dim=dim)
+    want = hamming_pop_plain(q, r, dim=dim)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("op", tune_sweep.OPS)
 def test_every_quick_candidate_is_bit_identical_to_the_default(cuda, op):
     shape, run = tune_sweep._workload(op, True, cuda)

@@ -12,7 +12,11 @@ the tiles in order, each step ``code * lsb + acc`` rounded once). With
 float weights the partial sums are added in different orders, and the
 reference's oracles round ``code * lsb`` before summing, so those
 comparisons use the reference's own tolerance, rtol 1e-5 and atol 1e-3.
+The port's fused multiply-add step (``fma_f32``) is exact: it is held
+against ``fractions.Fraction`` arithmetic, rounded to float32 by hand.
 """
+
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +35,7 @@ from repro.kernels.imc_mvm.ref import imc_mvm_ref
 from repro_torch.convert import imc_weights_from_numpy
 from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
 from repro_torch.kernels.imc_mvm import ops as imc_ops
-from repro_torch.kernels.imc_mvm.ops import lsb_of
+from repro_torch.kernels.imc_mvm.ops import fma_f32, lsb_of
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers
@@ -207,7 +211,7 @@ def test_knobs_leave_the_cpu_result_unchanged(knobs):
 
 
 @pytest.mark.parametrize("bad", ["width", "rank", "empty", "tile_cols",
-                                 "adc"])
+                                 "adc", "dac"])
 def test_imc_mvm_rejects_bad_operands(bad):
     q = torch.zeros((2, 8))
     w = torch.zeros((3, 8))
@@ -220,6 +224,8 @@ def test_imc_mvm_rejects_bad_operands(bad):
         q, w = q[:, :0], w[:, :0]
     elif bad == "tile_cols":
         kw["tile_cols"] = 64.0
+    elif bad == "dac":   # not exact in float32, where the kernel clamps
+        kw["dac_limit"] = 2 ** 24
     else:
         kw["adc_levels"] = 0
     with pytest.raises(ValueError):
@@ -243,3 +249,80 @@ def test_plain_is_the_cpu_path_and_counts_no_launch():
     before = imc_mvm.launches
     _port(q, w, full_scale=FS)
     assert imc_mvm.launches == before
+
+
+# ------------------------------------------------- the fused partial step --
+
+def _round_f32(x: Fraction) -> np.float32:
+    """``x`` rounded to the nearest float32, ties to even, decided on the
+    exact value (no float64 step in between)."""
+    c = np.float32(float(x))
+    cands = [np.nextafter(c, np.float32(-np.inf)), c,
+             np.nextafter(c, np.float32(np.inf))]
+    return min(cands, key=lambda f: (abs(Fraction(float(f)) - x),
+                                     int(np.array(f).view(np.uint32) & 1)))
+
+
+def _fma_exact(a, b, c) -> np.ndarray:
+    return np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+
+
+# a = 3, b = 1 + 2**-23, c = -2**-60: a * b + c lies just below the
+# float32 midpoint 3 + 1.5 * 2**-22, so it rounds down to 3 + 2**-22; in
+# float64 it rounds onto the midpoint, and the cast to float32 then rounds
+# to even, up to 3 + 2**-21
+CRAFTED = (np.float32(3.0), np.float32(1 + 2.0 ** -23), np.float32(-2.0 ** -60))
+
+
+def test_fma_step_is_exact_on_the_double_rounding_case():
+    a, b, c = (np.array([v], np.float32) for v in CRAFTED)
+    naive = np.float32(np.float64(a[0]) * np.float64(b[0]) + np.float64(c[0]))
+    want = _fma_exact(a, b, c)
+    assert want[0] == np.float32(3 + 2.0 ** -22)
+    assert naive == np.float32(3 + 2.0 ** -21)   # the double rounding
+    got = fma_f32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["dac", "wide", "near_ties", "cancel"])
+def test_fma_step_is_exact_on_random_cases(kind):
+    """DAC-rounded queries times noisy weights plus partials; float32
+    values over a wide exponent range (subnormals included); sums near
+    float32 midpoints; and near-total cancellation."""
+    rng = np.random.default_rng(["dac", "wide", "near_ties",
+                                 "cancel"].index(kind))
+    n = 2000
+    if kind == "dac":
+        a = rng.integers(-3, 4, n).astype(np.float32)
+        b = (rng.standard_normal(n) * 1.7).astype(np.float32)
+        c = (rng.standard_normal(n) * 40).astype(np.float32)
+    elif kind == "wide":
+        a, b, c = (np.ldexp(rng.standard_normal(n),
+                            rng.integers(-75, 60, n)).astype(np.float32)
+                   for _ in range(3))
+    elif kind == "near_ties":   # a * b one bit past float32, c tiny
+        a = rng.choice([3.0, -3.0, 5.0, 7.0, -7.0], n).astype(np.float32)
+        b = (1 + rng.integers(0, 2 ** 23, n) * 2.0 ** -23).astype(np.float32)
+        c = (rng.choice([-1.0, 1.0, 0.0], n)
+             * np.ldexp(1.0, rng.integers(-70, -25, n))).astype(np.float32)
+    else:                       # c = -round(a * b) + noise
+        a = rng.integers(-3, 4, n).astype(np.float32)
+        b = rng.standard_normal(n).astype(np.float32)
+        c = (-(a * b) + np.ldexp(rng.standard_normal(n), -30)).astype(
+            np.float32)
+    got = fma_f32(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  _fma_exact(a, b, c).view(np.uint32))
+
+
+def test_partials_are_fused_on_the_crafted_case():
+    """A tile whose first column leaves the partial at -2**-60 and whose
+    second adds 3 * (1 + 2**-23); lsb = 4 / 2**24 = 2**-22 makes every
+    float32 ulp of the partial a distinct ADC code, so the output is the
+    partial itself."""
+    q = torch.tensor([[-1.0, 3.0]])
+    w = torch.tensor([[2.0 ** -60, 1 + 2.0 ** -23]])
+    got = imc_mvm(q, w, full_scale=4.0, adc_levels=2 ** 24)
+    assert got.item() == 3 + 2.0 ** -22

@@ -232,17 +232,48 @@ def test_apply_ffn(activation):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("kv_quant", [False, True])
-@pytest.mark.parametrize("window,max_len", [(0, 20), (8, 20)])
-def test_attention_prefill_then_decode(kv_quant, window, max_len):
-    """Prefill 10 positions, then decode to position 19 (past the
-    8-position ring when the window is on): outputs and caches agree."""
-    jc, tc = _cfgs(kv_quant, window)
+def _windowed_params(jc, seed=7):
     jp, _ = JL.init_attention(jax.random.PRNGKey(0), jc)
     jp = {k: _np(v) for k, v in jp.items()}
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     jp["bq"] = rng.normal(size=jp["bq"].shape).astype(np.float32) * 0.1
     jp["bk"] = rng.normal(size=jp["bk"].shape).astype(np.float32) * 0.1
+    return jp, rng
+
+
+def _train_oracle(monkeypatch, jpa, x, jc, quant):
+    """The reference's ``attention_train`` over the whole sequence ``x``
+    (causal, with the config's window), at its last position. With
+    ``quant`` its K/V pass through the reference's ``_kv_quant`` and back,
+    as the int8 cache holds them."""
+    qkv = JL._qkv
+
+    def quantized_qkv(p, xs, cfg, positions):
+        q, k, v = qkv(p, xs, cfg, positions)
+        deq = [c.astype(jnp.float32) * sc[..., None]
+               for c, sc in (JL._kv_quant(k), JL._kv_quant(v))]
+        return q, deq[0].astype(k.dtype), deq[1].astype(v.dtype)
+
+    if quant:
+        monkeypatch.setattr(JL, "_qkv", quantized_qkv)
+    try:
+        return _np(JL.attention_train(jpa, jnp.asarray(x), jc))[:, -1:]
+    finally:
+        monkeypatch.setattr(JL, "_qkv", qkv)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("window,max_len", [(0, 20), (8, 20)])
+def test_attention_prefill_then_decode(kv_quant, window, max_len,
+                                       monkeypatch):
+    """Prefill 10 positions, then decode to position 19 (past the
+    8-position ring when the window is on): outputs and caches agree.
+    Without a window the oracle is the reference's decode; with one it is
+    the reference's ``attention_train`` over the whole sequence, since the
+    reference's prefill misaligns the ring when the prompt is longer than
+    the window (ROADMAP Queue 3, F1)."""
+    jc, tc = _cfgs(kv_quant, window)
+    jp, rng = _windowed_params(jc)
     tp = _attn_params(jp)
     jpa = {k: jnp.asarray(v) for k, v in jp.items()}
     x = rng.normal(size=(2, max_len, 64)).astype(np.float32) * 0.5
@@ -259,8 +290,11 @@ def test_attention_prefill_then_decode(kv_quant, window, max_len):
                                           jnp.asarray(pos, jnp.int32))
         y_t, tcache = L.attention_decode(tp, _t(x[:, pos:pos + 1]), tc,
                                          tcache, pos)
-        np.testing.assert_allclose(y_t.numpy(), _np(y_j), rtol=RTOL,
-                                   atol=ATOL)
+        want = (_train_oracle(monkeypatch, jpa, x[:, :pos + 1], jc, kv_quant)
+                if window else _np(y_j))
+        np.testing.assert_allclose(y_t.numpy(), want, rtol=RTOL, atol=ATOL)
+    # every ring slot was rewritten by decode, at slot pos % size on both
+    # sides, so the caches agree again
     if kv_quant:
         np.testing.assert_array_equal(tcache.k.numpy(), _np(jcache.k))
         np.testing.assert_array_equal(tcache.v_scale.numpy(),
@@ -268,6 +302,63 @@ def test_attention_prefill_then_decode(kv_quant, window, max_len):
     else:
         np.testing.assert_allclose(tcache.k.numpy(), _np(jcache.k),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("s0", [8, 9, 10, 11, 16])
+def test_windowed_decode_after_a_long_prefill_matches_full_attention(
+        kv_quant, s0, monkeypatch):
+    """F1: prefill ``s0`` positions into an 8-slot window, then decode 10
+    more. Each step equals the reference's ``attention_train`` over the
+    whole sequence. Where the prompt fits the window or fills it a whole
+    number of times (8, 16), the ring also equals the reference's own."""
+    jc, tc = _cfgs(kv_quant, window=8)
+    jp, rng = _windowed_params(jc, seed=s0)
+    tp = _attn_params(jp)
+    jpa = {k: jnp.asarray(v) for k, v in jp.items()}
+    max_len = s0 + 10
+    x = rng.normal(size=(2, max_len, 64)).astype(np.float32) * 0.5
+    tcache = L.init_kv_cache(tc, 2, max_len, dtype=torch.float32)
+    jcache = JL.init_kv_cache(jc, 2, max_len, dtype=jnp.float32)
+    _, tcache = L.attention_prefill(tp, _t(x[:, :s0]), tc, tcache)
+    _, jcache = JL.attention_prefill(jpa, jnp.asarray(x[:, :s0]), jc, jcache)
+    if s0 % 8 == 0:
+        np.testing.assert_allclose(tcache.k.numpy().astype(np.float32),
+                                   _np(jcache.k).astype(np.float32),
+                                   rtol=RTOL, atol=ATOL)
+    for pos in range(s0, max_len):
+        y_t, tcache = L.attention_decode(tp, _t(x[:, pos:pos + 1]), tc,
+                                         tcache, pos)
+        want = _train_oracle(monkeypatch, jpa, x[:, :pos + 1], jc, kv_quant)
+        np.testing.assert_allclose(y_t.numpy(), want, rtol=RTOL, atol=ATOL)
+        if s0 % 8 == 0:
+            y_j, jcache = JL.attention_decode(
+                jpa, jnp.asarray(x[:, pos:pos + 1]), jc, jcache,
+                jnp.asarray(pos, jnp.int32))
+            np.testing.assert_allclose(y_t.numpy(), _np(y_j), rtol=RTOL,
+                                       atol=ATOL)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_decode_past_a_cache_without_window_raises(kv_quant):
+    """F2: a no-window cache of 6 positions takes decode at positions 4
+    and 5, and raises at 6 (the reference's clamped write would overwrite
+    the last slot), leaving the cache as it was."""
+    _, tc = _cfgs(kv_quant)
+    tp = L.init_attention(tc, generator=torch.Generator().manual_seed(0))
+    cache = L.init_kv_cache(tc, 2, 6, dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    _, cache = L.attention_prefill(tp, torch.randn(2, 4, 64, generator=g),
+                                   tc, cache)
+    for pos in (4, 5):
+        _, cache = L.attention_decode(tp, torch.randn(2, 1, 64, generator=g),
+                                      tc, cache, pos)
+    before = [t.clone() for t in dataclasses.astuple(cache)]
+    with pytest.raises(ValueError, match=r"position 6 .* 6 positions"):
+        L.attention_decode(tp, torch.randn(2, 1, 64, generator=g), tc, cache,
+                           6)
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, dataclasses.astuple(cache)))
 
 
 def test_int8_decode_goes_through_the_attend_seam():
