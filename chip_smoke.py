@@ -12,11 +12,16 @@ exits non-zero and prints no result line:
 2. Kernels vs plain versions: every kernel against its plain PyTorch
    version on the card, on edge cases (packed and int8 banks, int8 at
    D = 1000, ragged Q and R, num_valid < R, k > num_valid, k = R,
-   duplicate rows; for the banded kernels also empty bands, bands
-   narrower than k, bands crossing splits and running past num_valid,
-   two bands, no tile budget and the plan's tight one, and bands far
-   apart inside one 8-query block; for ``hamming_pop`` Q = R = 1, ragged
-   Q and R, Q or R under one 16 x 8 fragment, W = 1, 2, 3, 64, 65 and 130,
+   duplicate rows; for the exact tensor-core scan also Q = 1, 4 and 33,
+   R off its 64- and 256-row steps, splits ending inside and between
+   warpgroups, ties across warpgroups, W = 1, 3 and 65 words with
+   dim < 32 W and random padding bits, k = R over several splits, and
+   ``encode_search``'s encode kernel alone; for the banded kernels also
+   empty bands, bands narrower than k, bands crossing splits and running
+   past num_valid, two bands, no tile budget and the plan's tight one, and
+   bands far apart inside one 8-query block; for ``hamming_pop`` Q = R = 1,
+   ragged Q and R, Q or R under one 16 x 8 fragment, W = 1, 2, 3, 64, 65
+   and 130,
    rows off a 16-byte boundary, all-zero and all-ones words, dim < 32 W
    with random padding bits, q = r, and the served buckets 4 / 8 / 16 / 32
    against 1,000 and 3,000 centroids; for ``hd_encode`` ragged B, F and D,
@@ -64,7 +69,9 @@ exits non-zero and prints no result line:
    the plain route on the card (for OMS, the unfused masked route); then
    each kernel is timed with CUDA events on that batch and bank (and, at
    each smaller served bucket, on evenly spaced rows of it) beside its
-   plain version.
+   plain version, its bound and its design's own ceiling (the exact
+   kernels: the +-1 expansion on the integer lanes; the banded kernels:
+   the POPC pipe); ``encode_search``'s encode kernel is also timed alone.
 5. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
    tenants, each streaming one paper-average precursor bucket (10,624
    spectra = 1,328 identities x 8) at D = 2048, 1024 bins, 16 levels,
@@ -128,11 +135,15 @@ DIM, K, MAX_BATCH = 8192, 4, 32
 # H100 SXM published peaks (dense, 700 W): 3.35 TB/s HBM3, 1,979 TOP/s
 # int8 on the tensor cores and 67 TFLOP/s float32 outside them. POPC
 # issues 16 per clock per SM (a quarter of the 64-wide integer pipe): the
-# ceiling of the search kernels' current design.
+# ceiling of the banded kernels' design. The exact kernels' tensor-core
+# scan is capped instead by its +-1 expansion on the 64 integer lanes per
+# clock per SM (NVIDIA's sm_90 throughput table for 32-bit integer
+# multiply-add, AND and shift).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
 POPC_PER_CLOCK_PER_SM = 16
+INT_LANES_PER_CLOCK_PER_SM = 64
 
 TPU_KERNELS = {
     "topk_hamming": "src/repro/kernels/topk_hamming/topk_hamming.py:85",
@@ -180,15 +191,33 @@ def phase_build(build):
     print(nvidia_smi("name,power.limit"))
 
 
-# phase 2 cases: (Q, R, D, packed, k, num_valid, duplicate rows)
+# phase 2 cases: (Q, R, D, packed, k, num_valid, duplicate rows, plan);
+# plan None takes the wrappers' launch plan, else (queries a block, rows a
+# split) is launched as given. Packed cases with D % 32 != 0 hold random
+# words, padding bits included (topk_hamming only: an encoded packed bank
+# holds whole 32-dim words)
 EDGE_CASES = [
-    (32, 3000, 8192, True, 4, None, False),
-    (5, 1000, 256, True, 7, 600, False),      # ragged Q, num_valid < R
-    (40, 517, 64, True, 20, 9, False),        # k > num_valid
-    (3, 37, 32, True, 37, None, False),       # k = R
-    (17, 300, 96, True, 9, None, True),       # duplicate rows: tied scores
-    (32, 2000, 1000, False, 4, None, False),  # int8 at D = 1000
-    (9, 129, 1000, False, 129, 77, True),     # int8, k = R, ties, masked
+    (32, 3000, 8192, True, 4, None, False, None),
+    (5, 1000, 256, True, 7, 600, False, None),  # ragged Q; R off the 64-row
+                                                # step and the 256-row block
+                                                # step; num_valid in a step
+    (40, 517, 64, True, 20, 9, False, None),    # k > num_valid
+    (3, 37, 32, True, 37, None, False, None),   # k = R
+    (17, 300, 96, True, 9, None, True, None),   # duplicate rows 100 apart:
+                                                # ties across warpgroups
+    (32, 2000, 1000, False, 4, None, False, None),  # int8 at D = 1000
+    (9, 129, 1000, False, 129, 77, True, None),     # int8, k = R, ties, masked
+    (1, 1000, 8192, True, 4, 999, False, None),     # Q = 1
+    (4, 777, 256, True, 5, None, False, None),      # Q = 4: 8-query block
+    (33, 700, 256, True, 6, 650, False, None),      # two query blocks
+    (16, 3000, 256, True, 5, 2900, False, (16, 100)),  # splits end inside
+                                                       # warpgroups' rows
+    (32, 1500, 256, True, 4, 1234, True, (32, 320)),   # splits end between
+                                                       # warpgroups; ties
+    (7, 300, 20, True, 6, None, False, None),       # W = 1, dim 20
+    (9, 500, 70, True, 5, None, True, None),        # W = 3, dim 70, ties
+    (12, 400, 2070, True, 4, 333, False, None),     # W = 65, dim 2070
+    (8, 300, 64, True, 300, None, False, (8, 64)),  # k = R over 5 splits
 ]
 
 
@@ -400,6 +429,11 @@ def phase_kernels_vs_plain(torch, np):
         encode_search_banded_plain,
         encode_search_plain,
     )
+    from repro_torch.kernels.encode_search.ops import (
+        encode_queries,
+        encode_queries_plain,
+        launch_encode_search,
+    )
     from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
     from repro_torch.kernels.hd_encode import hd_encode, hd_encode_plain
     from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
@@ -409,9 +443,15 @@ def phase_kernels_vs_plain(torch, np):
         topk_hamming_banded_plain,
         topk_hamming_plain,
     )
+    from repro_torch.kernels.topk_hamming.ops import launch_exact
     dev = torch.device("cuda")
 
     def bank(rng, rows, d, packed, dup=False):
+        if packed and d % 32:  # random words, padding bits included
+            t = torch.from_numpy(rng.integers(
+                0, 2**32, (rows, -(-d // 32)), dtype=np.uint32).view(
+                    np.int32)).to(dev)
+            return torch.cat([t, t, t]) if dup else t
         hv = rng.choice([-1, 1], size=(rows, d)).astype(np.int8)
         if dup:
             hv = np.concatenate([hv, hv, hv])
@@ -427,23 +467,35 @@ def phase_kernels_vs_plain(torch, np):
         lev = rng.integers(0, m, size=(Q, F))
         lev[:, rng.random(F) < 0.7] = 0
         lev[0] = 0
+        lev[-1, :3] = m + 2   # past the codebook: LV[m - 1]
         return torch.from_numpy(lev.astype(np.int32)).to(dev), idh, lvh
 
     def diff(got, want):
         return int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
 
     mismatches = dict.fromkeys(TPU_KERNELS, 0)
-    for Q, R, D, packed, k, nv, dup in EDGE_CASES:
+    for Q, R, D, packed, k, nv, dup, plan in EDGE_CASES:
         rng = np.random.default_rng(Q * 1000 + R + D)
         r = bank(rng, R // 3 if dup else R, D, packed, dup)
         q = bank(rng, Q, D, packed)
+        got = (topk_hamming(q, r, dim=D, k=k, num_valid=nv) if plan is None
+               else launch_exact(q, r, dim=D, k=k, num_valid=nv, bq=plan[0],
+                                 rows_per_split=plan[1]))
         mismatches["topk_hamming"] += diff(
-            topk_hamming(q, r, dim=D, k=k, num_valid=nv),
-            topk_hamming_plain(q, r, dim=D, k=k, num_valid=nv))
+            got, topk_hamming_plain(q, r, dim=D, k=k, num_valid=nv))
+        if packed and D % 32:
+            continue
         lev, idh, lvh = codebooks(rng, Q, D)
-        mismatches["encode_search"] += diff(
-            encode_search(lev, idh, lvh, r, dim=D, k=k, num_valid=nv),
-            encode_search_plain(lev, idh, lvh, r, dim=D, k=k, num_valid=nv))
+        got = (encode_search(lev, idh, lvh, r, dim=D, k=k, num_valid=nv)
+               if plan is None else launch_encode_search(
+                   lev, idh, lvh, r, dim=D, k=k, num_valid=nv,
+                   codebook_words=None, bq=plan[0], rows_per_split=plan[1]))
+        mismatches["encode_search"] += diff(got, encode_search_plain(
+            lev, idh, lvh, r, dim=D, k=k, num_valid=nv))
+        # the encode kernel alone
+        mismatches["encode_search"] += int(
+            (encode_queries(lev, idh, lvh, r)
+             != encode_queries_plain(lev, idh, lvh, packed=packed)).sum())
     for Q, R, D, packed, k, nv, dup, kind, nt in BANDED_EDGE_CASES:
         rng = np.random.default_rng(Q * 1000 + R + D + 1)
         r = bank(rng, R // 3 if dup else R, D, packed, dup)
@@ -736,10 +788,26 @@ def bound_ms(ops: float, nbytes: float, ops_per_s: float = INT8_OPS_PER_S
 
 
 def popc_pipe_ms(popc: float, sms: int) -> float:
-    """This design's own ceiling: ``popc`` POPCs at 16 per clock per SM
-    and the card's maximum SM clock, in ms."""
+    """The banded design's own ceiling: ``popc`` POPCs at 16 per clock per
+    SM and the card's maximum SM clock, in ms."""
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     return 1e3 * popc / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
+
+
+def expansion_ops(Q: int, R: int, W: int, bq: int) -> int:
+    """Integer operations of the exact scan's +-1 expansion
+    (csrc/hd_exact_scan.cuh), per query block: a multiply and an AND per
+    4 bank bits, and 23 per query word (8 expansions of 3) at each
+    256-row step."""
+    blocks = -(-Q // bq)
+    return blocks * (16 * R * W + -(-R // 256) * bq * W * 23)
+
+
+def int_pipe_ms(ops: float, sms: int) -> float:
+    """The exact scan's own ceiling: ``ops`` integer operations at 64
+    lanes per clock per SM and the card's maximum SM clock, in ms."""
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return 1e3 * ops / (INT_LANES_PER_CLOCK_PER_SM * sms * clock_hz)
 
 
 def band_rows(starts, lens):
@@ -776,12 +844,14 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         encode_search_banded_plain,
         encode_search_plain,
     )
+    from repro_torch.kernels.encode_search.ops import encode_queries
     from repro_torch.kernels.topk_hamming import (
         topk_hamming,
         topk_hamming_banded,
         topk_hamming_banded_plain,
         topk_hamming_plain,
     )
+    from repro_torch.kernels.topk_hamming.ops import pick_block_q, smem_limit
     from repro_torch.launch import serve_db
     from repro_torch.serve import (
         oms_search_encoded,
@@ -882,7 +952,7 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         cand = int(plan.lens.sum())
         union = band_rows(plan.starts, plan.lens)
         ops = 2 * (cand + n_present) * db.dim
-        popc = (cand + n_present) * W
+        pipe_ops = (cand + n_present) * W
         nbytes = (batch.numel() * batch.element_size() + cb_bytes
                   + union * W * 4 + 2 * plan.starts.nbytes
                   + 2 * MAX_BATCH * K * 4)
@@ -926,7 +996,8 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
 
         served = None  # the plain version is the plain route here
         ops = 2 * (MAX_BATCH * R + n_present) * db.dim
-        popc = MAX_BATCH * R * W + n_present * W
+        bq = pick_block_q(MAX_BATCH, W, K, smem_limit(batch.device))
+        pipe_ops = expansion_ops(MAX_BATCH, R, W, bq)
         nbytes = (batch.numel() * 4 + cb_bytes + db.data.numel() * 4
                   + 2 * MAX_BATCH * K * 4)
         extra = ""
@@ -953,13 +1024,26 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
     plain_ms = time_ms(torch, plain, iters=2, warmup=0)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit")
     b_ms, b_by = bound_ms(ops, nbytes)
-    popc_ms = popc_pipe_ms(
-        popc, torch.cuda.get_device_properties(0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if oms:
+        ceiling_ms = popc_pipe_ms(pipe_ops, sms)
+        ceiling = (f"this design's POPC-pipe floor {ceiling_ms:.4f} ms "
+                   f"({pipe_ops:.4g} POPC)")
+    else:
+        ceiling_ms = int_pipe_ms(pipe_ops, sms)
+        ceiling = (f"this design's +-1 expansion ceiling {ceiling_ms:.4f} ms "
+                   f"({pipe_ops:.4g} integer ops at 64 a clock per SM)")
+    encode_ms = None
+    if fused_e2e and not oms:
+        # the encode kernel alone, on the served batch
+        encode_ms = time_ms(torch, lambda: encode_queries(
+            batch, enc.id_hvs, enc.level_hvs, db.data,
+            codebook_words=enc.codebook_words), iters=20, warmup=2)
+        extra = f"; the encode kernel alone {encode_ms:.4f} ms"
     print(f"{path}: {kernel} {ms:.4f} ms (the served route around it "
           f"{route_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; {ops:.4g} int8 ops, {nbytes:.4g} B), "
-          f"this design's POPC-pipe {'floor' if oms else 'ceiling'} "
-          f"{popc_ms:.4f} ms ({popc:.4g} POPC) at Q={MAX_BATCH}, R={R}"
+          f"{ceiling} at Q={MAX_BATCH}, R={R}"
           + (f", {n_present} present bins in the batch" if fused_e2e else "")
           + extra + f"; by served bucket (Q: ms) {json.dumps(bucket_ms)}; "
           f"sm clock, power, limit: {clocks}")
@@ -973,6 +1057,9 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         # no single PyTorch call computes a streaming top-k by Hamming
         # distance (with or without the encode, banded or not)
         "library_ms": None,
+        "ceiling_ms": ceiling_ms, "route_ms": route_ms,
+        "bucket_ms": {str(n): t for n, t in bucket_ms.items()},
+        **({} if encode_ms is None else {"encode_ms": encode_ms}),
     }
 
 

@@ -5,68 +5,120 @@
 // _encode_search_kernel (launched by encode_search_pallas_call): raw
 // quantized levels (Q, F) in, the top-k bank rows of the encoded queries
 // out, bit-identical to encode_levels_batch -> bit-pack -> topk_hamming.
-// The query hypervector never reaches device memory. And
-// _encode_search_banded_kernel (encode_search_banded_pallas_call): the
+// And _encode_search_banded_kernel (encode_search_banded_pallas_call): the
 // same with topk_hamming.cu's banded scan (OMS precursor bands).
 //
 // Bound on the H100: bytes, as for topk_hamming (the bank read once; the
 // +-1 dot products fit under it at the int8 tensor-core rate). The encode
 // adds n_present x D products per query, with n_present the present bins of
 // a spectrum (~5% of F on the synthetic library), and the packed codebooks
-// (1 MB). The scan here is topk_hamming's, on the POPC pipe, so this design
-// is capped by the POPC rate, plus each bank split's re-encode of its
-// n_present x D / 32 codebook-word XNORs and bit-sliced adds.
+// (1 MB).
 //
-// Design. The TPU kernel holds the whole (F, D) ID codebook in VMEM (8 MB at
-// F = 1024, D = 8192) and a (BQ, D) accumulator; neither fits in 227 KB of
-// shared memory. Here the codebooks arrive bit-packed (1 MB, read from L2),
-// each thread builds one 32-dim word at a time with 16 bit-sliced counters
-// in registers (an exact count of agreeing bits; see encode_block), and only
-// the packed (BQ, D/32) block lives in shared memory. Every bank split
-// re-encodes its own query block, so no encoded query is written out; the
-// scan and merge are topk_hamming's, from hd_common.cuh. The banded kernel
-// is topk_hamming.cu's banded design (8-query blocks, the scan window
-// derived on the device from the block's bands) with encode_block at the
-// start of each block; each (split, band) block re-encodes its 8 queries.
-#include "hd_common.cuh"
+// Exact design: encode once per launch, then topk_hamming's exact scan.
+// The TPU kernel holds the whole (F, D) ID codebook in VMEM (8 MB at
+// F = 1024, D = 8192) and a (BQ, D) accumulator, and encodes inside the
+// search. Here encode_rows_kernel first encodes the batch, one 32-dim word
+// per thread over a grid of (query, 128-word) blocks: the codebooks arrive
+// bit-packed (1 MB, read from L2), and 16 bit-sliced counters in
+// registers count the agreeing bits exactly (hd::sliced_add; tie -> -1,
+// levels past m - 1 read LV[m - 1]). The encoded queries pass through
+// device memory, a (Q, W) word scratch (32 KB at Q = 32, D = 8192, read
+// back from L2), which the scan then stages exactly as topk_hamming's
+// scan stages its query operand. Keeping them on chip made each of the
+// ~500 bank splits re-encode its query block before its scan, one query
+// at a time: ~23 us a query at D = 8192. The encode, the exact scan of
+// hd_exact_scan.cuh (int8 tensor cores for packed banks) and the split
+// merge run in turn on the caller's stream.
+//
+// Banded design: topk_hamming.cu's banded kernel (8-query blocks, the scan
+// window derived on the device from the block's bands, on hd::scan_rows)
+// with hd::encode_block at the start of each block; each (split, band)
+// block re-encodes its 8 queries, and the query hypervector never reaches
+// device memory.
+#include "hd_exact_scan.cuh"
 
 namespace {
 
-template <int MODE, int QPT>
-__global__ void __launch_bounds__(hd::kThreads)
-    encode_search_kernel(const int* __restrict__ levels, int Q, int F, int m,
-                         const uint32_t* __restrict__ id_words,
-                         const uint32_t* __restrict__ lv_words, int wc, int D,
-                         const unsigned char* __restrict__ r, int R,
-                         int row_bytes, int wpr, int qstride, int dim, int k,
-                         int num_valid, int rows_per_split, int splits,
-                         int* cv, int* ci) {
-  constexpr int BQ = hd::kWarps * QPT;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* qs = smem;
-  uint32_t* rt = qs + BQ * qstride;
-  int* lv = reinterpret_cast<int*>(rt + hd::kTileWords);
-  int* li = lv + BQ * k;
-  int* counter = li + BQ * k;
+constexpr int kEncThreads = 128;  // words of one query a block encodes
+constexpr int kEncCap = 2048;     // present features compacted per round
 
-  const int q0 = blockIdx.x * BQ;
-  const int nq = min(BQ, Q - q0);
-  const int split = blockIdx.y;
-  for (int e = threadIdx.x; e < BQ * qstride; e += blockDim.x) qs[e] = 0u;
-  hd::list_init(lv, li, BQ * k, k, R);
-  __syncthreads();
-  // the bank tile is free until the scan starts: it holds the compacted
-  // present-feature list meanwhile
-  hd::encode_block<MODE>(levels, q0, nq, BQ, F, m, id_words, lv_words, wc,
-                         wc, D, qs, qstride, reinterpret_cast<int2*>(rt),
-                         hd::kTileWords / 2, counter);
-  __syncthreads();
+// Block (query x, words 128 y ..): Eq. 1 of one query, one 32-dim word per
+// thread, into row x of out: packed words (MODE kPacked, rows of wc words)
+// or int8 +-1 lanes (kInt8, rows of D bytes).
+template <int MODE>
+__global__ void __launch_bounds__(kEncThreads)
+    encode_rows_kernel(const int* __restrict__ levels, int F, int m,
+                       const uint32_t* __restrict__ id_words,
+                       const uint32_t* __restrict__ lv_words, int wc, int D,
+                       unsigned char* __restrict__ out) {
+  __shared__ int2 feats[kEncCap];
+  __shared__ int count;
+  const int* lrow = levels + static_cast<size_t>(blockIdx.x) * F;
+  const int w = blockIdx.y * kEncThreads + threadIdx.x;
+  uint32_t planes[hd::kPlanes];
+#pragma unroll
+  for (int p = 0; p < hd::kPlanes; ++p) planes[p] = 0u;
+  int total = 0;
+  for (int f0 = 0; f0 < F; f0 += kEncCap) {
+    if (threadIdx.x == 0) count = 0;
+    __syncthreads();
+    const int f1 = min(F, f0 + kEncCap);
+    for (int f = f0 + threadIdx.x; f < f1; f += kEncThreads) {
+      const int l = lrow[f];
+      if (l > 0) feats[atomicAdd(&count, 1)] = make_int2(f, min(l, m - 1));
+    }
+    __syncthreads();
+    const int n = count;
+    total += n;
+    if (w < wc) {
+      // four features' codebook words in flight at once
+      int e = 0;
+      for (; e + 4 <= n; e += 4) {
+        uint32_t x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int2 fl = feats[e + u];
+          x[u] = ~(__ldg(id_words + static_cast<size_t>(fl.x) * wc + w) ^
+                   __ldg(lv_words + static_cast<size_t>(fl.y) * wc + w));
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) hd::sliced_add(planes, x[u]);
+      }
+      for (; e < n; ++e) {
+        const int2 fl = feats[e];
+        hd::sliced_add(planes,
+                       ~(__ldg(id_words + static_cast<size_t>(fl.x) * wc + w) ^
+                         __ldg(lv_words + static_cast<size_t>(fl.y) * wc + w)));
+      }
+    }
+    __syncthreads();  // feats is rewritten by the next feature round
+  }
+  if (w >= wc) return;
+  const uint32_t bits =
+      hd::sliced_greater(planes, static_cast<uint32_t>(total) >> 1);
+  if (MODE == hd::kPacked) {
+    reinterpret_cast<uint32_t*>(out)[static_cast<size_t>(blockIdx.x) * wc + w] =
+        bits;
+  } else {
+    unsigned char* row = out + static_cast<size_t>(blockIdx.x) * D;
+    for (int j = 0; j < 32 && 32 * w + j < D; ++j)
+      row[32 * w + j] = ((bits >> j) & 1u) ? 0x01 : 0xFF;
+  }
+}
 
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(R, row_begin + rows_per_split);
-  hd::scan_rows<MODE, QPT>(qs, qstride, nq, r, row_bytes, wpr, row_begin,
-                           row_end, num_valid, dim, nullptr, rt, lv, li, k);
-  hd::write_candidates<QPT>(lv, li, k, q0, nq, split, splits, cv, ci);
+cudaError_t launch_encode(const int* levels, int Q, int F, int m,
+                          const uint32_t* id_words, const uint32_t* lv_words,
+                          int wc, int D, int mode, unsigned char* out,
+                          cudaStream_t s) {
+  dim3 grid(Q, (wc + kEncThreads - 1) / kEncThreads);
+  if (mode == hd::kPacked) {
+    encode_rows_kernel<hd::kPacked><<<grid, kEncThreads, 0, s>>>(
+        levels, F, m, id_words, lv_words, wc, D, out);
+  } else {
+    encode_rows_kernel<hd::kInt8><<<grid, kEncThreads, 0, s>>>(
+        levels, F, m, id_words, lv_words, wc, D, out);
+  }
+  return cudaGetLastError();
 }
 
 // Block (query block x, split y, band z) of the banded search: 8 queries,
@@ -111,64 +163,48 @@ __global__ void __launch_bounds__(hd::kThreads)
                           gridDim.z * splits, cv, ci);
 }
 
-template <int MODE, int QPT>
-cudaError_t launch_fused(const int* levels, int Q, int F, int m,
-                         const uint32_t* id_words, const uint32_t* lv_words,
-                         int wc, int D, const void* r, int R, int row_bytes,
-                         int wpr, int qstride, int dim, int k, int num_valid,
-                         int rows_per_split, int splits, int* cv, int* ci,
-                         cudaStream_t stream) {
-  constexpr int BQ = hd::kWarps * QPT;
-  const size_t smem = sizeof(uint32_t) *
-                      (static_cast<size_t>(BQ) * qstride + hd::kTileWords +
-                       2 * static_cast<size_t>(BQ) * k + 4);
-  cudaError_t err = cudaFuncSetAttribute(
-      encode_search_kernel<MODE, QPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Q + BQ - 1) / BQ, splits);
-  encode_search_kernel<MODE, QPT><<<grid, hd::kThreads, smem, stream>>>(
-      levels, Q, F, m, id_words, lv_words, wc, D,
-      static_cast<const unsigned char*>(r), R, row_bytes, wpr, qstride, dim,
-      k, num_valid, rows_per_split, splits, cv, ci);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// levels (Q, F) int32; id_words (F, wc) and lv_words (m, wc) bit-packed
-// codebooks, wc = ceil(D / 32); bank r as in topk_hamming_launch (mode 0:
-// packed words, D == 32 * wpr; mode 1: int8 rows of D bytes). Returns the
-// CUDA error of the launches (0 on success).
+// The encode alone: levels (Q, F) int32 and the bit-packed codebooks
+// id_words (F, wc) and lv_words (m, wc), wc = ceil(D / 32), into out:
+// (Q, wc) packed words (mode 0) or (Q, D) int8 +-1 lanes (mode 1). Returns
+// the CUDA error of the launch (0 on success).
+extern "C" int encode_rows_launch(const void* levels, int Q, int F, int m,
+                                  const void* id_words, const void* lv_words,
+                                  int wc, int D, int mode, void* out,
+                                  void* stream) {
+  return static_cast<int>(launch_encode(
+      static_cast<const int*>(levels), Q, F, m,
+      static_cast<const uint32_t*>(id_words),
+      static_cast<const uint32_t*>(lv_words), wc, D, mode,
+      static_cast<unsigned char*>(out), static_cast<cudaStream_t>(stream)));
+}
+
+// levels and codebooks as in encode_rows_launch; bank r as in
+// topk_hamming_launch (mode 0: packed words, D == 32 * wpr; mode 1: int8
+// rows of D bytes); enc: the encoded queries' scratch, (Q, wc) int32 (mode
+// 0) or (Q, D) int8 (mode 1). Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int encode_search_launch(const void* levels, int Q, int F, int m,
                                     const void* id_words, const void* lv_words,
                                     int wc, int D, const void* r, int R,
                                     int row_bytes, int wpr, int qstride,
                                     int mode, int dim, int k, int num_valid,
                                     int bq, int rows_per_split, int splits,
-                                    void* cv, void* ci, void* ov, void* oi,
-                                    void* stream) {
+                                    void* enc, void* cv, void* ci, void* ov,
+                                    void* oi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lev = static_cast<const int*>(levels);
-  const uint32_t* idw = static_cast<const uint32_t*>(id_words);
-  const uint32_t* lvw = static_cast<const uint32_t*>(lv_words);
   int* cvi = static_cast<int*>(cv);
   int* cii = static_cast<int*>(ci);
-  cudaError_t err;
-#define HD_FUSED(MODE, QPT)                                                  \
-  launch_fused<MODE, QPT>(lev, Q, F, m, idw, lvw, wc, D, r, R, row_bytes,     \
-                          wpr, qstride, dim, k, num_valid, rows_per_split,    \
-                          splits, cvi, cii, s)
-  if (mode == hd::kPacked) {
-    err = bq == 32 ? HD_FUSED(hd::kPacked, 4)
-        : bq == 16 ? HD_FUSED(hd::kPacked, 2)
-                   : HD_FUSED(hd::kPacked, 1);
-  } else {
-    err = bq == 32 ? HD_FUSED(hd::kInt8, 4)
-        : bq == 16 ? HD_FUSED(hd::kInt8, 2)
-                   : HD_FUSED(hd::kInt8, 1);
-  }
-#undef HD_FUSED
+  cudaError_t err = launch_encode(
+      static_cast<const int*>(levels), Q, F, m,
+      static_cast<const uint32_t*>(id_words),
+      static_cast<const uint32_t*>(lv_words), wc, D, mode,
+      static_cast<unsigned char*>(enc), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = hd::launch_exact_scan(enc, r, Q, R, row_bytes, wpr, qstride, mode,
+                              dim, k, num_valid, bq, rows_per_split, splits,
+                              cvi, cii, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(hd::launch_merge(cvi, cii, Q, splits, k, R,
                                            static_cast<int*>(ov),

@@ -42,8 +42,7 @@
 // expansion work per output against one warpgroup a block.
 // The epilogue writes each accumulator pair as one 8-byte store: a warp
 // store fills 8 whole 32-byte sectors.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -58,47 +57,7 @@ constexpr int BN = 128;       // bank rows a block
 constexpr int kStep = BN * 32;            // bytes of one expanded k-step
 constexpr int kExp = kChunk * kStep;      // bytes of one expanded chunk
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// valid == false writes zeros and reads nothing
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t* dst,
-                                           const uint32_t* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// bytes b in {0, 1} of the 4 k-slot bits -> int8 2b - 1
-__device__ __forceinline__ uint32_t pm1(uint32_t x) {
-  return (x & 0x01010101u) * 0xFFFFFF02u + 0xFFFFFFFFu;
-}
-
-// shared-memory matrix descriptor: no swizzle, K-major core matrices of
-// 8 rows x 16 bytes; the two 16-byte halves of a k-step 128 bytes apart
-// (leading offset), successive 8-row groups 256 bytes apart (stride)
-__device__ __forceinline__ uint64_t desc(unsigned addr) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(256 >> 4) << 32);
-}
+using namespace sm90;
 
 __device__ __forceinline__ void wgmma_s8(int (&acc)[64], const uint32_t (&a)[4],
                                          uint64_t d) {
@@ -111,40 +70,6 @@ __device__ __forceinline__ void wgmma_s8(int (&acc)[64], const uint32_t (&a)[4],
       "}\n"
       : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]), "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]), "+r"(acc[12]), "+r"(acc[13]), "+r"(acc[14]), "+r"(acc[15]), "+r"(acc[16]), "+r"(acc[17]), "+r"(acc[18]), "+r"(acc[19]), "+r"(acc[20]), "+r"(acc[21]), "+r"(acc[22]), "+r"(acc[23]), "+r"(acc[24]), "+r"(acc[25]), "+r"(acc[26]), "+r"(acc[27]), "+r"(acc[28]), "+r"(acc[29]), "+r"(acc[30]), "+r"(acc[31]), "+r"(acc[32]), "+r"(acc[33]), "+r"(acc[34]), "+r"(acc[35]), "+r"(acc[36]), "+r"(acc[37]), "+r"(acc[38]), "+r"(acc[39]), "+r"(acc[40]), "+r"(acc[41]), "+r"(acc[42]), "+r"(acc[43]), "+r"(acc[44]), "+r"(acc[45]), "+r"(acc[46]), "+r"(acc[47]), "+r"(acc[48]), "+r"(acc[49]), "+r"(acc[50]), "+r"(acc[51]), "+r"(acc[52]), "+r"(acc[53]), "+r"(acc[54]), "+r"(acc[55]), "+r"(acc[56]), "+r"(acc[57]), "+r"(acc[58]), "+r"(acc[59]), "+r"(acc[60]), "+r"(acc[61]), "+r"(acc[62]), "+r"(acc[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(d), "r"(1));
-}
-
-// Pins the accumulators for the compiler: no ordinary instruction may
-// touch them while wgmma owns them, or ptxas serializes the wgmmas.
-__device__ __forceinline__ void fence_acc(int (&acc)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
-}
-
-// Rows [row0, row0 + rows_n) of a (rows, W) word matrix, words
-// [w0, w0 + kChunk), into the shared tile s (row stride kStride).
-template <bool VEC>
-__device__ __forceinline__ void stage_rows(const uint32_t* __restrict__ m,
-                                           int rows, int W, int row0,
-                                           int rows_n, int w0, uint32_t* s) {
-  if (VEC) {
-    constexpr int kQuads = kChunk / 4;
-    for (int e = threadIdx.x; e < rows_n * kQuads; e += kThreads) {
-      const int row = e / kQuads;
-      const int w = w0 + 4 * (e - row * kQuads);
-      const bool ok = row0 + row < rows && w < W;  // W % 4 == 0
-      cp_async16(s + row * kStride + (w - w0),
-                 ok ? m + static_cast<size_t>(row0 + row) * W + w : m, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows_n * kChunk; e += kThreads) {
-      const int row = e / kChunk;
-      const int c = e - row * kChunk;
-      const bool ok = row0 + row < rows && w0 + c < W;
-      cp_async4(s + row * kStride + c,
-                ok ? m + static_cast<size_t>(row0 + row) * W + w0 + c : m,
-                ok);
-    }
-  }
 }
 
 template <bool VEC>
@@ -171,11 +96,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   int acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0;
-  fence_acc(acc);
+  fence_regs(acc);
 
   auto stage = [&](int buf, int ch) {
-    stage_rows<VEC>(q, Q, W, q0, BM, ch * kChunk, As + buf * ASTAGE);
-    stage_rows<VEC>(r, R, W, r0, BN, ch * kChunk, Bs + buf * BSTAGE);
+    stage_rows<VEC, kThreads, kChunk, kStride>(q, Q, W, q0, BM, ch * kChunk,
+                                               As + buf * ASTAGE);
+    stage_rows<VEC, kThreads, kChunk, kStride>(r, R, W, r0, BN, ch * kChunk,
+                                               Bs + buf * BSTAGE);
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -194,24 +121,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       unsigned char* dst = exp + (ch & 1) * kExp + (n >> 3) * 256 + (n & 7) * 16;
 #pragma unroll
       for (int kw = kw0; kw < kw0 + kChunk / kGroups; ++kw) {
-        const uint32_t x = src[kw];
         uint4 lo, hi;
-        lo.x = pm1(x);
-        lo.y = pm1(x >> 1);
-        lo.z = pm1(x >> 2);
-        lo.w = pm1(x >> 3);
-        hi.x = pm1(x >> 4);
-        hi.y = pm1(x >> 5);
-        hi.z = pm1(x >> 6);
-        hi.w = pm1(x >> 7);
+        expand_word(src[kw], lo, hi);
         *reinterpret_cast<uint4*>(dst + kw * kStep) = lo;
         *reinterpret_cast<uint4*>(dst + kw * kStep + 128) = hi;
       }
     }
     // the previous chunk's wgmmas are done: their fragments may change
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
     // the expanded rows, written by the generic proxy, are read by wgmma
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
     const int next = ch + kStages - 1;
     if (next < n_chunks) stage(next % kStages, next);
@@ -231,16 +150,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       a[kw][2] = pm1(lo >> 4);
       a[kw][3] = pm1(hi >> 4);
     }
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
     for (int kw = 0; kw < kChunk; ++kw)
       wgmma_s8(acc, a[kw], desc(eb + kw * kStep));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    fence_acc(acc);
+    wgmma_commit();
+    fence_regs(acc);
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(acc);
+  wgmma_wait<0>();
+  fence_regs(acc);
 
   // dot over the staged words: 32 x staged - dot = 2 popcount(q ^ r)
   const int staged_bits = 32 * kChunk * n_chunks;

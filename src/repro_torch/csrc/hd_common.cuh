@@ -3,13 +3,18 @@
 // * the ordered top-k list: (value desc, index asc), kept in shared memory
 //   per query and fed by a warp at a time (better / list_insert / warp_offer);
 // * the streaming tile scorer over a range of bank rows (scan_rows):
-//   XOR + popcount for packed words, __dp4a for int8; optionally banded,
-//   each query offered only the rows of its own [start, end) band;
+//   XOR + popcount (the POPC pipe) for packed words, __dp4a for int8;
+//   optionally banded, each query offered only the rows of its own
+//   [start, end) band. The banded kernels score on it in both modes, the
+//   exact scan in int8 mode only: packed exact banks score on the int8
+//   tensor cores (hd_exact_scan.cuh);
 // * the banded blocks' scan window (load_bands / band_window /
 //   split_window);
-// * the Eq. 1 encoder (encode_block): the exact integer sum
+// * the Eq. 1 encoder of one block's queries (encode_block, the banded
+//   fused kernel's): the exact integer sum
 //   sum_f [level_f > 0] LV[level_f, d] * ID[f, d], signed with tie -> -1,
-//   written as packed words or int8 +-1 lanes;
+//   written as packed words or int8 +-1 lanes, counted in bit-sliced
+//   planes (sliced_add / sliced_greater, also the exact encode's);
 // * the split merge (merge_splits_kernel).
 //
 // Both topk_hamming.cu and encode_search.cu include this file; each builds
@@ -147,6 +152,22 @@ __device__ __forceinline__ void store_chunk(const uint4 (&pf)[4],
   for (int p = 0; p < 4; ++p) {
     const int row = (threadIdx.x >> 3) + 32 * p;
     *reinterpret_cast<uint4*>(rt + row * kTileStride + 4 * quad) = pf[p];
+  }
+}
+
+// Rows q0 .. q0 + nq - 1 of q into the shared query block qs (stride
+// qstride words, zero past each row and past nq).
+__device__ __forceinline__ void load_queries(const unsigned char* q, int q0,
+                                             int nq, int bq, int row_bytes,
+                                             int wpr, int qstride,
+                                             uint32_t* qs) {
+  for (int e = threadIdx.x; e < bq * qstride; e += blockDim.x) {
+    const int qi = e / qstride;
+    const int w = e - qi * qstride;
+    qs[e] = (qi < nq && w < wpr)
+                ? load_word(q + static_cast<size_t>(q0 + qi) * row_bytes, w,
+                            row_bytes)
+                : 0u;
   }
 }
 

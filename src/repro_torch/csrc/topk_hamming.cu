@@ -9,85 +9,29 @@
 // the OMS twin: each query scores only the rows of its own [start, end)
 // bands (one per bank block) of a precursor-sorted bank.
 //
-// Bound on the H100: bytes. The score is a +-1 dot product
-// (dim - 2 * popcount(q ^ r) = <q, r>), which the int8 tensor cores compute
-// exactly at 1,979 dense TOP/s: at Q = 32 against the iPRG2012-scale bank
-// (1,162,392 rows, D = 8192) that is 0.31 ms, under the 0.36 ms it takes to
-// read the 1.19 GB bank once at 3.35 TB/s. This design does not reach that
-// bound: it scores on the POPC pipe (one XOR, one POPC, one add per
-// query-row-word; POPC issues 16 per clock per SM), which caps it at about
-// 2.3 ms at Q = 32. A tensor-core scan is the next step.
+// Exact search: hd_exact_scan.cuh (bound, design; packed banks on the int8
+// tensor cores, int8 banks on hd::scan_rows), then the split merge. The TPU
+// carries its running top-k across a sequential R grid axis; Hopper blocks
+// run in no order, so the grid is 2-D (query blocks x bank splits) and a
+// second kernel merges the splits, exact because the order is total.
 //
-// Design. The TPU carries its running top-k across a sequential R grid
-// axis; Hopper blocks run in no order, so the grid is 2-D (query blocks x
-// bank splits) and a second kernel merges the splits. Within a block the
-// query words stay in shared memory, bank rows stream through a padded
-// shared tile in 16-byte coalesced loads (the next chunk is prefetched into
-// registers while the current one is scored), and each thread scores a
-// 4-query x 4-row register tile, 4 words per shared load, so the loop is
-// POPC-bound rather than load-bound. The order is total (row indices are
-// distinct), so any split of the bank yields the same top-k: the merge is
-// exact.
-//
-// Banded design. The reference fetches, per 8-query block, num_tiles
-// 128-row tiles from a host-computed tile base; a block of 16 or 32 queries
-// could not keep to that budget. Here a block holds 8 queries (the block
-// the host plan prices), derives its scan window on the device from its
-// queries' own bands (lowest start to highest end), and the grid (query
-// blocks x splits of that window x bands) covers every band row whatever
-// the budget, which only sizes the grid. A warp (one query) skips the
-// scoring of tiles its band does not meet, so the POPC work follows the
-// rows inside the bands; rows outside a query's band are never offered.
-// All bands of a batch go in one launch; the split merge folds them, exact
-// because the bands' rows are distinct and the order is total. Bound on
-// the H100: bytes, the distinct bank rows inside any band read once.
-#include "hd_common.cuh"
+// Banded design (hd::scan_rows, on the POPC pipe for packed words: one
+// XOR, one POPC and one add per query-row-word). The reference fetches,
+// per 8-query block, num_tiles 128-row tiles from a host-computed tile
+// base; a block of 16 or 32 queries could not keep to that budget. Here a
+// block holds 8 queries (the block the host plan prices), derives its scan
+// window on the device from its queries' own bands (lowest start to
+// highest end), and the grid (query blocks x splits of that window x
+// bands) covers every band row whatever the budget, which only sizes the
+// grid. A warp (one query) skips the scoring of tiles its band does not
+// meet, so the POPC work follows the rows inside the bands; rows outside a
+// query's band are never offered. All bands of a batch go in one launch;
+// the split merge folds them, exact because the bands' rows are distinct
+// and the order is total. Bound on the H100: bytes, the distinct bank rows
+// inside any band read once.
+#include "hd_exact_scan.cuh"
 
 namespace {
-
-// Rows q0 .. q0 + nq - 1 of q into the shared query block qs (stride
-// qstride words, zero past each row and past nq).
-__device__ __forceinline__ void load_queries(const unsigned char* q, int q0,
-                                             int nq, int bq, int row_bytes,
-                                             int wpr, int qstride,
-                                             uint32_t* qs) {
-  for (int e = threadIdx.x; e < bq * qstride; e += blockDim.x) {
-    const int qi = e / qstride;
-    const int w = e - qi * qstride;
-    qs[e] = (qi < nq && w < wpr)
-                ? hd::load_word(q + static_cast<size_t>(q0 + qi) * row_bytes,
-                                w, row_bytes)
-                : 0u;
-  }
-}
-
-template <int MODE, int QPT>
-__global__ void __launch_bounds__(hd::kThreads)
-    topk_scan_kernel(const unsigned char* __restrict__ q,
-                     const unsigned char* __restrict__ r, int Q, int R,
-                     int row_bytes, int wpr, int qstride, int dim, int k,
-                     int num_valid, int rows_per_split, int splits, int* cv,
-                     int* ci) {
-  constexpr int BQ = hd::kWarps * QPT;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* qs = smem;
-  uint32_t* rt = qs + BQ * qstride;
-  int* lv = reinterpret_cast<int*>(rt + hd::kTileWords);
-  int* li = lv + BQ * k;
-
-  const int q0 = blockIdx.x * BQ;
-  const int nq = min(BQ, Q - q0);
-  const int split = blockIdx.y;
-  load_queries(q, q0, nq, BQ, row_bytes, wpr, qstride, qs);
-  hd::list_init(lv, li, BQ * k, k, R);
-  __syncthreads();
-
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(R, row_begin + rows_per_split);
-  hd::scan_rows<MODE, QPT>(qs, qstride, nq, r, row_bytes, wpr, row_begin,
-                           row_end, num_valid, dim, nullptr, rt, lv, li, k);
-  hd::write_candidates<QPT>(lv, li, k, q0, nq, split, splits, cv, ci);
-}
 
 // Block (query block x, split y, band z) of the banded search: 8 queries,
 // one per warp. starts/ends are (nbands, Q), already clipped to the valid
@@ -110,7 +54,7 @@ __global__ void __launch_bounds__(hd::kThreads)
 
   const int q0 = blockIdx.x * BQ;
   const int nq = min(BQ, Q - q0);
-  load_queries(q, q0, nq, BQ, row_bytes, wpr, qstride, qs);
+  hd::load_queries(q, q0, nq, BQ, row_bytes, wpr, qstride, qs);
   hd::list_init(lv, li, BQ * k, k, R);
   hd::load_bands(starts, ends, Q, blockIdx.z, q0, nq, BQ, band);
   __syncthreads();
@@ -121,27 +65,6 @@ __global__ void __launch_bounds__(hd::kThreads)
                          R, dim, band, rt, lv, li, k);
   hd::write_candidates<1>(lv, li, k, q0, nq, blockIdx.z * splits + blockIdx.y,
                           gridDim.z * splits, cv, ci);
-}
-
-template <int MODE, int QPT>
-cudaError_t launch_scan(const void* q, const void* r, int Q, int R,
-                        int row_bytes, int wpr, int qstride, int dim, int k,
-                        int num_valid, int rows_per_split, int splits,
-                        int* cv, int* ci, cudaStream_t stream) {
-  constexpr int BQ = hd::kWarps * QPT;
-  const size_t smem = sizeof(uint32_t) *
-                      (static_cast<size_t>(BQ) * qstride + hd::kTileWords +
-                       2 * static_cast<size_t>(BQ) * k);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_scan_kernel<MODE, QPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Q + BQ - 1) / BQ, splits);
-  topk_scan_kernel<MODE, QPT><<<grid, hd::kThreads, smem, stream>>>(
-      static_cast<const unsigned char*>(q),
-      static_cast<const unsigned char*>(r), Q, R, row_bytes, wpr, qstride,
-      dim, k, num_valid, rows_per_split, splits, cv, ci);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -160,20 +83,9 @@ extern "C" int topk_hamming_launch(const void* q, const void* r, int Q, int R,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* cvi = static_cast<int*>(cv);
   int* cii = static_cast<int*>(ci);
-  cudaError_t err;
-#define HD_SCAN(MODE, QPT)                                                   \
-  launch_scan<MODE, QPT>(q, r, Q, R, row_bytes, wpr, qstride, dim, k,        \
-                         num_valid, rows_per_split, splits, cvi, cii, s)
-  if (mode == hd::kPacked) {
-    err = bq == 32 ? HD_SCAN(hd::kPacked, 4)
-        : bq == 16 ? HD_SCAN(hd::kPacked, 2)
-                   : HD_SCAN(hd::kPacked, 1);
-  } else {
-    err = bq == 32 ? HD_SCAN(hd::kInt8, 4)
-        : bq == 16 ? HD_SCAN(hd::kInt8, 2)
-                   : HD_SCAN(hd::kInt8, 1);
-  }
-#undef HD_SCAN
+  cudaError_t err = hd::launch_exact_scan(q, r, Q, R, row_bytes, wpr, qstride,
+                                          mode, dim, k, num_valid, bq,
+                                          rows_per_split, splits, cvi, cii, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(hd::launch_merge(cvi, cii, Q, splits, k, R,
                                            static_cast<int*>(ov),

@@ -19,9 +19,11 @@ kernel ops layer resolves its knobs through :func:`resolve_blocks`:
 The knobs:
 
 * ``block_q`` of ``topk_hamming`` / ``encode_search``: queries per block,
-  one of the kernels' compiled instantiations (8, 16 or 32: 1, 2 or 4
-  queries per warp, ``csrc/topk_hamming.cu``), or 0 for the smallest that
-  covers the batch and fits shared memory. The banded twins keep 8
+  one of the kernels' compiled instantiations (8, 16 or 32: the N of the
+  tensor-core scan's ``wgmma`` for packed banks,
+  ``csrc/hd_exact_scan.cuh``; 1, 2 or 4 queries per warp for int8
+  banks), or 0 for the smallest that covers the batch and fits shared
+  memory. The banded twins keep 8
   queries per block, the block the OMS plan prices its tile budget in.
 * ``waves``: target blocks per SM when the bank (or a band's window) is
   split across blocks; it sets the split count, never the result.

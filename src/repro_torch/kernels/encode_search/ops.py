@@ -12,8 +12,11 @@ the design. The kernels read the codebooks bit-packed
 and :func:`encode_search_banded_plain` are also the counterparts of the
 reference's staged ``ref.py`` oracles.
 
-Launch knobs (``block_q``, ``waves``) resolve as ``topk_hamming``'s do
-(``kernels.block_utils``); the banded kernel has ``waves`` only.
+The exact kernel encodes the batch once into a device scratch and then
+runs ``topk_hamming``'s exact scan on it; :func:`encode_queries` runs the
+encode alone. Launch knobs (``block_q``, ``waves``) resolve as
+``topk_hamming``'s do (``kernels.block_utils``); the banded kernel has
+``waves`` only.
 
 Dispatch: CPU tensors take the plain versions (explicit knobs are checked,
 then ignored); CUDA tensors launch the kernels or raise. Nothing falls
@@ -37,6 +40,7 @@ from repro_torch.kernels.topk_hamming.ops import (
     check_aligned,
     check_banded_fits,
     check_merge_fits,
+    check_plan,
     check_status,
     clip_bands,
     plan_scan,
@@ -136,9 +140,50 @@ def _launcher():
     fn = _build.load("encode_search").encode_search_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, i, i, p, p, i, i, p, i, i, i, i, i, i, i, i, i, i, i,
-                   p, p, p, p, p]
+                   p, p, p, p, p, p]
     fn.restype = i
     return fn
+
+
+def _encode_launcher():
+    fn = _build.load("encode_search").encode_rows_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, i, p, p, i, i, i, p, p]
+    fn.restype = i
+    return fn
+
+
+def encode_queries(levels: torch.Tensor, id_hvs: torch.Tensor,
+                   level_hvs: torch.Tensor, r: torch.Tensor, *,
+                   codebook_words: tuple[torch.Tensor, torch.Tensor] | None
+                   = None) -> torch.Tensor:
+    """The first kernel of :func:`encode_search` alone: raw (Q, F) levels
+    -> the queries in ``r``'s storage form, (Q, D/32) int32 words for a
+    packed bank or (Q, D) int8 lanes, bit-identical to
+    :func:`encode_queries_plain`. For timing and testing the encode; the
+    search path launches it inside ``encode_search``. CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/encode_search.cu``'s
+    ``encode_rows_launch`` or raise."""
+    if not levels.is_cuda and levels.device.type == "cpu":
+        return encode_queries_plain(levels, id_hvs, level_hvs,
+                                    packed=r.dtype == torch.int32)
+    packed, id_words, lv_words = _check_kernel_operands(
+        levels, id_hvs, level_hvs, r, 1, codebook_words)
+    out = _encoded_scratch(levels.shape[0], r)
+    with torch.cuda.device(levels.device):
+        err = _encode_launcher()(
+            levels.data_ptr(), levels.shape[0], id_hvs.shape[0],
+            int(level_hvs.shape[0]), id_words.data_ptr(), lv_words.data_ptr(),
+            id_words.shape[1], id_hvs.shape[1], 0 if packed else 1,
+            out.data_ptr(),
+            torch.cuda.current_stream(levels.device).cuda_stream)
+    check_status(err, "encode_queries")
+    return out
+
+
+def _encoded_scratch(Q: int, r: torch.Tensor) -> torch.Tensor:
+    """The encoded queries' buffer: rows in the bank's storage form."""
+    return torch.empty((Q, r.shape[1]), dtype=r.dtype, device=r.device)
 
 
 def encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
@@ -165,33 +210,59 @@ def encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
                                    k=k, num_valid=num_valid)
     packed, id_words, lv_words = _check_kernel_operands(
         levels, id_hvs, level_hvs, r, k, codebook_words)
-    launch = _launcher()
-    F, D = id_hvs.shape
-    wc = id_words.shape[1]
+    _launcher()  # built before the plan reads the card
+    F = id_hvs.shape[0]
     Q, R = levels.shape[0], r.shape[0]
     cfg = resolve_blocks("encode_search", (Q, R, F), knobs, levels.device)
+    if Q == 0:
+        empty = torch.empty((0, k), dtype=torch.int32, device=levels.device)
+        return empty, empty.clone()
+    _, qstride = words_per_row(r.shape[1] * r.element_size())
+    bq, rows_per_split, _ = plan_scan(
+        Q, R, qstride, k, smem_limit(levels.device), sm_count(levels.device),
+        cfg["block_q"], cfg["waves"], packed)
+    return launch_encode_search(levels, id_hvs, level_hvs, r, dim=dim, k=k,
+                                num_valid=num_valid,
+                                codebook_words=(id_words, lv_words), bq=bq,
+                                rows_per_split=rows_per_split)
+
+
+def launch_encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
+                         level_hvs: torch.Tensor, r: torch.Tensor, *,
+                         dim: int, k: int, num_valid: int | None,
+                         codebook_words: tuple[torch.Tensor, torch.Tensor]
+                         | None, bq: int, rows_per_split: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launches ``csrc/encode_search.cu``'s exact search on CUDA operands
+    with a given plan (``bq`` queries a block, bank splits of
+    ``rows_per_split`` rows), as ``topk_hamming.ops.launch_exact`` does.
+    Counted in ``encode_search.launches``. Returns (idx, vals)."""
+    packed, id_words, lv_words = _check_kernel_operands(
+        levels, id_hvs, level_hvs, r, k, codebook_words)
+    check_plan(bq, rows_per_split)
+    launch = _launcher()
+    F, D = id_hvs.shape
+    Q, R = levels.shape[0], r.shape[0]
     vals = torch.empty((Q, k), dtype=torch.int32, device=levels.device)
     idx = torch.empty_like(vals)
-    if Q == 0:
-        return idx, vals
     row_bytes = r.shape[1] * r.element_size()
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    bq, rows_per_split, splits = plan_scan(
-        Q, R, qstride, k, 4, smem_limit(levels.device),
-        sm_count(levels.device), cfg["block_q"], cfg["waves"])
     check_merge_fits(k, levels.device)
+    splits = -(-R // rows_per_split)
+    enc = _encoded_scratch(Q, r)
     cand_v = torch.empty((Q, splits, k), dtype=torch.int32,
                          device=levels.device)
     cand_i = torch.empty_like(cand_v)
     with torch.cuda.device(levels.device):  # the launch targets the current device
         err = launch(levels.data_ptr(), Q, F, int(level_hvs.shape[0]),
-                     id_words.data_ptr(), lv_words.data_ptr(), wc, D,
-                     r.data_ptr(), R, row_bytes, wpr, qstride,
-                     0 if packed else 1, int(dim), int(k),
+                     id_words.data_ptr(), lv_words.data_ptr(),
+                     id_words.shape[1], D, r.data_ptr(), R, row_bytes, wpr,
+                     qstride, 0 if packed else 1, int(dim), int(k),
                      R if num_valid is None else min(int(num_valid), R), bq,
-                     rows_per_split, splits, cand_v.data_ptr(),
-                     cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     rows_per_split, splits, enc.data_ptr(),
+                     cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
+                     idx.data_ptr(),
                      torch.cuda.current_stream(levels.device).cuda_stream)
     check_status(err, "encode_search")
     encode_search.launches += 1

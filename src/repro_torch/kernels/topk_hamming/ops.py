@@ -15,7 +15,10 @@ Launch shape: the query block (``block_q``) and the split count (``waves``,
 target blocks per SM) resolve through ``kernels.block_utils``: an explicit
 argument, else the active tuning table, else the fixed rules
 (:func:`pick_block_q`, 4 blocks per SM). They change the time, never the
-result.
+result. The exact scan of a packed bank runs on the int8 tensor cores
+(``csrc/hd_exact_scan.cuh``, the ``MMA_*`` constants), that of an int8
+bank and the banded kernels on ``hd::scan_rows`` (``TILE_ROWS``);
+:func:`launch_exact` takes an explicit plan.
 
 Dispatch: CPU tensors take the plain versions (explicit knobs are checked,
 then ignored: the plain versions have no blocks); CUDA tensors launch the
@@ -41,7 +44,9 @@ from repro_torch.kernels.block_utils import (
     resolve_blocks,
 )
 
-TILE_ROWS = 128          # bank rows per tile (hd_common.cuh kTileRows)
+TILE_ROWS = 128          # bank rows per tile of hd::scan_rows
+                         # (hd_common.cuh kTileRows): the banded kernels and
+                         # the exact scan of int8 banks
 BANDED_BLOCK_Q = 8       # queries per block of the banded kernels, and the
                          # block the OMS plan prices its tile budget for: the
                          # server sorts each batch by precursor, so 8
@@ -49,6 +54,15 @@ BANDED_BLOCK_Q = 8       # queries per block of the banded kernels, and the
 TILE_WORDS = 128 * 36    # shared words of the staged tile (kTileWords)
 BLOCK_Q_CHOICES = (8, 16, 32)
 MERGE_WARPS = 8          # queries per merge block (hd_common.cuh kWarps)
+# the exact scan of packed banks on the int8 tensor cores
+# (csrc/hd_exact_scan.cuh, namespace mma)
+MMA_STEP = 64            # bank rows of one wgmma (M)
+MMA_ROWS = 4 * MMA_STEP  # bank rows a block scores a step (4 warpgroups):
+                         # a split is whole steps
+MMA_CHUNK = 32           # words of a row one ring stage holds
+MMA_STRIDE = MMA_CHUNK + 4   # shared row stride of the ring, words
+MMA_STAGES = 2           # depth of the cp.async ring
+MMA_TILE_STRIDE = MMA_ROWS + 4   # score tile: one query's row, words
 
 
 def _check_operands(q: torch.Tensor, r: torch.Tensor, k: int) -> bool:
@@ -111,22 +125,29 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def block_smem(bq: int, qstride: int, k: int, extra_words: int) -> int:
-    """Shared bytes of a ``bq``-query block: its resident words, the bank
-    tile and the top-k lists."""
-    return 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + extra_words)
+def block_smem(bq: int, qstride: int, k: int, packed: bool = True) -> int:
+    """Shared bytes of a ``bq``-query exact block. Packed banks
+    (``csrc/hd_exact_scan.cuh`` ``mma::smem_bytes``): the expanded query
+    stages, the ring of bank and query words, the score tile, the queries'
+    popcounts and the top-k lists. Int8 banks (``hd::scan_rows``): the
+    resident query words (row stride ``qstride``), the bank tile and the
+    lists."""
+    if packed:
+        return (2 * MMA_CHUNK * bq * 32
+                + 4 * (MMA_STAGES * (MMA_ROWS + bq) * MMA_STRIDE
+                       + bq * MMA_TILE_STRIDE + bq + 2 * bq * k))
+    return 4 * (bq * qstride + TILE_WORDS + 2 * bq * k)
 
 
-def pick_block_q(Q: int, qstride: int, k: int, extra_words: int,
-                 limit: int) -> int:
+def pick_block_q(Q: int, qstride: int, k: int, limit: int,
+                 packed: bool = True) -> int:
     """The query block (8, 16 or 32 queries) for a batch of ``Q``: the
     smallest that covers ``Q``, else the largest, among those whose
-    resident words, bank tile and top-k lists fit in ``limit`` bytes of
-    shared memory. Every query slot of a block is scored whether or not
-    it holds a query, so a block wider than ``Q`` wastes scan work.
-    Raises where no block fits."""
+    shared memory (:func:`block_smem`) fits in ``limit`` bytes. Every query
+    slot of a block is scored whether or not it holds a query, so a block
+    wider than ``Q`` wastes scan work. Raises where no block fits."""
     fits = [bq for bq in BLOCK_Q_CHOICES
-            if block_smem(bq, qstride, k, extra_words) <= limit]
+            if block_smem(bq, qstride, k, packed) <= limit]
     if not fits:
         raise ValueError(
             f"no query block fits {limit} B of shared memory at row stride "
@@ -134,32 +155,40 @@ def pick_block_q(Q: int, qstride: int, k: int, extra_words: int,
     return next((bq for bq in fits if bq >= Q), fits[-1])
 
 
-def split_rows(Q: int, R: int, bq: int, sms: int, waves: int
-               ) -> tuple[int, int]:
+def split_rows(Q: int, R: int, bq: int, sms: int, waves: int,
+               packed: bool = True) -> tuple[int, int]:
     """(rows per split, splits): enough bank splits that the grid holds
-    about ``waves`` blocks per SM, each split a whole number of tiles."""
-    tiles = -(-R // TILE_ROWS)
+    about ``waves`` blocks per SM, each split a whole number of the scan's
+    steps (256 rows for packed banks, 128-row tiles for int8)."""
+    step = MMA_ROWS if packed else TILE_ROWS
+    steps = -(-R // step)
     want = max(1, -(-waves * sms // -(-Q // bq)))
-    rows = -(-tiles // min(want, tiles)) * TILE_ROWS
+    rows = -(-steps // min(want, steps)) * step
     return rows, -(-R // rows)
 
 
-def plan_scan(Q: int, R: int, qstride: int, k: int, extra_words: int,
-              limit: int, sms: int, block_q: int, waves: int
+def plan_scan(Q: int, R: int, qstride: int, k: int, limit: int, sms: int,
+              block_q: int, waves: int, packed: bool = True
               ) -> tuple[int, int, int]:
     """(query block, rows per split, splits) of one exact launch.
     ``block_q`` 0 picks the block by the batch (:func:`pick_block_q`); an
     explicit block whose shared memory exceeds ``limit`` raises."""
     if block_q == AUTO:
-        bq = pick_block_q(Q, qstride, k, extra_words, limit)
+        bq = pick_block_q(Q, qstride, k, limit, packed)
     else:
         bq = block_q
-        need = block_smem(bq, qstride, k, extra_words)
+        need = block_smem(bq, qstride, k, packed)
         if need > limit:
             raise ValueError(f"block_q={bq} needs {need} B of shared memory "
                              f"at row stride {qstride} words and k={k}; the "
                              f"card allows {limit}")
-    return (bq, *split_rows(Q, R, bq, sms, waves))
+    return (bq, *split_rows(Q, R, bq, sms, waves, packed))
+
+
+def check_plan(bq: int, rows_per_split: int) -> None:
+    if bq not in BLOCK_Q_CHOICES or rows_per_split < 1:
+        raise ValueError(f"bad plan: {bq} queries a block (one of "
+                         f"{BLOCK_Q_CHOICES}), {rows_per_split} rows a split")
 
 
 def check_merge_fits(k: int, device: torch.device) -> None:
@@ -215,21 +244,40 @@ def topk_hamming(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
     packed = _check_operands(q, r, k)
     if not (q.is_contiguous() and r.is_contiguous()):
         raise ValueError("topk_hamming needs contiguous operands")
-    launch = _launcher()
+    _launcher()  # built before the plan reads the card
     Q, R = q.shape[0], r.shape[0]
     cfg = resolve_blocks("topk_hamming", (Q, R, q.shape[1]), knobs, q.device)
+    if Q == 0:
+        empty = torch.empty((0, k), dtype=torch.int32, device=q.device)
+        return empty, empty.clone()
+    _, qstride = words_per_row(q.shape[1] * q.element_size())
+    bq, rows_per_split, _ = plan_scan(
+        Q, R, qstride, k, smem_limit(q.device), sm_count(q.device),
+        cfg["block_q"], cfg["waves"], packed)
+    return launch_exact(q, r, dim=dim, k=k, num_valid=num_valid, bq=bq,
+                        rows_per_split=rows_per_split)
+
+
+def launch_exact(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
+                 num_valid: int | None, bq: int, rows_per_split: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launches ``csrc/topk_hamming.cu``'s exact search on contiguous CUDA
+    operands with a given plan: ``bq`` queries a block (8, 16 or 32) and
+    bank splits of ``rows_per_split`` rows (any positive count; the
+    wrapper's plan gives whole scan steps). Counted in
+    ``topk_hamming.launches``. Returns (idx, vals)."""
+    packed = _check_operands(q, r, k)
+    check_plan(bq, rows_per_split)
+    launch = _launcher()
+    Q, R = q.shape[0], r.shape[0]
     vals = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     idx = torch.empty_like(vals)
-    if Q == 0:
-        return idx, vals
     row_bytes = q.shape[1] * q.element_size()
     check_aligned(q, row_bytes)
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    bq, rows_per_split, splits = plan_scan(
-        Q, R, qstride, k, 0, smem_limit(q.device), sm_count(q.device),
-        cfg["block_q"], cfg["waves"])
     check_merge_fits(k, q.device)
+    splits = -(-R // rows_per_split)
     cand_v = torch.empty((Q, splits, k), dtype=torch.int32, device=q.device)
     cand_i = torch.empty_like(cand_v)
     with torch.cuda.device(q.device):  # the launch targets the current device

@@ -119,6 +119,96 @@ def test_encode_search_kernel_matches_plain(cuda, Q, R, D, packed, k, nv,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# the exact scan's edge cases: (Q, R, D, k, num_valid, duplicates, plan);
+# plan None takes the wrapper's launch plan, else (queries a block, rows a
+# split) is launched as given. Packed banks; D % 32 != 0 holds random
+# words, padding bits included (topk_hamming only)
+SCAN_CASES = [
+    (5, 1000, 256, 7, 600, False, None),    # R off the 64- and 256-row steps
+    (1, 1000, 8192, 4, 999, False, None),   # Q = 1
+    (4, 777, 256, 5, None, False, None),    # Q = 4: an 8-query block
+    (33, 700, 256, 6, 650, False, None),    # two query blocks
+    (16, 3000, 256, 5, 2900, False, (16, 100)),  # splits end inside a
+                                                 # warpgroup's rows
+    (32, 1500, 256, 4, 1234, True, (32, 320)),   # between warpgroups; ties
+    (17, 300, 96, 9, None, True, (32, 37)),      # ties across warpgroups
+    (7, 300, 20, 6, None, False, None),     # W = 1, dim 20
+    (9, 500, 70, 5, None, True, None),      # W = 3, dim 70, ties
+    (12, 400, 2070, 4, 333, False, None),   # W = 65, dim 2070
+    (8, 300, 64, 300, None, False, (8, 64)),     # k = R over 5 splits
+]
+
+
+def _scan_operands(rng, Q, R, D, dup):
+    if D % 32 == 0:
+        return _bank(rng, Q, D, True), _bank(rng, R, D, True, dup)
+    W = -(-D // 32)
+    words = rng.integers(0, 2**32, (Q + R, W), dtype=np.uint32).view(np.int32)
+    q, r = torch.from_numpy(words[:Q]), torch.from_numpy(words[Q:])
+    return q, torch.cat([r, r, r]) if dup else r
+
+
+@pytest.mark.parametrize("Q,R,D,k,nv,dup,plan", SCAN_CASES)
+def test_exact_scan_edge_cases_match_plain(cuda, Q, R, D, k, nv, dup, plan):
+    from repro_torch.kernels.encode_search.ops import launch_encode_search
+    from repro_torch.kernels.topk_hamming.ops import launch_exact
+    rng = np.random.default_rng(Q * 1000 + R + D)
+    q, bank = _scan_operands(rng, Q, R // 3 if dup else R, D, dup)
+    q, bank = q.to(cuda), bank.to(cuda)
+    got = (topk_hamming(q, bank, dim=D, k=k, num_valid=nv) if plan is None
+           else launch_exact(q, bank, dim=D, k=k, num_valid=nv, bq=plan[0],
+                             rows_per_split=plan[1]))
+    want = topk_hamming_plain(q, bank, dim=D, k=k, num_valid=nv)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if D % 32:
+        return
+    F, m = 300, 16
+    id_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(F, D)).astype(np.int8)).to(cuda)
+    lv_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(m, D)).astype(np.int8)).to(cuda)
+    levels = rng.integers(0, m, size=(Q, F))
+    levels[:, rng.random(F) < 0.7] = 0
+    levels[-1, :3] = m + 2
+    levels = torch.from_numpy(levels.astype(np.int32)).to(cuda)
+    got = (encode_search(levels, id_hvs, lv_hvs, bank, dim=D, k=k,
+                         num_valid=nv) if plan is None
+           else launch_encode_search(levels, id_hvs, lv_hvs, bank, dim=D,
+                                     k=k, num_valid=nv, codebook_words=None,
+                                     bq=plan[0], rows_per_split=plan[1]))
+    want = encode_search_plain(levels, id_hvs, lv_hvs, bank, dim=D, k=k,
+                               num_valid=nv)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("Q,F,D,packed", [(1, 300, 256, True),
+                                          (32, 1024, 8192, True),
+                                          (5, 3000, 4096, True),
+                                          (9, 300, 1000, False),
+                                          (4, 70, 13, False)])
+def test_encode_kernel_matches_plain(cuda, Q, F, D, packed):
+    from repro_torch.kernels.encode_search.ops import (
+        encode_queries,
+        encode_queries_plain,
+    )
+    rng = np.random.default_rng(Q + F + D)
+    m = 16
+    id_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(F, D)).astype(np.int8)).to(cuda)
+    lv_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(m, D)).astype(np.int8)).to(cuda)
+    levels = rng.integers(0, m + 3, size=(Q, F))   # levels past m - 1 too
+    levels[:, rng.random(F) < 0.5] = 0
+    levels = torch.from_numpy(levels.astype(np.int32)).to(cuda)
+    bank = _bank(rng, 3, D, packed).to(cuda)
+    got = encode_queries(levels, id_hvs, lv_hvs, bank)
+    want = encode_queries_plain(levels, id_hvs, lv_hvs, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _bands(rng, Q, R, kind):
     """(starts, lens): (Q,) for one band, (2, Q) for two."""
     if kind == "random":       # empty, narrow and wide bands, some past R

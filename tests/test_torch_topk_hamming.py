@@ -30,7 +30,15 @@ from repro_torch.kernels.topk_hamming import (
     topk_hamming_banded_plain,
     topk_hamming_plain,
 )
-from repro_torch.kernels.topk_hamming.ops import BLOCK_Q_CHOICES, pick_block_q
+from repro_torch.kernels.topk_hamming.ops import (
+    BLOCK_Q_CHOICES,
+    MMA_CHUNK,
+    MMA_ROWS,
+    block_smem,
+    pick_block_q,
+    plan_scan,
+    scores_plain,
+)
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers
@@ -106,21 +114,89 @@ def test_plain_is_the_cpu_path_and_counts_no_launch():
 
 
 H100_SMEM = 232448  # bytes of shared memory a block may opt into
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("Q,want", [(1, 8), (8, 8), (9, 16), (16, 16),
                                     (17, 32), (32, 32), (100, 32)])
 def test_block_q_is_the_smallest_that_covers_the_batch(Q, want):
-    assert pick_block_q(Q, 256, 4, 0, H100_SMEM) == want
+    assert pick_block_q(Q, 256, 4, H100_SMEM) == want
 
 
 def test_block_q_shrinks_to_fit_shared_memory():
-    # 32 queries of 2048 words do not fit; 16 do
-    assert pick_block_q(32, 2048, 4, 0, H100_SMEM) == 16
-    assert pick_block_q(32, 256, 4, 0, 4 * 128 * 36 + 4 * 8 * 264) == 8
+    # packed (the tensor-core scan): 32 queries' lists of k = 380 do not
+    # fit beside the ring, 16 do; a limit just under the 16-query block's
+    # shared memory leaves 8; under the 8-query block's, none
+    assert pick_block_q(32, 256, 380, H100_SMEM) == 16
+    assert pick_block_q(32, 256, 4, block_smem(16, 256, 4) - 1) == 8
     with pytest.raises(ValueError):
-        pick_block_q(8, 256, 4, 0, 4 * 128 * 36)
+        pick_block_q(8, 256, 4, block_smem(8, 256, 4) - 1)
     assert BLOCK_Q_CHOICES == (8, 16, 32)
+
+
+def test_int8_block_q_follows_the_resident_query_words():
+    # int8 banks keep hd::scan_rows: 32 resident queries of 2048 words do
+    # not fit; 16 do
+    assert pick_block_q(32, 2048, 4, H100_SMEM, packed=False) == 16
+    assert pick_block_q(32, 256, 4, 4 * 128 * 36 + 4 * 8 * 264,
+                        packed=False) == 8
+    with pytest.raises(ValueError):
+        pick_block_q(8, 256, 4, 4 * 128 * 36, packed=False)
+
+
+# (Q, expected query block, rows per split, splits) at the served bank
+# (1,162,392 rows, 256 words, k = 4) with no table: 4 blocks per SM on 132
+# SMs, splits of whole 256-row block steps
+@pytest.mark.parametrize("Q,bq,rows,splits", [
+    (1, 8, 2304, 505), (4, 8, 2304, 505), (8, 8, 2304, 505),
+    (16, 16, 2304, 505), (32, 32, 2304, 505), (33, 32, 4608, 253)])
+def test_plan_scan_at_the_served_shapes(Q, bq, rows, splits):
+    assert plan_scan(Q, 1_162_392, 256, 4, H100_SMEM, H100_SMS, 0,
+                     4) == (bq, rows, splits)
+    assert rows % MMA_ROWS == 0 and (splits - 1) * rows < 1_162_392
+
+
+def _kslot_bytes(words: np.ndarray, bit_of_slot) -> np.ndarray:
+    """(n, W) uint32 words -> (n, 32 W) bytes in the kernel's k order: word
+    w fills k = 32 w .. 32 w + 31, k-slot s (4 bytes) holding bits s,
+    s + 8, s + 16, s + 24; each byte bit_of_slot(bit)."""
+    shifts = np.array([s + 8 * j for s in range(8) for j in range(4)],
+                      dtype=np.uint32)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bit_of_slot(bits.astype(np.int64)).reshape(words.shape[0], -1)
+
+
+# (W, dim): W = 1, 3, 8 and 65 words, dim < 32 W with random padding bits
+@pytest.mark.parametrize("W,dim", [(1, 32), (1, 20), (3, 96), (3, 70),
+                                   (8, 256), (8, 250), (65, 2080),
+                                   (65, 2070)])
+@pytest.mark.parametrize("form", ["kernel", "pm1"])
+def test_scan_arithmetic_mirrors_scores_plain(W, dim, form):
+    """The tensor-core scan's integer arithmetic in numpy, held against
+    scores_plain. "kernel": bank bits as int8 -128 / 0 bytes, query bits
+    as +-1, dim - 2 popcount(q) - dot / 64; "pm1": both as +-1 (the
+    hamming_pop.cu form), dim - (32 staged - dot). Words are staged in
+    16-word ring stages, zero past W on both sides."""
+    rng = np.random.default_rng(W * 1000 + dim)
+    q = rng.integers(0, 2**32, (5, W), dtype=np.uint32)
+    r = rng.integers(0, 2**32, (40, W), dtype=np.uint32)
+    r[7] = q[2]                  # an exact match
+    r[9] = ~q[3]                 # every bit differs
+    staged = -(-W // MMA_CHUNK) * MMA_CHUNK
+    pad = ((0, 0), (0, staged - W))
+    qs, rs = np.pad(q, pad), np.pad(r, pad)
+    qb = _kslot_bytes(qs, lambda b: 2 * b - 1)
+    if form == "kernel":
+        rb = _kslot_bytes(rs, lambda b: -128 * b)
+        dot = qb @ rb.T
+        assert (dot % 128 == 0).all()
+        pc = np.vectorize(int.bit_count)(q.astype(object)).sum(axis=1)
+        got = dim - 2 * pc[:, None] - (dot >> 6)
+    else:
+        dot = qb @ _kslot_bytes(rs, lambda b: 2 * b - 1).T
+        got = dim - (32 * staged - dot)
+    want = scores_plain(_port(q), _port(r), dim).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("bad", ["k0", "kR", "dtype", "width"])

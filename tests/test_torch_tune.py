@@ -321,30 +321,36 @@ def test_validate_block_names_the_cuda_constraint(op, name, value, match):
 
 
 # --------------------------------------------------------------------------
-# the fixed rules: no table -> the launches of the parent commit
+# the fixed rules: no table -> the launches of the fixed rules
 # --------------------------------------------------------------------------
 
-def _rules_before_the_tuner(Q, R, qstride, k, extra, limit, sms):
-    """pick_block_q and split_rows as the wrappers computed them before
-    the tuner (fixed: WAVES = 4)."""
+def _fixed_rules(Q, R, k, limit, sms):
+    """pick_block_q and split_rows of a packed exact launch with no table
+    (block by batch, WAVES = 4), written out from the tensor-core scan's
+    constants (csrc/hd_exact_scan.cuh): splits of whole 256-row block
+    steps; shared memory for a 2-stage ring of 32 words (row stride 36)
+    of 256 bank and bq query rows, two stages of expanded query words (32
+    bytes each), a 260-word score row per query, the queries' popcounts
+    and the lists."""
     fits = [bq for bq in (8, 16, 32)
-            if 4 * (bq * qstride + 128 * 36 + 2 * bq * k + extra) <= limit]
+            if 2 * 32 * bq * 32 + 4 * (2 * (256 + bq) * 36 + bq * 260 + bq
+                                       + 2 * bq * k) <= limit]
     bq = next((b for b in fits if b >= Q), fits[-1])
-    tiles = -(-R // 128)
+    steps = -(-R // 256)
     want = max(1, -(-4 * sms // -(-Q // bq)))
-    rows = -(-tiles // min(want, tiles)) * 128
+    rows = -(-steps // min(want, steps)) * 256
     return bq, rows, -(-R // rows)
 
 
 @pytest.mark.parametrize("Q", [4, 8, 16, 32])
-@pytest.mark.parametrize("extra", [0, 4])   # topk_hamming, encode_search
-def test_no_table_launches_as_before(Q, extra):
+@pytest.mark.parametrize("op", ["topk_hamming", "encode_search"])
+def test_no_table_launches_as_before(Q, op):
     R = 1_162_392
     _, qstride = words_per_row(256 * 4)
-    cfg = resolve_blocks("topk_hamming", (Q, R, 256), {}, CPU)
-    assert plan_scan(Q, R, qstride, 4, extra, H100_SMEM, H100_SMS,
-                     cfg["block_q"], cfg["waves"]) == _rules_before_the_tuner(
-        Q, R, qstride, 4, extra, H100_SMEM, H100_SMS)
+    cfg = resolve_blocks(op, (Q, R, 256), {}, CPU)
+    assert plan_scan(Q, R, qstride, 4, H100_SMEM, H100_SMS, cfg["block_q"],
+                     cfg["waves"]) == _fixed_rules(Q, R, 4, H100_SMEM,
+                                                   H100_SMS)
 
 
 @pytest.mark.parametrize("Q", [4, 8, 16, 32])
@@ -366,16 +372,23 @@ def test_a_table_entry_changes_the_launch():
     t.set_entry("topk_hamming", (32, R, 256), {"block_q": 16, "waves": 1})
     set_active_table(t)
     cfg = resolve_blocks("topk_hamming", (32, R, 256), {}, CPU)
-    bq, rows, splits = plan_scan(32, R, 256, 4, 0, H100_SMEM, H100_SMS,
+    bq, rows, splits = plan_scan(32, R, 256, 4, H100_SMEM, H100_SMS,
                                  cfg["block_q"], cfg["waves"])
     assert bq == 16 and splits == 66    # 2 query blocks x 66 = 132 blocks
 
 
 def test_an_explicit_block_that_does_not_fit_raises():
+    # packed: 32 queries' lists of k = 380 do not fit beside the ring
     with pytest.raises(ValueError, match="block_q=32 needs"):
-        plan_scan(32, 1000, 2048, 4, 0, H100_SMEM, H100_SMS, 32, 4)
-    assert plan_scan(32, 1000, 2048, 4, 0, H100_SMEM, H100_SMS, AUTO,
+        plan_scan(32, 1000, 256, 380, H100_SMEM, H100_SMS, 32, 4)
+    assert plan_scan(32, 1000, 256, 380, H100_SMEM, H100_SMS, AUTO,
                      4)[0] == 16
+    # int8: 32 resident queries of 2048 words do not fit
+    with pytest.raises(ValueError, match="block_q=32 needs"):
+        plan_scan(32, 1000, 2048, 4, H100_SMEM, H100_SMS, 32, 4,
+                  packed=False)
+    assert plan_scan(32, 1000, 2048, 4, H100_SMEM, H100_SMS, AUTO, 4,
+                     packed=False)[0] == 16
 
 
 # --------------------------------------------------------------------------
