@@ -69,9 +69,10 @@ exits non-zero and prints no result line:
    the plain route on the card (for OMS, the unfused masked route); then
    each kernel is timed with CUDA events on that batch and bank (and, at
    each smaller served bucket, on evenly spaced rows of it) beside its
-   plain version, its bound and its design's own ceiling (the exact
-   kernels: the +-1 expansion on the integer lanes; the banded kernels:
-   the POPC pipe); ``encode_search``'s encode kernel is also timed alone.
+   plain version and its bound, beside an estimate printed for its design
+   (the exact kernels at Q = 32: the tensor-core scan's +-1 expansion on
+   the integer lanes alone; the banded kernels: the POPC pipe's floor);
+   ``encode_search``'s encode kernel is also timed alone.
 5. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
    tenants, each streaming one paper-average precursor bucket (10,624
    spectra = 1,328 identities x 8) at D = 2048, 1024 bins, 16 levels,
@@ -135,10 +136,10 @@ DIM, K, MAX_BATCH = 8192, 4, 32
 # H100 SXM published peaks (dense, 700 W): 3.35 TB/s HBM3, 1,979 TOP/s
 # int8 on the tensor cores and 67 TFLOP/s float32 outside them. POPC
 # issues 16 per clock per SM (a quarter of the 64-wide integer pipe): the
-# ceiling of the banded kernels' design. The exact kernels' tensor-core
-# scan is capped instead by its +-1 expansion on the 64 integer lanes per
-# clock per SM (NVIDIA's sm_90 throughput table for 32-bit integer
-# multiply-add, AND and shift).
+# floor of the banded kernels' design (and of the exact kernels' 8-query
+# blocks). The exact kernels' tensor-core scan also spends its +-1
+# expansion on the 64 integer lanes per clock per SM (NVIDIA's sm_90
+# throughput table for 32-bit integer multiply-add, AND and shift).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
@@ -192,22 +193,29 @@ def phase_build(build):
 
 
 # phase 2 cases: (Q, R, D, packed, k, num_valid, duplicate rows, plan);
-# plan None takes the wrappers' launch plan, else (queries a block, rows a
-# split) is launched as given. Packed cases with D % 32 != 0 hold random
-# words, padding bits included (topk_hamming only: an encoded packed bank
-# holds whole 32-dim words)
+# plan None takes the wrappers' launch plan, (block_q, None) the wrappers'
+# plan for that query block (a packed bank's 16- and 32-query blocks score
+# on the tensor cores, its 8-query blocks on the POPC scan), else (queries
+# a block, rows a split) is launched as given. Packed cases with
+# D % 32 != 0 hold random words, padding bits included (topk_hamming
+# only: an encoded packed bank holds whole 32-dim words)
 EDGE_CASES = [
     (32, 3000, 8192, True, 4, None, False, None),
-    (5, 1000, 256, True, 7, 600, False, None),  # ragged Q; R off the 64-row
-                                                # step and the 256-row block
-                                                # step; num_valid in a step
+    (5, 1000, 256, True, 7, 600, False, None),  # ragged Q; num_valid in a
+                                                # tile
+    (5, 1000, 256, True, 7, 600, False, (16, None)),  # on the tensor cores:
+                                                      # R off the 64- and
+                                                      # 256-row steps,
+                                                      # num_valid in a step
     (40, 517, 64, True, 20, 9, False, None),    # k > num_valid
     (3, 37, 32, True, 37, None, False, None),   # k = R
+    (3, 37, 32, True, 37, None, False, (16, None)),   # k = R, tensor cores
     (17, 300, 96, True, 9, None, True, None),   # duplicate rows 100 apart:
                                                 # ties across warpgroups
     (32, 2000, 1000, False, 4, None, False, None),  # int8 at D = 1000
     (9, 129, 1000, False, 129, 77, True, None),     # int8, k = R, ties, masked
     (1, 1000, 8192, True, 4, 999, False, None),     # Q = 1
+    (1, 1000, 8192, True, 4, 999, False, (16, None)),  # Q = 1, tensor cores
     (4, 777, 256, True, 5, None, False, None),      # Q = 4: 8-query block
     (33, 700, 256, True, 6, 650, False, None),      # two query blocks
     (16, 3000, 256, True, 5, 2900, False, (16, 100)),  # splits end inside
@@ -215,9 +223,11 @@ EDGE_CASES = [
     (32, 1500, 256, True, 4, 1234, True, (32, 320)),   # splits end between
                                                        # warpgroups; ties
     (7, 300, 20, True, 6, None, False, None),       # W = 1, dim 20
+    (7, 300, 20, True, 6, None, False, (16, None)),  # the same, tensor cores
     (9, 500, 70, True, 5, None, True, None),        # W = 3, dim 70, ties
     (12, 400, 2070, True, 4, 333, False, None),     # W = 65, dim 2070
     (8, 300, 64, True, 300, None, False, (8, 64)),  # k = R over 5 splits
+    (16, 300, 64, True, 300, None, False, (16, 64)),  # the same, tensor cores
 ]
 
 
@@ -432,7 +442,7 @@ def phase_kernels_vs_plain(torch, np):
     from repro_torch.kernels.encode_search.ops import (
         encode_queries,
         encode_queries_plain,
-        launch_encode_search,
+        _launch_encode_search,
     )
     from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
     from repro_torch.kernels.hd_encode import hd_encode, hd_encode_plain
@@ -443,7 +453,7 @@ def phase_kernels_vs_plain(torch, np):
         topk_hamming_banded_plain,
         topk_hamming_plain,
     )
-    from repro_torch.kernels.topk_hamming.ops import launch_exact
+    from repro_torch.kernels.topk_hamming.ops import _launch_exact
     dev = torch.device("cuda")
 
     def bank(rng, rows, d, packed, dup=False):
@@ -478,18 +488,21 @@ def phase_kernels_vs_plain(torch, np):
         rng = np.random.default_rng(Q * 1000 + R + D)
         r = bank(rng, R // 3 if dup else R, D, packed, dup)
         q = bank(rng, Q, D, packed)
-        got = (topk_hamming(q, r, dim=D, k=k, num_valid=nv) if plan is None
-               else launch_exact(q, r, dim=D, k=k, num_valid=nv, bq=plan[0],
-                                 rows_per_split=plan[1]))
+        bq, rows = plan or (None, None)
+        got = (topk_hamming(q, r, dim=D, k=k, num_valid=nv, block_q=bq)
+               if rows is None else _launch_exact(
+                   q, r, dim=D, k=k, num_valid=nv, bq=bq,
+                   rows_per_split=rows))
         mismatches["topk_hamming"] += diff(
             got, topk_hamming_plain(q, r, dim=D, k=k, num_valid=nv))
         if packed and D % 32:
             continue
         lev, idh, lvh = codebooks(rng, Q, D)
-        got = (encode_search(lev, idh, lvh, r, dim=D, k=k, num_valid=nv)
-               if plan is None else launch_encode_search(
+        got = (encode_search(lev, idh, lvh, r, dim=D, k=k, num_valid=nv,
+                             block_q=bq)
+               if rows is None else _launch_encode_search(
                    lev, idh, lvh, r, dim=D, k=k, num_valid=nv,
-                   codebook_words=None, bq=plan[0], rows_per_split=plan[1]))
+                   codebook_words=None, bq=bq, rows_per_split=rows))
         mismatches["encode_search"] += diff(got, encode_search_plain(
             lev, idh, lvh, r, dim=D, k=k, num_valid=nv))
         # the encode kernel alone
@@ -804,8 +817,10 @@ def expansion_ops(Q: int, R: int, W: int, bq: int) -> int:
 
 
 def int_pipe_ms(ops: float, sms: int) -> float:
-    """The exact scan's own ceiling: ``ops`` integer operations at 64
-    lanes per clock per SM and the card's maximum SM clock, in ms."""
+    """The time of ``ops`` integer operations at 64 lanes per clock per SM
+    and the card's maximum SM clock, in ms: the tensor-core scan's +-1
+    expansion alone, an estimate that leaves out its wgmmas, staging and
+    barriers."""
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     return 1e3 * ops / (INT_LANES_PER_CLOCK_PER_SM * sms * clock_hz)
 
@@ -1026,13 +1041,14 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
     b_ms, b_by = bound_ms(ops, nbytes)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if oms:
-        ceiling_ms = popc_pipe_ms(pipe_ops, sms)
-        ceiling = (f"this design's POPC-pipe floor {ceiling_ms:.4f} ms "
-                   f"({pipe_ops:.4g} POPC)")
+        ceiling = (f"this design's POPC-pipe floor "
+                   f"{popc_pipe_ms(pipe_ops, sms):.4f} ms ({pipe_ops:.4g} "
+                   f"POPC)")
     else:
-        ceiling_ms = int_pipe_ms(pipe_ops, sms)
-        ceiling = (f"this design's +-1 expansion ceiling {ceiling_ms:.4f} ms "
-                   f"({pipe_ops:.4g} integer ops at 64 a clock per SM)")
+        ceiling = (f"an estimate of the tensor-core scan's +-1 expansion "
+                   f"alone (not the design's ceiling: its wgmmas, staging "
+                   f"and barriers add to it) {int_pipe_ms(pipe_ops, sms):.4f}"
+                   f" ms ({pipe_ops:.4g} integer ops at 64 a clock per SM)")
     encode_ms = None
     if fused_e2e and not oms:
         # the encode kernel alone, on the served batch
@@ -1057,7 +1073,7 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         # no single PyTorch call computes a streaming top-k by Hamming
         # distance (with or without the encode, banded or not)
         "library_ms": None,
-        "ceiling_ms": ceiling_ms, "route_ms": route_ms,
+        "route_ms": route_ms,
         "bucket_ms": {str(n): t for n, t in bucket_ms.items()},
         **({} if encode_ms is None else {"encode_ms": encode_ms}),
     }

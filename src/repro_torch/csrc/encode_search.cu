@@ -27,8 +27,9 @@
 // scan stages its query operand. Keeping them on chip made each of the
 // ~500 bank splits re-encode its query block before its scan, one query
 // at a time: ~23 us a query at D = 8192. The encode, the exact scan of
-// hd_exact_scan.cuh (int8 tensor cores for packed banks) and the split
-// merge run in turn on the caller's stream.
+// hd_exact_scan.cuh (the int8 tensor cores for packed banks in 16- or
+// 32-query blocks, hd::scan_rows otherwise) and the split merge run in
+// turn on the caller's stream.
 //
 // Banded design: topk_hamming.cu's banded kernel (8-query blocks, the scan
 // window derived on the device from the block's bands, on hd::scan_rows)

@@ -5,9 +5,10 @@
 // * the streaming tile scorer over a range of bank rows (scan_rows):
 //   XOR + popcount (the POPC pipe) for packed words, __dp4a for int8;
 //   optionally banded, each query offered only the rows of its own
-//   [start, end) band. The banded kernels score on it in both modes, the
-//   exact scan in int8 mode only: packed exact banks score on the int8
-//   tensor cores (hd_exact_scan.cuh);
+//   [start, end) band. The banded kernels score on it in both modes; the
+//   exact scan on it in int8 mode and in 8-query packed blocks, its 16-
+//   and 32-query packed blocks on the int8 tensor cores
+//   (hd_exact_scan.cuh);
 // * the banded blocks' scan window (load_bands / band_window /
 //   split_window);
 // * the Eq. 1 encoder of one block's queries (encode_block, the banded

@@ -3,12 +3,17 @@
 // desc, row asc), into the split's candidate slots; hd::launch_merge folds
 // the splits. Rows at or past num_valid score INT_MIN but stay candidates.
 //
-// Which scan runs:
-// * packed banks (mode 0, the served layout) score on the int8 tensor
-//   cores (mma::scan_kernel below);
+// Which scan runs (launch_exact_scan), by the bank's mode and the query
+// block:
+// * packed banks (mode 0, the served layout) in 16- or 32-query blocks
+//   score on the int8 tensor cores (mma::scan_kernel below);
+// * packed banks in 8-query blocks (the plan's block for batches of 8 or
+//   fewer) keep hd::scan_rows on the POPC pipe (tile_scan_kernel below):
+//   with the bank on the M side the wgmma count does not shrink with the
+//   batch, and at 4 or 8 queries the POPC scan was the faster (PERF.md);
 // * int8 banks (mode 1, unpacked rows such as D = 1000) keep hd::scan_rows
-//   (__dp4a; dp4a_scan_kernel below): their rows need not be 4-byte
-//   aligned, and no served path uses them.
+//   on __dp4a: their rows need not be 4-byte aligned, and no served path
+//   uses them.
 // The banded kernels keep hd::scan_rows for both modes.
 //
 // Bound on the H100: bytes. At Q = 32 against the iPRG2012-scale bank
@@ -29,9 +34,10 @@
 // FMA pipe) and one AND; the +-1 form of both operands (as in
 // hamming_pop.cu) costs a shift, an AND and a multiply-add per register.
 //
-// Design. A block of four warpgroups (512 threads) owns N = 8, 16 or 32
-// queries and one split of the bank, which it walks in steps of 256 rows
-// (64 per warpgroup, the M side of wgmma.m64nNk32.s32.s8.s8). Packed words
+// Design of the tensor-core scan. A block of four warpgroups (512 threads)
+// owns N = 16 or 32 queries and one split of the bank, which it walks in
+// steps of 256 rows (64 per warpgroup, the M side of
+// wgmma.m64nNk32.s32.s8.s8). Packed words
 // of the step's rows and of the block's queries stream through a
 // two-stage cp.async ring, 32 words (128 bytes of a row) a stage; the bank
 // is read once and stays packed (1/8 of the +-1 bytes). Each stage's
@@ -65,13 +71,13 @@
 
 namespace hd {
 
-// int8 banks: one block of BQ = 8 * QPT queries against one bank split on
-// hd::scan_rows.
-template <int QPT>
+// One block of BQ = 8 * QPT queries against one bank split on
+// hd::scan_rows (MODE kPacked: the POPC pipe; kInt8: __dp4a).
+template <int MODE, int QPT>
 __global__ void __launch_bounds__(kThreads)
-    dp4a_scan_kernel(const unsigned char* __restrict__ q,
+    tile_scan_kernel(const unsigned char* __restrict__ q,
                      const unsigned char* __restrict__ r, int Q, int R,
-                     int row_bytes, int wpr, int qstride, int k,
+                     int row_bytes, int wpr, int qstride, int dim, int k,
                      int num_valid, int rows_per_split, int splits, int* cv,
                      int* ci) {
   constexpr int BQ = kWarps * QPT;
@@ -90,29 +96,29 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row_begin = split * rows_per_split;
   const int row_end = min(R, row_begin + rows_per_split);
-  scan_rows<kInt8, QPT>(qs, qstride, nq, r, row_bytes, wpr, row_begin,
-                        row_end, num_valid, 0, nullptr, rt, lv, li, k);
+  scan_rows<MODE, QPT>(qs, qstride, nq, r, row_bytes, wpr, row_begin,
+                       row_end, num_valid, dim, nullptr, rt, lv, li, k);
   write_candidates<QPT>(lv, li, k, q0, nq, split, splits, cv, ci);
 }
 
-template <int QPT>
-cudaError_t launch_dp4a(const void* q, const void* r, int Q, int R,
-                        int row_bytes, int wpr, int qstride, int k,
-                        int num_valid, int rows_per_split, int splits, int* cv,
-                        int* ci, cudaStream_t stream) {
+template <int MODE, int QPT>
+cudaError_t launch_tiles(const void* q, const void* r, int Q, int R,
+                         int row_bytes, int wpr, int qstride, int dim, int k,
+                         int num_valid, int rows_per_split, int splits,
+                         int* cv, int* ci, cudaStream_t stream) {
   constexpr int BQ = kWarps * QPT;
   const size_t smem = sizeof(uint32_t) *
                       (static_cast<size_t>(BQ) * qstride + kTileWords +
                        2 * static_cast<size_t>(BQ) * k);
   cudaError_t err = cudaFuncSetAttribute(
-      dp4a_scan_kernel<QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_scan_kernel<MODE, QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((Q + BQ - 1) / BQ, splits);
-  dp4a_scan_kernel<QPT><<<grid, kThreads, smem, stream>>>(
+  tile_scan_kernel<MODE, QPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const unsigned char*>(q),
-      static_cast<const unsigned char*>(r), Q, R, row_bytes, wpr, qstride, k,
-      num_valid, rows_per_split, splits, cv, ci);
+      static_cast<const unsigned char*>(r), Q, R, row_bytes, wpr, qstride, dim,
+      k, num_valid, rows_per_split, splits, cv, ci);
   return cudaGetLastError();
 }
 
@@ -142,16 +148,6 @@ inline size_t smem_bytes(int N, int k) {
 
 // wgmma.m64nNk32.s32.s8.s8, A from registers, B from the descriptor,
 // accumulating into acc
-__device__ __forceinline__ void wgmma(int (&acc)[4], const uint32_t (&a)[4],
-                                      uint64_t d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p;\n}\n"
-      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(d), "r"(1));
-}
-
 __device__ __forceinline__ void wgmma(int (&acc)[8], const uint32_t (&a)[4],
                                       uint64_t d) {
   asm volatile(
@@ -197,6 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     scan_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ r,
                 int Q, int R, int W, int dim, int k, int num_valid,
                 int rows_per_split, int splits, int* cv, int* ci) {
+  static_assert(N == 16 || N == 32, "16- or 32-query blocks");
   constexpr int kRing = (kRows + N) * kStride;  // words of one ring stage
   constexpr int kKStep = N * 32;                // bytes of one expanded k-step
   constexpr int kExp = kChunk * kKStep;         // bytes of one expanded stage
@@ -391,20 +388,23 @@ inline cudaError_t launch_exact_scan(const void* q, const void* r, int Q,
                                      int num_valid, int bq,
                                      int rows_per_split, int splits, int* cv,
                                      int* ci, cudaStream_t s) {
-  if (mode == kPacked) {
+  if (mode == kPacked && bq >= 16) {
     const uint32_t* qw = static_cast<const uint32_t*>(q);
     const uint32_t* rw = static_cast<const uint32_t*>(r);
 #define HD_MMA(N)                                                          \
   mma::launch<N>(qw, rw, Q, R, wpr, dim, k, num_valid, rows_per_split,      \
                  splits, cv, ci, s)
-    return bq == 32 ? HD_MMA(32) : bq == 16 ? HD_MMA(16) : HD_MMA(8);
+    return bq == 32 ? HD_MMA(32) : HD_MMA(16);
 #undef HD_MMA
   }
-#define HD_DP4A(QPT)                                                       \
-  launch_dp4a<QPT>(q, r, Q, R, row_bytes, wpr, qstride, k, num_valid,       \
-                   rows_per_split, splits, cv, ci, s)
-  return bq == 32 ? HD_DP4A(4) : bq == 16 ? HD_DP4A(2) : HD_DP4A(1);
-#undef HD_DP4A
+#define HD_TILES(MODE, QPT)                                                \
+  launch_tiles<MODE, QPT>(q, r, Q, R, row_bytes, wpr, qstride, dim, k,      \
+                          num_valid, rows_per_split, splits, cv, ci, s)
+  if (mode == kPacked) return HD_TILES(kPacked, 1);
+  return bq == 32   ? HD_TILES(kInt8, 4)
+         : bq == 16 ? HD_TILES(kInt8, 2)
+                    : HD_TILES(kInt8, 1);
+#undef HD_TILES
 }
 
 }  // namespace hd

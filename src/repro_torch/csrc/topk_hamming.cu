@@ -9,8 +9,9 @@
 // the OMS twin: each query scores only the rows of its own [start, end)
 // bands (one per bank block) of a precursor-sorted bank.
 //
-// Exact search: hd_exact_scan.cuh (bound, design; packed banks on the int8
-// tensor cores, int8 banks on hd::scan_rows), then the split merge. The TPU
+// Exact search: hd_exact_scan.cuh (bound, design; packed banks in 16- or
+// 32-query blocks on the int8 tensor cores, 8-query blocks and int8 banks
+// on hd::scan_rows), then the split merge. The TPU
 // carries its running top-k across a sequential R grid axis; Hopper blocks
 // run in no order, so the grid is 2-D (query blocks x bank splits) and a
 // second kernel merges the splits, exact because the order is total.

@@ -19,12 +19,12 @@ kernel ops layer resolves its knobs through :func:`resolve_blocks`:
 The knobs:
 
 * ``block_q`` of ``topk_hamming`` / ``encode_search``: queries per block,
-  one of the kernels' compiled instantiations (8, 16 or 32: the N of the
-  tensor-core scan's ``wgmma`` for packed banks,
-  ``csrc/hd_exact_scan.cuh``; 1, 2 or 4 queries per warp for int8
-  banks), or 0 for the smallest that covers the batch and fits shared
-  memory. The banded twins keep 8
-  queries per block, the block the OMS plan prices its tile budget in.
+  one of the kernels' compiled instantiations, or 0 for the smallest
+  that covers the batch and fits shared memory. For packed banks 16 and
+  32 are the N of the tensor-core scan's ``wgmma`` and 8 keeps the POPC
+  scan (``csrc/hd_exact_scan.cuh``); for int8 banks 8, 16 and 32 are 1, 2
+  or 4 queries per warp. The banded twins keep 8 queries per block, the
+  block the OMS plan prices its tile budget in.
 * ``waves``: target blocks per SM when the bank (or a band's window) is
   split across blocks; it sets the split count, never the result.
 * ``block_b`` / ``block_d`` of ``hd_encode``: queries per block and dims

@@ -221,22 +221,22 @@ def encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
     bq, rows_per_split, _ = plan_scan(
         Q, R, qstride, k, smem_limit(levels.device), sm_count(levels.device),
         cfg["block_q"], cfg["waves"], packed)
-    return launch_encode_search(levels, id_hvs, level_hvs, r, dim=dim, k=k,
-                                num_valid=num_valid,
-                                codebook_words=(id_words, lv_words), bq=bq,
-                                rows_per_split=rows_per_split)
+    return _launch_encode_search(levels, id_hvs, level_hvs, r, dim=dim, k=k,
+                                 num_valid=num_valid,
+                                 codebook_words=(id_words, lv_words), bq=bq,
+                                 rows_per_split=rows_per_split)
 
 
-def launch_encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
-                         level_hvs: torch.Tensor, r: torch.Tensor, *,
-                         dim: int, k: int, num_valid: int | None,
-                         codebook_words: tuple[torch.Tensor, torch.Tensor]
-                         | None, bq: int, rows_per_split: int
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_encode_search(levels: torch.Tensor, id_hvs: torch.Tensor,
+                          level_hvs: torch.Tensor, r: torch.Tensor, *,
+                          dim: int, k: int, num_valid: int | None,
+                          codebook_words: tuple[torch.Tensor, torch.Tensor]
+                          | None, bq: int, rows_per_split: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launches ``csrc/encode_search.cu``'s exact search on CUDA operands
-    with a given plan (``bq`` queries a block, bank splits of
-    ``rows_per_split`` rows), as ``topk_hamming.ops.launch_exact`` does.
-    Counted in ``encode_search.launches``. Returns (idx, vals)."""
+    with the plan :func:`encode_search` made (``bq`` queries a block, bank
+    splits of ``rows_per_split`` rows), as ``topk_hamming.ops._launch_exact``
+    does. Counted in ``encode_search.launches``. Returns (idx, vals)."""
     packed, id_words, lv_words = _check_kernel_operands(
         levels, id_hvs, level_hvs, r, k, codebook_words)
     check_plan(bq, rows_per_split)

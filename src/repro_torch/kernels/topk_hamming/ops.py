@@ -15,10 +15,11 @@ Launch shape: the query block (``block_q``) and the split count (``waves``,
 target blocks per SM) resolve through ``kernels.block_utils``: an explicit
 argument, else the active tuning table, else the fixed rules
 (:func:`pick_block_q`, 4 blocks per SM). They change the time, never the
-result. The exact scan of a packed bank runs on the int8 tensor cores
-(``csrc/hd_exact_scan.cuh``, the ``MMA_*`` constants), that of an int8
-bank and the banded kernels on ``hd::scan_rows`` (``TILE_ROWS``);
-:func:`launch_exact` takes an explicit plan.
+result, and the query block picks the exact scan
+(:func:`on_tensor_cores`): a packed bank's 16- and 32-query blocks score
+on the int8 tensor cores (``csrc/hd_exact_scan.cuh``, the ``MMA_*``
+constants), its 8-query blocks, an int8 bank's blocks and the banded
+kernels on ``hd::scan_rows`` (``TILE_ROWS``).
 
 Dispatch: CPU tensors take the plain versions (explicit knobs are checked,
 then ignored: the plain versions have no blocks); CUDA tensors launch the
@@ -56,6 +57,8 @@ BLOCK_Q_CHOICES = (8, 16, 32)
 MERGE_WARPS = 8          # queries per merge block (hd_common.cuh kWarps)
 # the exact scan of packed banks on the int8 tensor cores
 # (csrc/hd_exact_scan.cuh, namespace mma)
+MMA_BLOCK_Q = (16, 32)   # its query blocks: an 8-query block keeps the
+                         # POPC scan, faster at batches of 8 or fewer
 MMA_STEP = 64            # bank rows of one wgmma (M)
 MMA_ROWS = 4 * MMA_STEP  # bank rows a block scores a step (4 warpgroups):
                          # a split is whole steps
@@ -125,14 +128,20 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def on_tensor_cores(packed: bool, bq: int) -> bool:
+    """Whether the exact scan of a ``bq``-query block runs on the int8
+    tensor cores (packed banks, 16 or 32 queries) rather than on
+    ``hd::scan_rows`` (``csrc/hd_exact_scan.cuh`` ``launch_exact_scan``)."""
+    return packed and bq in MMA_BLOCK_Q
+
+
 def block_smem(bq: int, qstride: int, k: int, packed: bool = True) -> int:
-    """Shared bytes of a ``bq``-query exact block. Packed banks
+    """Shared bytes of a ``bq``-query exact block. On the tensor cores
     (``csrc/hd_exact_scan.cuh`` ``mma::smem_bytes``): the expanded query
     stages, the ring of bank and query words, the score tile, the queries'
-    popcounts and the top-k lists. Int8 banks (``hd::scan_rows``): the
-    resident query words (row stride ``qstride``), the bank tile and the
-    lists."""
-    if packed:
+    popcounts and the top-k lists. On ``hd::scan_rows``: the resident
+    query words (row stride ``qstride``), the bank tile and the lists."""
+    if on_tensor_cores(packed, bq):
         return (2 * MMA_CHUNK * bq * 32
                 + 4 * (MMA_STAGES * (MMA_ROWS + bq) * MMA_STRIDE
                        + bq * MMA_TILE_STRIDE + bq + 2 * bq * k))
@@ -159,8 +168,8 @@ def split_rows(Q: int, R: int, bq: int, sms: int, waves: int,
                packed: bool = True) -> tuple[int, int]:
     """(rows per split, splits): enough bank splits that the grid holds
     about ``waves`` blocks per SM, each split a whole number of the scan's
-    steps (256 rows for packed banks, 128-row tiles for int8)."""
-    step = MMA_ROWS if packed else TILE_ROWS
+    steps (256 rows on the tensor cores, else 128-row tiles)."""
+    step = MMA_ROWS if on_tensor_cores(packed, bq) else TILE_ROWS
     steps = -(-R // step)
     want = max(1, -(-waves * sms // -(-Q // bq)))
     rows = -(-steps // min(want, steps)) * step
@@ -254,18 +263,19 @@ def topk_hamming(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
     bq, rows_per_split, _ = plan_scan(
         Q, R, qstride, k, smem_limit(q.device), sm_count(q.device),
         cfg["block_q"], cfg["waves"], packed)
-    return launch_exact(q, r, dim=dim, k=k, num_valid=num_valid, bq=bq,
-                        rows_per_split=rows_per_split)
+    return _launch_exact(q, r, dim=dim, k=k, num_valid=num_valid, bq=bq,
+                         rows_per_split=rows_per_split)
 
 
-def launch_exact(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
-                 num_valid: int | None, bq: int, rows_per_split: int
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_exact(q: torch.Tensor, r: torch.Tensor, *, dim: int, k: int,
+                  num_valid: int | None, bq: int, rows_per_split: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launches ``csrc/topk_hamming.cu``'s exact search on contiguous CUDA
-    operands with a given plan: ``bq`` queries a block (8, 16 or 32) and
-    bank splits of ``rows_per_split`` rows (any positive count; the
-    wrapper's plan gives whole scan steps). Counted in
-    ``topk_hamming.launches``. Returns (idx, vals)."""
+    operands with the plan :func:`topk_hamming` made: ``bq`` queries a
+    block (8, 16 or 32) and bank splits of ``rows_per_split`` rows. The
+    kernel takes any positive split; the tests also launch splits that end
+    inside a step. Counted in ``topk_hamming.launches``. Returns (idx,
+    vals)."""
     packed = _check_operands(q, r, k)
     check_plan(bq, rows_per_split)
     launch = _launcher()

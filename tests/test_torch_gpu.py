@@ -120,12 +120,17 @@ def test_encode_search_kernel_matches_plain(cuda, Q, R, D, packed, k, nv,
 
 
 # the exact scan's edge cases: (Q, R, D, k, num_valid, duplicates, plan);
-# plan None takes the wrapper's launch plan, else (queries a block, rows a
-# split) is launched as given. Packed banks; D % 32 != 0 holds random
-# words, padding bits included (topk_hamming only)
+# plan None takes the wrapper's launch plan, (block_q, None) the wrapper's
+# plan for that query block (16 and 32 score on the tensor cores, 8 on the
+# POPC scan), else (queries a block, rows a split) is launched as given.
+# Packed banks; D % 32 != 0 holds random words, padding bits included
+# (topk_hamming only)
 SCAN_CASES = [
-    (5, 1000, 256, 7, 600, False, None),    # R off the 64- and 256-row steps
+    (5, 1000, 256, 7, 600, False, None),    # ragged Q; num_valid in a tile
+    (5, 1000, 256, 7, 600, False, (16, None)),   # R off the 64- and 256-row
+                                                 # steps, nv in a step
     (1, 1000, 8192, 4, 999, False, None),   # Q = 1
+    (1, 1000, 8192, 4, 999, False, (16, None)),  # Q = 1 in a 16-query block
     (4, 777, 256, 5, None, False, None),    # Q = 4: an 8-query block
     (33, 700, 256, 6, 650, False, None),    # two query blocks
     (16, 3000, 256, 5, 2900, False, (16, 100)),  # splits end inside a
@@ -133,9 +138,11 @@ SCAN_CASES = [
     (32, 1500, 256, 4, 1234, True, (32, 320)),   # between warpgroups; ties
     (17, 300, 96, 9, None, True, (32, 37)),      # ties across warpgroups
     (7, 300, 20, 6, None, False, None),     # W = 1, dim 20
+    (7, 300, 20, 6, None, False, (16, None)),    # the same, tensor cores
     (9, 500, 70, 5, None, True, None),      # W = 3, dim 70, ties
     (12, 400, 2070, 4, 333, False, None),   # W = 65, dim 2070
     (8, 300, 64, 300, None, False, (8, 64)),     # k = R over 5 splits
+    (16, 300, 64, 300, None, False, (16, 64)),   # the same, tensor cores
 ]
 
 
@@ -150,14 +157,16 @@ def _scan_operands(rng, Q, R, D, dup):
 
 @pytest.mark.parametrize("Q,R,D,k,nv,dup,plan", SCAN_CASES)
 def test_exact_scan_edge_cases_match_plain(cuda, Q, R, D, k, nv, dup, plan):
-    from repro_torch.kernels.encode_search.ops import launch_encode_search
-    from repro_torch.kernels.topk_hamming.ops import launch_exact
+    from repro_torch.kernels.encode_search.ops import _launch_encode_search
+    from repro_torch.kernels.topk_hamming.ops import _launch_exact
     rng = np.random.default_rng(Q * 1000 + R + D)
     q, bank = _scan_operands(rng, Q, R // 3 if dup else R, D, dup)
     q, bank = q.to(cuda), bank.to(cuda)
-    got = (topk_hamming(q, bank, dim=D, k=k, num_valid=nv) if plan is None
-           else launch_exact(q, bank, dim=D, k=k, num_valid=nv, bq=plan[0],
-                             rows_per_split=plan[1]))
+    bq, rows = plan or (None, None)
+    got = (topk_hamming(q, bank, dim=D, k=k, num_valid=nv, block_q=bq)
+           if rows is None else _launch_exact(q, bank, dim=D, k=k,
+                                              num_valid=nv, bq=bq,
+                                              rows_per_split=rows))
     want = topk_hamming_plain(q, bank, dim=D, k=k, num_valid=nv)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -173,10 +182,10 @@ def test_exact_scan_edge_cases_match_plain(cuda, Q, R, D, k, nv, dup, plan):
     levels[-1, :3] = m + 2
     levels = torch.from_numpy(levels.astype(np.int32)).to(cuda)
     got = (encode_search(levels, id_hvs, lv_hvs, bank, dim=D, k=k,
-                         num_valid=nv) if plan is None
-           else launch_encode_search(levels, id_hvs, lv_hvs, bank, dim=D,
-                                     k=k, num_valid=nv, codebook_words=None,
-                                     bq=plan[0], rows_per_split=plan[1]))
+                         num_valid=nv, block_q=bq) if rows is None
+           else _launch_encode_search(levels, id_hvs, lv_hvs, bank, dim=D,
+                                      k=k, num_valid=nv, codebook_words=None,
+                                      bq=bq, rows_per_split=rows))
     want = encode_search_plain(levels, id_hvs, lv_hvs, bank, dim=D, k=k,
                                num_valid=nv)
     torch.cuda.synchronize()

@@ -34,10 +34,14 @@ from repro_torch.kernels.topk_hamming.ops import (
     BLOCK_Q_CHOICES,
     MMA_CHUNK,
     MMA_ROWS,
+    TILE_ROWS,
+    TILE_WORDS,
     block_smem,
+    on_tensor_cores,
     pick_block_q,
     plan_scan,
     scores_plain,
+    split_rows,
 )
 
 # small tensors: one intra-op thread leaves the cores to the other test
@@ -124,9 +128,10 @@ def test_block_q_is_the_smallest_that_covers_the_batch(Q, want):
 
 
 def test_block_q_shrinks_to_fit_shared_memory():
-    # packed (the tensor-core scan): 32 queries' lists of k = 380 do not
-    # fit beside the ring, 16 do; a limit just under the 16-query block's
-    # shared memory leaves 8; under the 8-query block's, none
+    # packed: 32 queries' lists of k = 380 do not fit beside the
+    # tensor-core scan's ring, 16 do; a limit just under the 16-query
+    # block's shared memory leaves 8 (the POPC scan); under the 8-query
+    # block's, none
     assert pick_block_q(32, 256, 380, H100_SMEM) == 16
     assert pick_block_q(32, 256, 4, block_smem(16, 256, 4) - 1) == 8
     with pytest.raises(ValueError):
@@ -146,14 +151,31 @@ def test_int8_block_q_follows_the_resident_query_words():
 
 # (Q, expected query block, rows per split, splits) at the served bank
 # (1,162,392 rows, 256 words, k = 4) with no table: 4 blocks per SM on 132
-# SMs, splits of whole 256-row block steps
+# SMs, splits of whole 256-row block steps on the tensor cores (16 and 32
+# queries), of whole 128-row tiles on the POPC scan (8 queries)
 @pytest.mark.parametrize("Q,bq,rows,splits", [
     (1, 8, 2304, 505), (4, 8, 2304, 505), (8, 8, 2304, 505),
     (16, 16, 2304, 505), (32, 32, 2304, 505), (33, 32, 4608, 253)])
 def test_plan_scan_at_the_served_shapes(Q, bq, rows, splits):
     assert plan_scan(Q, 1_162_392, 256, 4, H100_SMEM, H100_SMS, 0,
                      4) == (bq, rows, splits)
-    assert rows % MMA_ROWS == 0 and (splits - 1) * rows < 1_162_392
+    step = MMA_ROWS if on_tensor_cores(True, bq) else TILE_ROWS
+    assert rows % step == 0 and (splits - 1) * rows < 1_162_392
+
+
+# (packed, query block) -> whether the exact scan runs on the tensor cores
+@pytest.mark.parametrize("packed,bq,mma", [
+    (True, 8, False), (True, 16, True), (True, 32, True),
+    (False, 8, False), (False, 16, False), (False, 32, False)])
+def test_the_query_block_picks_the_scan(packed, bq, mma):
+    assert on_tensor_cores(packed, bq) == mma
+    # each scan's own shared memory: the 8-query POPC block's resident
+    # words and 128-row tile, the tensor-core block's ring and stages
+    tiles = 4 * (bq * 256 + TILE_WORDS + 2 * bq * 4)
+    assert (block_smem(bq, 256, 4, packed) == tiles) == (not mma)
+    # and its own split step at the served bank
+    rows, _ = split_rows(32, 1_162_392, bq, H100_SMS, 1, packed)
+    assert rows % (MMA_ROWS if mma else TILE_ROWS) == 0
 
 
 def _kslot_bytes(words: np.ndarray, bit_of_slot) -> np.ndarray:
@@ -176,7 +198,7 @@ def test_scan_arithmetic_mirrors_scores_plain(W, dim, form):
     scores_plain. "kernel": bank bits as int8 -128 / 0 bytes, query bits
     as +-1, dim - 2 popcount(q) - dot / 64; "pm1": both as +-1 (the
     hamming_pop.cu form), dim - (32 staged - dot). Words are staged in
-    16-word ring stages, zero past W on both sides."""
+    32-word ring stages (MMA_CHUNK), zero past W on both sides."""
     rng = np.random.default_rng(W * 1000 + dim)
     q = rng.integers(0, 2**32, (5, W), dtype=np.uint32)
     r = rng.integers(0, 2**32, (40, W), dtype=np.uint32)

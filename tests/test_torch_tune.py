@@ -326,19 +326,27 @@ def test_validate_block_names_the_cuda_constraint(op, name, value, match):
 
 def _fixed_rules(Q, R, k, limit, sms):
     """pick_block_q and split_rows of a packed exact launch with no table
-    (block by batch, WAVES = 4), written out from the tensor-core scan's
-    constants (csrc/hd_exact_scan.cuh): splits of whole 256-row block
-    steps; shared memory for a 2-stage ring of 32 words (row stride 36)
-    of 256 bank and bq query rows, two stages of expanded query words (32
-    bytes each), a 260-word score row per query, the queries' popcounts
-    and the lists."""
-    fits = [bq for bq in (8, 16, 32)
-            if 2 * 32 * bq * 32 + 4 * (2 * (256 + bq) * 36 + bq * 260 + bq
-                                       + 2 * bq * k) <= limit]
+    (block by batch, WAVES = 4), written out from the scans' constants
+    (csrc/hd_exact_scan.cuh). A 16- or 32-query block scores on the tensor
+    cores: splits of whole 256-row block steps; shared memory for a
+    2-stage ring of 32 words (row stride 36) of 256 bank and bq query
+    rows, two stages of expanded query words (32 bytes each), a 260-word
+    score row per query, the queries' popcounts and the lists. An 8-query
+    block keeps the POPC scan: splits of whole 128-row tiles; shared
+    memory for its 256 resident query words, the 128 x 36-word tile and
+    the lists."""
+    def smem(bq):
+        if bq == 8:
+            return 4 * (bq * 256 + 128 * 36 + 2 * bq * k)
+        return 2 * 32 * bq * 32 + 4 * (2 * (256 + bq) * 36 + bq * 260 + bq
+                                       + 2 * bq * k)
+
+    fits = [bq for bq in (8, 16, 32) if smem(bq) <= limit]
     bq = next((b for b in fits if b >= Q), fits[-1])
-    steps = -(-R // 256)
+    step = 128 if bq == 8 else 256
+    steps = -(-R // step)
     want = max(1, -(-4 * sms // -(-Q // bq)))
-    rows = -(-steps // min(want, steps)) * 256
+    rows = -(-steps // min(want, steps)) * step
     return bq, rows, -(-R // rows)
 
 
