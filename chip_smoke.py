@@ -32,8 +32,10 @@ exits non-zero and prints no result line:
    twice, weight rows off a 16-byte boundary, one 43-column tile, and
    Q = 1 and 33; for ``decode_attention`` the reference's
    test shapes, G = 1 at hd = 256, G = 48, valid_len 0 / 1 / 70 of 128 /
-   S, S off every chunk multiple and the served shape, plus rows past
-   valid_len set to 127, which must leave the output bit-identical).
+   S, S off every chunk multiple and the served shape, valid_len at a
+   split boundary - 1 / + 0 / + 1, valid_len 1 with every later split
+   empty, S under one split, and 1, 2, 7 and 17 forced splits, plus rows
+   past valid_len set to 127, which must leave the output bit-identical).
    Tolerance: exact (integer indices, scores, similarities and HVs;
    ``imc_mvm`` and its plain version round every float32 fused
    multiply-add alike), and
@@ -72,7 +74,8 @@ exits non-zero and prints no result line:
    plain version and its bound, beside an estimate printed for its design
    (the exact kernels at Q = 32: the tensor-core scan's +-1 expansion on
    the integer lanes alone; the banded kernels: the POPC pipe's floor);
-   ``encode_search``'s encode kernel is also timed alone.
+   the encode kernel that ``encode_search`` and ``encode_search_banded``
+   run first is also timed alone.
 5. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
    tenants, each streaming one paper-average precursor bucket (10,624
    spectra = 1,328 identities x 8) at D = 2048, 1024 bins, 16 levels,
@@ -103,10 +106,13 @@ exits non-zero and prints no result line:
    differing greedy token a near tie. Prints prefill seconds, decode
    ms/step p50/p95, tokens/s, the device's share of a step (kernel time
    from ``torch.profiler`` over three steps against the served p50) and
-   its largest kernels, peak memory,
+   its largest kernels, the device operations of one step (one
+   ``decode_attention`` kernel a layer, checked) and the kernel's split
+   count, peak memory,
    the kernel at valid_len 1,025 and 1,088 beside its bound, its plain
    version and one ``scaled_dot_product_attention`` call over the
-   dequantized cache, and the per-step weight-read bound.
+   dequantized cache, the kernel at other split counts, and the per-step
+   weight-read bound.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -336,15 +342,26 @@ IMC_EDGE_CASES = [
 # reference's test shapes (tests/test_kernels.py), G = 1 at hd = 256,
 # granite's MQA G = 48, valid_len 1 / 70 of 128 / S, S off every chunk
 # multiple, valid_len 0 (uniform weights), and the served shape at the
-# first and last decode steps. Tolerance rtol / atol 2e-4 (float32; the
-# reference's own kernel-vs-oracle tolerance).
+# first and last decode steps. Then the split edges of the split rule
+# (decode_splits): valid_len at a split boundary - 1 / + 0 / + 1 (8
+# splits of 125 at B 2, KV 2, S 1,000; 3 of 363 at the served shape),
+# valid_len 1 with every later split empty, and S under one split; hd
+# 48 and 96 (rows of 3 and 6 16-byte segments). Tolerance rtol / atol
+# 2e-4 (float32; the reference's own kernel-vs-oracle tolerance).
 DECODE_EDGE_CASES = [
     (1, 128, 1, 4, 32, (128,)), (2, 256, 2, 8, 64, (256, 77)),
     (2, 96, 4, 7, 16, (96,)), (2, 300, 2, 1, 256, (300, 129)),
     (1, 200, 1, 48, 128, (200, 64)), (1, 128, 2, 4, 32, (1, 70, 128)),
     (3, 333, 2, 3, 64, (333, 65, 0)), (32, 1088, 4, 7, 128, (1025, 1088)),
+    (2, 1000, 2, 7, 128, (124, 125, 126, 1, 0, 1000)),
+    (32, 1088, 4, 7, 128, (362, 363, 364, 1)),
+    (4, 100, 2, 7, 128, (1, 99, 100, 0)),
+    (2, 150, 2, 5, 48, (150, 77)), (1, 100, 1, 12, 96, (100, 33)),
 ]
 DECODE_RTOL = DECODE_ATOL = 2e-4
+# split counts forced on one shape (S = 300 takes each count asked)
+DECODE_SPLITS = (1, 2, 7, 17)
+DECODE_SPLIT_SHAPE = (2, 300, 2, 7, 128)
 
 
 def decode_case(torch, np, B, S, KV, G, hd, seed=0):
@@ -433,6 +450,8 @@ def phase_kernels_vs_plain(torch, np):
         decode_attention,
         decode_attention_plain,
     )
+    from repro_torch.kernels.decode_attention.ops import _launch as launch_split
+    from repro_torch.kernels.decode_attention.ops import split_plan
     from repro_torch.kernels.encode_search import (
         encode_search,
         encode_search_banded,
@@ -553,14 +572,20 @@ def phase_kernels_vs_plain(torch, np):
              != imc_mvm_plain(q, w, full_scale=fs, tile_cols=tc,
                               adc_levels=adc)).sum())
     decode_err = 0.0
-    for B, S, KV, G, hd, valid in DECODE_EDGE_CASES:
+    decode_cases = [(case, vl, None) for case in DECODE_EDGE_CASES
+                    for vl in case[-1]]
+    # forced split counts, valid_len around the first split boundary
+    for n in DECODE_SPLITS:
+        per = split_plan(DECODE_SPLIT_SHAPE[1], n)[1]
+        decode_cases += [((*DECODE_SPLIT_SHAPE, ()), vl, n) for vl in (
+            0, 1, per - 1, per, per + 1, DECODE_SPLIT_SHAPE[1])]
+    for (B, S, KV, G, hd, _), vl, n in decode_cases:
         ops = decode_case(torch, np, B, S, KV, G, hd)
-        for vl in valid:
-            got = decode_attention(*ops, vl)
-            want = decode_attention_plain(*ops, vl)
-            mismatches["decode_attention"] += close_count(
-                torch, got, want, DECODE_RTOL, DECODE_ATOL)
-            decode_err = max(decode_err, float((got - want).abs().max()))
+        got = launch_split(*ops, vl, n)
+        want = decode_attention_plain(*ops, vl)
+        mismatches["decode_attention"] += close_count(
+            torch, got, want, DECODE_RTOL, DECODE_ATOL)
+        decode_err = max(decode_err, float((got - want).abs().max()))
     # rows at or past valid_len set to 127 must leave the output
     # bit-identical (their weight is exactly 0)
     q, k8, v8, ks, vs = decode_case(torch, np, 2, 200, 2, 7, 128, seed=5)
@@ -572,7 +597,7 @@ def phase_kernels_vs_plain(torch, np):
     print(f"kernels vs plain: {len(EDGE_CASES)} exact, "
           f"{len(BANDED_EDGE_CASES)} banded, {len(HAMMING_EDGE_CASES)} "
           f"hamming_pop, {len(HD_ENCODE_EDGE_CASES)} hd_encode, "
-          f"{len(IMC_EDGE_CASES)} imc_mvm and {len(DECODE_EDGE_CASES)} "
+          f"{len(IMC_EDGE_CASES)} imc_mvm and {len(decode_cases)} "
           f"decode_attention cases, mismatches {json.dumps(mismatches)} "
           f"(decode_attention: elements outside rtol/atol "
           f"{DECODE_RTOL}/{DECODE_ATOL}, max |err| {decode_err:.3g}; "
@@ -929,13 +954,13 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         args = {n: (batch[i].contiguous(), starts[:, i].contiguous(),
                     lens[:, i].contiguous()) for n, i in sel.items()}
         if fused_e2e:
-            def run(n=MAX_BATCH, canonicalize=False):
+            def run(n=MAX_BATCH, canonicalize=False, waves=None):
                 b, st, ln = args[n]
                 return encode_search_banded(
                     b, enc.id_hvs, enc.level_hvs, db.data, st, ln, dim=db.dim,
                     k=K, num_valid=db.num_rows, num_tiles=plan.num_tiles,
                     canonicalize=canonicalize,
-                    codebook_words=enc.codebook_words)
+                    codebook_words=enc.codebook_words, waves=waves)
 
             def plain():
                 return encode_search_banded_plain(
@@ -1033,6 +1058,13 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
     ms = time_ms(torch, run, iters=20, warmup=2)
     bucket_ms = {n: time_ms(torch, lambda n=n: run(n), iters=20, warmup=2)
                  for n in sel if n < MAX_BATCH}
+    if oms and fused_e2e:
+        # every served bucket at the tuner's Q = 32 choice of the knob, for
+        # choosing the default (the tuner sweeps Q = 32 alone)
+        alt = {n: time_ms(torch, lambda n=n: run(n, waves=ALT_WAVES),
+                          iters=20, warmup=2) for n in sel}
+        print(f"{path}: {kernel} at waves {ALT_WAVES} by served bucket "
+              f"(Q: ms) {json.dumps(alt)}")
     # the served route on the same batch: the kernel plus the route's own
     # tensor work around it (bands, merge, overflow slots, permutation)
     route_ms = time_ms(torch, route, iters=20, warmup=2)
@@ -1050,12 +1082,12 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
                    f"and barriers add to it) {int_pipe_ms(pipe_ops, sms):.4f}"
                    f" ms ({pipe_ops:.4g} integer ops at 64 a clock per SM)")
     encode_ms = None
-    if fused_e2e and not oms:
+    if fused_e2e:
         # the encode kernel alone, on the served batch
         encode_ms = time_ms(torch, lambda: encode_queries(
             batch, enc.id_hvs, enc.level_hvs, db.data,
             codebook_words=enc.codebook_words), iters=20, warmup=2)
-        extra = f"; the encode kernel alone {encode_ms:.4f} ms"
+        extra += f"; the encode kernel alone {encode_ms:.4f} ms"
     print(f"{path}: {kernel} {ms:.4f} ms (the served route around it "
           f"{route_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; {ops:.4g} int8 ops, {nbytes:.4g} B), "
@@ -1351,12 +1383,17 @@ LM_ARGV = ["--arch", "qwen2_7b", "--kv-quant", "--batch", str(LM_BATCH),
 # attention output is rounded to bfloat16 and one changed rounding moves
 # every later bfloat16 activation of the step through 28 residual layers.
 LM_REPLAY_SHARE = 2.0 ** -4
+# the banded knob the tuner's sweep picks at Q = 32, timed at every bucket
+ALT_WAVES = 16
+# split counts timed beside the split rule's at the served shape
+SPLIT_SWEEP = (1, 2, 4, 6, 9)
 
 
 def profile_device_ms(torch, fn, steps):
     """Device milliseconds per ``fn()`` (every kernel, copy and fill the
-    profiler traced over ``steps`` calls) and the eight largest by kernel
-    name; ``(None, {})`` when the profiler saw no device time."""
+    profiler traced over ``steps`` calls), the eight largest by kernel
+    name, and per call by name the device milliseconds and operations;
+    ``(None, {}, {}, {})`` when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1364,15 +1401,16 @@ def profile_device_ms(torch, fn, steps):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    per = {}
+    per, count = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us:
             per[e.key[:60]] = us / 1e3 / steps
+            count[e.key[:60]] = e.count / steps
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
-    return (sum(per.values()) or None), top
+    return (sum(per.values()) or None), top, per, count
 
 
 def phase_serve_lm(torch, np):
@@ -1387,8 +1425,14 @@ def phase_serve_lm(torch, np):
         decode_attention,
         decode_attention_plain,
     )
+    from repro_torch.kernels.decode_attention.ops import _launch as launch_split
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_splits,
+        split_plan,
+    )
     from repro_torch.launch import serve
     from repro_torch.train.serve_step import make_decode_step, make_prefill
+    from repro_torch.tune.microbench import burst_seconds
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1474,8 +1518,28 @@ def phase_serve_lm(torch, np):
     # three steps (torch.profiler; a step's ~2,000 launches overflow the
     # launch queue, so it cannot be queued whole behind a device wait)
     # against the served step, host issue included
-    device_step_ms, top = profile_device_ms(
+    device_step_ms, top, per_kernel, count = profile_device_ms(
         torch, lambda: decode(params, tok, cache, last), steps=3)
+    # one decode_attention kernel a layer: the splits merge in the launch
+    c = cache[0]
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    G = cfg.num_heads // KV
+    size = c.k.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, per = split_plan(size, decode_splits(B, KV, size, sms))
+    attention_kernels = sum(v for k, v in count.items()
+                            if "decode_attention_kernel" in k)
+    print(json.dumps({
+        "path": "lm decode step", "decode_attention_splits": splits,
+        "positions_per_split": per, "grid_blocks": splits * KV * B,
+        "device_ops_per_step": sum(count.values()),
+        "decode_attention_kernels_per_step": attention_kernels,
+        "decode_attention_device_ms_per_step": sum(
+            v for k, v in per_kernel.items()
+            if "decode_attention_kernel" in k)}))
+    check(device_step_ms is None or attention_kernels == cfg.num_layers,
+          f"a decode step ran {attention_kernels} decode_attention kernels, "
+          f"not one per layer ({cfg.num_layers})")
     p50, p95 = run.step_percentile_ms(0.5), run.step_percentile_ms(0.95)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
@@ -1496,13 +1560,9 @@ def phase_serve_lm(torch, np):
             nvidia_smi("clocks.sm,power.draw,power.limit")}))
 
     # the kernel at the served shape, on layer 0's filled cache
-    c = cache[0]
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    G = cfg.num_heads // KV
     g = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn((B, KV, G, hd), generator=g, device="cuda") * hd ** -0.5
     ops = (q, c.k, c.v, c.k_scale, c.v_scale)
-    size = c.k.shape[1]
     timed = {}
     for vl in (S + 1, size):
         got = decode_attention(*ops, vl)
@@ -1513,6 +1573,9 @@ def phase_serve_lm(torch, np):
                         f"on the served cache at valid_len {vl}")
         ms = time_ms(torch, lambda vl=vl: decode_attention(*ops, vl),
                      iters=200, warmup=10)
+        dev_ms = 1e3 * sorted(burst_seconds(
+            lambda vl=vl: decode_attention(*ops, vl), torch.device("cuda"),
+            calls=200, iters=3))[1]
         plain_ms = time_ms(torch, lambda vl=vl: decode_attention_plain(
             *ops, vl), iters=5, warmup=1)
         # the yardstick: one SDPA call (GQA, boolean mask of the valid
@@ -1533,31 +1596,51 @@ def phase_serve_lm(torch, np):
                   + 2 * 4 * B * KV * G * hd)
         flops = 4 * B * KV * G * hd * vl
         b_ms, b_by = bound_ms(flops, nbytes, FP32_OPS_PER_S)
-        timed[vl] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        timed[vl] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                          library_max_abs_err=lib_err, bytes=nbytes,
                          flops=flops)
         print(f"lm: decode_attention at B={B}, S={size}, KV={KV}, G={G}, "
-              f"hd={hd}, valid_len {vl}: {ms:.4f} ms (200 launches), plain "
+              f"hd={hd}, valid_len {vl}: {ms:.4f} ms (200 launches; "
+              f"{dev_ms:.4f} ms with the host's issue hidden), plain "
               f"{plain_ms:.4f} ms, SDPA over dequantized float32 K/V "
               f"{lib_ms:.4f} ms (max |diff| {lib_err:.3g}), bound "
               f"{b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP float32); kernel vs plain max "
               f"|err| {err:.3g}; sm clock, power, limit: "
               f"{nvidia_smi('clocks.sm,power.draw,power.limit')}")
+    # the split rule's neighbours: the same launch at other split counts
+    sweep = {}
+    for n in SPLIT_SWEEP:
+        got = launch_split(*ops, size, n)
+        bad = close_count(torch, got, decode_attention_plain(*ops, size),
+                          DECODE_RTOL, DECODE_ATOL)
+        check(bad == 0, f"decode_attention at {n} splits differs from its "
+                        f"plain version")
+        sweep[n] = 1e3 * sorted(burst_seconds(
+            lambda n=n: launch_split(*ops, size, n),
+            torch.device("cuda"), calls=200, iters=3))[1]
+    print(f"lm: decode_attention at valid_len {size} by split count, with "
+          f"the host's issue hidden (the rule picks {splits} of {per} "
+          f"positions: {timed[size]['device_ms']:.4f} ms; splits: ms) "
+          f"{json.dumps(sweep)}")
     served = timed[size]
     entry = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": TPU_KERNELS["decode_attention"], "launches": launches,
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
+        "device_ms": served["device_ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": served["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention "
                    "(enable_gqa, boolean mask) over dequantized float32 K/V",
         "shape": f"B={B}, S={size}, KV={KV}, G={G}, hd={hd}, valid_len "
                  f"{size} (Qwen2-7B decode, last step)",
-        "at_valid_len": {str(k): v for k, v in timed.items()}}
+        "splits": splits, "positions_per_split": per,
+        "at_valid_len": {str(k): v for k, v in timed.items()},
+        "ms_by_splits": {str(k): v for k, v in sweep.items()}}
     del run, params, cache, logits, ops, c, q
     gc.collect()
     torch.cuda.empty_cache()

@@ -31,11 +31,14 @@
 // 32-query blocks, hd::scan_rows otherwise) and the split merge run in
 // turn on the caller's stream.
 //
-// Banded design: topk_hamming.cu's banded kernel (8-query blocks, the scan
-// window derived on the device from the block's bands, on hd::scan_rows)
-// with hd::encode_block at the start of each block; each (split, band)
-// block re-encodes its 8 queries, and the query hypervector never reaches
-// device memory.
+// Banded design: the same encode once per launch into the same scratch,
+// then topk_hamming.cu's banded scan (hd_banded_scan.cuh: 8-query blocks,
+// the scan window derived on the device from the block's bands, on
+// hd::scan_rows) and the merge over the (band, split) slots, in turn on
+// the caller's stream. No (query block, split, band) block encodes: the
+// banded scan reads the encoded queries as topk_hamming_banded reads its
+// query operand.
+#include "hd_banded_scan.cuh"
 #include "hd_exact_scan.cuh"
 
 namespace {
@@ -122,48 +125,6 @@ cudaError_t launch_encode(const int* levels, int Q, int F, int m,
   return cudaGetLastError();
 }
 
-// Block (query block x, split y, band z) of the banded search: 8 queries,
-// one per warp; starts/ends (nbands, Q) as in topk_hamming_banded_launch.
-template <int MODE>
-__global__ void __launch_bounds__(hd::kThreads)
-    encode_search_banded_kernel(const int* __restrict__ levels, int Q, int F,
-                                int m, const uint32_t* __restrict__ id_words,
-                                const uint32_t* __restrict__ lv_words, int wc,
-                                int D, const unsigned char* __restrict__ r,
-                                int R, int row_bytes, int wpr, int qstride,
-                                int dim, int k,
-                                const int* __restrict__ starts,
-                                const int* __restrict__ ends, int splits,
-                                int* cv, int* ci) {
-  constexpr int BQ = hd::kWarps;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* qs = smem;
-  uint32_t* rt = qs + BQ * qstride;
-  int* lv = reinterpret_cast<int*>(rt + hd::kTileWords);
-  int* li = lv + BQ * k;
-  int* counter = li + BQ * k;
-  int2* band = reinterpret_cast<int2*>(counter + 4);
-
-  const int q0 = blockIdx.x * BQ;
-  const int nq = min(BQ, Q - q0);
-  for (int e = threadIdx.x; e < BQ * qstride; e += blockDim.x) qs[e] = 0u;
-  hd::list_init(lv, li, BQ * k, k, R);
-  hd::load_bands(starts, ends, Q, blockIdx.z, q0, nq, BQ, band);
-  __syncthreads();
-  const int2 rows =
-      hd::split_window(hd::band_window(band, nq), blockIdx.y, splits);
-  if (rows.x < rows.y) {  // block-uniform: a block with no rows skips the encode
-    hd::encode_block<MODE>(levels, q0, nq, BQ, F, m, id_words, lv_words, wc,
-                           wc, D, qs, qstride, reinterpret_cast<int2*>(rt),
-                           hd::kTileWords / 2, counter);
-    __syncthreads();
-    hd::scan_rows<MODE, 1>(qs, qstride, nq, r, row_bytes, wpr, rows.x, rows.y,
-                           R, dim, band, rt, lv, li, k);
-  }
-  hd::write_candidates<1>(lv, li, k, q0, nq, blockIdx.z * splits + blockIdx.y,
-                          gridDim.z * splits, cv, ci);
-}
-
 }  // namespace
 
 // The encode alone: levels (Q, F) int32 and the bit-packed codebooks
@@ -212,7 +173,7 @@ extern "C" int encode_search_launch(const void* levels, int Q, int F, int m,
                                            static_cast<int*>(oi), s));
 }
 
-// The banded fused search: levels, codebooks and bank as in
+// The banded fused search: levels, codebooks, bank and enc as in
 // encode_search_launch; starts/ends/nbands/splits and the outputs as in
 // topk_hamming_banded_launch. Returns the CUDA error of the launches (0 on
 // success).
@@ -220,30 +181,23 @@ extern "C" int encode_search_banded_launch(
     const void* levels, int Q, int F, int m, const void* id_words,
     const void* lv_words, int wc, int D, const void* r, int R, int row_bytes,
     int wpr, int qstride, int mode, int dim, int k, const void* starts,
-    const void* ends, int nbands, int splits, void* cv, void* ci, void* ov,
-    void* oi, void* stream) {
+    const void* ends, int nbands, int splits, void* enc, void* cv, void* ci,
+    void* ov, void* oi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int BQ = hd::kWarps;
-  const size_t smem = sizeof(uint32_t) *
-                      (static_cast<size_t>(BQ) * qstride + hd::kTileWords +
-                       2 * static_cast<size_t>(BQ) * k + 4 + 2 * BQ);
-  auto kernel = mode == hd::kPacked ? encode_search_banded_kernel<hd::kPacked>
-                                    : encode_search_banded_kernel<hd::kInt8>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Q + BQ - 1) / BQ, splits, nbands);
-  kernel<<<grid, hd::kThreads, smem, s>>>(
+  int* cvi = static_cast<int*>(cv);
+  int* cii = static_cast<int*>(ci);
+  cudaError_t err = launch_encode(
       static_cast<const int*>(levels), Q, F, m,
       static_cast<const uint32_t*>(id_words),
-      static_cast<const uint32_t*>(lv_words), wc, D,
-      static_cast<const unsigned char*>(r), R, row_bytes, wpr, qstride, dim,
-      k, static_cast<const int*>(starts), static_cast<const int*>(ends),
-      splits, static_cast<int*>(cv), static_cast<int*>(ci));
-  err = cudaGetLastError();
+      static_cast<const uint32_t*>(lv_words), wc, D, mode,
+      static_cast<unsigned char*>(enc), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(hd::launch_merge(
-      static_cast<int*>(cv), static_cast<int*>(ci), Q, nbands * splits, k, R,
-      static_cast<int*>(ov), static_cast<int*>(oi), s));
+  err = hd::launch_banded_scan(enc, r, Q, R, row_bytes, wpr, qstride, mode,
+                               dim, k, static_cast<const int*>(starts),
+                               static_cast<const int*>(ends), nbands, splits,
+                               cvi, cii, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(hd::launch_merge(cvi, cii, Q, nbands * splits, k,
+                                           R, static_cast<int*>(ov),
+                                           static_cast<int*>(oi), s));
 }

@@ -11,15 +11,16 @@
 //   (hd_exact_scan.cuh);
 // * the banded blocks' scan window (load_bands / band_window /
 //   split_window);
-// * the Eq. 1 encoder of one block's queries (encode_block, the banded
-//   fused kernel's): the exact integer sum
+// * the Eq. 1 encoder of one block's queries (encode_block, hd_encode.cu's):
+//   the exact integer sum
 //   sum_f [level_f > 0] LV[level_f, d] * ID[f, d], signed with tie -> -1,
 //   written as packed words or int8 +-1 lanes, counted in bit-sliced
 //   planes (sliced_add / sliced_greater, also the exact encode's);
 // * the split merge (merge_splits_kernel).
 //
-// Both topk_hamming.cu and encode_search.cu include this file; each builds
-// into its own shared library with a plain C entry point.
+// topk_hamming.cu and encode_search.cu include this file (through
+// hd_exact_scan.cuh and hd_banded_scan.cuh), hd_encode.cu directly; each
+// builds into its own shared library with a plain C entry point.
 #pragma once
 
 #include <climits>

@@ -16,8 +16,8 @@
 //
 // Design. The TPU kernel gathers LV rows with a one-hot matmul on the MXU
 // and accumulates a (bb, bd) float block in VMEM. Here the codebooks arrive
-// bit-packed (encode_search's pack_codebook), and hd::encode_block (shared
-// with encode_search.cu) counts, for 32 dims per thread, the present
+// bit-packed (encode_search's pack_codebook), and hd::encode_block
+// (hd_common.cuh) counts, for 32 dims per thread, the present
 // features whose ID and LV bits agree in 16 bit-sliced counter planes:
 // acc = 2 * agree - n, so acc > 0 exactly when agree > n / 2, an exact
 // integer sign. A block owns block_b queries by block_d dims (grid

@@ -10,6 +10,12 @@ the design. :func:`decode_attention_plain` is the port of the reference's
 K/V to a multiple of its chunk on every call; the kernel masks the ragged
 tail itself, so a decode step never copies the cache.
 
+The kernel splits S across blocks and merges the splits in the same
+launch (flash-decoding): :func:`decode_splits` picks the split count from
+S and the SM count, :func:`split_plan` cuts S into that many ranges. Each
+(b, kv) pair keeps a uint32 counter in a per-stream buffer that the
+kernel leaves at 0 (:func:`_tickets`).
+
 ``valid_len`` is a Python int (positions ``< valid_len`` attend), so a
 decode loop passes it without reading anything back from the card. With
 ``valid_len = 0`` every position is masked and both versions return the
@@ -27,10 +33,13 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.topk_hamming.ops import check_status
+from repro_torch.kernels.topk_hamming.ops import check_status, sm_count
 
 MAX_HEAD_DIM = 256
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use (sm_90)
+CHUNK = 64             # positions a block stages per step (csrc kChunk)
+SPLIT_MIN = 2 * CHUNK  # fewest positions the split rule gives a split
+SPLIT_WAVES = 3        # blocks per SM the split rule aims at
 
 
 def _check_operands(q, k8, v8, k_scale, v_scale) -> None:
@@ -78,17 +87,58 @@ def decode_attention_plain(q: torch.Tensor, k8: torch.Tensor,
 decode_attention_plain.calls = 0
 
 
+def split_plan(S: int, splits: int) -> tuple[int, int]:
+    """(splits, positions per split) of a cache of S positions cut into at
+    most ``splits`` contiguous ranges: ranges of ceil(S / splits)
+    positions, the last one shorter."""
+    per = -(-S // max(1, min(int(splits), S)))
+    return -(-S // per), per
+
+
+def decode_splits(B: int, KV: int, S: int, sms: int) -> int:
+    """The kernel's split count: as many splits of each (b, kv) pair as
+    keep the grid within ``SPLIT_WAVES`` blocks per SM (one resident
+    wave: each block's start-up and merge cost more than the balance of
+    smaller splits gains), and no split under ``SPLIT_MIN`` positions
+    (S <= ``SPLIT_MIN``: one split). Depends on S and the card, never on
+    ``valid_len``, so a decode loop launches the same grid at every
+    step."""
+    want = SPLIT_WAVES * sms // max(1, B * KV)
+    return max(1, min(want, -(-S // SPLIT_MIN)))
+
+
+_TICKET_BUFFERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """n uint32 merge counters (as int32) for launches on ``stream``: zero
+    when made, and every launch leaves them zero. One buffer per stream,
+    since launches on one stream run in order."""
+    key = (device.index, stream)
+    buf = _TICKET_BUFFERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKET_BUFFERS[key] = buf
+    return buf
+
+
 @functools.cache
 def _launcher():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p]
     fn.restype = i
     smem = lib.decode_attention_smem_bytes
     smem.argtypes = [i, i]
     smem.restype = ctypes.c_longlong
-    return fn, smem
+    most = lib.decode_attention_max_splits
+    most.argtypes = [i, i]
+    most.restype = i
+    slab = lib.decode_attention_partial_floats
+    slab.argtypes = [i, i]
+    slab.restype = i
+    return fn, smem, most, slab
 
 
 def decode_attention(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
@@ -102,11 +152,23 @@ def decode_attention(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     float32.
 
     CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch
-    ``csrc/decode_attention.cu`` on the current stream (counted in
+    ``csrc/decode_attention.cu`` on the current stream at
+    :func:`decode_splits`' split count (one launch per call, counted in
     ``decode_attention.launches``) or raise. The kernel takes any S and
     G, and hd a multiple of 16 up to 256."""
     if not q.is_cuda and q.device.type == "cpu":
         return decode_attention_plain(q, k8, v8, k_scale, v_scale, valid_len)
+    return _launch(q, k8, v8, k_scale, v_scale, valid_len, None)
+
+
+def _launch(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+            k_scale: torch.Tensor, v_scale: torch.Tensor, valid_len: int,
+            splits: int | None) -> torch.Tensor:
+    """Launches the kernel on CUDA operands with ``splits`` splits of S
+    (None: :func:`decode_splits`; tests and the chip check force others),
+    capped where the merge's table would outgrow the block's shared
+    memory (787 splits at the served G and hd). Counted in
+    ``decode_attention.launches``."""
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
     _check_operands(q, k8, v8, k_scale, v_scale)
@@ -119,22 +181,33 @@ def decode_attention(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         raise ValueError("an empty KV store (S = 0) has nothing to attend")
     if not all(t.is_contiguous() for t in (q, k8, v8, k_scale, v_scale)):
         raise ValueError("decode_attention needs contiguous operands")
-    if k8.data_ptr() % 16 or v8.data_ptr() % 16:
-        raise ValueError("decode_attention needs K/V on 16-byte boundaries")
-    launch, smem_bytes = _launcher()
+    if q.data_ptr() % 16 or k8.data_ptr() % 16 or v8.data_ptr() % 16:
+        raise ValueError("decode_attention needs q and K/V on 16-byte "
+                         "boundaries")
+    launch, smem_bytes, max_splits, partial_floats = _launcher()
     if smem_bytes(G, hd) > SMEM_LIMIT:
         raise ValueError(f"G={G} heads of width {hd} need "
                          f"{smem_bytes(G, hd)} bytes of shared memory, over "
                          f"{SMEM_LIMIT}")
+    if B > 65535 or KV > 65535:
+        raise ValueError(f"B={B}, KV={KV}: the grid takes at most 65535 of "
+                         f"each")
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
     if B == 0 or KV == 0 or G == 0:
         return out
     valid = max(0, min(int(valid_len), S))
+    if splits is None:
+        splits = decode_splits(B, KV, S, sm_count(q.device))
+    n, per = split_plan(S, min(splits, max_splits(G, hd)))
+    part = torch.empty((B * KV * n, partial_floats(G, hd)),
+                       dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets(q.device, stream, B * KV)
     with torch.cuda.device(q.device):  # the launch targets the current device
         err = launch(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
                      k_scale.data_ptr(), v_scale.data_ptr(), B, S, KV, G, hd,
-                     valid, out.data_ptr(),
-                     torch.cuda.current_stream(q.device).cuda_stream)
+                     valid, per, n, part.data_ptr(), tickets.data_ptr(),
+                     out.data_ptr(), stream)
     check_status(err, "decode_attention")
     decode_attention.launches += 1
     return out

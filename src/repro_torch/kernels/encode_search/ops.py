@@ -12,11 +12,11 @@ the design. The kernels read the codebooks bit-packed
 and :func:`encode_search_banded_plain` are also the counterparts of the
 reference's staged ``ref.py`` oracles.
 
-The exact kernel encodes the batch once into a device scratch and then
-runs ``topk_hamming``'s exact scan on it; :func:`encode_queries` runs the
-encode alone. Launch knobs (``block_q``, ``waves``) resolve as
-``topk_hamming``'s do (``kernels.block_utils``); the banded kernel has
-``waves`` only.
+Both kernels encode the batch once per launch into a device scratch and
+then run ``topk_hamming``'s exact or banded scan on it;
+:func:`encode_queries` runs the encode alone. Launch knobs (``block_q``,
+``waves``) resolve as ``topk_hamming``'s do (``kernels.block_utils``);
+the banded kernel has ``waves`` only.
 
 Dispatch: CPU tensors take the plain versions (explicit knobs are checked,
 then ignored); CUDA tensors launch the kernels or raise. Nothing falls
@@ -288,7 +288,7 @@ def _banded_launcher():
     fn = _build.load("encode_search").encode_search_banded_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, i, i, p, p, i, i, p, i, i, i, i, i, i, i, p, p, i, i,
-                   p, p, p, p, p]
+                   p, p, p, p, p, p]
     fn.restype = i
     return fn
 
@@ -334,11 +334,12 @@ def encode_search_banded(levels: torch.Tensor, id_hvs: torch.Tensor,
     row_bytes = r.shape[1] * r.element_size()
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    check_banded_fits(qstride, k, 4, levels.device)
+    check_banded_fits(qstride, k, levels.device)
     check_merge_fits(k, levels.device)
     bands = s.shape[0]
     splits = banded_splits(Q, R, bands, num_tiles, sm_count(levels.device),
                            cfg["waves"])
+    enc = _encoded_scratch(Q, r)
     cand_v = torch.empty((Q, bands * splits, k), dtype=torch.int32,
                          device=levels.device)
     cand_i = torch.empty_like(cand_v)
@@ -347,8 +348,9 @@ def encode_search_banded(levels: torch.Tensor, id_hvs: torch.Tensor,
                      id_words.data_ptr(), lv_words.data_ptr(), wc, D,
                      r.data_ptr(), R, row_bytes, wpr, qstride,
                      0 if packed else 1, int(dim), int(k), s.data_ptr(),
-                     e.data_ptr(), bands, splits, cand_v.data_ptr(),
-                     cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     e.data_ptr(), bands, splits, enc.data_ptr(),
+                     cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
+                     idx.data_ptr(),
                      torch.cuda.current_stream(levels.device).cuda_stream)
     check_status(err, "encode_search_banded")
     encode_search_banded.launches += 1

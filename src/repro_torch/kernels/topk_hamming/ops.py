@@ -391,13 +391,11 @@ def topk_hamming_banded_plain(q: torch.Tensor, r: torch.Tensor, starts, lens,
     return idx.to(torch.int32), vals
 
 
-def check_banded_fits(qstride: int, k: int, extra_words: int,
-                      device: torch.device) -> None:
+def check_banded_fits(qstride: int, k: int, device: torch.device) -> None:
     """Raises where a banded block (8 queries' words, the bank tile, the
     top-k lists and band bounds) does not fit in shared memory."""
     bq = BANDED_BLOCK_Q
-    need = 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + 2 * bq
-                + extra_words)
+    need = 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + 2 * bq)
     if need > smem_limit(device):
         raise ValueError(f"a banded block needs {need} B of shared memory "
                          f"at row stride {qstride} words and k={k}")
@@ -474,7 +472,7 @@ def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
     check_aligned(q, row_bytes)
     check_aligned(r, row_bytes)
     wpr, qstride = words_per_row(row_bytes)
-    check_banded_fits(qstride, k, 0, q.device)
+    check_banded_fits(qstride, k, q.device)
     check_merge_fits(k, q.device)
     bands = s.shape[0]
     splits = banded_splits(Q, R, bands, num_tiles, sm_count(q.device),

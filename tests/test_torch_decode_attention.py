@@ -8,18 +8,37 @@ mode (rtol / atol 2e-4, the reference's own kernel-vs-oracle tolerance,
 ``tests/test_kernels.py``), at ``tests/test_kernels.py``'s shapes and at
 G = 1 / hd = 256. The CUDA kernel itself is held against the plain
 version on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+The kernel splits S across blocks and merges the splits' partials
+(``csrc/decode_attention.cu``). :func:`_split_merge` below mirrors that
+arithmetic in torch (per split: a walk in 64-position chunks with the
+online max, denominator and accumulator; then the merge) and is held
+against the plain version, the reference's oracle and its interpret-mode
+kernel at rtol / atol 2e-4, over split counts, ``valid_len`` at and
+around a split boundary, splits wholly past ``valid_len``, S = 1 and S
+off every chunk multiple. The split rule itself is pinned at the served
+shape and at the edges.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels.decode_attention.ops import decode_attention_pallas
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_plain,
+)
+from repro_torch.kernels.decode_attention.ops import (
+    CHUNK,
+    decode_splits,
+    split_plan,
 )
 
 torch.set_num_threads(1)
@@ -128,3 +147,149 @@ def test_bad_operands_raise(bad):
         q = q[0]
     with pytest.raises(ValueError):
         decode_attention(q, k8, v8, ks, vs, 4)
+
+
+def _split_merge(q, k8, v8, ks, vs, valid_len, splits):
+    """The kernel's arithmetic in torch: (out, m (n, B, KV, G), l (n, B,
+    KV, G), acc (n, B, KV, G, hd)) for the split plan of ``splits``."""
+    B, KV, G, hd = q.shape
+    S = k8.shape[1]
+    n, per = split_plan(S, splits)
+    valid = max(0, min(int(valid_len), S))
+    limit = valid if valid > 0 else S
+    kf, vf = k8.float(), v8.float()
+    ms, ls, accs = [], [], []
+    for j in range(n):
+        begin = j * per
+        walk_end = min(begin + per, S, limit)
+        m = torch.full((B, KV, G), -torch.inf)
+        l = torch.zeros((B, KV, G))
+        acc = torch.zeros((B, KV, G, hd))
+        for s0 in range(begin, walk_end, CHUNK):
+            s1 = min(s0 + CHUNK, walk_end)
+            logits = torch.einsum("bngk,bsnk->bngs", q, kf[:, s0:s1])
+            logits = logits * ks[:, s0:s1].transpose(1, 2)[:, :, None, :]
+            logits = torch.where(torch.arange(s0, s1) < valid, logits, -1e30)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            w = p * vs[:, s0:s1].transpose(1, 2)[:, :, None, :]
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bngs,bsnk->bngk", w, vf[:, s0:s1]))
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    M, L, A = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    f = torch.exp(M - M.amax(0))
+    den = (L * f).sum(0).clamp_min(1e-30)
+    out = (A * f[..., None]).sum(0) / den[..., None]
+    return out, M, L, A
+
+
+MIRROR_SHAPE = (2, 300, 2, 3, 32)   # S = 300: off every 64-chunk multiple
+
+
+@functools.cache
+def _mirror_inputs():
+    return _inputs(*MIRROR_SHAPE, seed=4)
+
+
+@functools.cache
+def _reference_outputs(valid):
+    args = tuple(map(jnp.asarray, _mirror_inputs()))
+    vl = jnp.asarray(valid, jnp.int32)
+    return (np.asarray(decode_attention_ref(*args, vl)),
+            np.asarray(decode_attention_pallas(*args, vl, chunk=64)))
+
+
+def _valid_len(where, per, S):
+    return {"zero": 0, "one": 1, "boundary-1": per - 1, "boundary": per,
+            "boundary+1": per + 1, "S": S}[where]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 17])
+@pytest.mark.parametrize("where", ["zero", "one", "boundary-1", "boundary",
+                                   "boundary+1", "S"])
+def test_split_merge_matches_plain_oracle_and_interpret_kernel(splits, where):
+    args = _mirror_inputs()
+    S = MIRROR_SHAPE[1]
+    n, per = split_plan(S, splits)
+    assert n == splits                  # S = 300 takes every count asked
+    valid = min(_valid_len(where, per, S), S)
+    got, M, L, A = _split_merge(*map(torch.from_numpy, args), valid, splits)
+    plain = _port(args, valid)
+    np.testing.assert_allclose(got.numpy(), plain, rtol=2e-4, atol=2e-4)
+    ref, pallas = _reference_outputs(valid)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
+    if valid == 0:   # the reference's kernel averages over its padded rows
+        pallas = pallas * (-(-S // 64) * 64) / S
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-4, atol=2e-4)
+    # splits wholly past valid_len leave -inf / 0 / 0, merged as exact 0
+    empty = [j for j in range(n) if valid > 0 and j * per >= valid]
+    if where in ("one", "boundary-1", "boundary") and splits > 1:
+        assert empty
+    for j in empty:
+        assert bool(torch.isneginf(M[j]).all())
+        assert not bool(L[j].any()) and not bool(A[j].any())
+        assert not bool(torch.exp(M[j] - M.amax(0)).any())
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 17])
+@pytest.mark.parametrize("valid", [0, 1])
+def test_split_merge_with_one_position(splits, valid):
+    args = _inputs(2, 1, 2, 3, 16, seed=5)
+    assert split_plan(1, splits) == (1, 1)
+    got = _split_merge(*map(torch.from_numpy, args), valid, splits)[0]
+    np.testing.assert_allclose(got.numpy(), _port(args, valid), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("S", [63, 65, 129, 200])
+def test_split_merge_off_chunk_multiples(S):
+    """Splits longer than a chunk walk several chunks, the last partial."""
+    args = _inputs(1, S, 1, 4, 16, seed=S)
+    for splits in (1, 2, 3):
+        for valid in (S, S // 2 + 1):
+            got = _split_merge(*map(torch.from_numpy, args), valid, splits)[0]
+            np.testing.assert_allclose(got.numpy(), _port(args, valid),
+                                       rtol=2e-4, atol=2e-4)
+
+
+@settings(deadline=None, max_examples=25)
+@given(S=st.integers(1, 400), splits=st.integers(1, 40),
+       valid=st.integers(0, 420))
+def test_split_merge_matches_plain_on_random_plans(S, splits, valid):
+    args = _inputs(1, S, 1, 2, 16, seed=S)
+    got = _split_merge(*map(torch.from_numpy, args), valid, splits)[0]
+    np.testing.assert_allclose(got.numpy(), _port(args, valid), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("B,KV,S,sms,want", [
+    (32, 4, 1088, 132, 3),      # the served shape: 3 splits of 363
+    (32, 4, 1025, 132, 3),      # the same grid whatever valid_len
+    (1, 1, 1, 132, 1),          # one position
+    (1, 1, 128, 132, 1),        # S up to two chunks: one split
+    (1, 1, 129, 132, 2),
+    (1, 1, 32768, 132, 256),    # long cache, one pair: splits of 128
+    (2, 2, 1000, 132, 8),       # 8 splits of 125 (the card tests' edges)
+    (128, 8, 4096, 132, 1),     # many pairs fill the card already
+    (2000, 1, 1088, 132, 1),
+])
+def test_split_rule_is_pinned(B, KV, S, sms, want):
+    assert decode_splits(B, KV, S, sms) == want
+
+
+def test_split_plan_cuts_s_into_contiguous_ranges():
+    assert split_plan(1088, 3) == (3, 363)
+    assert split_plan(1088, 9) == (9, 121)
+    assert split_plan(1088, 17) == (17, 64)
+    assert split_plan(300, 7) == (7, 43)
+    assert split_plan(10, 7) == (5, 2)       # fewer ranges than asked
+    assert split_plan(5, 40) == (5, 1)       # at most one split a position
+    for S in (1, 63, 64, 65, 1088):
+        for splits in (1, 2, 7, 17, 100):
+            n, per = split_plan(S, splits)
+            assert 1 <= n <= splits and (n - 1) * per < S <= n * per

@@ -296,6 +296,34 @@ def test_encode_search_banded_kernel_matches_plain(cuda, Q, R, D, packed, k,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def test_encode_search_banded_with_empty_split_windows_matches_plain(cuda):
+    """Each 8-query block's bands lie within 128 rows, under a
+    16-tile budget (16 splits a window: all but the first empty), and the
+    second band is empty for a whole block (every split empty)."""
+    rng = np.random.default_rng(41)
+    Q, R, D, F, m, k = 24, 4000, 256, 300, 16, 5
+    id_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(F, D)).astype(np.int8)).to(cuda)
+    lv_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(m, D)).astype(np.int8)).to(cuda)
+    levels = rng.integers(0, m, size=(Q, F))
+    levels[:, rng.random(F) < 0.7] = 0
+    levels = torch.from_numpy(levels.astype(np.int32)).to(cuda)
+    bank = _bank(rng, R, D, True).to(cuda)
+    s0 = 100 + 5 * np.arange(Q)
+    s1 = 2500 + 3 * np.arange(Q)
+    lens1 = np.where(np.arange(Q) < 8, 0, rng.integers(0, 8, Q))
+    starts = torch.from_numpy(np.stack([s0, s1]).astype(np.int32)).to(cuda)
+    lens = torch.from_numpy(np.stack([rng.integers(1, 6, Q), lens1])
+                            .astype(np.int32)).to(cuda)
+    got = encode_search_banded(levels, id_hvs, lv_hvs, bank, starts, lens,
+                               dim=D, k=k, num_tiles=16)
+    want = encode_search_banded_plain(levels, id_hvs, lv_hvs, bank, starts,
+                                      lens, dim=D, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # (Q, R, W, layout): ragged Q and R against the 64 x 64 tile, W = 1, 3
 # and 64, W not a multiple of 4 (4-byte loads), rows off a 16-byte
 # boundary, all-zero and all-ones words, q = r, and the served buckets
@@ -615,13 +643,21 @@ def test_burst_seconds_hides_the_hosts_issue_time(cuda):
 
 # decode_attention cases: (B, S, KV, G, hd, valid lengths); the reference's
 # test shapes, G = 1 at hd = 256, granite's G = 48, valid_len 1 / 70 / S,
-# S off every chunk multiple, valid_len 0 and the served shape. Tolerance:
-# rtol / atol 2e-4 (float32; the reference's kernel-vs-oracle tolerance).
+# S off every chunk multiple, valid_len 0 and the served shape; then the
+# split rule's edges on an H100's 132 SMs: valid_len at a split boundary
+# - 1 / + 0 / + 1 (8 splits of 125; the served 3 of 363), valid_len 1 with
+# every later split empty, and S under one split; hd 48 and 96 (rows of 3
+# and 6 16-byte segments). Tolerance: rtol / atol 2e-4 (float32; the
+# reference's kernel-vs-oracle tolerance).
 DECODE_CASES = [
     (1, 128, 1, 4, 32, (128,)), (2, 256, 2, 8, 64, (256, 77)),
     (2, 96, 4, 7, 16, (96,)), (2, 300, 2, 1, 256, (300, 129)),
     (1, 200, 1, 48, 128, (200, 64)), (1, 128, 2, 4, 32, (1, 70, 128)),
     (3, 333, 2, 3, 64, (333, 65, 0)), (32, 1088, 4, 7, 128, (1025, 1088)),
+    (2, 1000, 2, 7, 128, (124, 125, 126, 1, 0, 1000)),
+    (32, 1088, 4, 7, 128, (362, 363, 364, 1)),
+    (4, 100, 2, 7, 128, (1, 99, 100, 0)),
+    (2, 150, 2, 5, 48, (150, 77)), (1, 100, 1, 12, 96, (100, 33)),
 ]
 
 
@@ -650,6 +686,55 @@ def test_decode_attention_kernel_matches_plain(cuda, B, S, KV, G, hd, valid):
         assert decode_attention.launches == before + 1
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 17])
+def test_decode_attention_forced_splits_match_plain(cuda, splits):
+    """S = 300 cut into each split count; valid_len around the first
+    split boundary, 0 and S."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.decode_attention.ops import _launch, split_plan
+    ops = _decode_operands(cuda, 2, 300, 2, 7, 128, seed=splits)
+    n, per = split_plan(300, splits)
+    assert n == splits
+    for vl in (0, 1, per - 1, per, per + 1, 300):
+        got = _launch(*ops, vl, splits)
+        want = decode_attention_plain(*ops, vl)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_decode_attention_is_one_launch_per_call_with_no_host_sync(cuda):
+    """The splits merge inside the launch: one kernel per call on the
+    device, the count up by one, and no host synchronization."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    ops = _decode_operands(cuda, 4, 1000, 2, 7, 128)
+    decode_attention(*ops, 500)      # makes this stream's merge counters
+    torch.cuda.synchronize()
+    before = decode_attention.launches
+    valid = (1, 500, 1000)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [decode_attention(*ops, vl) for vl in valid]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert decode_attention.launches == before + len(valid)
+    kernels = [e.key for e in prof.key_averages()
+               for _ in range(e.count)
+               if (getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0))]
+    assert len(kernels) == len(valid)
+    assert all("decode_attention_kernel" in k for k in kernels)
+    for vl, got in zip(valid, outs):
+        torch.testing.assert_close(got, decode_attention_plain(*ops, vl),
+                                   rtol=2e-4, atol=2e-4)
 
 
 def test_decode_attention_masked_tail_is_bit_identical(cuda):
