@@ -17,9 +17,12 @@ exits non-zero and prints no result line:
    warpgroups, ties across warpgroups, W = 1, 3 and 65 words with
    dim < 32 W and random padding bits, k = R over several splits, and
    ``encode_search``'s encode kernel alone; for the banded kernels also
-   empty bands, bands narrower than k, bands crossing splits and running
-   past num_valid, two bands, no tile budget and the plan's tight one, and
-   bands far apart inside one 8-query block; for ``hamming_pop`` Q = R = 1,
+   empty bands, bands narrower than k, bands crossing blocks and running
+   past num_valid, two bands, no tile budget and the plan's tight one,
+   bands far apart, Q = 1, 7, 33 and 70 (one to three query groups), every
+   band empty, one band covering the whole bank, bands meeting a 32-row
+   tile in one row, num_valid inside bands, int8 banks, and k = 1 and the
+   largest k that fits; for ``hamming_pop`` Q = R = 1,
    ragged Q and R, Q or R under one 16 x 8 fragment, W = 1, 2, 3, 64, 65
    and 130,
    rows off a 16-byte boundary, all-zero and all-ones words, dim < 32 W
@@ -51,7 +54,10 @@ exits non-zero and prints no result line:
    ``hd_encode`` (B = 32, F = 1,024, D = 8,192) and ``imc_mvm`` (Q = 32
    against 581,196 rows at Dp = 2,731, 6.35 GB of float32 weights) are
    held against their plain versions at those shapes and timed beside
-   them, and ``imc_mvm`` beside one float32 ``torch.matmul`` (TF32 off)
+   them (``hd_encode`` also by bucket 4 / 8 / 16 / 32 and launch block
+   with the host's issue hidden, and with no present bin: its compaction
+   and launch alone), and ``imc_mvm`` beside one float32 ``torch.matmul``
+   (TF32 off)
    over the same tile dot products without the ADC; the weights are
    freed after.
 4. Serving at iPRG2012 scale (no tuning table active): ``repro_torch.launch.serve_db.main`` four
@@ -75,7 +81,10 @@ exits non-zero and prints no result line:
    (the exact kernels at Q = 32: the tensor-core scan's +-1 expansion on
    the integer lanes alone; the banded kernels: the POPC pipe's floor);
    the encode kernel that ``encode_search`` and ``encode_search_banded``
-   run first is also timed alone.
+   run first is also timed alone, by bucket. The OMS runs print the rows
+   the banded design reads (each 32-row tile a band meets, once per query
+   group; checked against the distinct band rows) and time the banded
+   kernel at each value of its ``waves`` knob at every bucket.
 5. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
    tenants, each streaming one paper-average precursor bucket (10,624
    spectra = 1,328 identities x 8) at D = 2048, 1024 bins, 16 levels,
@@ -241,16 +250,35 @@ EDGE_CASES = [
 # tile budget); "plan" bands and budget come from plan_candidates over
 # sorted precursors, as the OMS server makes them
 BANDED_EDGE_CASES = [
-    (32, 3000, 8192, True, 4, None, False, "wide", None),   # crosses splits
+    (32, 3000, 8192, True, 4, None, False, "wide", None),   # crosses blocks
     (5, 1000, 256, True, 7, 600, False, "random", None),    # ragged, past nv
     (40, 517, 64, True, 20, 9, False, "random", 1),         # k > num_valid
     (16, 400, 96, True, 9, None, True, "narrow", None),     # ties, < k, empty
-    (16, 5000, 256, True, 4, None, False, "far_apart", 8),  # one 8-query block
+    (16, 5000, 256, True, 4, None, False, "far_apart", 8),  # both bank ends
     (24, 2000, 256, True, 5, 1900, False, "two", None),     # two bands
     (32, 6000, 256, True, 4, None, False, "plan", "plan"),  # tight budget
     (32, 2000, 1000, False, 4, None, False, "wide", None),  # int8 at D = 1000
     (9, 129, 1000, False, 129, 77, True, "two", None),      # int8, k = R, ties
+    (1, 3000, 256, True, 4, None, False, "wide", None),     # Q = 1
+    (7, 2000, 256, True, 1, None, False, "random", None),   # Q = 7, k = 1
+    (33, 3000, 256, True, 5, 2500, False, "wide", None),    # two query groups,
+                                                            # num_valid in bands
+    (70, 4000, 256, True, 4, None, False, "two", None),     # three groups
+    (12, 300, 64, True, 4, None, False, "empty", None),     # every band empty
+    (9, 1500, 256, True, 6, None, False, "whole", 2),       # one band = bank
+    (16, 500, 1000, False, 8, None, False, "one_row", None),  # int8; bands
+                                                              # meeting a tile
+                                                              # in one row
+    (3, 4000, 256, True, "max", None, False, "wide", None),   # the largest k
+                                                              # that fits
 ]
+
+
+def banded_k_max(wpr: int, bands: int, limit: int) -> int:
+    """The largest k of a one-query banded block and of the split merge."""
+    from repro_torch.kernels.topk_hamming.ops import MERGE_WARPS, banded_smem
+    fixed = banded_smem(1, wpr, bands, 0)
+    return min((limit - fixed) // 8, limit // (8 * MERGE_WARPS))
 
 
 def banded_case(np, rng, Q, R, kind, num_tiles):
@@ -265,6 +293,16 @@ def banded_case(np, rng, Q, R, kind, num_tiles):
         lens = np.full(Q, 600)
     elif kind == "wide":        # many tiles each
         starts, lens = rng.integers(0, 200, Q), rng.integers(R // 2, R, Q)
+    elif kind == "empty":       # every band empty
+        starts, lens = rng.integers(0, R, Q), np.zeros(Q, np.int64)
+    elif kind == "whole":       # query 0's band is the whole bank
+        starts, lens = rng.integers(0, R // 2, Q), rng.integers(0, R // 4, Q)
+        starts[0], lens[0] = 0, R
+    elif kind == "one_row":     # bands meeting a 32-row tile in one row
+        t = rng.integers(1, R // 32 - 1, Q) * 32  # tiles start at row 0:
+        starts = np.where(np.arange(Q) % 2 == 0, t - 1, t + 31)
+        lens = np.where(np.arange(Q) % 3 == 0, 1, 2)
+        starts[0], lens[0] = 0, 1                 # the window starts there
     elif kind == "two":
         s0, s1 = rng.integers(0, R // 3, Q), rng.integers(R // 2, R - 10, Q)
         starts = np.stack([s0, s1])
@@ -472,7 +510,11 @@ def phase_kernels_vs_plain(torch, np):
         topk_hamming_banded_plain,
         topk_hamming_plain,
     )
-    from repro_torch.kernels.topk_hamming.ops import _launch_exact
+    from repro_torch.kernels.topk_hamming.ops import (
+        _launch_exact,
+        smem_limit,
+        words_per_row,
+    )
     dev = torch.device("cuda")
 
     def bank(rng, rows, d, packed, dup=False):
@@ -528,11 +570,16 @@ def phase_kernels_vs_plain(torch, np):
         mismatches["encode_search"] += int(
             (encode_queries(lev, idh, lvh, r)
              != encode_queries_plain(lev, idh, lvh, packed=packed)).sum())
+    limit = smem_limit(dev)
     for Q, R, D, packed, k, nv, dup, kind, nt in BANDED_EDGE_CASES:
         rng = np.random.default_rng(Q * 1000 + R + D + 1)
         r = bank(rng, R // 3 if dup else R, D, packed, dup)
         q = bank(rng, Q, D, packed)
         starts, lens, nt = banded_case(np, rng, Q, r.shape[0], kind, nt)
+        if k == "max":
+            k = min(r.shape[0], banded_k_max(
+                words_per_row(r.shape[1] * r.element_size())[0],
+                1 if starts.ndim == 1 else starts.shape[0], limit))
         starts = torch.from_numpy(starts).to(dev)
         lens = torch.from_numpy(lens).to(dev)
         want = topk_hamming_banded_plain(q, r, starts, lens, dim=D, k=k,
@@ -704,6 +751,24 @@ def phase_tune(torch, np):
     b_ms, b_by = bound_ms(2 * n_present * D,
                           lev.numel() * 4 + sum(w.numel() * 4 for w in words)
                           + B * D)
+
+    def device_ms(lv, **knobs):
+        return 1e3 * sorted(burst_seconds(
+            lambda: hd_encode(lv, idh, lvh, codebook_words=words, **knobs),
+            torch.device("cuda"), calls=200, iters=3))[1]
+
+    # with the host's issue hidden: by bucket (the first n rows), by
+    # block_d at each bucket, and with no present bin (the compaction and
+    # the launch alone, no codebook loads)
+    bucket_ms = {n: device_ms(lev[:n]) for n in HD_ENCODE_BUCKETS}
+    block_d_ms = {bd: {n: device_ms(lev[:n], block_d=bd)
+                       for n in HD_ENCODE_BUCKETS}
+                  for bd in HD_ENCODE_BLOCK_D}
+    absent_ms = device_ms(torch.zeros_like(lev))
+    print(f"tune: hd_encode with the host's issue hidden by bucket (B: ms) "
+          f"{json.dumps(bucket_ms)}; by block_d, then bucket "
+          f"{json.dumps(block_d_ms)}; at B={B} with no present bin "
+          f"{absent_ms:.4f} ms")
     print(f"tune: hd_encode at B={B}, F={F}, D={D} ({n_present} present "
           f"bins): {ms:.4f} ms per launch (200 back to back; "
           f"{dev_ms:.4f} ms with the host's issue hidden), plain "
@@ -720,6 +785,8 @@ def phase_tune(torch, np):
                            .abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "device_ms": dev_ms,
+        "bucket_device_ms": {str(n): t for n, t in bucket_ms.items()},
+        "absent_device_ms": absent_ms,
         "shape": f"B={B}, F={F}, D={D} (tune sweep)"})
     del lev, idh, lvh, words, got, want
 
@@ -862,16 +929,29 @@ def band_rows(starts, lens):
     return total
 
 
-def design_rows(starts, lens, block=8):
-    """Rows the banded kernels read: per 8-query block and band, the span
-    from its lowest band start to its highest band end (non-empty bands)."""
-    total = 0
-    for b in range(starts.shape[0]):
-        for i in range(0, starts.shape[1], block):
-            s, n = starts[b, i:i + block], lens[b, i:i + block]
-            if (n > 0).any():
-                total += int((s + n)[n > 0].max() - s[n > 0].min())
-    return total
+def design_rows(starts, lens, R: int, plan) -> tuple[int, int]:
+    """(rows the banded kernels read from device memory, runs of band rows):
+    per query group, each 32-row tile of its window that a band meets,
+    once (csrc/hd_banded_scan.cuh; ``banded_tiles`` walks them as the
+    blocks do). A run of consecutive band rows of a group adds at most 31
+    rows at each end."""
+    from repro_torch.kernels.topk_hamming.ops import (
+        BANDED_TILE_ROWS,
+        banded_tiles,
+    )
+    ends = starts + lens
+    rows = runs = 0
+    for g in range(plan.groups):
+        for x in range(plan.blocks):
+            rows += sum(min(a + BANDED_TILE_ROWS, R) - a
+                        for a, _ in banded_tiles(starts, ends, plan, g, x))
+        s = starts[:, g * plan.group:(g + 1) * plan.group].ravel()
+        e = ends[:, g * plan.group:(g + 1) * plan.group].ravel()
+        hi = -1
+        for a, b in sorted(zip(s[e > s], e[e > s])):
+            runs += a > hi
+            hi = max(hi, b)
+    return rows, runs
 
 
 def phase_serve(torch, np, fused_e2e: bool, oms: bool):
@@ -891,7 +971,12 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         topk_hamming_banded_plain,
         topk_hamming_plain,
     )
-    from repro_torch.kernels.topk_hamming.ops import pick_block_q, smem_limit
+    from repro_torch.kernels.block_utils import DEFAULTS
+    from repro_torch.kernels.topk_hamming.ops import (
+        pick_block_q,
+        plan_banded,
+        smem_limit,
+    )
     from repro_torch.launch import serve_db
     from repro_torch.serve import (
         oms_search_encoded,
@@ -939,6 +1024,7 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
 
     db, enc, batch, idx, vals, plan = recorder.got
     R, W = db.data.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     unfused = dataclasses.replace(db, fused=False)
     # each smaller served bucket: its first rows, and on OMS evenly spaced
     # rows of the sorted batch (a batch of n sorted queries spans the mass
@@ -973,12 +1059,12 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
                 return oms_search_levels(db, enc, batch, plan, K,
                                          fused_e2e=True)
         else:
-            def run(n=MAX_BATCH, canonicalize=False):
+            def run(n=MAX_BATCH, canonicalize=False, waves=None):
                 b, st, ln = args[n]
                 return topk_hamming_banded(
                     b, db.data, st, ln, dim=db.dim, k=K,
                     num_valid=db.num_rows, num_tiles=plan.num_tiles,
-                    canonicalize=canonicalize)
+                    canonicalize=canonicalize, waves=waves)
 
             def plain():
                 return topk_hamming_banded_plain(batch, db.data, starts, lens,
@@ -996,15 +1082,27 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         nbytes = (batch.numel() * batch.element_size() + cb_bytes
                   + union * W * 4 + 2 * plan.starts.nbytes
                   + 2 * MAX_BATCH * K * 4)
-        fetched = design_rows(plan.starts, plan.lens) * W * 4
+        bplan = plan_banded(MAX_BATCH, R, W, K, plan.starts.shape[0],
+                            plan.num_tiles, sms, DEFAULTS[kernel]["waves"],
+                            smem_limit(batch.device))
+        read_rows, runs = design_rows(plan.starts.astype(np.int64),
+                                      plan.lens.astype(np.int64), R, bplan)
+        check(union <= read_rows <= union + 2 * 31 * runs,
+              f"{path}: the design reads {read_rows} rows for {union} "
+              f"distinct band rows in {runs} runs")
+        fetched = read_rows * W * 4
         priced = (-(-MAX_BATCH // 8) * plan.starts.shape[0] * plan.num_tiles
                   * 128 * W * 4)
         extra = (f"; {cand} candidate rows over {plan.starts.shape[0]} bands "
                  f"(candidate fraction {plan.candidate_fraction:.4f}, plan "
                  f"num_tiles {plan.num_tiles}, scanned fraction "
-                 f"{plan.scanned_fraction:.4f}), {union} distinct band rows; "
-                 f"this design reads {fetched / 1e9:.4g} GB (the plan's "
-                 f"budget prices {priced / 1e9:.4g} GB)")
+                 f"{plan.scanned_fraction:.4f}), {union} distinct band rows "
+                 f"({union * W * 4 / 1e9:.4g} GB); this design reads "
+                 f"{read_rows} rows, {fetched / 1e9:.4g} GB "
+                 f"({read_rows / max(union, 1):.4f}x the union; "
+                 f"{bplan.groups} query group of {bplan.group}, "
+                 f"{bplan.blocks} blocks; the plan's budget prices "
+                 f"{priced / 1e9:.4g} GB)")
     else:
         if fused_e2e:
             def run(n=MAX_BATCH, canonicalize=None):
@@ -1058,20 +1156,20 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
     ms = time_ms(torch, run, iters=20, warmup=2)
     bucket_ms = {n: time_ms(torch, lambda n=n: run(n), iters=20, warmup=2)
                  for n in sel if n < MAX_BATCH}
-    if oms and fused_e2e:
-        # every served bucket at the tuner's Q = 32 choice of the knob, for
-        # choosing the default (the tuner sweeps Q = 32 alone)
-        alt = {n: time_ms(torch, lambda n=n: run(n, waves=ALT_WAVES),
-                          iters=20, warmup=2) for n in sel}
-        print(f"{path}: {kernel} at waves {ALT_WAVES} by served bucket "
-              f"(Q: ms) {json.dumps(alt)}")
+    if oms:
+        # every served bucket at each value of the knob, for choosing the
+        # default (the tuner sweeps Q = 32 alone)
+        alt = {w: {n: time_ms(torch, lambda n=n, w=w: run(n, waves=w),
+                              iters=20, warmup=2) for n in sel}
+               for w in BANDED_WAVES}
+        print(f"{path}: {kernel} by waves, then served bucket (Q: ms) "
+              f"{json.dumps(alt)}")
     # the served route on the same batch: the kernel plus the route's own
     # tensor work around it (bands, merge, overflow slots, permutation)
     route_ms = time_ms(torch, route, iters=20, warmup=2)
     plain_ms = time_ms(torch, plain, iters=2, warmup=0)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit")
     b_ms, b_by = bound_ms(ops, nbytes)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if oms:
         ceiling = (f"this design's POPC-pipe floor "
                    f"{popc_pipe_ms(pipe_ops, sms):.4f} ms ({pipe_ops:.4g} "
@@ -1083,11 +1181,14 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
                    f" ms ({pipe_ops:.4g} integer ops at 64 a clock per SM)")
     encode_ms = None
     if fused_e2e:
-        # the encode kernel alone, on the served batch
-        encode_ms = time_ms(torch, lambda: encode_queries(
-            batch, enc.id_hvs, enc.level_hvs, db.data,
+        # the encode kernel alone, on the served batch and each bucket
+        rows = {n: batch[i].contiguous() for n, i in sel.items()}
+        encode_ms = {n: time_ms(torch, lambda b=b: encode_queries(
+            b, enc.id_hvs, enc.level_hvs, db.data,
             codebook_words=enc.codebook_words), iters=20, warmup=2)
-        extra += f"; the encode kernel alone {encode_ms:.4f} ms"
+            for n, b in rows.items()}
+        extra += (f"; the encode kernel alone by served bucket (Q: ms) "
+                  f"{json.dumps(encode_ms)}")
     print(f"{path}: {kernel} {ms:.4f} ms (the served route around it "
           f"{route_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; {ops:.4g} int8 ops, {nbytes:.4g} B), "
@@ -1107,7 +1208,9 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         "library_ms": None,
         "route_ms": route_ms,
         "bucket_ms": {str(n): t for n, t in bucket_ms.items()},
-        **({} if encode_ms is None else {"encode_ms": encode_ms}),
+        **({} if encode_ms is None else {
+            "encode_ms": encode_ms[MAX_BATCH],
+            "encode_bucket_ms": {str(n): t for n, t in encode_ms.items()}}),
     }
 
 
@@ -1383,8 +1486,11 @@ LM_ARGV = ["--arch", "qwen2_7b", "--kv-quant", "--batch", str(LM_BATCH),
 # attention output is rounded to bfloat16 and one changed rounding moves
 # every later bfloat16 activation of the step through 28 residual layers.
 LM_REPLAY_SHARE = 2.0 ** -4
-# the banded knob the tuner's sweep picks at Q = 32, timed at every bucket
-ALT_WAVES = 16
+# the banded knob's values (blocks per SM), each timed at every bucket
+BANDED_WAVES = (1, 2, 4, 8, 16)
+# hd_encode's buckets and block_d values, each timed at every bucket
+HD_ENCODE_BUCKETS = (4, 8, 16, 32)
+HD_ENCODE_BLOCK_D = (256, 512, 1024, 2048, 8192)
 # split counts timed beside the split rule's at the served shape
 SPLIT_SWEEP = (1, 2, 4, 6, 9)
 

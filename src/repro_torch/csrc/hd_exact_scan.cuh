@@ -14,7 +14,7 @@
 // * int8 banks (mode 1, unpacked rows such as D = 1000) keep hd::scan_rows
 //   on __dp4a: their rows need not be 4-byte aligned, and no served path
 //   uses them.
-// The banded kernels keep hd::scan_rows for both modes.
+// The banded kernels have their own bank-major scan (hd_banded_scan.cuh).
 //
 // Bound on the H100: bytes. At Q = 32 against the iPRG2012-scale bank
 // (1,162,392 rows, 256 words) the bank read is 1.19 GB, 0.355 ms at
@@ -97,7 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row_begin = split * rows_per_split;
   const int row_end = min(R, row_begin + rows_per_split);
   scan_rows<MODE, QPT>(qs, qstride, nq, r, row_bytes, wpr, row_begin,
-                       row_end, num_valid, dim, nullptr, rt, lv, li, k);
+                       row_end, num_valid, dim, rt, lv, li, k);
   write_candidates<QPT>(lv, li, k, q0, nq, split, splits, cv, ci);
 }
 

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) primitives of the port's tensor-core kernels: cp.async
-// staging of packed words into shared memory, the bit -> +-1 byte
-// expansion, the no-swizzle K-major wgmma descriptor and the register
-// fences around asynchronous wgmmas. Included by hamming_pop.cu and
-// hd_exact_scan.cuh.
+// Hopper (sm_90a) primitives of the port's kernels: cp.async staging of
+// packed words into shared memory, mbarriers and one-dimensional bulk
+// copies (TMA), the bit -> +-1 byte expansion, the no-swizzle K-major
+// wgmma descriptor and the register fences around asynchronous wgmmas.
+// Included by hamming_pop.cu, hd_exact_scan.cuh and hd_banded_scan.cuh.
 #pragma once
 
 #include <cstdint>
@@ -65,6 +65,50 @@ __device__ __forceinline__ void stage_rows(const uint32_t* __restrict__ m,
                 ok);
     }
   }
+}
+
+// mbarrier of `count` arrivals, made visible to the async proxy (the bulk
+// copies that complete on it); the block must sync before using it
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on bar that also expects `bytes` of copies to complete on it.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of bar with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One-dimensional bulk copy (TMA) of `bytes` (a multiple of 16, both ends
+// on a 16-byte boundary) from global to shared memory, completing on bar.
+// Orders the block's earlier generic accesses of dst before it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // bytes b in {0, 1} of the 4 k-slot bits -> int8 2b - 1

@@ -16,9 +16,9 @@
 // run in no order, so the grid is 2-D (query blocks x bank splits) and a
 // second kernel merges the splits, exact because the order is total.
 //
-// Banded search: hd_banded_scan.cuh (bound, design: 8-query blocks on
-// hd::scan_rows, each block's scan window derived on the device from its
-// queries' bands), then the same split merge over the (band, split) slots.
+// Banded search: hd_banded_scan.cuh (bound, design: bank-major blocks of up
+// to 32 queries, each bank tile that a band meets read once), then the
+// same split merge over the blocks' slots.
 #include "hd_banded_scan.cuh"
 #include "hd_exact_scan.cuh"
 
@@ -47,26 +47,26 @@ extern "C" int topk_hamming_launch(const void* q, const void* r, int Q, int R,
 
 // The banded search: q, r as in topk_hamming_launch; starts/ends (nbands,
 // Q) int32 row bounds, ascending disjoint bands per query, clipped to the
-// valid rows; splits per (query block, band) window. cv/ci: (Q, nbands *
-// splits, k) scratch; ov/oi: (Q, k) results, INT_MIN-valued slots past the
-// bands' rows carrying filler indices >= R. Returns the CUDA error of the
-// launches (0 on success).
+// valid rows; queries in groups of G (<= 32), `blocks` blocks a group.
+// cv/ci: (Q, blocks, k) scratch; ov/oi: (Q, k) results, INT_MIN-valued
+// slots past the bands' rows carrying filler indices >= R. Returns the
+// CUDA error of the launches (0 on success).
 extern "C" int topk_hamming_banded_launch(const void* q, const void* r, int Q,
                                           int R, int row_bytes, int wpr,
-                                          int qstride, int mode, int dim,
-                                          int k, const void* starts,
-                                          const void* ends, int nbands,
-                                          int splits, void* cv, void* ci,
+                                          int mode, int dim, int k,
+                                          const void* starts,
+                                          const void* ends, int nbands, int G,
+                                          int blocks, void* cv, void* ci,
                                           void* ov, void* oi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* cvi = static_cast<int*>(cv);
   int* cii = static_cast<int*>(ci);
   cudaError_t err = hd::launch_banded_scan(
-      q, r, Q, R, row_bytes, wpr, qstride, mode, dim, k,
+      q, r, Q, R, row_bytes, wpr, mode, dim, k, G,
       static_cast<const int*>(starts), static_cast<const int*>(ends), nbands,
-      splits, cvi, cii, s);
+      blocks, cvi, cii, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(hd::launch_merge(cvi, cii, Q, nbands * splits, k,
-                                           R, static_cast<int*>(ov),
+  return static_cast<int>(hd::launch_merge(cvi, cii, Q, blocks, k, R,
+                                           static_cast<int*>(ov),
                                            static_cast<int*>(oi), s));
 }

@@ -11,10 +11,10 @@ kernel ops layer resolves its knobs through :func:`resolve_blocks`:
      by ``repro_torch.launch.tune`` and selected by the
      ``REPRO_TORCH_TUNING_TABLE`` env var) for this (device kind, op,
      shape bucket);
-  3. else :data:`DEFAULTS`, which are the fixed rules the wrappers used
-     before the tuner existed: the query block picked by the batch
-     (``block_q=0``, see ``topk_hamming.ops.pick_block_q``) and 4 blocks
-     per SM for the split count.
+  3. else :data:`DEFAULTS`, the fixed rules: the query block picked by
+     the batch (``block_q=0``, see ``topk_hamming.ops.pick_block_q``), 4
+     blocks per SM for the exact scans' split count and 2 for the banded
+     scan's.
 
 The knobs:
 
@@ -23,12 +23,16 @@ The knobs:
   that covers the batch and fits shared memory. For packed banks 16 and
   32 are the N of the tensor-core scan's ``wgmma`` and 8 keeps the POPC
   scan (``csrc/hd_exact_scan.cuh``); for int8 banks 8, 16 and 32 are 1, 2
-  or 4 queries per warp. The banded twins keep 8 queries per block, the
-  block the OMS plan prices its tile budget in.
-* ``waves``: target blocks per SM when the bank (or a band's window) is
-  split across blocks; it sets the split count, never the result.
+  or 4 queries per warp. The banded twins hold up to 32 queries a block
+  (``topk_hamming.ops.plan_banded``) and have no query knob.
+* ``waves``: target blocks per SM when the bank (or a query group's
+  window) is split across blocks; it sets the split count, never the
+  result. The banded scan fits two blocks an SM, so its rule is 2: one
+  resident wave.
 * ``block_b`` / ``block_d`` of ``hd_encode``: queries per block and dims
-  per block, the latter in whole 32-dim packed codebook words.
+  per block, the latter in whole 32-dim packed codebook words; 2,048 dims
+  (64 words: four feature slices of 64 threads) was the fastest at every
+  served bucket on the H100.
 * ``block_q`` / ``block_r`` of ``imc_mvm``: the output tile; a warp
   covers 8, 16 or 32 queries (2, 4 or 8 a lane; two warps at 64) by 32
   rows, so block_r sets 1, 2, 4 or 8 warps along the rows.
@@ -60,10 +64,10 @@ _WHY = {"waves": "target blocks per SM", "block_b": "queries per block",
 # table entry exists, and the baseline every sweep candidate must beat
 DEFAULTS: dict[str, dict[str, int]] = {
     "topk_hamming": {"block_q": AUTO, "waves": 4},
-    "topk_hamming_banded": {"waves": 4},
+    "topk_hamming_banded": {"waves": 2},
     "encode_search": {"block_q": AUTO, "waves": 4},
-    "encode_search_banded": {"waves": 4},
-    "hd_encode": {"block_b": 1, "block_d": 1024},
+    "encode_search_banded": {"waves": 2},
+    "hd_encode": {"block_b": 1, "block_d": 2048},
     "imc_mvm": {"block_q": 32, "block_r": 128},
 }
 

@@ -12,9 +12,10 @@ the design. The kernels read the codebooks bit-packed
 and :func:`encode_search_banded_plain` are also the counterparts of the
 reference's staged ``ref.py`` oracles.
 
-Both kernels encode the batch once per launch into a device scratch and
-then run ``topk_hamming``'s exact or banded scan on it;
-:func:`encode_queries` runs the encode alone. Launch knobs (``block_q``,
+Both kernels encode the batch once per launch into a device scratch, with
+the port's one Eq. 1 encoder (``csrc/hd_encode_rows.cuh``, also
+``hd_encode``'s kernel), and then run ``topk_hamming``'s exact or banded
+scan on it; :func:`encode_queries` runs the encode alone. Launch knobs (``block_q``,
 ``waves``) resolve as ``topk_hamming``'s do (``kernels.block_utils``);
 the banded kernel has ``waves`` only.
 
@@ -35,14 +36,13 @@ from repro_torch.core.hd.similarity import bitpack_bipolar
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_utils import check_overrides, resolve_blocks
 from repro_torch.kernels.topk_hamming.ops import (
-    banded_splits,
     canonicalize_overflow_slots,
     check_aligned,
-    check_banded_fits,
     check_merge_fits,
     check_plan,
     check_status,
     clip_bands,
+    plan_banded,
     plan_scan,
     sm_count,
     smem_limit,
@@ -163,7 +163,8 @@ def encode_queries(levels: torch.Tensor, id_hvs: torch.Tensor,
     :func:`encode_queries_plain`. For timing and testing the encode; the
     search path launches it inside ``encode_search``. CPU tensors run the
     plain version; CUDA tensors launch ``csrc/encode_search.cu``'s
-    ``encode_rows_launch`` or raise."""
+    ``encode_rows_launch`` (the encoder of ``csrc/hd_encode_rows.cuh``) or
+    raise."""
     if not levels.is_cuda and levels.device.type == "cpu":
         return encode_queries_plain(levels, id_hvs, level_hvs,
                                     packed=r.dtype == torch.int32)
@@ -287,7 +288,7 @@ def encode_search_banded_plain(levels, id_hvs, level_hvs, r, starts, lens, *,
 def _banded_launcher():
     fn = _build.load("encode_search").encode_search_banded_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, i, p, p, i, i, p, i, i, i, i, i, i, i, p, p, i, i,
+    fn.argtypes = [p, i, i, i, p, p, i, i, p, i, i, i, i, i, i, p, p, i, i, i,
                    p, p, p, p, p, p]
     fn.restype = i
     return fn
@@ -333,22 +334,22 @@ def encode_search_banded(levels: torch.Tensor, id_hvs: torch.Tensor,
         return idx, vals
     row_bytes = r.shape[1] * r.element_size()
     check_aligned(r, row_bytes)
-    wpr, qstride = words_per_row(row_bytes)
-    check_banded_fits(qstride, k, levels.device)
+    wpr, _ = words_per_row(row_bytes)
     check_merge_fits(k, levels.device)
     bands = s.shape[0]
-    splits = banded_splits(Q, R, bands, num_tiles, sm_count(levels.device),
-                           cfg["waves"])
+    plan = plan_banded(Q, R, wpr, k, bands, num_tiles,
+                       sm_count(levels.device), cfg["waves"],
+                       smem_limit(levels.device))
     enc = _encoded_scratch(Q, r)
-    cand_v = torch.empty((Q, bands * splits, k), dtype=torch.int32,
+    cand_v = torch.empty((Q, plan.blocks, k), dtype=torch.int32,
                          device=levels.device)
     cand_i = torch.empty_like(cand_v)
     with torch.cuda.device(levels.device):  # the launch targets the current device
         err = launch(levels.data_ptr(), Q, F, int(level_hvs.shape[0]),
                      id_words.data_ptr(), lv_words.data_ptr(), wc, D,
-                     r.data_ptr(), R, row_bytes, wpr, qstride,
-                     0 if packed else 1, int(dim), int(k), s.data_ptr(),
-                     e.data_ptr(), bands, splits, enc.data_ptr(),
+                     r.data_ptr(), R, row_bytes, wpr, 0 if packed else 1,
+                     int(dim), int(k), s.data_ptr(), e.data_ptr(), bands,
+                     plan.group, plan.blocks, enc.data_ptr(),
                      cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
                      idx.data_ptr(),
                      torch.cuda.current_stream(levels.device).cuda_stream)

@@ -2,8 +2,10 @@
 PyTorch version.
 
 Replaces ``repro.kernels.hd_encode.hd_encode_pallas`` (TPU kernel
-``hd_encode.py:_hd_encode_kernel``). The kernel is ``csrc/hd_encode.cu``;
-see its header for the bound on the H100 and the design.
+``hd_encode.py:_hd_encode_kernel``). The kernel is ``csrc/hd_encode.cu``,
+the port's one Eq. 1 encoder (``csrc/hd_encode_rows.cuh``, also the encode
+phase of ``encode_search``) writing int8 lanes; see those headers for the
+bound on the H100 and the design.
 :func:`hd_encode_plain` is the counterpart of the reference's ``ref.py``
 oracle ``hd_encode_ref``: levels past ``m - 1`` read ``LV[m - 1]``, as its
 clamped gather does (the TPU kernel's one-hot gives 0 there).
@@ -26,10 +28,8 @@ from repro_torch.core.hd.encoding import encode_levels_batch
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_utils import check_overrides, resolve_blocks
 from repro_torch.kernels.encode_search.ops import MAX_FEATURES, pack_codebook
-from repro_torch.kernels.topk_hamming.ops import check_status, smem_limit
+from repro_torch.kernels.topk_hamming.ops import check_status
 
-CAP = 1024            # present (feature, level) pairs compacted at once
-                      # (hd_encode.cu kCap)
 MAX_GRID_Y = 65535    # CUDA's limit on the grid's dim-block axis
 
 
@@ -99,10 +99,6 @@ def hd_encode(levels: torch.Tensor, id_hvs: torch.Tensor,
     launch = _launcher()
     cfg = resolve_blocks("hd_encode", (B, D, F), knobs, levels.device)
     bb, bd = cfg["block_b"], cfg["block_d"]
-    need = bd + 8 * CAP + 16
-    if need > smem_limit(levels.device):
-        raise ValueError(f"block_d={bd} needs {need} B of shared memory; the "
-                         f"card allows {smem_limit(levels.device)}")
     wc = -(-D // 32)
     if -(-wc // (bd // 32)) > MAX_GRID_Y:
         raise ValueError(f"D={D} needs more than {MAX_GRID_Y} blocks of "

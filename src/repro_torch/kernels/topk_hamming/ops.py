@@ -18,8 +18,11 @@ argument, else the active tuning table, else the fixed rules
 result, and the query block picks the exact scan
 (:func:`on_tensor_cores`): a packed bank's 16- and 32-query blocks score
 on the int8 tensor cores (``csrc/hd_exact_scan.cuh``, the ``MMA_*``
-constants), its 8-query blocks, an int8 bank's blocks and the banded
-kernels on ``hd::scan_rows`` (``TILE_ROWS``).
+constants), its 8-query blocks and an int8 bank's blocks on
+``hd::scan_rows`` (``TILE_ROWS``). The banded kernels run a bank-major scan
+(``csrc/hd_banded_scan.cuh``, the ``BANDED_*`` constants) whose launch
+:func:`plan_banded` makes and :func:`banded_tiles` spells out tile by
+tile; ``waves`` sets their blocks per SM.
 
 Dispatch: CPU tensors take the plain versions (explicit knobs are checked,
 then ignored: the plain versions have no blocks); CUDA tensors launch the
@@ -29,7 +32,9 @@ kernels or raise. Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.hd.similarity import (
@@ -46,13 +51,17 @@ from repro_torch.kernels.block_utils import (
 )
 
 TILE_ROWS = 128          # bank rows per tile of hd::scan_rows
-                         # (hd_common.cuh kTileRows): the banded kernels and
-                         # the exact scan of int8 banks
-BANDED_BLOCK_Q = 8       # queries per block of the banded kernels, and the
-                         # block the OMS plan prices its tile budget for: the
-                         # server sorts each batch by precursor, so 8
-                         # adjacent queries keep a block's window narrow
+                         # (hd_common.cuh kTileRows): the exact scan of
+                         # 8-query packed blocks and of int8 banks
+BANDED_BLOCK_Q = 8       # the block the OMS plan prices its tile budget
+                         # (num_tiles) for, as the reference's plan does
 TILE_WORDS = 128 * 36    # shared words of the staged tile (kTileWords)
+# the banded scan (csrc/hd_banded_scan.cuh, namespace band)
+BANDED_GROUP = 32        # queries a block holds at most (one ballot lane each)
+BANDED_TILE_ROWS = 32    # bank rows a tile, one a lane
+BANDED_CHUNK = 256       # words of a row one ring stage holds (16 warps,
+                         # a 16-word slice each)
+BANDED_STAGES = 2        # depth of its ring of stages
 BLOCK_Q_CHOICES = (8, 16, 32)
 MERGE_WARPS = 8          # queries per merge block (hd_common.cuh kWarps)
 # the exact scan of packed banks on the int8 tensor cores
@@ -391,32 +400,91 @@ def topk_hamming_banded_plain(q: torch.Tensor, r: torch.Tensor, starts, lens,
     return idx.to(torch.int32), vals
 
 
-def check_banded_fits(qstride: int, k: int, device: torch.device) -> None:
-    """Raises where a banded block (8 queries' words, the bank tile, the
-    top-k lists and band bounds) does not fit in shared memory."""
-    bq = BANDED_BLOCK_Q
-    need = 4 * (bq * qstride + TILE_WORDS + 2 * bq * k + 2 * bq)
-    if need > smem_limit(device):
+def banded_smem(G: int, wpr: int, bands: int, k: int) -> int:
+    """Shared bytes of a banded block of ``G`` queries (``band::smem_bytes``):
+    the stage barriers, the queries (rows padded to 32 words), the ring of
+    stages (rows of up to 256 words plus 4 words of padding) and each
+    stage's record, two buffers
+    of partial sums of 32 live queries by 32 rows, the bands and the top-k
+    lists."""
+    qstride = -(-wpr // 32) * 32
+    sstride = min(qstride, BANDED_CHUNK) + 4
+    return 4 * (-(-2 * BANDED_STAGES // 4) * 4 + G * qstride
+                + BANDED_STAGES * (BANDED_TILE_ROWS * sstride + 4)
+                + 2 * BANDED_GROUP * BANDED_TILE_ROWS + 2 * bands * G
+                + 2 * G * k)
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedPlan:
+    """The launch of one banded search: ``groups`` query groups of
+    ``group`` queries (the last may hold fewer; grid axis y), each scanned
+    by ``blocks`` blocks (grid axis x). Each block writes one candidate
+    slot set of k per query of its group, so the split merge folds
+    ``blocks`` slot sets a query."""
+    group: int
+    groups: int
+    blocks: int
+
+
+def plan_banded(Q: int, R: int, wpr: int, k: int, bands: int,
+                num_tiles: int | None, sms: int, waves: int, limit: int
+                ) -> BandedPlan:
+    """The banded launch: groups of up to 32 queries, as many as fit
+    ``limit`` bytes of shared memory (:func:`banded_smem`); about ``waves``
+    blocks per SM over all groups, and no more blocks a group than it can
+    have live tiles: the whole bank's when ``num_tiles`` is None,
+    else those of the plan's budget (``num_tiles`` 128-row tiles a band for
+    each 8 queries of the group). The budget only sizes the grid: every
+    block walks all its tiles of the group's window, whatever it is.
+    Raises where not even one query's block fits."""
+    if Q < 1:
+        raise ValueError("a banded plan needs at least one query")
+    G = min(Q, BANDED_GROUP)
+    while G > 1 and banded_smem(G, wpr, bands, k) > limit:
+        G = -(-G // 2)
+    need = banded_smem(G, wpr, bands, k)
+    if need > limit:
         raise ValueError(f"a banded block needs {need} B of shared memory "
-                         f"at row stride {qstride} words and k={k}")
+                         f"at {wpr} words a row and k={k}; the card allows "
+                         f"{limit}")
+    groups = -(-Q // G)
+    tiles = -(-R // BANDED_TILE_ROWS)
+    if num_tiles is not None:
+        per = TILE_ROWS // BANDED_TILE_ROWS
+        budget = max(1, min(int(num_tiles), -(-R // TILE_ROWS)))
+        tiles = min(tiles, -(-G // BANDED_BLOCK_Q) * bands * budget * per)
+    blocks = max(1, min(-(-waves * sms // groups), tiles))
+    return BandedPlan(G, groups, blocks)
 
 
-def banded_splits(Q: int, R: int, bands: int, num_tiles: int | None,
-                  sms: int, waves: int) -> int:
-    """Splits of each (query block, band) scan window: enough that the
-    grid holds about ``waves`` blocks per SM, and no more than the tile
-    budget ``num_tiles`` (the whole bank's tiles when None), so a window
-    of that budget gives every split at least one tile."""
-    tiles = -(-R // TILE_ROWS)
-    budget = tiles if num_tiles is None else max(1, min(int(num_tiles), tiles))
-    blocks = -(-Q // BANDED_BLOCK_Q) * bands
-    return max(1, min(-(-waves * sms // blocks), budget))
+def banded_tiles(starts, ends, plan: BandedPlan, group: int, block: int
+                 ) -> list[tuple[int, int]]:
+    """Row ranges ``[a, b)`` of the tiles that block ``block`` of query
+    group ``group`` scores, in its order, as the kernel walks them: the
+    group's window (lowest start to highest end of its non-empty bands) cut
+    into 32-row tiles from its start, every ``plan.blocks``-th tile from
+    tile ``block``, and only tiles that a band of the group meets.
+    starts/ends: (B, Q) clipped bands (numpy or CPU tensors)."""
+    s = np.asarray(starts)[:, group * plan.group:(group + 1) * plan.group]
+    e = np.asarray(ends)[:, group * plan.group:(group + 1) * plan.group]
+    on = e > s
+    if not on.any():
+        return []
+    lo, hi = int(s[on].min()), int(e[on].max())
+    out = []
+    for t in range(block, -(-(hi - lo) // BANDED_TILE_ROWS), plan.blocks):
+        a = lo + t * BANDED_TILE_ROWS
+        b = min(a + BANDED_TILE_ROWS, hi)
+        if (on & (s < b) & (e > a)).any():
+            out.append((a, b))
+    return out
 
 
 def _banded_launcher():
     fn = _build.load("topk_hamming").topk_hamming_banded_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, i, i, i, i, i, i, i, p, p, i, i, i, p, p, p, p, p]
     fn.restype = i
     return fn
 
@@ -439,12 +507,13 @@ def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
     searches and canonicalize once, globally, pass ``canonicalize=False``.
 
     num_tiles: the plan's per-band tile budget of an 8-query block
-    (``repro_torch.serve.oms.plan_candidates``); it only sizes the grid.
-    Each block derives its scan window on the device from its own
-    queries' bands, so no band row is skipped whatever the budget.
+    (``repro_torch.serve.oms.plan_candidates``); it only caps the grid
+    (:func:`plan_banded`). Each query group's window is derived on the
+    device from its own bands, so no band row is skipped whatever the
+    budget.
 
-    waves: the launch knob (``kernels.block_utils``); None resolves
-    through the tuning table to 4 blocks per SM.
+    waves: the launch knob (``kernels.block_utils``), blocks per SM; None
+    resolves through the tuning table to the fixed rule.
 
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/topk_hamming.cu`` (counted in ``topk_hamming_banded.launches``)
@@ -471,20 +540,20 @@ def topk_hamming_banded(q: torch.Tensor, r: torch.Tensor, starts, lens, *,
     row_bytes = q.shape[1] * q.element_size()
     check_aligned(q, row_bytes)
     check_aligned(r, row_bytes)
-    wpr, qstride = words_per_row(row_bytes)
-    check_banded_fits(qstride, k, q.device)
+    wpr, _ = words_per_row(row_bytes)
     check_merge_fits(k, q.device)
     bands = s.shape[0]
-    splits = banded_splits(Q, R, bands, num_tiles, sm_count(q.device),
-                           cfg["waves"])
-    cand_v = torch.empty((Q, bands * splits, k), dtype=torch.int32,
+    plan = plan_banded(Q, R, wpr, k, bands, num_tiles, sm_count(q.device),
+                       cfg["waves"], smem_limit(q.device))
+    cand_v = torch.empty((Q, plan.blocks, k), dtype=torch.int32,
                          device=q.device)
     cand_i = torch.empty_like(cand_v)
     with torch.cuda.device(q.device):  # the launch targets the current device
-        err = launch(q.data_ptr(), r.data_ptr(), Q, R, row_bytes, wpr, qstride,
+        err = launch(q.data_ptr(), r.data_ptr(), Q, R, row_bytes, wpr,
                      0 if packed else 1, int(dim), int(k), s.data_ptr(),
-                     e.data_ptr(), bands, splits, cand_v.data_ptr(),
-                     cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     e.data_ptr(), bands, plan.group, plan.blocks,
+                     cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(),
+                     idx.data_ptr(),
                      torch.cuda.current_stream(q.device).cuda_stream)
     check_status(err, "topk_hamming_banded")
     topk_hamming_banded.launches += 1

@@ -26,8 +26,8 @@ targets and decoys in separate calls) at Dp = ceil(8192 / 3) = 2,731,
 float32 (6.35 GB), full scale 135.76 (``default_full_scale(ArrayConfig())``
 of the reference). :data:`FULL_REDUCED` lists what the full sweep cuts.
 
-The banded ops keep 8 queries per block (the block the OMS plan prices)
-and sweep ``waves`` only; ``imc_mvm``'s ``tile_cols`` is the PCM array's
+The banded ops hold up to 32 queries a block and sweep ``waves`` (blocks
+per SM) only; ``imc_mvm``'s ``tile_cols`` is the PCM array's
 column count and is never swept.
 """
 
@@ -77,7 +77,8 @@ _GRIDS_FULL: dict[str, dict[str, tuple[int, ...]]] = {
     "topk_hamming_banded": {"waves": (1, 2, 4, 8, 16)},
     "encode_search": {"block_q": (8, 16, 32), "waves": (1, 2, 4, 8)},
     "encode_search_banded": {"waves": (1, 2, 4, 8, 16)},
-    "hd_encode": {"block_b": (1, 2, 4), "block_d": (256, 1024, 8192)},
+    "hd_encode": {"block_b": (1, 2, 4),
+                  "block_d": (256, 1024, 2048, 8192)},
     "imc_mvm": {"block_q": (8, 16, 32, 64),
                 "block_r": (32, 64, 128, 256)},
 }

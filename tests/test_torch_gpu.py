@@ -196,7 +196,9 @@ def test_exact_scan_edge_cases_match_plain(cuda, Q, R, D, k, nv, dup, plan):
                                           (32, 1024, 8192, True),
                                           (5, 3000, 4096, True),
                                           (9, 300, 1000, False),
-                                          (4, 70, 13, False)])
+                                          (4, 70, 13, False),
+                                          (3, 5000, 256, True),
+                                          (4, 37, 72, False)])
 def test_encode_kernel_matches_plain(cuda, Q, F, D, packed):
     from repro_torch.kernels.encode_search.ops import (
         encode_queries,
@@ -218,6 +220,27 @@ def test_encode_kernel_matches_plain(cuda, Q, F, D, packed):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("packed", [True, False])
+def test_encode_kernel_with_no_present_feature_matches_plain(cuda, packed):
+    """All-zero levels: every dim's sum is 0, signed -1."""
+    from repro_torch.kernels.encode_search.ops import (
+        encode_queries,
+        encode_queries_plain,
+    )
+    rng = np.random.default_rng(11)
+    F, D, m = 300, 256, 16
+    id_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(F, D)).astype(np.int8)).to(cuda)
+    lv_hvs = torch.from_numpy(
+        rng.choice([-1, 1], size=(m, D)).astype(np.int8)).to(cuda)
+    levels = torch.zeros((6, F), dtype=torch.int32, device=cuda)
+    bank = _bank(rng, 3, D, packed).to(cuda)
+    got = encode_queries(levels, id_hvs, lv_hvs, bank)
+    want = encode_queries_plain(levels, id_hvs, lv_hvs, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _bands(rng, Q, R, kind):
     """(starts, lens): (Q,) for one band, (2, Q) for two."""
     if kind == "random":       # empty, narrow and wide bands, some past R
@@ -230,6 +253,16 @@ def _bands(rng, Q, R, kind):
         lens = np.full(Q, 600)
     elif kind == "wide":       # many tiles: the window crosses splits
         starts, lens = rng.integers(0, 200, Q), rng.integers(R // 2, R, Q)
+    elif kind == "empty":      # every band empty
+        starts, lens = rng.integers(0, R, Q), np.zeros(Q, np.int64)
+    elif kind == "whole":      # query 0's band is the whole bank
+        starts, lens = rng.integers(0, R // 2, Q), rng.integers(0, R // 4, Q)
+        starts[0], lens[0] = 0, R
+    elif kind == "one_row":    # bands meeting a 32-row tile in one row (the
+        t = rng.integers(1, R // 32 - 1, Q) * 32   # window starts at row 0)
+        starts = np.where(np.arange(Q) % 2 == 0, t - 1, t + 31)
+        lens = np.where(np.arange(Q) % 3 == 0, 1, 2)
+        starts[0], lens[0] = 0, 1
     elif kind == "two":        # two disjoint bands per query
         s0 = rng.integers(0, R // 3, Q)
         s1 = rng.integers(R // 2, R - 10, Q)
@@ -250,6 +283,22 @@ BANDED_CASES = [
     (24, 2000, 256, True, 5, 1900, False, "two", None),   # two bands
     (32, 2000, 1000, False, 4, None, False, "wide", None),  # int8 D = 1000
     (9, 129, 1000, False, 129, 77, True, "two", None),    # int8, k = R, ties
+    (1, 3000, 256, True, 4, None, False, "wide", None),   # Q = 1
+    (7, 2000, 256, True, 1, None, False, "random", None),  # Q = 7, k = 1
+    (33, 3000, 256, True, 5, 2500, False, "wide", None),  # two query groups;
+                                                          # num_valid in bands
+    (70, 4000, 256, True, 4, None, False, "two", None),   # three groups
+    (40, 3000, 8192, False, 4, None, False, "two", None),  # int8 rows of 8 KB:
+                                                           # 8 stages a tile,
+                                                           # 16 queries a group
+    (12, 300, 64, True, 4, None, False, "empty", None),   # every band empty
+    (9, 1500, 256, True, 6, None, False, "whole", 2),     # one band = bank
+    (16, 500, 1000, False, 8, None, False, "one_row", None),  # int8; bands
+                                                              # meeting a tile
+                                                              # in one row
+    (3, 4000, 256, True, 3632, None, False, "wide", None),  # the largest k
+                                                            # the split merge
+                                                            # takes
 ]
 
 
@@ -297,9 +346,9 @@ def test_encode_search_banded_kernel_matches_plain(cuda, Q, R, D, packed, k,
 
 
 def test_encode_search_banded_with_empty_split_windows_matches_plain(cuda):
-    """Each 8-query block's bands lie within 128 rows, under a
-    16-tile budget (16 splits a window: all but the first empty), and the
-    second band is empty for a whole block (every split empty)."""
+    """Every query's first band lies within 230 rows, under a 16-tile
+    budget (most blocks of the group meet no live tile and write only
+    fillers), and the second band is empty for the first 8 queries."""
     rng = np.random.default_rng(41)
     Q, R, D, F, m, k = 24, 4000, 256, 300, 16, 5
     id_hvs = torch.from_numpy(
@@ -430,6 +479,10 @@ HD_ENCODE_CASES = [
     (9, 64, 96, 4, "absent", 2, 32),
     (7, 2, 64, 4, "ties", 1, 8192),
     (33, 128, 8192, 16, "sparse", 3, 1024),
+    (6, 33, 72, 4, "none", None, None),      # no present feature; D % 16 = 8
+    (4, 5000, 8192, 16, "dense", None, None),  # 5 compaction rounds of 1,024
+    (3, 4100, 20000, 8, "dense", 2, 16384),  # 2 rounds of 4,096, two word
+                                             # passes, levels past m - 1
 ]
 
 
@@ -445,6 +498,10 @@ def _hd_operands(rng, B, F, D, m, layout):
         lev[::2] = 0
     elif layout == "ties":           # two present bins: acc in {-2, 0, 2}
         lev = rng.integers(1, m, size=(B, F))
+    elif layout == "none":
+        lev[:] = 0
+    elif layout == "dense":          # every bin present, some past m - 1
+        lev = rng.integers(1, m + 3, size=(B, F))
     return (torch.from_numpy(lev.astype(np.int32)), torch.from_numpy(idh),
             torch.from_numpy(lvh))
 
@@ -460,7 +517,7 @@ def test_hd_encode_kernel_matches_plain(cuda, B, F, D, m, layout, bb, bd):
     torch.cuda.synchronize()
     assert hd_encode.launches == before + 1
     assert torch.equal(got, want)
-    if layout == "absent":
+    if layout in ("absent", "none"):
         assert bool((got[::2] == -1).all())
 
 

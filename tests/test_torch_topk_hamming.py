@@ -31,14 +31,20 @@ from repro_torch.kernels.topk_hamming import (
     topk_hamming_plain,
 )
 from repro_torch.kernels.topk_hamming.ops import (
+    BANDED_GROUP,
+    BANDED_TILE_ROWS,
     BLOCK_Q_CHOICES,
     MMA_CHUNK,
     MMA_ROWS,
     TILE_ROWS,
     TILE_WORDS,
+    banded_smem,
+    banded_tiles,
     block_smem,
+    clip_bands,
     on_tensor_cores,
     pick_block_q,
+    plan_banded,
     plan_scan,
     scores_plain,
     split_rows,
@@ -387,3 +393,147 @@ def test_banded_wrapper_rejects_bad_bands():
     with pytest.raises(ValueError):
         topk_hamming_banded(q, r, torch.zeros(4, dtype=torch.int32),
                             torch.zeros(4, dtype=torch.int32), dim=64, k=2)
+
+
+# --------------------------------------------------------------------------
+# the banded scan's launch plan (csrc/hd_banded_scan.cuh), on the CPU
+# --------------------------------------------------------------------------
+
+def _plan_bands(rng, Q, R, nbands, kind):
+    """(B, Q) clipped bands [s, e): random mixes of empty, one-row and wide
+    bands, bands ending inside a tile, all empty, or one band covering the
+    whole bank."""
+    if kind == "all_empty":
+        s = rng.integers(0, R + 1, (nbands, Q))
+        return s, s.copy()
+    if kind == "whole":
+        s = np.zeros((nbands, Q), np.int64)
+        e = np.zeros((nbands, Q), np.int64)
+        e[0] = R
+        return s, e
+    cuts = np.sort(rng.integers(0, R + 1, (Q, 2 * nbands)), axis=1)
+    s, e = cuts[:, 0::2].T.copy(), cuts[:, 1::2].T.copy()
+    if kind == "short":             # one-row bands, ending inside a tile
+        e = np.minimum(s + 1, np.maximum(s, e))
+    s[:, rng.random(Q) < 0.2] = e[:, rng.random(Q) < 0.2] = 0
+    return s, np.maximum(s, e)
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(1, 70), st.integers(1, 2000), st.integers(1, 2),
+       st.sampled_from(["random", "short", "all_empty", "whole"]),
+       st.integers(1, 16), st.integers(1, 6), st.sampled_from([None, 1, 3]),
+       st.integers(0, 2**31 - 1))
+def test_banded_plan_covers_every_in_band_pair_once(Q, R, nbands, kind,
+                                                    waves, sms, num_tiles,
+                                                    seed):
+    """Every in-band (query, row) pair lies in exactly one tile of one
+    block of its query's group, and every tile a block walks meets a band
+    of the group."""
+    rng = np.random.default_rng(seed)
+    s, e = _plan_bands(rng, Q, R, nbands, kind)
+    plan = plan_banded(Q, R, 256, 4, nbands, num_tiles, sms, waves, 232448)
+    assert plan.group == min(Q, BANDED_GROUP)
+    assert plan.groups == -(-Q // plan.group) and plan.blocks >= 1
+    col = np.arange(R)
+    want = np.zeros((Q, R), np.int64)
+    for b in range(nbands):
+        want += (col >= s[b][:, None]) & (col < e[b][:, None])
+    got = np.zeros((Q, R), np.int64)
+    for g in range(plan.groups):
+        q0, q1 = g * plan.group, min(Q, (g + 1) * plan.group)
+        for x in range(plan.blocks):
+            for a, bnd in banded_tiles(s, e, plan, g, x):
+                assert 0 < bnd - a <= BANDED_TILE_ROWS
+                tile = np.zeros(R, bool)
+                tile[a:bnd] = True
+                hit = want[q0:q1, a:bnd]
+                assert hit.any()
+                got[q0:q1] += want[q0:q1] * tile[None, :]
+    np.testing.assert_array_equal(got, want)
+
+
+def _emulate_banded(q, rows, s, e, d, k, plan):
+    """The kernel's arithmetic in numpy: per (group, block) each query's k
+    best rows of the block's tiles inside its bands, the slots it did not
+    fill left at (INT32_MIN, R + slot); then the split merge's top-k of
+    every block's slots (duplicates inserted once), by (value desc, row
+    asc)."""
+    R = rows.shape[0]
+    scores = scores_plain(_port(q), _port(rows), d).numpy().astype(np.int64)
+    out_i = np.zeros((q.shape[0], k), np.int64)
+    out_v = np.zeros((q.shape[0], k), np.int64)
+    for g in range(plan.groups):
+        q0 = g * plan.group
+        slots = {i: [] for i in range(q0, min(q.shape[0], q0 + plan.group))}
+        for x in range(plan.blocks):
+            tiles = banded_tiles(s, e, plan, g, x)
+            for i in slots:
+                cand = [(int(scores[i, r]), int(r)) for a, b in tiles
+                        for r in range(a, b)
+                        if ((r >= s[:, i]) & (r < e[:, i])).any()]
+                cand.sort(key=lambda c: (-c[0], c[1]))
+                cand = cand[:k] + [(INT32_MIN, R + j)
+                                   for j in range(len(cand[:k]), k)]
+                slots[i] += cand
+        for i, cand in slots.items():
+            merged = sorted(set(cand) | {(INT32_MIN, R + j) for j in
+                                         range(k)},
+                            key=lambda c: (-c[0], c[1]))[:k]
+            out_v[i] = [c[0] for c in merged]
+            out_i[i] = [c[1] for c in merged]
+    return (torch.from_numpy(out_i.astype(np.int32)),
+            torch.from_numpy(out_v.astype(np.int32)))
+
+
+@settings(max_examples=12, deadline=None)
+@given(st.integers(1, 40), st.integers(8, 260), st.integers(1, 2),
+       st.sampled_from(["random", "short", "all_empty", "whole"]),
+       st.integers(1, 9), st.integers(1, 8), st.booleans(),
+       st.integers(0, 2**31 - 1))
+def test_banded_plan_emulation_matches_plain_and_reference(Q, R, nbands, kind,
+                                                           k, waves, packed,
+                                                           seed):
+    """Per-block lists over the plan's tiles, folded by the split merge and
+    canonicalized, equal topk_hamming_banded_plain and the reference's
+    masked oracle (one band) or its per-band routes (two)."""
+    rng = np.random.default_rng(seed)
+    k = min(k, R)
+    d = 64 if packed else 40
+    q, rows = _operands(rng, Q, R, d, packed)
+    s, e = _plan_bands(rng, Q, R, nbands, kind)
+    st_, ln = torch.from_numpy(s.astype(np.int32)), torch.from_numpy(
+        (e - s).astype(np.int32))
+    cs, ce = clip_bands(st_, ln, R, Q, torch.device("cpu"))
+    wpr = d // 32 if packed else -(-d // 4)
+    plan = plan_banded(Q, R, wpr, k, nbands, None, 3, waves, 232448)
+    got_i, got_v = _emulate_banded(q, rows, cs.numpy(), ce.numpy(), d, k,
+                                   plan)
+    got_i = canonicalize_overflow_slots(got_i, got_v, cs, ce, R)
+    want = topk_hamming_banded_plain(_port(q), _port(rows), st_, ln, dim=d,
+                                     k=k)
+    assert torch.equal(got_i, want[0]) and torch.equal(got_v, want[1])
+    if nbands == 1:
+        oracle = jbref(jnp.asarray(q), jnp.asarray(rows), jnp.asarray(s[0]),
+                       jnp.asarray(e[0] - s[0]), d, k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(oracle[0]))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(oracle[1]))
+
+
+@pytest.mark.parametrize("wpr,k,group", [
+    (256, 4, 32),       # the served bank: one group of 32
+    (256, 2591, 4),     # large k: the lists shrink the group
+    (2048, 4, 16),      # int8 rows of D = 8192: 8 KB a query
+    (2, 3000, 8),       # narrow rows, large k
+    (256, 19000, 1),    # one query a block
+])
+def test_banded_plan_shrinks_the_group_to_fit(wpr, k, group):
+    plan = plan_banded(70, 5000, wpr, k, 2, None, 132, 2, 232448)
+    assert plan.group == group
+    assert banded_smem(group, wpr, 2, k) <= 232448
+    assert group == 32 or banded_smem(2 * group, wpr, 2, k) > 232448
+
+
+def test_banded_plan_raises_where_no_block_fits():
+    with pytest.raises(ValueError, match="banded block needs"):
+        plan_banded(4, 100, 256, 30000, 1, None, 132, 2, 232448)

@@ -24,8 +24,8 @@ from repro_torch.kernels.block_utils import (
     validate_block,
 )
 from repro_torch.kernels.topk_hamming.ops import (
-    BANDED_BLOCK_Q,
-    banded_splits,
+    BandedPlan,
+    plan_banded,
     plan_scan,
     words_per_row,
 )
@@ -298,8 +298,9 @@ def test_defaults_are_aligned(op):
 def test_defaults_are_the_rules_before_the_tuner():
     for op in ("topk_hamming", "encode_search"):
         assert DEFAULTS[op] == {"block_q": AUTO, "waves": 4}
+    # the bank-major banded scan fits two blocks an SM: one resident wave
     for op in ("topk_hamming_banded", "encode_search_banded"):
-        assert DEFAULTS[op] == {"waves": 4}
+        assert DEFAULTS[op] == {"waves": 2}
     assert "tile_cols" not in ALIGN["imc_mvm"]
 
 
@@ -364,14 +365,27 @@ def test_no_table_launches_as_before(Q, op):
 @pytest.mark.parametrize("Q", [4, 8, 16, 32])
 @pytest.mark.parametrize("bands,num_tiles", [(1, None), (2, 64), (2, 2)])
 def test_no_table_banded_splits_as_before(Q, bands, num_tiles):
+    """The banded launch with no table, written out from the scan's
+    constants (csrc/hd_banded_scan.cuh): at 256 words a row and k = 4 one
+    group of all Q <= 32 queries fits shared memory (two stage barriers,
+    Q x 1 KB of queries, two stages of 32 rows of 260 words and their
+    records, two buffers of 32 x 32 partial sums, the bands and the
+    lists); the group's bank is
+    split over waves x 132 blocks, no more than its live 32-row tiles:
+    all the bank's, or four for each 128-row tile of the plan's budget for
+    each band of each 8 queries."""
     R = 1_162_392
     cfg = resolve_blocks("topk_hamming_banded", (Q, R, 256), {}, CPU)
-    tiles = -(-R // 128)
-    budget = tiles if num_tiles is None else min(num_tiles, tiles)
-    blocks = -(-Q // BANDED_BLOCK_Q) * bands
-    want = max(1, min(-(-4 * H100_SMS // blocks), budget))
-    assert banded_splits(Q, R, bands, num_tiles, H100_SMS,
-                         cfg["waves"]) == want
+    need = 4 * (4 + Q * 256 + 2 * (32 * 260 + 4) + 2 * 32 * 32
+                + 2 * bands * Q + 2 * Q * 4)
+    assert need <= H100_SMEM
+    tiles = -(-R // 32)
+    if num_tiles is not None:
+        tiles = min(tiles, -(-Q // 8) * bands * min(num_tiles, -(-R // 128))
+                    * 4)
+    want = BandedPlan(Q, 1, max(1, min(cfg["waves"] * H100_SMS, tiles)))
+    assert plan_banded(Q, R, 256, 4, bands, num_tiles, H100_SMS,
+                       cfg["waves"], H100_SMEM) == want
 
 
 def test_a_table_entry_changes_the_launch():
