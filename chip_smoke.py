@@ -85,6 +85,30 @@ exits non-zero and prints no result line:
    the banded design reads (each 32-row tile a band meets, once per query
    group; checked against the distinct band rows) and time the banded
    kernel at each value of its ``waves`` knob at every bucket.
+   Then continuous serving with streaming ingestion, on the same bank
+   (5% of it, 29,059 refs and as many decoys, held out and appended as
+   58,118 unpacked int8 rows halfway through each run), each kernel count
+   set to 0 just before a run and read just after:
+   ``--fused --continuous --num-slots 2 --append 0.05`` (``topk_hamming``
+   on the base and, merged, on the int8 delta) and ``--oms --fused
+   --fused-e2e --continuous --num-slots 2 --append 0.05``
+   (``encode_search_banded`` before the append; after it the staged
+   encode, then ``topk_hamming_banded`` on the packed base and on the
+   delta). Each prints q/s, p50 / p95, the device's busy seconds and idle
+   share and how many admissions found another batch still in flight
+   (counted by a recording executor) beside the flush-sync run of its
+   route in the same call. A pre-append batch of 32 is held against the
+   plain route on its bank; tenant0 is then compacted through the
+   server's registry (timed, with the peak device memory), and the first
+   merged batch of 32 must equal the plain route (exact) or the unfused
+   masked route (OMS) on the compacted bank, and the kernel on it. The
+   delta scan alone is timed beside its plain version and bound, the
+   host's merged OMS plan beside the base plan. One dispatch of each route
+   (merged exact, encoded with query-HV cache misses, fused-e2e, merged
+   OMS, OMS fused-e2e, OMS encoded) runs under the sync debug mode
+   "error" with fresh queries: it must make no host synchronization and
+   launch the route's kernels (the merged routes once on the base and
+   once on the delta).
 5. Clustering serving: ``repro_torch.launch.serve_cluster.main`` with two
    tenants, each streaming one paper-average precursor bucket (10,624
    spectra = 1,328 identities x 8) at D = 2048, 1024 bins, 16 levels,
@@ -96,7 +120,14 @@ exits non-zero and prints no result line:
    distance) and each tenant's summary must be equal. Then
    ``hamming_pop`` is timed at the served shape (each bucket against the
    largest final centroid bank) beside its plain version, one served
-   distance step and ``torch._int_mm`` on the unpacked operands.
+   distance step and ``torch._int_mm`` on the unpacked operands. Then
+   the same streams through ``serve_cluster --continuous --num-slots 2``
+   (a batch scores the centroids of its dispatch, as the reference's
+   continuous mode does): the run's dispatches and finalizes are logged
+   in order and replayed in that interleaving through clusterers on the
+   plain distance function; every dispatch's snapshot (clusters,
+   structure version) and every assignment must be equal, and one
+   clustering dispatch must make no host synchronization.
 6. One bucket batch-wise: the kernel's pairwise distances over 10,624
    encoded spectra and complete linkage at 0.36 D must give the labels,
    merges and cluster count of the same pipeline over the plain distance
@@ -1012,12 +1043,14 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         "buckets": s["buckets"], "span_s": s["span_s"],
         "sleep_s": s["sleep_s"], "device_busy_s": s["device_busy_s"],
         "host_s": s["span_s"] - s["sleep_s"] - s["device_busy_s"],
+        "device_idle_share": s["device_idle_share"],
         "run_s": wall}
     if oms:
         line.update({key: s["oms"][key] for key in (
             "candidate_fraction", "scanned_fraction", "no_candidate")},
             iprg2012_candidate_fraction=IPRG_CANDIDATE_FRACTION)
     print(json.dumps(line))
+    SERVED[path] = line
     check(launches[kernel] > 0, f"{kernel} never launched on the {path} path")
     check(s["count"] == QUERIES, f"{path}: served {s['count']} of {QUERIES}")
     check(recorder.got is not None, f"{path}: no served batch of {MAX_BATCH}")
@@ -1283,7 +1316,8 @@ def phase_serve_cluster(torch, np):
     server = recorder.server
     line = {
         "path": "serve_cluster", "spectra": s["count"], "spectra_per_s":
-        s["qps"], "p50_ms": s["p50_ms"], "p95_ms": s["p95_ms"],
+        s["qps"], "qps": s["qps"], "p50_ms": s["p50_ms"],
+        "p95_ms": s["p95_ms"],
         "batches": s["batches"], "buckets": s["buckets"],
         "launches": {"hamming_pop": launches},
         "tenants": {t: {k: q[k] for k in (
@@ -1296,9 +1330,11 @@ def phase_serve_cluster(torch, np):
         "other_host_s": (s["span_s"] - s["sleep_s"] - s["device_busy_s"]
                          - s["decide_s"] - s["consolidate_s"]),
         "library_s": s["library_s"],
+        "device_idle_share": s["device_idle_share"],
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "run_s": wall}
     print(json.dumps(line))
+    SERVED["serve_cluster"] = line
     check(launches > 0, "hamming_pop never launched on the serve_cluster path")
     check(s["count"] == total, f"serve_cluster: served {s['count']} of {total}")
 
@@ -1469,6 +1505,533 @@ def phase_bucket(torch, np, entry):
                  pairwise_library_ms=lib_ms,
                  pairwise_shape=f"Q=R={n}, W={W}",
                  linkage_s=linkage_s["kernel"], linkage_merges=a.num_merges)
+
+
+# the flush-sync runs' summary lines, by path, for the continuous runs'
+# side-by-side lines
+SERVED: dict = {}
+# the continuous runs: two slots; 5% of each bank (a suffix of its targets
+# and decoys) held out and appended halfway through the run
+NUM_SLOTS, APPEND = 2, 0.05
+
+
+def continuous_recorder(np, rows: int):
+    """A ``SearchExecutor`` subclass for the continuous runs: keeps the
+    server, counts the admissions that found another batch still in
+    flight on the device (its ``ready`` event not yet fired), and keeps
+    the first served batch of ``rows`` queries before the append and the
+    first merged one (bank, delta, device batches, results, plan and the
+    batch's padded precursors)."""
+    from repro_torch.serve import SearchExecutor
+
+    class Recording(SearchExecutor):
+        server = None
+        dispatches = overlapped = 0
+        plain = merged = None
+
+        def __init__(self, server):
+            super().__init__(server)
+            Recording.server = server
+            self.outstanding = []
+
+        def dispatch(self, reqs):
+            busy = any(not h.ready.query() for h in self.outstanding
+                       if h.ready is not None)
+            h = super().dispatch(reqs)
+            Recording.dispatches += 1
+            Recording.overlapped += busy
+            self.outstanding.append(h)
+            if getattr(h, "n", 0) == rows:
+                key = "plain" if h.delta is None else "merged"
+                if getattr(Recording, key) is None:
+                    prec = None
+                    if h.plan is not None:
+                        p = sorted(r.precursor for r in h.reqs)
+                        prec = np.asarray(p + [p[-1]] * (h.batch.shape[0]
+                                                         - h.n), np.float32)
+                    setattr(Recording, key, dict(
+                        db=h.db, delta=h.delta, batch=h.batch.clone(),
+                        raw=None if h.raw is None else h.raw.clone(),
+                        idx=h.idx.clone(), vals=h.vals.clone(), plan=h.plan,
+                        prec=prec))
+            return h
+
+        def finalize(self, handle):
+            self.outstanding.remove(handle)
+            return super().finalize(handle)
+
+    return Recording
+
+
+def dispatch_without_sync(torch, server, submit, n: int, what: str) -> dict:
+    """Submits ``n`` requests through ``submit(i)``, dispatches them as one
+    batch under the sync debug mode "error" (a host synchronization
+    raises), then finalizes it; returns the launches the dispatch made."""
+    from repro_torch.launch import serve_db
+    from repro_torch.kernels.hamming_pop import hamming_pop
+    kernels = {**serve_db.KERNELS, "hamming_pop": hamming_pop}
+    for i in range(n):
+        submit(i)
+    reqs = server.queue.take_batch()
+    check(len(reqs) == n, f"{what}: took {len(reqs)} of {n} requests")
+    torch.cuda.synchronize()
+    before = {k: fn.launches for k, fn in kernels.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = server.executor.dispatch(reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    made = {k: fn.launches - before[k] for k, fn in kernels.items()
+            if fn.launches - before[k]}
+    live = server.executor.finalize(h)
+    check(len(live) == n and all(r.result is not None for r in live),
+          f"{what}: the dispatched batch did not finish")
+    print(f"sync-free dispatch: {what}: {n} queries dispatched with no host "
+          f"synchronization (sync debug mode \"error\"), launches {made}")
+    return made
+
+
+def random_queries(np, seed: int, n: int, levels: bool):
+    """Fresh queries (query-HV cache misses): bipolar (D,) int8 HVs, or
+    sparse (1,024,) levels for an encoder server."""
+    rng = np.random.default_rng(seed)
+    if levels:
+        lev = rng.integers(0, 16, size=(n, 1024)).astype(np.int32)
+        lev[rng.random(lev.shape) < 0.9] = 0
+        return lev
+    return rng.choice([-1, 1], size=(n, DIM)).astype(np.int8)
+
+
+def timeit(fn) -> float:
+    """Seconds one host call of ``fn`` takes."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def compact_timed(torch, server, tenant: str) -> tuple[float, float]:
+    """Compacts ``tenant`` through the server's registry; returns (seconds,
+    peak device GiB during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    check(server.banks.compact(tenant), f"nothing to compact for {tenant}")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def continuous_line(torch, s, path, recorder, launches, wall):
+    line = {
+        "path": path, "queries": s["count"], "qps": s["qps"],
+        "p50_ms": s["p50_ms"], "p95_ms": s["p95_ms"],
+        "identified_at_fdr": s.get("identified"),
+        "batches": s["batches"], "buckets": s["buckets"],
+        "scheduler": s["scheduler"], "launches": launches,
+        "span_s": s["span_s"], "sleep_s": s["sleep_s"],
+        "device_busy_s": s["device_busy_s"],
+        "device_idle_share": s["device_idle_share"],
+        "dispatches": recorder.dispatches,
+        "admissions_with_another_batch_in_flight": recorder.overlapped,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "run_s": wall}
+    return line
+
+
+def side_by_side(flush: dict, cont: dict, what: str) -> None:
+    keys = ("qps", "p50_ms", "p95_ms", "span_s", "sleep_s", "device_busy_s",
+            "device_idle_share")
+    print(f"{what}: flush-sync vs continuous ({NUM_SLOTS} slots), this call: "
+          + ", ".join(f"{k} {flush.get(k)} / {cont.get(k)}" for k in keys))
+
+
+def phase_serve_continuous(torch, np):
+    """``serve_db --fused --continuous --num-slots 2 --append 0.05`` at full
+    width: the pre-append and merged batches against the plain route, the
+    compaction, the merged batch on the compacted bank, the delta scan
+    alone, and one dispatch of each exact route with no host sync."""
+    import gc
+
+    from repro_torch.kernels.topk_hamming import topk_hamming
+    from repro_torch.kernels.topk_hamming import topk_hamming_plain
+    from repro_torch.launch import serve_db
+    from repro_torch.serve import (
+        BankRegistry,
+        DBSearchServer,
+        QueryEncoder,
+        merged_search_encoded,
+        search_database_encoded,
+    )
+
+    path = f"fused continuous, append {APPEND}"
+    recorder = continuous_recorder(np, MAX_BATCH)
+    argv = ["--hd-dim", str(DIM), "--identities", str(IDENTITIES),
+            "--refs-per-identity", str(REPLICATES), "--queries",
+            str(QUERIES), "--k", str(K), "--max-batch", str(MAX_BATCH),
+            "--device", "cuda", "--fused", "--continuous", "--num-slots",
+            str(NUM_SLOTS), "--append", str(APPEND)]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in serve_db.KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    s = serve_db.main(argv, executor_cls=recorder)
+    launches = {n: fn.launches for n, fn in serve_db.KERNELS.items()}
+    wall = time.perf_counter() - t0
+    line = continuous_line(torch, s, path, recorder, launches, wall)
+    line.update(append_rows=s["append_rows"], append_s=s["append_s"],
+                delta_rows=s["banks"]["delta_rows"])
+    print(json.dumps(line))
+    check(launches["topk_hamming"] > 0,
+          f"topk_hamming never launched on the {path} path")
+    check(s["count"] == QUERIES, f"{path}: served {s['count']} of {QUERIES}")
+    check(s["mode"] == "continuous" and s["banks"]["appends"] == 1,
+          f"{path}: not a continuous run with one append")
+    check(recorder.plain is not None and recorder.merged is not None,
+          f"{path}: no pre-append or merged batch of {MAX_BATCH}")
+    side_by_side(SERVED["fused"], line, "fused")
+    server = recorder.server
+
+    # the pre-append batch against the plain route on its own bank
+    p = recorder.plain
+    want = topk_hamming_plain(p["batch"], p["db"].data, dim=DIM, k=K,
+                              num_valid=p["db"].num_rows)
+    pre_diff = int((want[0] != p["idx"]).sum() + (want[1] != p["vals"]).sum())
+
+    # the merged route: one topk_hamming launch on the base and one on the
+    # int8 delta, with no host sync; then the delta scan alone
+    m = recorder.merged
+    delta = m["delta"]
+    made = dispatch_without_sync(
+        torch, server, lambda i, q=random_queries(np, 11, MAX_BATCH, False):
+        server.submit(q[i], tenant="tenant0"), MAX_BATCH,
+        "merged exact (base + delta, query-HV cache misses)")
+    check(made.get("topk_hamming") == 2,
+          f"the merged exact route launched {made} (want topk_hamming on "
+          f"the base and on the delta)")
+    d_rows = delta.db.data
+    d_ms = time_ms(torch, lambda: topk_hamming(m["raw"], d_rows, dim=DIM,
+                                               k=K), iters=20, warmup=2)
+    d_plain = time_ms(torch, lambda: topk_hamming_plain(
+        m["raw"], d_rows, dim=DIM, k=K), iters=2, warmup=1)
+    d_got = topk_hamming(m["raw"], d_rows, dim=DIM, k=K)
+    d_want = topk_hamming_plain(m["raw"], d_rows, dim=DIM, k=K)
+    d_mism = int((d_got[0] != d_want[0]).sum() + (d_got[1] != d_want[1]).sum())
+    d_bound, d_by = bound_ms(2 * MAX_BATCH * d_rows.shape[0] * DIM,
+                             d_rows.numel() + m["raw"].numel()
+                             + 2 * MAX_BATCH * K * 4)
+    # the merged route on the card (base scan, delta scan, row maps,
+    # merge) beside the base route alone
+    merged_ms = time_ms(torch, lambda: merged_search_encoded(
+        m["db"], delta, m["batch"], m["raw"], K), iters=20, warmup=2)
+    base_ms = time_ms(torch, lambda: search_database_encoded(
+        m["db"], m["batch"], K), iters=20, warmup=2)
+
+    # compaction through the server's registry, then the merged batch on
+    # the compacted bank: the kernel and the plain route must both equal
+    # the merged result
+    comp_s, comp_peak = compact_timed(torch, server, "tenant0")
+    rebuilt = server.banks.get("tenant0")
+    plain = topk_hamming_plain(m["batch"], rebuilt.data, dim=DIM, k=K,
+                               num_valid=rebuilt.num_rows)
+    kern = search_database_encoded(rebuilt, m["batch"], K)
+    merged_diff = int((plain[0] != m["idx"]).sum()
+                      + (plain[1] != m["vals"]).sum())
+    compacted_diff = int((kern[0] != m["idx"]).sum()
+                         + (kern[1] != m["vals"]).sum())
+    print(f"{path}: pre-append batch of {MAX_BATCH} vs the plain route: "
+          f"{pre_diff} differing entries; merged batch of {MAX_BATCH} "
+          f"(base {m['db'].num_rows} + delta {delta.num_rows} rows: "
+          f"{delta.num_targets} refs + {delta.num_decoys} decoys, "
+          f"{d_rows.numel() / 1e6:.1f} MB of int8 rows) vs the plain route "
+          f"on the rebuilt bank: {merged_diff}; the compacted bank through "
+          f"the kernel vs the merged result: {compacted_diff}; compaction "
+          f"of tenant0 {comp_s:.3f} s, peak device memory during it "
+          f"{comp_peak:.2f} GiB, run peak {line['peak_memory_gib']:.2f} GiB; "
+          f"the delta scan alone (topk_hamming, int8, Q={MAX_BATCH}, R="
+          f"{d_rows.shape[0]}) {d_ms:.4f} ms, plain {d_plain:.2f} ms, bound "
+          f"{d_bound:.4f} ms ({d_by}), kernel vs plain {d_mism} mismatches; "
+          f"the merged route {merged_ms:.4f} ms against the base route "
+          f"alone {base_ms:.4f} ms; sm clock, power, limit: "
+          f"{nvidia_smi('clocks.sm,power.draw,power.limit')}")
+    check(pre_diff == 0, f"{path}: the pre-append batch differs")
+    check(merged_diff == 0, f"{path}: the merged batch differs from the "
+                            f"plain route on the rebuilt bank")
+    check(compacted_diff == 0, f"{path}: the compacted bank differs from "
+                               f"the merged result")
+    check(d_mism == 0, "topk_hamming on the int8 delta differs from its "
+                       "plain version")
+    check(server.banks.delta("tenant0") is None, "the delta survived")
+
+    # the exact routes with no delta: encoded with cache misses, and
+    # fused-e2e (an encoder server on the compacted bank)
+    dispatch_without_sync(
+        torch, server, lambda i, q=random_queries(np, 12, MAX_BATCH, False):
+        server.submit(q[i], tenant="tenant0"), MAX_BATCH,
+        "encoded, query-HV cache misses (compacted bank)")
+    reg = BankRegistry(fused=True)
+    reg.adopt("tenant0", rebuilt)
+    enc = QueryEncoder.from_config(dim=DIM, num_features=1024,
+                                   num_levels=16, seed=0, device="cuda")
+    e2e = DBSearchServer(reg, k=K, max_batch_size=MAX_BATCH, encoder=enc,
+                         fused_e2e=True, continuous=True, buckets=4)
+    warm = random_queries(np, 13, MAX_BATCH, True)
+    for q in warm:
+        e2e.submit(q, tenant="tenant0")
+    e2e.run_until_drained()
+    made = dispatch_without_sync(
+        torch, e2e, lambda i, q=random_queries(np, 14, MAX_BATCH, True):
+        e2e.submit(q[i], tenant="tenant0"), MAX_BATCH, "fused-e2e")
+    check(made.get("encode_search") == 1, f"fused-e2e launched {made}")
+    line.update(pre_append_diff=pre_diff, merged_diff=merged_diff,
+                compacted_diff=compacted_diff, compaction_s=comp_s,
+                compaction_peak_gib=comp_peak, delta_scan_ms=d_ms,
+                merged_route_ms=merged_ms, base_route_ms=base_ms,
+                delta_scan_plain_ms=d_plain, delta_scan_bound_ms=d_bound)
+    return line
+
+
+def phase_serve_continuous_oms(torch, np):
+    """``serve_db --oms --fused --fused-e2e --continuous --num-slots 2
+    --append 0.05`` (``--fused`` makes the merged batches search the
+    packed base through the banded kernel too): the merged batch against
+    the unfused masked route on the rebuilt bank, the merged plan's
+    fractions, and one dispatch of each OMS route with no host sync."""
+    import gc
+
+    from repro_torch.launch import serve_db
+    from repro_torch.serve import (
+        DBSearchServer,
+        merged_oms_plan,
+        merged_oms_search_encoded,
+        oms_plan,
+        oms_search_encoded,
+    )
+
+    path = f"oms fused + fused-e2e continuous, append {APPEND}"
+    recorder = continuous_recorder(np, MAX_BATCH)
+    argv = ["--hd-dim", str(DIM), "--identities", str(IDENTITIES),
+            "--refs-per-identity", str(REPLICATES), "--queries",
+            str(QUERIES), "--k", str(K), "--max-batch", str(MAX_BATCH),
+            "--device", "cuda", "--oms", "--fused", "--fused-e2e",
+            "--continuous", "--num-slots", str(NUM_SLOTS), "--append",
+            str(APPEND)]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in serve_db.KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    s = serve_db.main(argv, executor_cls=recorder)
+    launches = {n: fn.launches for n, fn in serve_db.KERNELS.items()}
+    wall = time.perf_counter() - t0
+    line = continuous_line(torch, s, path, recorder, launches, wall)
+    line.update({key: s["oms"][key] for key in (
+        "candidate_fraction", "scanned_fraction", "no_candidate")})
+    m = recorder.merged
+    check(m is not None and recorder.plain is not None,
+          f"{path}: no pre-append or merged batch of {MAX_BATCH}")
+    line.update(merged_candidate_fraction=m["plan"].candidate_fraction,
+                merged_scanned_fraction=m["plan"].scanned_fraction,
+                delta_rows=m["delta"].num_rows)
+    print(json.dumps(line))
+    for kernel in ("encode_search_banded", "topk_hamming_banded"):
+        check(launches[kernel] > 0, f"{kernel} never launched on the "
+                                    f"{path} path")
+    check(s["count"] == QUERIES, f"{path}: served {s['count']} of {QUERIES}")
+    side_by_side(SERVED["oms fused-e2e"], line, "oms fused-e2e")
+    server = recorder.server
+    # the host's planning of one batch: the merged plan (base, delta and
+    # merged ranges) against the base plan alone
+    plan_ms = {name: 1e3 * min(timeit(fn) for _ in range(5)) for name, fn in (
+        ("merged", lambda: merged_oms_plan(m["db"], m["delta"], m["prec"],
+                                           server.oms)),
+        ("base", lambda: oms_plan(m["db"], m["prec"], server.oms)))}
+    # the merged route's device pieces: the staged encode (levels of about
+    # the served sparsity), each side's banded search, the whole route
+    from repro_torch.serve.db_search import _oms_search_inner, _plan_bands
+    mp, delta = m["plan"], m["delta"]
+    lev_host = random_queries(np, 27, MAX_BATCH, True)
+    lev = torch.from_numpy(lev_host).cuda()
+    base_bands = _plan_bands(m["db"], mp.base)
+    delta_bands = _plan_bands(delta.db, mp.delta)
+    pieces = {
+        "staged encode": lambda: server._encode_levels(lev, lev_host),
+        "base banded search": lambda: _oms_search_inner(
+            m["db"], m["batch"], mp.base, K, base_bands),
+        "delta banded search (int8)": lambda: _oms_search_inner(
+            delta.db, m["raw"], mp.delta, K, delta_bands),
+        "merged route": lambda: merged_oms_search_encoded(
+            m["db"], delta, m["batch"], m["raw"], mp, K)}
+    piece_ms = {name: time_ms(torch, fn, iters=20, warmup=2)
+                for name, fn in pieces.items()}
+    print(f"{path}: host planning of one batch of {MAX_BATCH}: merged plan "
+          f"{plan_ms['merged']:.3f} ms, the base plan alone "
+          f"{plan_ms['base']:.3f} ms; the merged batch on the card (ms): "
+          f"{json.dumps(piece_ms)}")
+    line.update(merged_plan_ms=plan_ms["merged"], base_plan_ms=plan_ms["base"],
+                merged_piece_ms=piece_ms)
+
+    made = dispatch_without_sync(
+        torch, server, lambda i, q=random_queries(np, 21, MAX_BATCH, True),
+        p=np.random.default_rng(22).uniform(400, 1600, MAX_BATCH):
+        server.submit(q[i], tenant="tenant0", precursor=float(p[i])),
+        MAX_BATCH, "merged OMS (staged encode, base + delta)")
+    check(made.get("topk_hamming_banded") == 2,
+          f"the merged OMS route launched {made} (want topk_hamming_banded "
+          f"on the base and on the delta)")
+    comp_s, comp_peak = compact_timed(torch, server, "tenant0")
+    rebuilt = server.banks.get("tenant0")
+    plan = oms_plan(rebuilt, m["prec"], server.oms)
+    same_plan = bool((plan.starts == m["plan"].starts).all()
+                     and (plan.lens == m["plan"].lens).all())
+    import dataclasses
+    want = oms_search_encoded(dataclasses.replace(rebuilt, fused=False),
+                              m["batch"], plan, K)
+    merged_diff = int((want[0] != m["idx"]).sum()
+                      + (want[1] != m["vals"]).sum())
+    print(f"{path}: merged batch of {MAX_BATCH} (base {m['db'].num_rows} + "
+          f"delta {m['delta'].num_rows} rows; merged candidate fraction "
+          f"{m['plan'].candidate_fraction:.4f}, scanned fraction "
+          f"{m['plan'].scanned_fraction:.4f}) vs the unfused masked route on "
+          f"the rebuilt bank: {merged_diff} differing entries, plans equal: "
+          f"{same_plan}; compaction {comp_s:.3f} s, peak during it "
+          f"{comp_peak:.2f} GiB, run peak {line['peak_memory_gib']:.2f} GiB")
+    check(same_plan and merged_diff == 0,
+          f"{path}: the merged batch differs from the rebuilt bank's route")
+    dispatch_without_sync(
+        torch, server, lambda i, q=random_queries(np, 23, MAX_BATCH, True),
+        p=np.random.default_rng(24).uniform(400, 1600, MAX_BATCH):
+        server.submit(q[i], tenant="tenant0", precursor=float(p[i])),
+        MAX_BATCH, "OMS fused-e2e (compacted bank)")
+    enc_server = DBSearchServer(server.banks, k=K, max_batch_size=MAX_BATCH,
+                                oms=server.oms, continuous=True, buckets=4)
+    dispatch_without_sync(
+        torch, enc_server,
+        lambda i, q=random_queries(np, 25, MAX_BATCH, False),
+        p=np.random.default_rng(26).uniform(400, 1600, MAX_BATCH):
+        enc_server.submit(q[i], tenant="tenant0", precursor=float(p[i])),
+        MAX_BATCH, "OMS encoded, query-HV cache misses")
+    line.update(merged_diff=merged_diff, compaction_s=comp_s,
+                compaction_peak_gib=comp_peak)
+    return line
+
+
+def continuous_cluster_recorder():
+    """A ``SearchExecutor`` subclass that logs the clustering run's
+    dispatches (HVs, snapshot size, structure version) and finalizes
+    (assignments) in the order they happened, and counts the admissions
+    that found another batch still in flight."""
+    from repro_torch.serve import SearchExecutor
+
+    class Recording(SearchExecutor):
+        server = None
+        events = []
+        dispatches = overlapped = 0
+
+        def __init__(self, server):
+            super().__init__(server)
+            Recording.server = server
+            self.outstanding = []
+
+        def _dispatch_cluster(self, reqs, tenant):
+            busy = any(not h.ready.query() for h in self.outstanding
+                       if h.ready is not None)
+            h = super()._dispatch_cluster(reqs, tenant)
+            Recording.dispatches += 1
+            Recording.overlapped += busy
+            self.outstanding.append(h)
+            Recording.events.append(("dispatch", id(h), tenant,
+                                     h.hvs.copy(), h.n, h.c0,
+                                     h.struct_version))
+            return h
+
+        def _finalize_cluster(self, handle):
+            self.outstanding.remove(handle)
+            live = super()._finalize_cluster(handle)
+            Recording.events.append(("finalize", id(handle),
+                                     [r.result for r in handle.reqs]))
+            return live
+
+    return Recording
+
+
+def phase_serve_cluster_continuous(torch, np):
+    """``serve_cluster --continuous --num-slots 2`` on phase 5's streams,
+    replayed in its recorded interleaving of dispatches and finalizes
+    through clusterers on the plain distance function."""
+    import gc
+
+    from repro_torch.kernels.hamming_pop import hamming_pop, hamming_pop_plain
+    from repro_torch.launch import serve_cluster
+    from repro_torch.serve import StreamingClusterer
+
+    recorder = continuous_cluster_recorder()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    hamming_pop.launches = 0
+    t0 = time.perf_counter()
+    s = serve_cluster.main(CLUSTER_ARGV + ["--continuous", "--num-slots",
+                                           str(NUM_SLOTS)],
+                           executor_cls=recorder)
+    launches = hamming_pop.launches
+    wall = time.perf_counter() - t0
+    total = 2 * CLUSTER_IDENTITIES * CLUSTER_REPLICATES
+    line = continuous_line(torch, s, "serve_cluster continuous", recorder,
+                           {"hamming_pop": launches}, wall)
+    line.update(decide_s=s["decide_s"], consolidate_s=s["consolidate_s"],
+                tenants={t: {k: q[k] for k in (
+                    "clusters", "spawned", "merges", "consolidations",
+                    "clustered_ratio", "incorrect_ratio")}
+                    for t, q in s["cluster_quality"].items()})
+    print(json.dumps(line))
+    check(launches > 0, "hamming_pop never launched on the continuous "
+                        "serve_cluster path")
+    check(s["count"] == total, f"serve_cluster continuous: served "
+                               f"{s['count']} of {total}")
+    side_by_side(SERVED["serve_cluster"], line, "serve_cluster")
+    server = recorder.server
+    t0 = time.perf_counter()
+    replay, pending = {}, {}
+    differing = bad_snapshots = 0
+    for ev in recorder.events:
+        if ev[0] == "dispatch":
+            _, hid, tenant, hvs, n, c0, version = ev
+            cl = replay.get(tenant)
+            if cl is None:
+                cl = replay[tenant] = StreamingClusterer(
+                    server.clustering, "cuda", hamming=hamming_pop_plain)
+            bad_snapshots += (cl.num_clusters, cl.struct_version) != (
+                c0, version)
+            d = cl.snapshot_distances(hvs)
+            pending[hid] = (tenant, hvs[:n], None if d is None
+                            else d[:n].cpu().numpy(), c0, version)
+        else:
+            _, hid, want = ev
+            tenant, hvs, d, c0, version = pending.pop(hid)
+            got = replay[tenant].assign_batch(hvs, d, c0, version)
+            differing += sum((a.cluster_id, a.spawned, a.distance)
+                             != (b.cluster_id, b.spawned, b.distance)
+                             for a, b in zip(got, want))
+    same_state = all(replay[t].summary() == server.clusterers[t].summary()
+                     for t in server.clusterers)
+    n_batches = sum(ev[0] == "finalize" for ev in recorder.events)
+    print(f"serve_cluster continuous: {n_batches} batches replayed in their "
+          f"recorded interleaving of dispatches and finalizes through the "
+          f"plain distance function on the card in "
+          f"{time.perf_counter() - t0:.2f} s: {differing} differing "
+          f"assignment entries, {bad_snapshots} dispatches whose snapshot "
+          f"(clusters, structure version) differs, tenant summaries equal: "
+          f"{same_state}")
+    check(differing == 0 and bad_snapshots == 0 and same_state,
+          "continuous serve_cluster differs from its interleaved replay")
+    made = dispatch_without_sync(
+        torch, server,
+        lambda i, q=random_queries(np, 31, MAX_BATCH, False):
+        server.submit_cluster(q[i][:CLUSTER_DIM], tenant="tenant0"),
+        MAX_BATCH, "clustering")
+    check(made.get("hamming_pop") == 1, f"clustering launched {made}")
+    line.update(replay_differing=differing)
+    return line
 
 
 # the LM serving configuration: Qwen2-7B at full width and depth (28
@@ -1779,10 +2342,25 @@ def main() -> int:
           f"candidate fraction {IPRG_CANDIDATE_FRACTION}")
     kernels = [phase_serve(torch, np, fused_e2e=e2e, oms=oms)
                for oms in (False, True) for e2e in (False, True)]
+    print(f"continuous serving: {NUM_SLOTS} slots; {APPEND:.0%} of the bank "
+          f"({int(APPEND * IDENTITIES * REPLICATES)} refs and as many decoys) "
+          f"held out and appended halfway through the run, then compacted")
+    cont = phase_serve_continuous(torch, np)
+    kernels[0].update(continuous_launches=cont["launches"]["topk_hamming"],
+                      delta_ms=cont["delta_scan_ms"],
+                      delta_plain_ms=cont["delta_scan_plain_ms"],
+                      delta_bound_ms=cont["delta_scan_bound_ms"])
+    cont_oms = phase_serve_continuous_oms(torch, np)
+    kernels[3].update(continuous_launches=cont_oms["launches"][
+        "encode_search_banded"])
+    kernels[2].update(continuous_merged_launches=cont_oms["launches"][
+        "topk_hamming_banded"])
     print(f"clustering: {CLUSTER_IDENTITIES} identities x "
           f"{CLUSTER_REPLICATES} spectra per tenant, one paper-average "
           f"bucket each (core/imc/energy.py), 2 tenants; not cut")
     entry = phase_serve_cluster(torch, np)
+    cont_cluster = phase_serve_cluster_continuous(torch, np)
+    entry.update(continuous_launches=cont_cluster["launches"]["hamming_pop"])
     phase_bucket(torch, np, entry)
     kernels.append(entry)
     kernels += tuned

@@ -84,9 +84,11 @@ def _bound_products(id_hvs: torch.Tensor, level_hvs: torch.Tensor
 
 
 def _encode_rows(levels: torch.Tensor, table: torch.Tensor, m: int,
-                 chunk_elems: int) -> torch.Tensor:
+                 chunk_elems: int, width: int | None = None) -> torch.Tensor:
     """Sign of the Eq. 1 sum for (B, F) levels, over present bins only,
-    ``chunk_elems`` bounding each gathered (rows, present, D) block."""
+    ``chunk_elems`` bounding each gathered (rows, present, D) block.
+    ``width`` is at least the most present bins of a row (read from the
+    device when None: a host synchronization)."""
     B, F = levels.shape
     D = table.shape[1]
     pad_row = table.shape[0] - 1
@@ -94,7 +96,9 @@ def _encode_rows(levels: torch.Tensor, table: torch.Tensor, m: int,
     if B == 0:
         return out
     present_all = levels > 0
-    width = max(1, int(present_all.sum(dim=1).max()))
+    if width is None:
+        width = int(present_all.sum(dim=1).max())
+    width = max(1, min(int(width), F))
     step = max(1, chunk_elems // (width * D + F * 8))
     f_idx = torch.arange(F, device=levels.device, dtype=torch.int64)
     for r0 in range(0, B, step):
@@ -113,19 +117,26 @@ def _encode_rows(levels: torch.Tensor, table: torch.Tensor, m: int,
 
 def encode_levels_batch(levels: torch.Tensor, id_hvs: torch.Tensor,
                         level_hvs: torch.Tensor, *,
-                        chunk_elems: int = 1 << 28) -> torch.Tensor:
+                        chunk_elems: int = 1 << 28,
+                        width: int | None = None) -> torch.Tensor:
     """Eq. 1 from already quantized (B, F) levels -> bipolar (B, D) int8.
 
     Level 0 is the absent-peak sentinel and contributes nothing; sign
     ties (sum == 0) resolve to -1. Levels past ``m - 1`` read the last
     level HV, as the reference's clamped gather does.
+
+    width: the most present bins (levels > 0) of any row, when the caller
+    knows it from the host copy of the levels; the encode then reads
+    nothing back from the device. Any width at or above that gives the
+    same result.
     """
     levels = levels.to(torch.int32)
     if levels.ndim != 2 or levels.shape[1] != id_hvs.shape[0]:
         raise ValueError(f"levels {tuple(levels.shape)} vs id_hvs "
                          f"{tuple(id_hvs.shape)}")
     table = _bound_products(id_hvs.to(torch.int8), level_hvs.to(torch.int8))
-    return _encode_rows(levels, table, int(level_hvs.shape[0]), chunk_elems)
+    return _encode_rows(levels, table, int(level_hvs.shape[0]), chunk_elems,
+                        width)
 
 
 def encode_batch(features: torch.Tensor, id_hvs: torch.Tensor,

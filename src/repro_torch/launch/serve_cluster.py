@@ -4,7 +4,10 @@ task), in PyTorch, on one card.
 HD-encodes one synthetic spectrum stream per tenant on the device and
 pushes it through the clustering endpoint of
 :class:`~repro_torch.serve.DBSearchServer` (``submit_cluster``,
-flush-sync): per-tenant assign-or-spawn against the bit-packed centroid
+flush-sync, or with ``--continuous`` on ``--num-slots`` scheduler slots
+with the same closed-loop backpressure as ``serve_db``; a batch then
+scores the centroids of its dispatch, as the reference's continuous
+mode does): per-tenant assign-or-spawn against the bit-packed centroid
 bank on the device (the ``hamming_pop`` kernel), periodic
 complete-linkage re-consolidation. Reports spectra/sec, latency, cluster
 counts, the paper's clustering quality metrics against the synthetic
@@ -12,12 +15,16 @@ ground truth (clustered-spectra ratio, incorrect-clustering ratio), the
 kernel's launch count, and how the serving span splits into the traffic
 generator's sleeps, the device's distance steps (CUDA events), the
 host's decision loop, the consolidations and the rest of the host's
-work. Runs on CUDA unless ``--device cpu``.
+work (in continuous mode the device's steps overlap the host's work, so
+the device's idle share of the non-sleep span is printed instead of the
+rest). Runs on CUDA unless ``--device cpu``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_cluster --reduced
   PYTHONPATH=src python -m repro_torch.launch.serve_cluster --reduced \\
       --device cpu --tenants 2 --consolidate-every 64
+  PYTHONPATH=src python -m repro_torch.launch.serve_cluster --reduced \\
+      --device cpu --tenants 2 --consolidate-every 64 --continuous
 """
 
 from __future__ import annotations
@@ -69,6 +76,12 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
                          "every this many assigned spectra (0 disables)")
     ap.add_argument("--no-pack", action="store_true",
                     help="disable the bit-packed popcount distance kernel")
+    ap.add_argument("--continuous", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="continuous batching (scheduler slots shared "
+                         "with search)")
+    ap.add_argument("--num-slots", type=int, default=2,
+                    help="in-flight batch slots for --continuous")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without one)")
     args = ap.parse_args(argv)
@@ -114,13 +127,15 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     print(f"{args.tenants} stream(s) of {n_per} spectra, D={dim}, "
           f"threshold={ccfg.threshold:g} "
           f"({args.threshold_frac:g}*D), packed={ccfg.packed}, "
-          f"consolidate_every={args.consolidate_every}, mode=flush-sync; "
+          f"consolidate_every={args.consolidate_every}, "
+          f"mode={'continuous' if args.continuous else 'flush-sync'}; "
           f"generated and encoded in {library_s:.3f} s")
 
     server = DBSearchServer(
         BankRegistry(), k=1, max_batch_size=max_batch,
         flush_timeout_s=args.flush_ms / 1e3, buckets=4,
-        clustering=ccfg, cluster_device=dev, executor_cls=executor_cls)
+        clustering=ccfg, cluster_device=dev, continuous=args.continuous,
+        num_slots=args.num_slots, executor_cls=executor_cls)
 
     # interleaved round-robin streaming in bursts, arrival order shuffled
     # within each tenant's stream
@@ -145,6 +160,9 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
             meta[rid] = (tenant, int(pos))
             sent += 1
         done.extend(server.step())
+        # closed-loop backpressure in continuous mode (see serve_db)
+        while args.continuous and len(server.queue) >= max_batch:
+            done.extend(server.step(force=True))
         if rng.random() < 0.3:
             t1 = time.perf_counter()
             time.sleep(args.flush_ms / 1e3)
@@ -159,6 +177,11 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
           f"(mean batch {s['mean_batch']:.1f}; bucket usage {s['buckets']})")
     print(f"throughput: {s['qps']:.1f} spectra/sec")
     print(f"latency: p50 {s['p50_ms']:.2f} ms, p95 {s['p95_ms']:.2f} ms")
+    sched = s["scheduler"]
+    if sched is not None:
+        print(f"scheduler: {sched['num_slots']} slots, "
+              f"{sched['dispatched_batches']} dispatched / "
+              f"{sched['retired_batches']} retired batches")
 
     quality = {}
     for tenant, (hvs, identity) in streams.items():
@@ -184,22 +207,28 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     # flush-sync: the host waits for each batch's distances, so the span
     # splits into the generator's sleeps, the device's distance steps, the
     # host's decision loop, the consolidations (their device work included)
-    # and the rest (batching, copies, launch overhead, Python)
+    # and the rest (batching, copies, launch overhead, Python); continuous:
+    # the device's steps overlap the host's work, so the rest is not host
     span_s = s["count"] / s["qps"]
     busy_s = s["device_busy_s"]
     decide_s = sum(c.decide_s for c in server.clusterers.values())
     consolidate_s = sum(c.consolidate_s for c in server.clusterers.values())
     rest = span_s - sleep_s - decide_s - consolidate_s - (busy_s or 0.0)
+    idle = (None if busy_s is None
+            else 1.0 - busy_s / max(span_s - sleep_s, 1e-12))
     print(f"serving span {span_s:.4f} s: traffic-generator sleep "
           f"{sleep_s:.4f} s, device distances "
           + ("not timed (no CUDA device)" if busy_s is None
-             else f"{busy_s:.4f} s")
+             else f"{busy_s:.4f} s (device idle {idle:.1%} of the "
+             f"non-sleep span)")
           + f", host decision loop {decide_s:.4f} s, consolidation "
-          f"{consolidate_s:.4f} s, other host {rest:.4f} s")
+          f"{consolidate_s:.4f} s"
+          + ("" if args.continuous else f", other host {rest:.4f} s"))
     launches = {"hamming_pop": hamming_pop.launches}
     print(f"kernel launches: hamming_pop {hamming_pop.launches}")
     s.update(cluster_quality=quality, total=total, library_s=library_s,
              span_s=span_s, sleep_s=sleep_s, decide_s=decide_s,
+             device_idle_share=idle,
              consolidate_s=consolidate_s, launches=launches)
     return s
 

@@ -6,13 +6,26 @@ tenant, registers them in a lazy
 :class:`~repro_torch.serve.cache.BankRegistry` (tenant 0 pinned hot),
 then streams bursty, hot-tenant-skewed queries, drawn with replacement
 so repeats hit the :class:`~repro_torch.serve.cache.QueryHVCache`,
-through the flush-sync :class:`~repro_torch.serve.DBSearchServer`.
-Reports queries/sec, aggregate and per-tenant p50/p95 latency, cache and
-bank counters, identifications at the requested FDR, the library
-generation + encode time and the hot bank's build time, peak device
-memory, each kernel's launch count, and how the serving span splits into
-the traffic generator's sleeps, the device's searches (CUDA events) and
-the host's work.
+through the :class:`~repro_torch.serve.DBSearchServer`, flush-sync or,
+with ``--continuous``, with ``--num-slots`` batches in flight
+(closed-loop: the generator blocks on the oldest slot once a bucket's
+worth of requests is queued). Reports queries/sec, aggregate and
+per-tenant p50/p95 latency, cache and bank counters, the scheduler's
+counters, identifications at the requested FDR, the library generation +
+encode time and the hot bank's build time, peak device memory, each
+kernel's launch count, and the serving span beside the traffic
+generator's sleeps and the device's busy seconds (CUDA events around each
+batch's device work) with the device's idle share of the rest; in
+flush-sync mode also the host's share (there host and device take turns;
+in continuous mode they overlap).
+
+``--append FRAC`` holds that fraction of every bank (a suffix of its
+refs and decoys) out of the registration and streams it back in with
+``server.append`` halfway through the run: later batches search the
+exact merged base + delta (:mod:`repro_torch.serve.delta`), and
+``--compact-threshold`` folds a delta past that fraction of its tenant's
+rows into the packed base between batches. The run prints the append's
+and the compactions' counts and the rows still pending.
 
 ``--fused`` searches each bank through the ``topk_hamming`` kernel;
 ``--fused-e2e`` submits raw quantized spectra and runs the
@@ -28,6 +41,9 @@ Usage:
       --device cpu --fused-e2e
   PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced \\
       --device cpu --tenants 4 --cache-mb 16 --buckets 3 --fairness-cap 8
+  PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced \\
+      --device cpu --fused --continuous --append 0.25 \\
+      --compact-threshold 0.1
 """
 
 from __future__ import annotations
@@ -102,7 +118,9 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     ap.add_argument("--fused-e2e", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="submit raw quantized spectra and run the fused "
-                         "encode->pack->search kernel (encode_search)")
+                         "encode->pack->search kernel (encode_search); "
+                         "batches merged with a delta take the staged "
+                         "encode and search the base as --fused says")
     ap.add_argument("--tenants", type=int, default=1,
                     help="number of tenant banks (tenant 0 is pinned hot)")
     ap.add_argument("--cache-mb", type=float, default=64.0,
@@ -128,12 +146,34 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     ap.add_argument("--open-tol", type=float, default=200.0,
                     help="how much heavier than a reference an OMS query "
                          "may be (the modification-mass budget)")
+    ap.add_argument("--continuous", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="continuous batching: keep --num-slots batches in "
+                         "flight and admit queued requests as soon as a "
+                         "slot frees, instead of flush-and-wait "
+                         "(--flush-ms is inert)")
+    ap.add_argument("--num-slots", type=int, default=2,
+                    help="in-flight batch slots for --continuous (2: one "
+                         "batch's host preparation overlaps the other's "
+                         "device search)")
+    ap.add_argument("--append", type=float, default=0.0, metavar="FRAC",
+                    help="hold this fraction of every bank out of the "
+                         "registration and stream it back in with "
+                         "server.append() halfway through the run; later "
+                         "searches take the exact merged base + delta "
+                         "route (0 disables)")
+    ap.add_argument("--compact-threshold", type=float, default=None,
+                    help="fold a tenant's delta into its packed base once "
+                         "the delta exceeds this fraction of its rows "
+                         "(default: never compact)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without one)")
     args = ap.parse_args(argv)
 
     if args.tenants < 1:
         raise SystemExit("--tenants must be >= 1")
+    if not 0.0 <= args.append < 1.0:
+        raise SystemExit("--append must be in [0, 1)")
     dev = resolve_device(args.device)
     if args.reduced:
         dim = args.hd_dim or 512
@@ -167,6 +207,7 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     mod_range = (60.0, 0.75 * args.open_tol) if args.oms else (0.0, 0.0)
 
     datasets, query_pools, precursor_pools = {}, {}, {}
+    holdouts = {}  # tenant -> (refs, decoys, precursor) appended mid-run
     t0 = time.perf_counter()
     for t in range(args.tenants):
         tenant = f"tenant{t}"
@@ -177,9 +218,20 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         ds = generate_dataset(ms, device=dev)
         refs_hv = encode_and_pack(ds.spectra, cfg)
         decoys_hv = encode_and_pack(make_decoys(ds.spectra), cfg)
-        registry.register(
-            tenant, refs_hv, decoys=decoys_hv, pin=t == 0,
-            precursor=ds.precursor.cpu().numpy() if args.oms else None)
+        prec = ds.precursor.cpu().numpy() if args.oms else None
+        n_refs = int(refs_hv.shape[0])
+        keep = n_refs - int(args.append * n_refs)
+        if keep < n_refs:
+            # hold out a *suffix* (kept on the device) so the append
+            # restores the original row order: the identity arrays keep
+            # indexing matches directly
+            holdouts[tenant] = (
+                refs_hv[keep:], decoys_hv[keep:],
+                None if prec is None else prec[keep:])
+            refs_hv, decoys_hv = refs_hv[:keep], decoys_hv[:keep]
+            prec = None if prec is None else prec[:keep]
+        registry.register(tenant, refs_hv, decoys=decoys_hv, pin=t == 0,
+                          precursor=prec)
         qs = generate_query_set(ds, ms, num_queries=n_q,
                                 seed=args.seed + 31 * t + 1)
         datasets[tenant] = (ds.identity.cpu().numpy(),
@@ -192,7 +244,7 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         else:
             query_pools[tenant] = encode_and_pack(qs.spectra,
                                                   cfg).cpu().numpy()
-        del ds, qs
+        del ds, qs, refs_hv, decoys_hv
     _sync(dev)
     library_s = time.perf_counter() - t0
     print(f"libraries: {args.tenants} x {n_id * per_id} spectra (+ as many "
@@ -200,7 +252,12 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
           f"{library_s:.3f} s")
     print(f"{args.tenants} tenant bank(s) registered (lazy; built on first "
           f"request), D={dim}, pack={pack}, fused={args.fused}, "
-          f"oms={args.oms}, fused_e2e={args.fused_e2e}, mode=flush-sync")
+          f"oms={args.oms}, fused_e2e={args.fused_e2e}, "
+          f"mode={'continuous' if args.continuous else 'flush-sync'}"
+          + (f", {args.num_slots} slots" if args.continuous else "")
+          + (f"; {sum(h[0].shape[0] for h in holdouts.values())} refs (and "
+             f"as many decoys) held out to append mid-run"
+             if holdouts else ""))
 
     # every tenant encodes with the same SpecPCMConfig, so one query-side
     # codebook bundle serves the whole fleet
@@ -213,7 +270,9 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         flush_timeout_s=args.flush_ms / 1e3,
         cache_bytes=int(args.cache_mb * 2**20) or None,
         buckets=args.buckets, fairness_cap=args.fairness_cap, oms=oms_cfg,
-        encoder=encoder, fused_e2e=args.fused_e2e, executor_cls=executor_cls)
+        encoder=encoder, fused_e2e=args.fused_e2e,
+        continuous=args.continuous, num_slots=args.num_slots,
+        compact_threshold=args.compact_threshold, executor_cls=executor_cls)
 
     # build the hot tenant's bank and warm the search + FDR path (and the
     # kernel build) at the largest bucket, so latency measures serving
@@ -261,7 +320,20 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     done = []
     sent = 0
     sleep_s = 0.0  # the traffic generator's idle gaps
+    append_rows, append_s = 0, None
     while sent < total:
+        if holdouts and sent >= total // 2:
+            # stream the held-out rows back in: every later batch takes
+            # the exact merged base + delta route (until compaction)
+            t0 = time.perf_counter()
+            for tenant, (h_refs, h_dec, h_prec) in holdouts.items():
+                server.append(tenant, h_refs, h_dec, precursor=h_prec)
+                append_rows += h_refs.shape[0] + h_dec.shape[0]
+            _sync(dev)
+            append_s = time.perf_counter() - t0
+            print(f"appended {append_rows} rows across {len(holdouts)} "
+                  f"tenant(s) in {append_s * 1e3:.1f} ms")
+            holdouts = {}
         burst = int(rng.integers(1, max_batch + 1))
         for _ in range(min(burst, total - sent)):
             tenant = tenant_names[int(rng.choice(args.tenants, p=probs))]
@@ -273,6 +345,13 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
             meta[rid] = (tenant, qi)
             sent += 1
         done.extend(server.step())
+        # continuous mode decouples submission from device completion;
+        # unpaced, the generator is an infinite-rate open loop and latency
+        # only measures overload depth. Closed-loop backpressure (block on
+        # the in-flight slots once a bucket's worth is queued) keeps the
+        # run below saturation, so the numbers measure scheduling.
+        while args.continuous and len(server.queue) >= max_batch:
+            done.extend(server.step(force=True))
         if rng.random() < 0.3:  # idle gap: lets the flush timeout fire
             t0 = time.perf_counter()
             time.sleep(args.flush_ms / 1e3)
@@ -300,6 +379,12 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
           f"mean {s['mean_ms']:.2f} ms (queue wait p50 "
           f"{s['queue_wait_p50_ms']:.2f} ms, p95 "
           f"{s['queue_wait_p95_ms']:.2f} ms)")
+    sched = s["scheduler"]
+    if sched is not None:
+        print(f"scheduler: {sched['num_slots']} slots, "
+              f"{sched['dispatched_batches']} dispatched / "
+              f"{sched['retired_batches']} retired batches, "
+              f"{sched['cancellations']} cancellations")
     qc = s["query_cache"]
     if qc is not None:
         print(f"query-HV cache: {qc['hits']} hits / {qc['misses']} misses "
@@ -309,6 +394,10 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     b = s["banks"]
     print(f"banks: {b['built']}/{b['registered']} built ({b['builds']} "
           f"builds, {b['evictions']} evictions, {b['pinned']} pinned)")
+    if args.append:
+        print(f"ingest: {b['appends']} appends, {b['compactions']} "
+              f"compactions, {b['delta_rows']} delta rows pending "
+              f"(compact threshold {s['ingest']['compact_threshold']})")
     for tenant in sorted(s["tenants"]):
         ts = s["tenants"][tenant]
         print(f"  {tenant}: {ts['count']} reqs, p50 {ts['p50_ms']:.2f} ms, "
@@ -320,15 +409,22 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
               f"fraction {o['candidate_fraction']:.3f}, scanned fraction "
               f"{o['scanned_fraction']:.3f}, {o['no_candidate']} queries "
               f"with empty windows")
-    # flush-sync: the host waits for each batch, so the serving span
-    # splits into the generator's sleeps, the device's searches and the
-    # rest (host work: batching, cache, copies, FDR, launch overhead)
+    # the serving span beside the generator's sleeps and the device's busy
+    # time; the device idles for the rest of the non-sleep span. In
+    # flush-sync mode the host waits for each batch, so that rest is the
+    # host's work (batching, cache, copies, FDR, launch overhead); in
+    # continuous mode host and device overlap and it is not
     span_s = s["count"] / s["qps"]
     busy_s = s["device_busy_s"]
+    idle = (None if busy_s is None
+            else 1.0 - busy_s / max(span_s - sleep_s, 1e-12))
     print(f"serving span {span_s:.4f} s: traffic-generator sleep "
           f"{sleep_s:.4f} s, device search "
           + ("not timed (no CUDA device)" if busy_s is None
-             else f"{busy_s:.4f} s, host {span_s - sleep_s - busy_s:.4f} s"))
+             else f"{busy_s:.4f} s, device idle {idle:.1%} of the "
+             f"non-sleep span"
+             + ("" if args.continuous
+                else f" (host {span_s - sleep_s - busy_s:.4f} s)")))
     print(f"identified at {args.fdr:.0%} FDR: {accepted}/{total} "
           f"({correct} correct identity)")
     launches = {n: fn.launches for n, fn in KERNELS.items()}
@@ -340,7 +436,8 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         print(f"peak device memory: {peak / 2**30:.2f} GiB")
     s.update(identified=accepted, correct=correct, total=total,
              library_s=library_s, bank_build_s=bank_build_s,
-             span_s=span_s, sleep_s=sleep_s,
+             span_s=span_s, sleep_s=sleep_s, device_idle_share=idle,
+             append_rows=append_rows, append_s=append_s,
              launches=launches,
              peak_memory_bytes=peak)
     return s

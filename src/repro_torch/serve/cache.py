@@ -22,10 +22,11 @@ Cached and cold paths are **bit-identical** by construction: the cache
 stores the deterministic output of
 :func:`repro_torch.serve.db_search.encode_queries`, never scores or results.
 
-Counterpart of ``repro.serve.cache`` without the streaming-ingestion
-(delta append / compaction) part of the registry. A tenant registered
-with ``precursor=`` gets an OMS bank (precursor-sorted blocks; see
-:mod:`repro_torch.serve.oms`).
+Counterpart of ``repro.serve.cache``, streaming ingestion included: the
+registry lands appended rows in a per-tenant delta bank
+(:mod:`repro_torch.serve.delta`) and compacts it into the packed base.
+A tenant registered with ``precursor=`` gets an OMS bank
+(precursor-sorted blocks; see :mod:`repro_torch.serve.oms`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import hashlib
 from typing import Any
 
 import numpy as np
+import torch
 
 
 # --------------------------------------------------------------------------
@@ -155,21 +157,37 @@ class BankRegistry:
     built by the first ``get`` for that tenant, and rebuilt transparently
     if it was evicted in between. At most ``max_banks`` built banks are
     held; beyond that the least-recently-used *unpinned* bank is dropped.
+
+    **Streaming ingestion**: ``append`` lands new refs/decoys in a small
+    unpacked per-tenant :class:`~repro_torch.serve.delta.DeltaBank` on the
+    spec's device; callers that search via ``get_with_delta`` get an exact
+    merged top-k over base + delta (bit-identical to re-registering the
+    concatenated arrays). ``compact`` folds the delta back into the packed
+    base: the merged bank is built *before* the spec/built swap, so a
+    failed build leaves the registry untouched, and invalidation is scoped
+    to the compacted tenant (every other tenant's built bank and the
+    content-keyed query-HV cache are unaffected). A batch already in
+    flight keeps the bank and delta it was dispatched with.
     """
 
     def __init__(self, *, pack: bool | str = "auto",
-                 max_banks: int | None = None, fused: bool = False):
+                 max_banks: int | None = None, fused: bool = False,
+                 emulate_shards: int | None = None):
         if max_banks is not None and max_banks < 1:
             raise ValueError(f"max_banks must be >= 1, got {max_banks}")
         self.pack = pack
         self.max_banks = max_banks
         self.fused = fused
+        self.emulate_shards = emulate_shards
         self._specs: dict[str, _BankSpec] = {}
         self._built: collections.OrderedDict[str, Any] = (
             collections.OrderedDict())
+        self._deltas: dict[str, Any] = {}  # tenant -> DeltaBank
         self.builds = 0
         self.hits = 0
         self.evictions = 0
+        self.appends = 0
+        self.compactions = 0
 
     def register(self, tenant: str, refs, decoys=None, *,
                  pin: bool = False, precursor=None,
@@ -181,6 +199,7 @@ class BankRegistry:
             refs=refs, decoys=decoys, dim=int(refs.shape[-1]), pinned=pin,
             precursor=precursor, decoy_precursor=decoy_precursor)
         self._built.pop(tenant, None)
+        self._deltas.pop(tenant, None)
 
     def adopt(self, tenant: str, db, *, pin: bool = True) -> None:
         """Install an already-built bank (no spec; cannot be rebuilt if
@@ -189,6 +208,7 @@ class BankRegistry:
                                         pinned=pin)
         self._built[tenant] = db
         self._built.move_to_end(tenant)
+        self._deltas.pop(tenant, None)
 
     def dim(self, tenant: str) -> int:
         """The tenant's HV dimension, available without building the bank."""
@@ -199,6 +219,9 @@ class BankRegistry:
 
     def pin(self, tenant: str) -> None:
         self._specs[tenant].pinned = True
+
+    def unpin(self, tenant: str) -> None:
+        self._specs[tenant].pinned = False
 
     def get(self, tenant: str):
         """The tenant's ShardedDatabase, building it on first use and
@@ -213,6 +236,7 @@ class BankRegistry:
             from repro_torch.serve.db_search import shard_database
             db = shard_database(spec.refs, decoys=spec.decoys,
                                 pack=self.pack, fused=self.fused,
+                                emulate_shards=self.emulate_shards,
                                 precursor=spec.precursor,
                                 decoy_precursor=spec.decoy_precursor)
             self.builds += 1
@@ -222,6 +246,117 @@ class BankRegistry:
         self._built.move_to_end(tenant)
         self._evict_cold()
         return db
+
+    # -- streaming ingestion (delta banks + compaction) --------------------
+
+    def append(self, tenant: str, refs, decoys=None, *, precursor=None,
+               decoy_precursor=None) -> int:
+        """Land new refs (+ optional decoys) in the tenant's delta bank.
+
+        O(delta) per call: the packed base is untouched; search via
+        :meth:`get_with_delta` merges exactly. Returns the delta's total
+        row count. Adopted (spec-less) banks cannot accept appends: a
+        later compaction could not rebuild them.
+        """
+        spec = self._specs[tenant]  # KeyError for unknown tenants
+        if spec.refs is None:
+            raise ValueError(
+                f"tenant {tenant!r} bank was adopted pre-built; appends "
+                f"need the raw spec so compaction can rebuild: use "
+                f"register() instead of adopt()")
+        delta = self._deltas.get(tenant)
+        if delta is None:
+            from repro_torch.serve.delta import DeltaBank
+            delta = DeltaBank(spec.dim, oms=spec.precursor is not None,
+                              device=_device_of(spec.refs))
+            self._deltas[tenant] = delta
+        rows = delta.append(refs, decoys, precursor=precursor,
+                            decoy_precursor=decoy_precursor)
+        self.appends += 1
+        return rows
+
+    def delta(self, tenant: str):
+        """The tenant's DeltaBank, or None when it has no appended rows."""
+        d = self._deltas.get(tenant)
+        return d if d is not None and d.num_rows else None
+
+    def get_with_delta(self, tenant: str):
+        """(base bank, delta-or-None): the pair a merged search needs."""
+        return self.get(tenant), self.delta(tenant)
+
+    def tenants_with_delta(self) -> list[str]:
+        return [t for t, d in self._deltas.items() if d.num_rows]
+
+    def _base_rows(self, tenant: str) -> int:
+        spec = self._specs[tenant]
+        if spec.refs is None:
+            db = self._built.get(tenant)
+            return db.num_rows if db is not None else 0
+        rows = int(spec.refs.shape[0])
+        if spec.decoys is not None:
+            rows += int(spec.decoys.shape[0])
+        return rows
+
+    def delta_fraction(self, tenant: str) -> float:
+        """Appended rows / total rows: the compaction trigger metric."""
+        d = self.delta(tenant)
+        if d is None:
+            return 0.0
+        total = self._base_rows(tenant) + d.num_rows
+        return d.num_rows / total if total else 0.0
+
+    def compact(self, tenant: str) -> bool:
+        """Fold the tenant's delta into its packed base.
+
+        Builds the merged bank from the concatenated spec + delta arrays
+        *first*, then swaps spec, built bank and delta together: a build
+        failure leaves the registry exactly as it was, and other tenants'
+        built banks are never touched. Returns False when there is nothing
+        to compact.
+        """
+        d = self.delta(tenant)
+        if d is None:
+            return False
+        spec = self._specs[tenant]
+        dev = d.device
+        refs = torch.cat([_rows_on(spec.refs, dev), d.refs])
+        n_dec = 0 if spec.decoys is None else int(spec.decoys.shape[0])
+        decoys = None
+        if n_dec or d.num_decoys:
+            old_dec = (_rows_on(spec.decoys, dev) if n_dec else
+                       torch.zeros((0, spec.dim), dtype=torch.int8,
+                                   device=dev))
+            decoys = torch.cat([old_dec, d.decoys])
+            del old_dec
+        precursor = decoy_precursor = None
+        if spec.precursor is not None:
+            precursor = np.concatenate(
+                [np.asarray(spec.precursor, np.float32), d.precursor])
+            if decoys is not None:
+                base_dprec = (spec.decoy_precursor
+                              if spec.decoy_precursor is not None
+                              else spec.precursor)
+                base_dprec = np.asarray(base_dprec, np.float32)[:n_dec]
+                decoy_precursor = np.concatenate(
+                    [base_dprec, d.decoy_precursor])
+        from repro_torch.serve.db_search import shard_database
+        db = shard_database(refs, decoys=decoys, pack=self.pack,
+                            fused=self.fused,
+                            emulate_shards=self.emulate_shards,
+                            precursor=precursor,
+                            decoy_precursor=decoy_precursor)
+        self.builds += 1
+        # atomic swap: spec + built bank + delta change together, and only
+        # for this tenant
+        self._specs[tenant] = _BankSpec(
+            refs=refs, decoys=decoys, dim=spec.dim, pinned=spec.pinned,
+            precursor=precursor, decoy_precursor=decoy_precursor)
+        self._built[tenant] = db
+        self._built.move_to_end(tenant)
+        del self._deltas[tenant]
+        self.compactions += 1
+        self._evict_cold()
+        return True
 
     def _evict_cold(self) -> None:
         if self.max_banks is None:
@@ -242,4 +377,20 @@ class BankRegistry:
             "builds": self.builds,
             "hits": self.hits,
             "evictions": self.evictions,
+            "appends": self.appends,
+            "compactions": self.compactions,
+            "delta_rows": sum(d.num_rows for d in self._deltas.values()),
+            "tenants_with_delta": len(self.tenants_with_delta()),
         }
+
+
+def _device_of(rows) -> torch.device:
+    return rows.device if isinstance(rows, torch.Tensor) else (
+        torch.device("cpu"))
+
+
+def _rows_on(rows, device: torch.device) -> torch.Tensor:
+    """A spec's HV rows as an int8 tensor on ``device``."""
+    if isinstance(rows, torch.Tensor):
+        return rows.to(device, torch.int8)
+    return torch.from_numpy(np.asarray(rows, np.int8)).to(device)

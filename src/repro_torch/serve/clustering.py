@@ -156,15 +156,21 @@ class StreamingClusterer:
 
     # -- device side (called at dispatch) ---------------------------------
 
-    def _to_device(self, hvs: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(hvs, np.int8)).to(
-            self.device)
+    def _to_device(self, hvs: np.ndarray, arena=None, name: str = ""
+                   ) -> torch.Tensor:
+        """Int8 HV rows on the device, packed when the bank is: through
+        the pinned buffer ``name`` of ``arena`` (a
+        :class:`~repro_torch.serve.staging.PinnedArena`; no host
+        synchronization) when one is given."""
+        hvs = np.ascontiguousarray(hvs, np.int8)
+        t = (arena.upload(name, hvs) if arena is not None
+             else torch.from_numpy(hvs).to(self.device))
         return bitpack_bipolar(t) if self.cfg.packed else t
 
-    def device_bank(self) -> torch.Tensor:
+    def device_bank(self, arena=None) -> torch.Tensor:
         """The live centroid rows on the device, (C, W) packed words or
         (C, D) int8, after rewriting the rows changed since the last
-        call."""
+        call (staged through ``arena`` when one is given)."""
         c = self._n
         cap = self._acc_buf.shape[0]
         if self._bank is None or self._bank.shape[0] < cap:
@@ -178,21 +184,25 @@ class StreamingClusterer:
         if self._dirty:
             rows = np.fromiter(sorted(self._dirty), np.int64,
                                len(self._dirty))
-            self._bank[torch.from_numpy(rows).to(self.device)] = \
-                self._to_device(self._cent_buf[rows])
+            at = (arena.upload("bank_rows", rows) if arena is not None
+                  else torch.from_numpy(rows).to(self.device))
+            self._bank[at] = self._to_device(self._cent_buf[rows], arena,
+                                             "bank_hvs")
             self._dirty.clear()
         return self._bank[:c]
 
-    def snapshot_distances(self, hvs: np.ndarray) -> torch.Tensor | None:
+    def snapshot_distances(self, hvs: np.ndarray, arena=None
+                           ) -> torch.Tensor | None:
         """Launch (Q, C) Hamming distances of a bucket-padded int8 batch
         against the current centroid snapshot; None when no clusters
         exist yet (the whole batch spawns). The result is left on the
-        device, unsynchronised."""
+        device, unsynchronised; with ``arena`` the batch and the changed
+        centroid rows reach the device without a host synchronization."""
         if self._n == 0:
             return None
-        bank = self.device_bank()
-        return cross_distances(self._to_device(hvs), bank, dim=self.cfg.dim,
-                               hamming=self.hamming)
+        bank = self.device_bank(arena)
+        return cross_distances(self._to_device(hvs, arena, "hvs"), bank,
+                               dim=self.cfg.dim, hamming=self.hamming)
 
     # -- host side (called at finalize) -----------------------------------
 

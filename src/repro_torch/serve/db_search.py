@@ -2,11 +2,11 @@
 k-merge, open-modification search, target-decoy FDR, micro-batched
 multi-tenant serving.
 
-Counterpart of ``repro.serve.db_search`` without its mesh and delta-bank
-parts. One card holds the whole bank, so there is no mesh: a bank is
-searched whole, or split into ``emulate_shards`` row blocks that run the
-identical local-top-k / merge pipeline one after another (the
-reference's tier-1 stand-in for its shard_map path).
+Counterpart of ``repro.serve.db_search`` without its mesh. One card
+holds the whole bank, so there is no mesh: a bank is searched whole, or
+split into ``emulate_shards`` row blocks that run the identical
+local-top-k / merge pipeline one after another (the reference's tier-1
+stand-in for its shard_map path).
 
 **Routes.** Per shard, the unfused route materialises the (Q, rows)
 score matrix and takes :func:`topk_value_desc_index_asc`; the fused
@@ -43,7 +43,11 @@ from :class:`~repro_torch.serve.queue.MicroBatchQueue`, banks from a
 :class:`~repro_torch.serve.cache.BankRegistry`, memoizes query encodes
 in a :class:`~repro_torch.serve.cache.QueryHVCache`, pads batches to a
 bucket ladder, and runs device work behind :class:`SearchExecutor`'s
-dispatch / poll / finalize seam (flush-sync: dispatch, then finalize).
+dispatch / poll / finalize seam: flush-sync (dispatch, then finalize) or
+continuous (:class:`~repro_torch.serve.scheduler.ContinuousScheduler`,
+``num_slots`` batches in flight; dispatch never waits for the device).
+Appended rows (``append``) are searched exactly, merged with the base
+bank (:mod:`repro_torch.serve.delta`), until a compaction folds them in.
 Clustering requests (``submit_cluster``) are a second kind on the same
 queue: per-tenant :class:`~repro_torch.serve.clustering.StreamingClusterer`
 state, a distance launch at dispatch and the assign-or-spawn loop at
@@ -86,6 +90,8 @@ from repro_torch.serve.oms import (
     plan_candidates,
 )
 from repro_torch.serve.queue import LatencyStats, MicroBatchQueue, Request
+from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.staging import PinnedArena, StagingPool
 from repro_torch.spectra.fdr import fdr_filter
 
 _OMS_ALIGN = 128  # shard_rows alignment of OMS banks (the 128-row tile the
@@ -373,31 +379,57 @@ def oms_plan(db: ShardedDatabase, query_prec: np.ndarray,
                            block_q=BANDED_BLOCK_Q)
 
 
-def _plan_bands(db: ShardedDatabase, plan: OMSPlan
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+def _upload(a: np.ndarray, device: torch.device, arena=None,
+            name: str = "") -> torch.Tensor:
+    """A host array on ``device``: through the pinned buffer ``name`` of
+    ``arena`` (a :class:`~repro_torch.serve.staging.PinnedArena`; no host
+    synchronization), else a plain copy."""
+    if arena is not None:
+        return arena.upload(name, a)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _plan_bands(db: ShardedDatabase, plan: OMSPlan, arena=None,
+                name: str = "") -> tuple[torch.Tensor, torch.Tensor]:
     """The plan's (B, Q) global bands ``[starts, ends)`` on the bank's
     device."""
-    starts = torch.from_numpy(plan.starts).to(db.data.device)
-    return starts, starts + torch.from_numpy(plan.lens).to(db.data.device)
+    dev = db.data.device
+    starts = _upload(plan.starts, dev, arena, f"{name}starts")
+    return starts, starts + _upload(plan.lens, dev, arena, f"{name}lens")
 
 
 def oms_search_encoded(db: ShardedDatabase, q_enc: torch.Tensor,
-                       plan: OMSPlan, k: int
+                       plan: OMSPlan, k: int, *, arena=None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """OMS top-k over already-encoded queries, ordered as ``plan``'s: every
     query scores only the bank rows inside its precursor window.
     Bit-identical (tie order and overflow slots included) to masking the
     full score matrix over the sorted bank outside the plan's bands,
     taking the top-k and translating the rows through ``db.oms.perm``.
-    Returns original bank rows (decoys still ``< db.num_decoys``)."""
+    Returns original bank rows (decoys still ``< db.num_decoys``).
+    ``arena`` stages the plan's bands without a host synchronization."""
+    bands = _plan_bands(db, plan, arena)
+    idx, vals = _oms_search_inner(db, q_enc, plan, k, bands)
+    return _oms_finish(db, idx, vals, *bands)
+
+
+def _oms_search_inner(db: ShardedDatabase, q_enc: torch.Tensor,
+                      plan: OMSPlan, k: int, bands
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed banded search *before* the shared tail: top-k
+    (sorted-layout idx, vals) with the kernels' overflow fillers still in
+    place (sentinel-valued, ``canonicalize=False``). Callers,
+    :func:`oms_search_encoded` and the base + delta merge of
+    :mod:`repro_torch.serve.delta`, run the overflow canonicalization and
+    the permutation against *their* index. ``bands`` are the plan's
+    device bands (:func:`_plan_bands`)."""
     if db.oms is None:
         raise ValueError("bank was built without precursor=")
     _check_k(db, k)
-    starts, ends = _plan_bands(db, plan)
-    idx, vals = _over_shards(db, k, lambda refs_local, base: _local_oms(
+    starts, ends = bands
+    return _over_shards(db, k, lambda refs_local, base: _local_oms(
         q_enc, refs_local, base, k, db.num_rows, db.dim, db.packed, db.fused,
         starts, ends, int(plan.num_tiles)))
-    return _oms_finish(db, idx, vals, starts, ends)
 
 
 def _oms_finish(db: ShardedDatabase, idx, vals, starts, ends):
@@ -527,22 +559,24 @@ def _local_oms_e2e(levels, enc: QueryEncoder, refs_local, base: int, k: int,
 
 def oms_search_levels(db: ShardedDatabase, enc: QueryEncoder,
                       levels: torch.Tensor, plan: OMSPlan, k: int, *,
-                      fused_e2e: bool = False
+                      fused_e2e: bool = False, arena=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """OMS top-k straight from raw (Q, F) levels, ordered as ``plan``'s
     queries (precursor-sorted): staged (Eq. 1 encode ->
     :func:`oms_search_encoded`) or, with ``fused_e2e``, one
     ``encode_search_banded`` launch per shard. Both end in the shared
-    overflow and permutation tail and are bit-identical."""
+    overflow and permutation tail and are bit-identical. ``arena``
+    stages the plan's bands without a host synchronization."""
     levels = levels.to(torch.int32).contiguous()
     _check_levels(db, enc, levels)
     if db.oms is None:
         raise ValueError("bank was built without precursor=")
     if not fused_e2e:
         hv = encode_levels_batch(levels, enc.id_hvs, enc.level_hvs)
-        return oms_search_encoded(db, encode_queries(db, hv), plan, k)
+        return oms_search_encoded(db, encode_queries(db, hv), plan, k,
+                                  arena=arena)
     _check_k(db, k)
-    starts, ends = _plan_bands(db, plan)
+    starts, ends = _plan_bands(db, plan, arena)
     idx, vals = _over_shards(db, k, lambda refs_local, base: _local_oms_e2e(
         levels, enc, refs_local, base, k, db.num_rows, db.dim, starts, ends,
         int(plan.num_tiles)))
@@ -652,10 +686,15 @@ class BatchHandle:
     """One dispatched batch's in-flight device work. ``batch`` is the
     bucket-padded device batch the route searched (encoded rows, or raw
     levels on the fused-e2e route; precursor-sorted in OMS mode, in the
-    order of ``plan``). ``start`` and ``done`` are timing events recorded
-    on the current stream around the search (None on the CPU). OMS
-    batches carry their plan, ``valid`` (has_candidate, submit order) and
-    ``inv`` (the permutation that unsorts the results)."""
+    order of ``plan``); ``raw`` the same batch as raw bipolar int8 rows on
+    the merged routes (the delta side's queries). ``start`` and ``done``
+    are timing events recorded on the current stream around the batch's
+    device work, ``ready`` after the results' copies to the host (None on
+    the CPU). OMS batches carry their plan, ``valid`` (has_candidate,
+    submit order) and ``inv`` (the permutation that unsorts the results).
+    ``db``, ``delta`` and ``num_decoys`` are the bank, delta and decoy
+    count the batch was dispatched with: a compaction while it is in
+    flight changes none of them."""
 
     reqs: list[Request]
     tenant: str
@@ -669,6 +708,14 @@ class BatchHandle:
     plan: OMSPlan | None = None
     valid: np.ndarray | None = None
     inv: np.ndarray | None = None
+    num_decoys: int | None = None  # merged row space (delta routes)
+    delta: object | None = None    # the DeltaBank searched with ``db``
+    raw: torch.Tensor | None = None
+    ready: torch.cuda.Event | None = None
+    host_idx: torch.Tensor | None = None   # (n, k) results on the host
+    host_vals: torch.Tensor | None = None
+    misses: "_Misses | None" = None
+    arena: PinnedArena | None = None
 
 
 @dataclasses.dataclass
@@ -676,8 +723,9 @@ class ClusterBatchHandle:
     """One dispatched clustering batch. ``dists`` is the (bucket, c0)
     device distance matrix against the tenant's snapshot (None when the
     tenant had no cluster yet); ``start`` and ``done`` are timing events
-    around its launch (None on the CPU). The sequential assign-or-spawn
-    decision runs on the host at finalize."""
+    around its launch, ``ready`` after its copy to the host (None on the
+    CPU). The sequential assign-or-spawn decision runs on the host at
+    finalize."""
 
     reqs: list[Request]
     tenant: str
@@ -688,6 +736,24 @@ class ClusterBatchHandle:
     struct_version: int          # clusterer structure at dispatch
     start: torch.cuda.Event | None = None
     done: torch.cuda.Event | None = None
+    ready: torch.cuda.Event | None = None
+    host_dists: torch.Tensor | None = None
+    arena: PinnedArena | None = None
+
+
+@dataclasses.dataclass
+class _Misses:
+    """A batch's query-HV cache misses, encoded on the device. Their cache
+    entries are inserted at dispatch, as the reference inserts them, but
+    as ``rows`` not yet filled: the encoded rows ``enc`` are copied to the
+    host (``host``) behind the batch's ``ready`` event and written into
+    ``rows`` at finalize. Until then a later batch that hits one of these
+    keys copies the row from ``enc`` on the device."""
+
+    keys: list[bytes]
+    rows: list[np.ndarray]
+    enc: torch.Tensor
+    host: torch.Tensor | None = None
 
 
 def _add_device_time(srv: "DBSearchServer", start, done) -> None:
@@ -698,22 +764,58 @@ def _add_device_time(srv: "DBSearchServer", start, done) -> None:
                              + start.elapsed_time(done) / 1e3)
 
 
-class SearchExecutor:
-    """The device executor behind the dispatch / poll / finalize seam.
+def _timing_events(device: torch.device):
+    """(start, done) timing events, not yet recorded; (None, None) off the
+    card. A dispatch records ``start`` just before its first device
+    operation, after the batch's host-side assembly."""
+    if device.type != "cuda":
+        return None, None
+    return tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
 
-    * ``dispatch`` stamps ``t_dispatch``, assembles the bucket-padded
-      batch (through the query-HV cache on the encoded routes), in OMS
-      mode sorts it by precursor and plans it, copies it to the bank's
-      device and launches the search without waiting;
-    * ``poll`` asks the batch's CUDA event whether the search finished;
-    * ``finalize`` waits for the results, unsorts OMS batches, routes
-      FDR, fills per-request results, stamps ``t_done``, records latency
-      and adds the search's device time (start to done event) to
-      ``server.device_busy_s``.
+
+def _record(event: torch.cuda.Event | None) -> None:
+    if event is not None:
+        event.record()
+
+
+def _recorded(device: torch.device) -> torch.cuda.Event | None:
+    """An event recorded on the current stream (None off the card)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+class SearchExecutor:
+    """The device executor behind the dispatch / poll / finalize seam of
+    :class:`~repro_torch.serve.scheduler.ContinuousScheduler` (flush-sync
+    mode calls dispatch, then finalize). Dispatch never waits for the
+    device, so with two scheduler slots one batch's host preparation
+    overlaps the other's device search:
+
+    * ``dispatch`` stamps ``t_dispatch``, takes a pinned staging arena
+      (:mod:`repro_torch.serve.staging`), assembles the bucket-padded
+      batch (through the query-HV cache on the encoded routes: hits copied
+      from the host, misses encoded on the device and scattered into the
+      device batch), in OMS mode sorts it by precursor and plans it,
+      copies it to the bank's device with ``non_blocking=True``, launches
+      the search (merged with the tenant's delta bank when it has one),
+      and starts copying the results back into the arena;
+    * ``poll`` asks the batch's ``ready`` event whether it all finished;
+    * ``finalize`` waits for that event, inserts the encoded misses into
+      the cache, unsorts OMS batches, routes FDR, fills per-request
+      results, stamps ``t_done``, records latency, adds the batch's device
+      time (start to done event) to ``server.device_busy_s`` and hands the
+      arena back.
+
+    Everything runs on the current stream, so stream order alone keeps a
+    batch's copies, encodes and search in sequence and the caching
+    allocator's reuse safe.
 
     Clustering batches (``kind == "cluster"``) launch the tenant's
-    snapshot distances at dispatch, timed the same way, and run the
-    assign-or-spawn loop at finalize.
+    snapshot distances at dispatch, timed and copied back the same way,
+    and run the assign-or-spawn loop at finalize.
 
     Pass a subclass as ``DBSearchServer(executor_cls=...)`` to observe or
     replace batches.
@@ -721,6 +823,7 @@ class SearchExecutor:
 
     def __init__(self, server: "DBSearchServer"):
         self.server = server
+        self.staging = StagingPool()
 
     def dispatch(self, reqs: list[Request]) -> BatchHandle | ClusterBatchHandle:
         srv = self.server
@@ -730,59 +833,105 @@ class SearchExecutor:
         tenant = reqs[0].tenant
         if reqs[0].kind == "cluster":
             return self._dispatch_cluster(reqs, tenant)
-        db = srv.banks.get(tenant)  # lazy build on first use
+        db, delta = srv.banks.get_with_delta(tenant)  # lazy build on first use
         n = len(reqs)
         bucket = bucket_for(n, srv.buckets)
         srv._bucket_counts[bucket] += 1
         dev = db.data.device
-        e2e = srv.encoder is not None and srv.fused_e2e
-        host = (srv._levels_batch(reqs, bucket) if e2e
-                else srv._encode_batch(reqs, db, bucket, tenant))
-        plan = valid = inv = None
+        arena = self.staging.acquire(dev)
+        start, done = _timing_events(dev)
         if srv.oms is not None:
-            host, plan, inv = self._sort_and_plan(reqs, db, host, bucket)
-            valid = plan.has_candidate[:n][inv]
-            srv._oms_batches += 1
-            srv._oms_cand_frac += plan.candidate_fraction
-            srv._oms_scan_frac += plan.scanned_fraction
-            srv._oms_no_candidate += int((~valid).sum())
-        batch = torch.from_numpy(host).to(dev)
-        start = done = None
-        if dev.type == "cuda":
-            start, done = (torch.cuda.Event(enable_timing=True)
-                           for _ in range(2))
-            start.record()
-        if plan is not None and e2e:
-            idx, vals = oms_search_levels(db, srv.encoder, batch, plan, srv.k,
-                                          fused_e2e=True)
-        elif plan is not None:
-            idx, vals = oms_search_encoded(db, batch, plan, srv.k)
-        elif e2e:
+            h = self._dispatch_oms(reqs, db, delta, n, bucket, tenant, arena,
+                                   start)
+        elif delta is not None:
+            # merged base + delta search (bit-identical to a rebuilt
+            # bank). The fused-e2e route has no encoded intermediate to
+            # hand the delta, so delta batches take the staged encode,
+            # bit-identical to the fused one.
+            from repro_torch.serve.delta import merged_search_encoded
+            batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
+                                              start=start)
+            raw = srv._raw_batch(reqs, bucket, arena)
+            idx, vals = merged_search_encoded(db, delta, batch, raw, srv.k)
+            h = BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n,
+                            batch=batch, idx=idx, vals=vals, misses=misses,
+                            num_decoys=db.num_decoys + delta.num_decoys,
+                            delta=delta, raw=raw)
+        elif srv.encoder is not None and srv.fused_e2e:
+            levels = srv._levels_batch(reqs, bucket)
+            _record(start)
+            batch = arena.upload("levels", levels)
             idx, vals = search_database_levels(db, srv.encoder, batch, srv.k,
                                                fused_e2e=True)
+            h = BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n,
+                            batch=batch, idx=idx, vals=vals)
         else:
+            batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
+                                              start=start)
             idx, vals = search_database_encoded(db, batch, srv.k)
+            h = BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n,
+                            batch=batch, idx=idx, vals=vals, misses=misses)
+        h.start, h.done, h.arena = start, done, arena
         if done is not None:
             done.record()
-        return BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n, batch=batch,
-                           idx=idx, vals=vals, start=start, done=done,
-                           plan=plan, valid=valid, inv=inv)
+        h.host_idx = arena.download("idx", h.idx[:n])
+        h.host_vals = arena.download("vals", h.vals[:n])
+        if h.misses is not None:
+            h.misses.host = arena.download("misses", h.misses.enc)
+        h.ready = _recorded(dev)
+        return h
 
-    def _sort_and_plan(self, reqs: list[Request], db: ShardedDatabase,
-                       host: np.ndarray, bucket: int
-                       ) -> tuple[np.ndarray, OMSPlan, np.ndarray]:
-        """OMS: sorts the batch's real rows by precursor (neighbouring
-        masses share the banded kernels' tiles; pad rows take the highest
-        real precursor) and plans it. Returns (sorted batch, plan, the
-        permutation that unsorts). FDR routing is order-independent."""
-        n = len(reqs)
+    def _dispatch_oms(self, reqs: list[Request], db: ShardedDatabase, delta,
+                      n: int, bucket: int, tenant: str, arena: PinnedArena,
+                      start: torch.cuda.Event | None = None) -> BatchHandle:
+        """OMS dispatch: precursor-sort the batch (neighbouring masses
+        share the banded kernels' tiles; pad rows take the highest real
+        precursor), plan it on the host, launch the banded search. Results
+        unsort at finalize; FDR routing is order-independent. With a
+        non-empty delta the plan and search run merged over base + delta
+        (:mod:`repro_torch.serve.delta`); fused-e2e servers take the
+        staged encode for those batches, which is bit-identical."""
+        srv = self.server
         prec = np.asarray([r.precursor for r in reqs], np.float32)
         order = np.argsort(prec, kind="stable")
         inv = np.argsort(order, kind="stable")
         prec_padded = np.concatenate(
             [prec[order], np.full(bucket - n, prec[order][-1], np.float32)])
-        plan = oms_plan(db, prec_padded, self.server.oms)
-        return np.concatenate([host[:n][order], host[n:]]), plan, inv
+        raw = misses = num_decoys = None
+        if delta is not None:
+            from repro_torch.serve.delta import (
+                merged_oms_plan,
+                merged_oms_search_encoded,
+            )
+            plan = merged_oms_plan(db, delta, prec_padded, srv.oms)
+            batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
+                                              rows=inv, start=start)
+            raw = srv._raw_batch(reqs, bucket, arena, rows=inv)
+            idx, vals = merged_oms_search_encoded(db, delta, batch, raw, plan,
+                                                  srv.k, arena=arena)
+            num_decoys = db.num_decoys + delta.num_decoys
+        elif srv.encoder is not None and srv.fused_e2e:
+            plan = oms_plan(db, prec_padded, srv.oms)
+            levels = srv._levels_batch(reqs, bucket, rows=inv)
+            _record(start)
+            batch = arena.upload("levels", levels)
+            idx, vals = oms_search_levels(db, srv.encoder, batch, plan, srv.k,
+                                          fused_e2e=True, arena=arena)
+        else:
+            plan = oms_plan(db, prec_padded, srv.oms)
+            batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
+                                              rows=inv, start=start)
+            idx, vals = oms_search_encoded(db, batch, plan, srv.k,
+                                           arena=arena)
+        valid = plan.has_candidate[:n][inv]
+        srv._oms_batches += 1
+        srv._oms_cand_frac += plan.candidate_fraction
+        srv._oms_scan_frac += plan.scanned_fraction
+        srv._oms_no_candidate += int((~valid).sum())
+        return BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n, batch=batch,
+                           idx=idx, vals=vals, plan=plan, valid=valid,
+                           inv=inv, num_decoys=num_decoys, delta=delta,
+                           raw=raw, misses=misses)
 
     def _dispatch_cluster(self, reqs: list[Request], tenant: str
                           ) -> ClusterBatchHandle:
@@ -800,28 +949,39 @@ class SearchExecutor:
         hvs = np.zeros((bucket, srv.clustering.dim), np.int8)
         for i, r in enumerate(reqs):
             hvs[i] = r.query
-        start = done = None
-        if cl.num_clusters and cl.device.type == "cuda":
-            start, done = (torch.cuda.Event(enable_timing=True)
-                           for _ in range(2))
-            start.record()
+        arena = self.staging.acquire(cl.device)
+        start, done = (_timing_events(cl.device) if cl.num_clusters
+                       else (None, None))
+        _record(start)
         c0, version = cl.num_clusters, cl.struct_version
-        dists = cl.snapshot_distances(hvs)
+        dists = cl.snapshot_distances(hvs, arena=arena)
         if done is not None:
             done.record()
+        host = None if dists is None else arena.download("dists", dists[:n])
         return ClusterBatchHandle(reqs=reqs, tenant=tenant, n=n, hvs=hvs,
                                   dists=dists, c0=c0, struct_version=version,
-                                  start=start, done=done)
+                                  start=start, done=done,
+                                  ready=_recorded(cl.device), host_dists=host,
+                                  arena=arena)
 
     def poll(self, handle: BatchHandle | ClusterBatchHandle) -> bool:
-        return True if handle.done is None else handle.done.query()
+        return True if handle.ready is None else handle.ready.query()
+
+    def _wait(self, handle: BatchHandle | ClusterBatchHandle) -> None:
+        """Waits for the handle's copies to the host (its ``ready``
+        event) and adds its device time."""
+        if handle.ready is not None:
+            handle.ready.synchronize()
+        _add_device_time(self.server, handle.start, handle.done)
 
     def _finalize_cluster(self, handle: ClusterBatchHandle) -> list[Request]:
         srv = self.server
         cl = srv.clusterers[handle.tenant]
-        dists = (None if handle.dists is None
-                 else handle.dists[:handle.n].cpu().numpy())  # waits
-        _add_device_time(srv, handle.start, handle.done)
+        self._wait(handle)
+        dists = (None if handle.host_dists is None
+                 else handle.host_dists.numpy().copy())
+        if handle.arena is not None:
+            self.staging.release(handle.arena)
         assigns = cl.assign_batch(handle.hvs[:handle.n], dists, handle.c0,
                                   handle.struct_version)
         t_done = srv._clock()
@@ -846,16 +1006,20 @@ class SearchExecutor:
         if isinstance(handle, ClusterBatchHandle):
             return self._finalize_cluster(handle)
         srv = self.server
-        n = handle.n
-        idx = handle.idx[:n].cpu()   # waits for the device
-        vals = handle.vals[:n].cpu()
-        _add_device_time(srv, handle.start, handle.done)
+        self._wait(handle)
+        idx = handle.host_idx.clone()
+        vals = handle.host_vals.clone()
+        if handle.misses is not None:
+            srv._fill_misses(handle.misses)
+        if handle.arena is not None:
+            self.staging.release(handle.arena)
         valid = None
         if handle.inv is not None:
             inv = torch.from_numpy(handle.inv)
             idx, vals = idx[inv], vals[inv]
             valid = torch.from_numpy(handle.valid)
-        routed = fdr_route(handle.db, idx, vals, fdr=srv.fdr, valid=valid)
+        routed = fdr_route(handle.db, idx, vals, fdr=srv.fdr, valid=valid,
+                           num_decoys=handle.num_decoys)
         t_done = srv._clock()
         live: list[Request] = []
         for i, r in enumerate(handle.reqs):
@@ -880,19 +1044,28 @@ _NUMPY_DTYPE = {torch.int32: np.int32, torch.int8: np.int8}
 
 
 class DBSearchServer:
-    """Micro-batched, multi-tenant DB-search server (flush-sync host loop).
+    """Micro-batched, multi-tenant DB-search server.
 
     Requests carry encoded bipolar query HVs (D,), or raw quantized level
     vectors (F,) when the server holds a :class:`QueryEncoder`, plus a
-    tenant name; each tenant searches its own bank. ``step`` runs one
-    micro-batch when the queue's flush policy fires: query rows are
-    encoded through the content-hash :class:`QueryHVCache` (misses
-    encoded once, as a batch), the batch is padded to the nearest bucket
-    (pad rows are sliced off before FDR), searched, routed through
-    per-batch FDR, and timed into the aggregate and per-tenant
+    tenant name; each tenant searches its own bank. Per batch, query rows
+    are encoded through the content-hash :class:`QueryHVCache` (misses
+    encoded once, as a batch, on the device), the batch is padded to the
+    nearest bucket (pad rows are sliced off before FDR), searched, routed
+    through per-batch FDR, and timed into the aggregate and per-tenant
     :class:`LatencyStats`. With ``fused_e2e=True`` the levels go to the
     fused encode->search kernel and skip the cache (nothing intermediate
     exists to memoize).
+
+    **Queue modes.** Flush-sync (default): ``step`` runs one micro-batch,
+    dispatch then finalize, when the queue's flush policy fires.
+    Continuous (``continuous=True``): a
+    :class:`~repro_torch.serve.scheduler.ContinuousScheduler` keeps
+    ``num_slots`` batches in flight, retiring completed slots and
+    admitting queued requests into freed slots every ``step``
+    (``flush_timeout_s`` is inert in this mode). Both modes run the
+    identical :class:`SearchExecutor` device path, so results are
+    bit-identical across modes.
 
     With ``oms=`` (an :class:`OMSConfig`; banks built with
     ``precursor=``) every request carries its precursor mass, and each
@@ -900,13 +1073,22 @@ class DBSearchServer:
     query with an empty window comes back rejected with
     ``has_candidate=False``.
 
+    **Live banks.** ``append`` streams new refs/decoys into a tenant's
+    bank through the registry's delta path (:mod:`repro_torch.serve.delta`):
+    searches stay exact and bit-identical to a rebuilt bank. With
+    ``compact_threshold=``, ``step`` folds deltas past that fraction of
+    the tenant's rows back into the packed base between batches.
+
     With ``clustering=`` (a :class:`ClusteringConfig`), ``submit_cluster``
     enqueues spectra for per-tenant streaming assign-or-spawn clustering,
-    a second request kind sharing the queue, fairness policy and buckets
-    with search; its results are :class:`ClusterAssignment` objects and
-    its centroid snapshots live on ``cluster_device``. Clustering tenants
-    need no bank: a server over an empty :class:`BankRegistry` serves
-    clustering alone.
+    a second request kind sharing the queue, fairness policy, buckets and
+    (continuous mode) scheduler slots with search; its results are
+    :class:`ClusterAssignment` objects and its centroid snapshots live on
+    ``cluster_device``. Clustering tenants need no bank: a server over an
+    empty :class:`BankRegistry` serves clustering alone.
+
+    ``executor_cls`` is the :class:`SearchExecutor` subclass built on this
+    server (to observe or replace batches).
     """
 
     def __init__(self, db: ShardedDatabase | BankRegistry, *, k: int = 4,
@@ -919,7 +1101,9 @@ class DBSearchServer:
                  oms: OMSConfig | None = None,
                  encoder: QueryEncoder | None = None,
                  fused_e2e: bool = False,
+                 continuous: bool = False, num_slots: int = 2,
                  executor_cls: type[SearchExecutor] = SearchExecutor,
+                 compact_threshold: float | None = None,
                  clustering: ClusteringConfig | None = None,
                  cluster_device: str | torch.device = "cuda"):
         if isinstance(db, BankRegistry):
@@ -944,6 +1128,9 @@ class DBSearchServer:
                                      clock=clock, fairness_cap=fairness_cap)
         self.query_cache = (QueryHVCache(cache_bytes) if cache_bytes
                             else None)
+        # cache key -> (its entry's row, not yet filled; the device rows
+        # being encoded; the row's index there), for batches in flight
+        self._pending: dict[bytes, tuple[np.ndarray, torch.Tensor, int]] = {}
         self.stats = LatencyStats()
         self.tenant_stats: dict[str, LatencyStats] = {}
         self._tenant_cache: dict[str, list[int]] = {}  # tenant -> [hits, misses]
@@ -958,12 +1145,20 @@ class DBSearchServer:
         self.fused_e2e = bool(fused_e2e)
         if self.fused_e2e and encoder is None:
             raise ValueError("fused_e2e=True requires encoder=")
+        if compact_threshold is not None and not 0 < compact_threshold <= 1:
+            raise ValueError(f"compact_threshold must be in (0, 1], got "
+                             f"{compact_threshold}")
+        self.compact_threshold = compact_threshold
         self.clustering = clustering
         self.cluster_device = (None if clustering is None
                                else resolve_device(cluster_device))
         self.clusterers: dict[str, StreamingClusterer] = {}
         self._cluster_requests = 0
         self.executor = executor_cls(self)
+        self.scheduler = (ContinuousScheduler(self.queue, self.executor,
+                                              num_slots=num_slots,
+                                              clock=clock)
+                          if continuous else None)
         # seconds the device spent on served batches' searches and
         # clustering distances (None until a batch ran on a CUDA device)
         self.device_busy_s: float | None = None
@@ -1005,64 +1200,153 @@ class DBSearchServer:
                 f"query shape {q.shape} != ({self.clustering.dim},)")
         return self.queue.submit(q, tenant=tenant, kind="cluster")
 
-    def _encode_rows(self, db: ShardedDatabase, qs: torch.Tensor
-                     ) -> torch.Tensor:
-        """Stacked raw queries -> the bank's storage form (the staged Eq. 1
-        encode first when the server holds an encoder)."""
+    def append(self, tenant: str, refs, decoys=None, *, precursor=None,
+               decoy_precursor=None) -> int:
+        """Stream new refs/decoys into a tenant's bank (delegates to
+        :meth:`~repro_torch.serve.cache.BankRegistry.append`); later
+        searches take the exact merged base + delta path until compaction
+        folds the delta in."""
+        return self.banks.append(tenant, refs, decoys, precursor=precursor,
+                                 decoy_precursor=decoy_precursor)
+
+    def cancel(self, rid: int) -> bool:
+        """Best-effort cancel: un-queue a pending request, or (continuous
+        mode) drop an in-flight one's result at retire time."""
+        if self.scheduler is not None:
+            return self.scheduler.cancel(rid)
+        return self.queue.cancel(rid)
+
+    def _encode_rows(self, db: ShardedDatabase, qs: torch.Tensor,
+                     host: np.ndarray) -> torch.Tensor:
+        """Stacked raw queries (``host`` and its device copy ``qs``) -> the
+        bank's storage form (the staged Eq. 1 encode first when the server
+        holds an encoder)."""
         if self.encoder is not None:
-            hv = encode_levels_batch(qs.to(torch.int32), self.encoder.id_hvs,
-                                     self.encoder.level_hvs)
-            return encode_queries(db, hv)
+            return encode_queries(db, self._encode_levels(qs, host))
         return encode_queries(db, qs)
 
-    def _levels_batch(self, reqs: list[Request], bucket: int) -> np.ndarray:
-        """The raw (bucket, F) level batch; pad rows are all-zero (every
-        peak absent), inert under Eq. 1."""
+    def _encode_levels(self, levels: torch.Tensor, host: np.ndarray
+                       ) -> torch.Tensor:
+        """The staged Eq. 1 encode of device levels, its width read from
+        their host copy (so nothing is read back from the device)."""
+        width = int((host > 0).sum(axis=1).max()) if host.size else 1
+        return encode_levels_batch(levels.to(torch.int32),
+                                   self.encoder.id_hvs,
+                                   self.encoder.level_hvs, width=width)
+
+    def _levels_batch(self, reqs: list[Request], bucket: int,
+                      rows: np.ndarray | None = None) -> np.ndarray:
+        """The raw (bucket, F) level batch; request i at row ``rows[i]``
+        (default i). Pad rows are all-zero (every peak absent), inert
+        under Eq. 1."""
         out = np.zeros((bucket, self.encoder.num_features), np.int32)
         for i, r in enumerate(reqs):
-            out[i] = r.query
+            out[i if rows is None else rows[i]] = r.query
         return out
+
+    def _raw_batch(self, reqs: list[Request], bucket: int,
+                   arena: PinnedArena, rows: np.ndarray | None = None
+                   ) -> torch.Tensor:
+        """The (bucket, D) raw bipolar int8 batch on the device: the query
+        form the *unpacked* delta side of a merged search scores against;
+        request i at row ``rows[i]``. Encoder servers run the staged
+        Eq. 1 encode on the device, so these are exactly the HVs the base
+        side packs (the reference's round trip through the host gives the
+        same bytes)."""
+        if self.encoder is not None:
+            levels = self._levels_batch(reqs, bucket, rows)
+            return self._encode_levels(arena.upload("raw_levels", levels),
+                                       levels)
+        out = np.zeros((bucket, len(reqs[0].query)), np.int8)
+        for i, r in enumerate(reqs):
+            out[i if rows is None else rows[i]] = r.query
+        return arena.upload("raw", out)
 
     def _encode_batch(self, reqs: list[Request], db: ShardedDatabase,
-                      bucket: int, tenant: str) -> np.ndarray:
-        """The (bucket, width) encoded batch, through the cache."""
+                      bucket: int, tenant: str, arena: PinnedArena,
+                      rows: np.ndarray | None = None,
+                      start: torch.cuda.Event | None = None
+                      ) -> tuple[torch.Tensor, _Misses | None]:
+        """The (bucket, width) encoded batch on the bank's device, request
+        i at row ``rows[i]`` (default i), through the cache: hits are
+        copied from the host (or, while the batch that encoded them is in
+        flight, from its device rows), misses encoded once, as a batch, on
+        the device and scattered into place. Lookups and insertions are
+        the reference's, in its order. ``start`` is recorded between the
+        host-side lookups and the first device operation. Returns (batch,
+        the misses whose cache entries finalize fills, or None)."""
         width = db.data.shape[-1]
-        out = np.zeros((bucket, width), dtype=_NUMPY_DTYPE[db.data.dtype])
-        dev = db.data.device
+        dtype = _NUMPY_DTYPE[db.data.dtype]
+        out = np.zeros((bucket, width), dtype=dtype)
         cache = self.query_cache
-        if cache is None:
-            qs = torch.from_numpy(np.stack([r.query for r in reqs])).to(dev)
-            out[: len(reqs)] = self._encode_rows(db, qs).cpu().numpy()
-            return out
-        variant = (f"{'e2e:' if self.encoder is not None else ''}"
-                   f"{'packed' if db.packed else 'int8'}:{db.dim}")
-        miss_pos, miss_keys = [], []
-        hits = 0
-        for i, r in enumerate(reqs):
-            key = cache.content_key(r.query, variant=variant)
-            row = cache.lookup(key)
-            if row is None:
-                miss_pos.append(i)
-                miss_keys.append(key)
-            else:
-                out[i] = row
-                hits += 1
-        if miss_pos:
-            qs = torch.from_numpy(
-                np.stack([reqs[i].query for i in miss_pos])).to(dev)
-            enc = self._encode_rows(db, qs).cpu().numpy()
-            for j, i in enumerate(miss_pos):
-                out[i] = enc[j]
-                cache.insert(miss_keys[j], enc[j].copy())
-        tc = self._tenant_cache.setdefault(tenant, [0, 0])
-        tc[0] += hits
-        tc[1] += len(miss_pos)
-        return out
+        pos = np.arange(len(reqs)) if rows is None else np.asarray(rows)
+        miss, miss_keys, in_flight = list(range(len(reqs))), None, []
+        if cache is not None:
+            variant = (f"{'e2e:' if self.encoder is not None else ''}"
+                       f"{'packed' if db.packed else 'int8'}:{db.dim}")
+            miss, miss_keys = [], []
+            for i, r in enumerate(reqs):
+                key = cache.content_key(r.query, variant=variant)
+                row = cache.lookup(key)
+                if row is None:
+                    miss.append(i)
+                    miss_keys.append(key)
+                    continue
+                pending = self._pending.get(key)
+                if pending is not None and pending[0] is row:
+                    in_flight.append((int(pos[i]), pending[1], pending[2]))
+                else:
+                    out[pos[i]] = row
+            tc = self._tenant_cache.setdefault(tenant, [0, 0])
+            tc[0] += len(reqs) - len(miss)
+            tc[1] += len(miss)
+        _record(start)
+        batch = arena.upload("batch", out)
+        for p, enc, j in in_flight:
+            batch[p].copy_(enc[j])
+        if not miss:
+            return batch, None
+        host = np.stack([reqs[i].query for i in miss])
+        enc = self._encode_rows(db, arena.upload("queries", host), host)
+        batch.index_copy_(0, arena.upload(
+            "miss_rows", pos[miss].astype(np.int64)), enc)
+        if miss_keys is None:
+            return batch, None
+        entries = []
+        for j, key in enumerate(miss_keys):
+            entry = np.zeros(width, dtype)
+            cache.insert(key, entry)
+            self._pending[key] = (entry, enc, j)
+            entries.append(entry)
+        return batch, _Misses(keys=miss_keys, rows=entries, enc=enc)
+
+    def _fill_misses(self, misses: _Misses) -> None:
+        """Writes a finalized batch's encoded misses into their cache
+        entries (whether or not still cached) and ends their pending
+        state."""
+        host = misses.host.numpy()
+        for j, (key, entry) in enumerate(zip(misses.keys, misses.rows)):
+            entry[...] = host[j]
+            pending = self._pending.get(key)
+            if pending is not None and pending[0] is entry:
+                del self._pending[key]
 
     def step(self, force: bool = False) -> list[Request]:
-        """Runs at most one micro-batch, when the queue policy says so (or
-        whenever requests are pending, with ``force``); returns the
-        requests it completed."""
+        """One serving-loop iteration; returns the requests completed this
+        step (``result``/``t_done`` filled), [] when nothing finished.
+
+        Flush-sync mode runs at most one micro-batch, dispatch then
+        finalize, when the queue policy says so, or whenever requests are
+        pending with ``force`` (used to drain). Continuous mode retires
+        completed slots and refills them from the queue without blocking
+        (``force`` waits out the in-flight slots instead). Either way, due
+        compactions run first: compaction happens between batches, never
+        under one, so no queued request is dropped (slots already in
+        flight keep their pre-compaction bank and delta, whose merged
+        results are bit-identical anyway)."""
+        self._maybe_compact()
+        if self.scheduler is not None:
+            return self.scheduler.step(block=force)
         if not (self.queue.ready() or (force and len(self.queue))):
             return []
         reqs = self.queue.take_batch()
@@ -1070,8 +1354,23 @@ class DBSearchServer:
             return []
         return self.executor.finalize(self.executor.dispatch(reqs))
 
+    def _maybe_compact(self) -> int:
+        """Fold every delta past ``compact_threshold`` (delta fraction)
+        into its base bank; returns the number of tenants compacted."""
+        if self.compact_threshold is None:
+            return 0
+        done = 0
+        for t in self.banks.tenants_with_delta():
+            if self.banks.delta_fraction(t) >= self.compact_threshold:
+                if self.banks.compact(t):
+                    done += 1
+        return done
+
     def run_until_drained(self) -> list[Request]:
-        """Serve until the queue is empty; returns all completed requests."""
+        """Serve until queue and in-flight slots are empty; returns all
+        completed requests."""
+        if self.scheduler is not None:
+            return self.scheduler.drain()
         done: list[Request] = []
         while len(self.queue):
             done.extend(self.step(force=True))
@@ -1079,7 +1378,8 @@ class DBSearchServer:
 
     def summary(self) -> dict:
         """Aggregate latency stats plus per-tenant accounting, query-cache
-        and bank-registry counters, and bucket usage."""
+        and bank-registry counters, bucket usage, the queue mode and its
+        scheduler, and ingestion counters."""
         s = self.stats.summary()
         tenants = {}
         for t, st in self.tenant_stats.items():
@@ -1095,7 +1395,15 @@ class DBSearchServer:
                             if self.query_cache else None)
         s["buckets"] = {int(b): int(c)
                         for b, c in sorted(self._bucket_counts.items())}
-        s["mode"] = "flush-sync"
+        s["mode"] = "continuous" if self.scheduler is not None else "flush-sync"
+        s["scheduler"] = (None if self.scheduler is None
+                          else self.scheduler.summary())
+        s["ingest"] = {
+            "compact_threshold": self.compact_threshold,
+            "appends": self.banks.appends,
+            "compactions": self.banks.compactions,
+            "tenants_with_delta": self.banks.tenants_with_delta(),
+        }
         s["device_busy_s"] = self.device_busy_s
         s["clustering"] = (None if self.clustering is None else {
             "requests": self._cluster_requests,

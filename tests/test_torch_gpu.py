@@ -887,3 +887,226 @@ def test_decode_step_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert tok.shape == (2, 1)
+
+
+# --------------------------------------------------------------------------
+# continuous serving and streaming ingestion on the card
+# --------------------------------------------------------------------------
+
+GPU_D, GPU_BINS, GPU_LEVELS = 512, 64, 8
+
+
+def _serving_fixture(cuda, seed=0, rows=600, held=40):
+    """Library HVs (through the staged encode of random levels, so the
+    fused-e2e routes see the same HVs), a held-out suffix to append, the
+    encoder, query levels and HVs and precursors."""
+    from repro_torch.core.hd.encoding import (
+        HDEncoderConfig,
+        encode_levels_batch,
+        make_codebooks,
+    )
+    from repro_torch.serve import QueryEncoder
+    rng = np.random.default_rng(seed)
+    idh, lvh = make_codebooks(HDEncoderConfig(
+        dim=GPU_D, num_features=GPU_BINS, num_levels=GPU_LEVELS, seed=seed),
+        device=cuda)
+    lev = rng.integers(0, GPU_LEVELS, size=(2 * rows, GPU_BINS)).astype(
+        np.int32)
+    lev[rng.random(lev.shape) < 0.6] = 0
+    hv = encode_levels_batch(torch.from_numpy(lev).to(cuda), idh, lvh)
+    prec = rng.uniform(400, 1600, rows).astype(np.float32)
+    q_rows = rng.integers(0, rows, 70)
+    q_lev = lev[q_rows].copy()
+    q_lev[::3] = rng.integers(0, GPU_LEVELS, size=q_lev[::3].shape)
+    q_hv = encode_levels_batch(torch.from_numpy(q_lev).to(cuda), idh,
+                               lvh).cpu().numpy()
+    q_prec = (prec[q_rows] + rng.choice([0.0, 80.0], 70)).astype(np.float32)
+    return dict(refs=hv[:rows], decoys=hv[rows:], prec=prec, held=held,
+                encoder=QueryEncoder(id_hvs=idh, level_hvs=lvh),
+                q_lev=q_lev, q_hv=q_hv, q_prec=q_prec)
+
+
+def _gpu_server(fx, route, *, continuous, append=False, full=False,
+                **kw):
+    from repro_torch.serve import BankRegistry, DBSearchServer, OMSConfig
+    oms = route.startswith("oms")
+    e2e = route.endswith("e2e")
+    keep = len(fx["prec"]) - (0 if full else fx["held"])
+    reg = BankRegistry(fused=True)
+    reg.register("a", fx["refs"][:keep], decoys=fx["decoys"][:keep],
+                 precursor=fx["prec"][:keep] if oms else None)
+    srv = DBSearchServer(reg, k=4, fdr=0.5, max_batch_size=16, buckets=3,
+                         flush_timeout_s=0.0, continuous=continuous,
+                         num_slots=2, oms=OMSConfig() if oms else None,
+                         encoder=fx["encoder"] if e2e else None,
+                         fused_e2e=e2e, **kw)
+    if append:
+        srv.append("a", fx["refs"][keep:], fx["decoys"][keep:],
+                   precursor=fx["prec"][keep:] if oms else None)
+    return reg, srv
+
+
+def _serve_all(srv, fx, route, lo=0, hi=70):
+    e2e = route.endswith("e2e")
+    qs = fx["q_lev"] if e2e else fx["q_hv"]
+    rids = [srv.submit(qs[i], tenant="a",
+                       precursor=float(fx["q_prec"][i])
+                       if route.startswith("oms") else None)
+            for i in range(lo, hi)]
+    done = {r.rid: r.result for r in srv.run_until_drained()}
+    return [done[r] for r in rids]
+
+
+def _results(res):
+    return [(tuple(r.indices), tuple(r.scores), bool(r.accept), int(r.match),
+             bool(r.has_candidate)) for r in res]
+
+
+@pytest.mark.parametrize("route", ["fused", "fused_e2e", "oms_fused",
+                                   "oms_fused_e2e"])
+def test_continuous_serving_equals_flush_sync_on_the_card(cuda, route):
+    """Both queue modes on the card (kernels, pinned staging, events)
+    serve bit-identical per-request results, without and with a delta."""
+    fx = _serving_fixture(cuda)
+    for append in (False, True):
+        out = {}
+        for continuous in (False, True):
+            _, srv = _gpu_server(fx, route, continuous=continuous,
+                                 append=append)
+            out[continuous] = _results(_serve_all(srv, fx, route))
+            assert srv.summary()["device_busy_s"] > 0
+        assert out[False] == out[True], (route, append)
+
+
+@pytest.mark.parametrize("route", ["fused", "oms_fused", "oms_fused_e2e"])
+def test_merged_serving_on_the_card_matches_the_rebuilt_bank(cuda, route):
+    """A delta streamed in: the merged route (base kernel + the int8 delta
+    through the same kernel) serves what the rebuilt bank serves."""
+    fx = _serving_fixture(cuda, seed=3)
+    _, live = _gpu_server(fx, route, continuous=True, append=True)
+    _, full = _gpu_server(fx, route, continuous=True, full=True)
+    assert _results(_serve_all(live, fx, route)) == _results(
+        _serve_all(full, fx, route))
+
+
+@pytest.mark.parametrize("oms", [False, True], ids=["exact", "oms"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "int8"])
+@pytest.mark.parametrize("rows", [1, 4, 300], ids=["one", "kd", "many"])
+def test_merged_search_kernels_match_the_rebuilt_bank(cuda, rows, packed,
+                                                      oms):
+    """The merged searches on the card, the int8 delta through
+    ``topk_hamming`` (exact) or ``topk_hamming_banded`` (OMS): one launch
+    on the base and one on the delta, bit-identical to the rebuilt bank's
+    plain route; deltas of 1 row, of k rows and of many."""
+    from repro_torch.serve import (
+        DeltaBank,
+        OMSConfig,
+        encode_queries,
+        merged_oms_plan,
+        merged_oms_search_encoded,
+        merged_search_encoded,
+        oms_search,
+        search_database,
+        shard_database,
+    )
+    rng = np.random.default_rng(rows + 2 * packed + 4 * oms)
+    D, k = 512, 4
+    refs0 = torch.from_numpy(_bank(rng, 900, D, False).numpy()).to(cuda)
+    dec0 = torch.from_numpy(_bank(rng, 500, D, False).numpy()).to(cuda)
+    refs1 = torch.from_numpy(_bank(rng, rows, D, False).numpy()).to(cuda)
+    refs1[0] = refs0[5]  # a tie across the append boundary
+    q = torch.from_numpy(_bank(rng, 32, D, False).numpy()).to(cuda)
+    q[3] = refs1[0]
+    prec0 = rng.uniform(400, 1600, 900).astype(np.float32)
+    prec1 = rng.uniform(400, 1600, rows).astype(np.float32)
+    qprec = np.sort(rng.uniform(420, 1650, 32).astype(np.float32))
+    kw = dict(precursor=prec0, decoy_precursor=prec0[:500]) if oms else {}
+    base = shard_database(refs0, decoys=dec0, pack=packed, fused=True, **kw)
+    delta = DeltaBank(D, oms=oms, device=cuda)
+    delta.append(refs1, precursor=prec1 if oms else None)
+    rkw = dict(precursor=np.concatenate([prec0, prec1]),
+               decoy_precursor=prec0[:500]) if oms else {}
+    rebuilt = shard_database(torch.cat([refs0, refs1]), decoys=dec0,
+                             pack=packed, **rkw)
+    kern = topk_hamming_banded if oms else topk_hamming
+    before = kern.launches
+    q_enc = encode_queries(base, q)
+    if oms:
+        cfg = OMSConfig(tol=20.0, open_tol=200.0)
+        mplan = merged_oms_plan(base, delta, qprec, cfg)
+        got = merged_oms_search_encoded(base, delta, q_enc, q, mplan, k)
+        want = oms_search(rebuilt, q, qprec, k, cfg)[:2]
+    else:
+        got = merged_search_encoded(base, delta, q_enc, q, k)
+        want = search_database(rebuilt, q, k)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert torch.equal(got[0], want[0].to(got[0].dtype))
+    assert torch.equal(got[1], want[1])
+
+
+def test_compaction_swap_with_a_slot_in_flight_on_the_card(cuda):
+    """A merged batch in flight while the registry compacts: it finishes
+    on the bank and delta it was dispatched with, the next batch runs on
+    the compacted bank, and both equal the rebuilt bank's results."""
+    fx = _serving_fixture(cuda, seed=5)
+    reg, srv = _gpu_server(fx, "fused", continuous=True, append=True)
+    _, full = _gpu_server(fx, "fused", continuous=True, full=True)
+    for i in range(16):
+        srv.submit(fx["q_hv"][i], tenant="a")
+    h = srv.executor.dispatch(srv.queue.take_batch())
+    assert h.delta is not None
+    assert reg.compact("a") and reg.delta("a") is None
+    first = [r.result for r in srv.executor.finalize(h)]
+    second = _serve_all(srv, fx, "fused", 16, 32)
+    assert reg.get("a").num_rows == 2 * len(fx["prec"])
+    assert _results(first + second) == _results(
+        _serve_all(full, fx, "fused", 0, 32))
+
+
+SYNC_FREE_ROUTES = ["encoded_misses", "fused_e2e", "oms", "oms_fused_e2e",
+                    "merged_exact", "merged_oms", "merged_e2e", "cluster"]
+
+
+@pytest.mark.parametrize("route", SYNC_FREE_ROUTES)
+def test_each_route_dispatches_without_a_host_sync(cuda, route):
+    """A dispatch never waits for the device: after one warm-up batch, a
+    batch of fresh queries (cache misses) is dispatched under the sync
+    debug mode "error", then finalized, and its results equal the flush-
+    sync route's."""
+    fx = _serving_fixture(cuda, seed=7)
+    if route == "cluster":
+        from repro_torch.serve import BankRegistry, DBSearchServer
+        srv = DBSearchServer(BankRegistry(), max_batch_size=16, buckets=3,
+                             flush_timeout_s=0.0, continuous=True,
+                             clustering=ClusteringConfig(
+                                 dim=GPU_D, threshold=0.36 * GPU_D),
+                             cluster_device=cuda)
+        submit = (lambda i: srv.submit_cluster(fx["q_hv"][i]))
+    else:
+        base = {"encoded_misses": "fused", "fused_e2e": "fused_e2e",
+                "oms": "oms_fused", "oms_fused_e2e": "oms_fused_e2e",
+                "merged_exact": "fused", "merged_oms": "oms_fused",
+                "merged_e2e": "fused_e2e"}[route]
+        _, srv = _gpu_server(fx, base, continuous=True,
+                             append=route.startswith("merged"))
+        qs = fx["q_lev"] if base.endswith("e2e") else fx["q_hv"]
+
+        def submit(i):
+            return srv.submit(qs[i], tenant="a",
+                              precursor=float(fx["q_prec"][i])
+                              if base.startswith("oms") else None)
+    for i in range(16):
+        submit(i)
+    srv.run_until_drained()
+    for i in range(16, 32):
+        submit(i)
+    reqs = srv.queue.take_batch()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = srv.executor.dispatch(reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    live = srv.executor.finalize(h)
+    assert len(live) == 16 and all(r.result is not None for r in live)

@@ -40,6 +40,7 @@ from repro_torch.serve import (
     BankRegistry,
     ClusteringConfig,
     DBSearchServer,
+    DeltaBank,
     QueryEncoder,
     StreamingClusterer,
 )
@@ -81,7 +82,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.tune, repro_torch.launch.roofline, "
             "repro_torch.convert, repro_torch.launch.serve, "
             "repro_torch.models.model_zoo, repro_torch.data.tokens, "
-            "repro_torch.kernels.decode_attention; "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.serve.scheduler, repro_torch.serve.delta, "
+            "repro_torch.serve.staging; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -95,7 +98,11 @@ def test_importing_the_port_loads_no_jax():
                                    "launcher", "cluster_launcher",
                                    "clusterer", "cluster_server",
                                    "tune_launcher", "lm_launcher",
-                                   "lm_model", "tokens"])
+                                   "lm_model", "tokens",
+                                   "continuous_launcher",
+                                   "append_launcher",
+                                   "continuous_cluster_launcher",
+                                   "delta_bank", "continuous_server"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -117,6 +124,17 @@ def test_default_device_raises_without_cuda(entry):
                                            "--reduced", "--kv-quant"]),
         "lm_model": lambda: build_model(get_config("qwen2_7b").reduced()),
         "tokens": lambda: TokenPipeline(2, 8, 256).get(0),
+        "continuous_launcher": lambda: serve_db.main(
+            ["--reduced", "--fused", "--continuous", "--num-slots", "2"]),
+        "append_launcher": lambda: serve_db.main(
+            ["--reduced", "--continuous", "--append", "0.25",
+             "--compact-threshold", "0.1"]),
+        "continuous_cluster_launcher": lambda: serve_cluster.main(
+            ["--reduced", "--continuous"]),
+        "delta_bank": lambda: DeltaBank(64, oms=False),
+        "continuous_server": lambda: DBSearchServer(
+            BankRegistry(), continuous=True,
+            clustering=ClusteringConfig(dim=64, threshold=4.0)),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
