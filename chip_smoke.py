@@ -60,6 +60,31 @@ exits non-zero and prints no result line:
    (TF32 off)
    over the same tile dot products without the ADC; the weights are
    freed after.
+3b. The end-to-end pipelines (``core.pipeline``) on the ``imc_mvm``
+   kernel: ``run_db_search`` ideal and analog (MLC3, TiTe2, 3
+   write-verify cycles, D = 8,193, so Dp = 2,731) with 4,096 OMS-style
+   queries against the 581,196 targets of phase 4's bank and as many
+   decoys, open window; ``run_clustering`` (MLC3, Sb2Te3, D = 2,049, Dp =
+   683) on one paper-average bucket of 10,624 spectra; the ISA's
+   ``compile_db_search`` stream over the packed targets with 32 staged
+   queries. Each prints identifications at 1% FDR and recall (or the
+   clustering ratios), the wall seconds of its stages (encode, noise,
+   scores, FDR or linkage), the peak device memory, the modelled SpecPCM
+   chip's latency and energy (``core/imc/energy.py``, not this card's),
+   and the ``imc_mvm`` launches: counts set to 0 just before each run and
+   read just after; the analog paths must launch the kernel and none may
+   call its plain version. The scores of the first 32 queries of the
+   first chunk on the first 65,536 rows of each side, and of the last 32
+   queries of the last chunk on the last 65,536 rows, must equal the
+   plain version bit for bit from the same noisy weights; so must the
+   clustering bucket's first and last 32 rows of scores (all 10,624
+   columns) and the ISA's MVM on the first 65,536 rows of its state
+   (which must also equal ``core.imc.array.imc_mvm`` of that state);
+   every score must be finite;
+   the analog route must identify at least 90% of the ideal route's
+   count (Fig. 10). ``imc_mvm`` is timed at both pipeline shapes beside
+   one float32 ``torch.matmul`` over the same operands (TF32 off), its
+   bound and its design's bound (``csrc/imc_mvm.cu``'s header).
 4. Serving at iPRG2012 scale (no tuning table active): ``repro_torch.launch.serve_db.main`` four
    times, ``--fused`` (the ``topk_hamming`` kernel), ``--fused-e2e``
    (``encode_search``), ``--oms --fused`` (``topk_hamming_banded``) and
@@ -167,6 +192,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -876,6 +902,382 @@ def phase_tune(torch, np):
     gc.collect()
     torch.cuda.empty_cache()
     return entries
+
+
+# the pipelines phase: run_db_search at iPRG2012 scale (DB_CFG: Dp 2,731,
+# the tuner's imc_mvm shape and db_search_cost's defaults) and
+# run_clustering on one paper-average bucket (Dp 683)
+PIPE_DB_CFG = dict(hd_dim=8193, mlc_bits=3, num_levels=16, material="tite2",
+                   write_verify=3)
+PIPE_CLUSTER_CFG = dict(hd_dim=2049, mlc_bits=3, num_levels=16,
+                        material="sb2te3", write_verify=0)
+# the scores checked against the plain version: the first
+# PIPE_CHECK_QUERIES queries of the first chunk on the first
+# PIPE_CHECK_ROWS rows of each bank, and the last queries of the last
+# chunk on the last rows (the plain version's whole DB-search bank takes
+# seconds a side; a clustering bucket has fewer rows, so all of them)
+PIPE_CHECK_QUERIES, PIPE_CHECK_ROWS = 32, 65_536
+# the analog route must identify at least this share of the ideal route's
+# count (Fig. 10: MLC3 with write-verify keeps the quality)
+PIPE_MIN_ANALOG_SHARE = 0.9
+
+
+def pipeline_recorder(torch, pipeline):
+    """Stand-ins for the pipelines' stages that call the real ones and
+    keep, per run: each stage's wall seconds (a device synchronization on
+    both sides: the instrumented run's seconds), the noisy weights the
+    noise stage made (alive for the whole run anyway), and per noisy bank
+    the first query chunk with its first scores and the last chunk's last
+    queries with their last scores (a few MB). Non-finite scores are
+    counted on the device, with no host synchronization; read
+    ``rec["nonfinite"]`` after the run."""
+    rec = {"secs": {}, "banks": [], "first": {}, "last": {},
+           "nonfinite": None}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec["secs"][name] = rec["secs"].get(name, 0.0) + (
+                time.perf_counter() - t0)
+            return out
+        return run
+
+    real_noise, real_scores = pipeline.apply_write_noise, pipeline._scores
+
+    def noise(generator, weights, cfg):
+        out = real_noise(generator, weights, cfg)
+        rec["banks"].append(out)
+        return out
+
+    def scores(q, bank, cfg):
+        out = real_scores(q, bank, cfg)
+        bad = (~torch.isfinite(out)).sum()
+        rec["nonfinite"] = bad if rec["nonfinite"] is None else (
+            rec["nonfinite"] + bad)
+        if not cfg.ideal:
+            key = bank.data_ptr()
+            if key not in rec["first"]:
+                rec["first"][key] = (
+                    q.clone(),
+                    out[:PIPE_CHECK_QUERIES, :PIPE_CHECK_ROWS].clone())
+            rec["last"][key] = (
+                q[-PIPE_CHECK_QUERIES:].clone(),
+                out[-PIPE_CHECK_QUERIES:, -PIPE_CHECK_ROWS:].clone())
+        return out
+
+    patch = mock.patch.multiple(
+        pipeline, encode_and_pack=timed("encode", pipeline.encode_and_pack),
+        apply_write_noise=timed("noise", noise),
+        _scores=timed("scores", scores),
+        fdr_filter=timed("fdr", pipeline.fdr_filter))
+    return rec, patch
+
+
+def imc_shape_times(torch, q, w, acfg, iters):
+    """``imc_mvm`` through the array model at one pipeline shape, beside
+    one float32 ``torch.matmul`` over the same operands (TF32 off, no DAC
+    or ADC), the bound (inputs once, output once; FMAs at the float32
+    peak) and the design's bound of ``csrc/imc_mvm.cu``'s header (the
+    weights read once per 32-query tile, FMAs at 33.5 T/s)."""
+    from repro_torch.core.imc.array import imc_mvm_reference
+
+    Q, Dp = q.shape
+    R = w.shape[0]
+    ms = time_ms(torch, lambda: imc_mvm_reference(q, w, acfg), iters=iters,
+                 warmup=1)
+    qf = q.to(torch.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_ms = time_ms(torch, lambda: torch.matmul(qf, w.t()), iters=iters,
+                         warmup=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    fmas = Q * R * Dp
+    b_ms, b_by = bound_ms(2 * fmas, (Q + R) * Dp * 4 + Q * R * 4,
+                          FP32_OPS_PER_S)
+    design_ms = 1e3 * max(R * Dp * 4 * -(-Q // 32) / HBM_BYTES_PER_S,
+                          fmas / (FP32_OPS_PER_S / 2))
+    return {"shape": f"Q={Q}, R={R}, Dp={Dp}", "ms": ms, "matmul_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "design_bound_ms": design_ms}
+
+
+def plain_mismatches(torch, acfg, got, q, w) -> tuple[int, float]:
+    """The elements of ``got`` that differ from the plain ``imc_mvm`` of
+    ``q`` x ``w`` under ``acfg``, and the plain version's seconds."""
+    from repro_torch.core.imc.array import default_full_scale
+    from repro_torch.kernels.imc_mvm import imc_mvm_plain
+
+    t0 = time.perf_counter()
+    want = imc_mvm_plain(q.to(torch.float32), w,
+                         full_scale=default_full_scale(acfg),
+                         tile_cols=acfg.cols, dac_limit=acfg.dac_levels,
+                         adc_levels=acfg.adc_levels)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(want.shape == got.shape, f"checked scores of shape "
+                                   f"{tuple(got.shape)}, plain "
+                                   f"{tuple(want.shape)}")
+    return int((got != want).sum()), secs
+
+
+def phase_pipelines(torch, np):
+    """``run_db_search`` (ideal and analog) at iPRG2012 scale,
+    ``run_clustering`` on one paper-average bucket and the ISA's
+    DB-search stream, all on the card; returns the numbers row 7 of the
+    kernels line gains."""
+    import dataclasses
+    import gc
+
+    from repro_torch.core import (
+        SpecPCMConfig,
+        pipeline,
+        run_clustering,
+        run_db_search,
+    )
+    from repro_torch.core.imc.array import imc_mvm as array_imc_mvm
+    from repro_torch.core.imc.isa import ISAExecutor, compile_db_search
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.spectra import (
+        SyntheticMSConfig,
+        generate_dataset,
+        generate_query_set,
+    )
+
+    out = {}
+    t_phase = time.perf_counter()
+    # the serving phases' bank (145,299 identities x 4); OMS-style queries
+    # whose modifications add 60-150 Da to the precursor, as serve_db --oms
+    ms = SyntheticMSConfig(num_identities=IDENTITIES,
+                           spectra_per_identity=REPLICATES, num_bins=1024,
+                           seed=0, modification_mass_range=(60.0, 150.0))
+    t0 = time.perf_counter()
+    ds = generate_dataset(ms, device="cuda")
+    pool = generate_query_set(ds, ms, QUERIES, seed=1, modification_rate=0.3)
+    pick = torch.linspace(0, pool.num_spectra - 1, QUERIES,
+                          device="cuda").round().long()
+    q_spec, q_prec, q_id = (pool.spectra[pick], pool.precursor[pick],
+                            pool.identity[pick])
+    del pool
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    reports, runs = {}, {}
+    for ideal in (True, False):
+        cfg = SpecPCMConfig(ideal=ideal, **PIPE_DB_CFG)
+        rec, patch = pipeline_recorder(torch, pipeline)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        imc_mvm.launches = 0
+        imc_mvm_plain.calls = 0
+        t0 = time.perf_counter()
+        with patch:
+            rep = run_db_search(q_spec, q_prec, ds.spectra, ds.precursor, cfg,
+                                query_identity=q_id, ref_identity=ds.identity,
+                                open_search=True, device="cuda")
+        wall = time.perf_counter() - t0
+        launches, plain = imc_mvm.launches, imc_mvm_plain.calls
+        nonfinite = int(rec["nonfinite"])
+        name = "ideal" if ideal else "analog"
+        reports[name], runs[name] = rep, rec
+        line = {
+            "path": f"run_db_search ({name})", "queries": QUERIES,
+            "refs": ds.num_spectra, "decoys": ds.num_spectra,
+            "identified_at_1pct_fdr": rep.num_identified,
+            "recall": rep.recall, "no_candidate": rep.num_no_candidate,
+            "wall_s": wall, "stage_s": rec["secs"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "imc_mvm_launches": launches, "imc_mvm_plain_calls": plain,
+            "query_chunk": pipeline.query_chunk(ds.num_spectra),
+            "modelled_specpcm_chip": {
+                "latency_s": rep.cost.latency_s,
+                "energy_j": rep.cost.energy_j,
+                "note": "core/imc/energy.py's model of the paper's PCM "
+                        "chip, not a measurement of this card"}}
+        print(json.dumps(line))
+        check(plain == 0, f"the plain imc_mvm ran {plain} times on the "
+                          f"{name} DB-search path")
+        check(nonfinite == 0, f"{nonfinite} non-finite scores on the {name} "
+                              f"path")
+        check(ideal or launches > 0, "imc_mvm never launched on the analog "
+                                     "DB-search path")
+        check(not ideal or launches == 0, "the ideal DB search launched "
+                                          "imc_mvm")
+        out[f"db_{name}"] = line
+    ideal_n = reports["ideal"].num_identified
+    analog_n = reports["analog"].num_identified
+    share = analog_n / max(ideal_n, 1)
+    print(f"pipelines: analog identifies {analog_n} of the ideal route's "
+          f"{ideal_n} at 1% FDR ({share:.4f}; at least "
+          f"{PIPE_MIN_ANALOG_SHARE} required); data made in {data_s:.2f} s")
+    check(share >= PIPE_MIN_ANALOG_SHARE, f"the analog route identifies "
+                                          f"{share:.4f} of the ideal's")
+    out["analog_over_ideal"] = share
+    out["db_launches"] = out["db_analog"]["imc_mvm_launches"]
+
+    # the first chunk's first scores and the last chunk's last scores
+    # against the plain version, from the same noisy weights
+    rec = runs["analog"]
+    cfg = SpecPCMConfig(**PIPE_DB_CFG)
+    acfg = cfg.array_cfg()
+    check(len(rec["banks"]) == 2 and len(rec["first"]) == 2,
+          "the analog run did not program and score two sides")
+    mism, plain_s = {}, []
+    for side, noisy in zip(("targets", "decoys"), rec["banks"]):
+        for end in ("first", "last"):
+            q, got = rec[end][noisy.data_ptr()]
+            w = (noisy[:PIPE_CHECK_ROWS] if end == "first"
+                 else noisy[-PIPE_CHECK_ROWS:])
+            n, secs = plain_mismatches(torch, acfg, got,
+                                       q[:PIPE_CHECK_QUERIES], w)
+            mism[f"{side}, {end}"] = n
+            plain_s.append(secs)
+    # w is a view: it would keep the decoys' 6.35 GB bank alive
+    del q, got, w
+    print(f"pipelines: DB-search scores of {PIPE_CHECK_QUERIES} queries x "
+          f"{PIPE_CHECK_ROWS} rows vs the plain version (the first chunk's "
+          f"first queries on the first rows, the last chunk's last queries "
+          f"on the last rows): {mism} mismatches; plain "
+          f"{min(plain_s):.2f}-{max(plain_s):.2f} s each")
+    check(not any(mism.values()), "the DB-search scores differ from the "
+                                  "plain imc_mvm")
+    out["check_mismatches"] = {"run_db_search": sum(mism.values())}
+    out["db_check_plain_ms"] = 1e3 * plain_s[0]
+
+    # imc_mvm at the DB-search chunk's shape, on the target side
+    noisy = rec["banks"][0]
+    q_chunk, _ = rec["first"][noisy.data_ptr()]
+    out["db_shape"] = imc_shape_times(torch, q_chunk, noisy, acfg, iters=3)
+
+    # the ISA's DB-search stream over the packed target bank (encoded
+    # again here, after the run's noisy weights are freed, so the run
+    # keeps none of it alive) with 32 staged queries
+    del rec, runs, noisy
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed = pipeline.encode_and_pack(ds.spectra.to(torch.float32), cfg)
+    stream = compile_db_search(packed.shape[0], packed.shape[1], acfg,
+                               cfg.write_verify, cfg.adc_bits, cfg.mlc_bits)
+    ex = ISAExecutor(acfg, cfg.device_cfg(), seed=cfg.seed, device="cuda")
+    imc_mvm.launches = 0
+    imc_mvm_plain.calls = 0
+    t0 = time.perf_counter()
+    ex.load_stage(packed)
+    ex.execute_one(stream[0])
+    del packed
+    ex.load_stage(q_chunk[:PIPE_CHECK_QUERIES])
+    ex.execute_one(stream[1])
+    torch.cuda.synchronize()
+    isa_s = time.perf_counter() - t0
+    isa_launches, isa_plain = imc_mvm.launches, imc_mvm_plain.calls
+    mvm = stream[1]
+    isa_cfg = dataclasses.replace(acfg, adc_bits=max(mvm.aux, 1),
+                                  bits_per_cell=mvm.mlc_bits)
+    isa_mism, _ = plain_mismatches(
+        torch, isa_cfg, ex.result[:, :PIPE_CHECK_ROWS], ex.stage,
+        ex.state.weights[:PIPE_CHECK_ROWS])
+    same = torch.equal(ex.result, array_imc_mvm(ex.stage, ex.state))
+    print(f"pipelines: ISA stream {[i.opcode.name for i in stream]} over "
+          f"{ex.state.weights.shape[0]} x {ex.state.weights.shape[1]} "
+          f"packed rows, {PIPE_CHECK_QUERIES} staged queries: {isa_s:.2f} s, "
+          f"{isa_launches} imc_mvm launch(es), plain {isa_plain}; "
+          f"{isa_mism} mismatches against the plain version on the first "
+          f"{PIPE_CHECK_ROWS} rows; equal to core.imc.array.imc_mvm of the "
+          f"same state: {same}; trace {ex.trace.cycles} cycles, "
+          f"{ex.trace.energy_j:.6g} J (the modelled SpecPCM chip)")
+    check(isa_launches == 1 and isa_plain == 0,
+          "MVM_COMPUTE did not launch imc_mvm once")
+    check(isa_mism == 0, "the ISA's MVM differs from the plain imc_mvm")
+    check(same, "the ISA's MVM differs from core.imc.array.imc_mvm")
+    out["check_mismatches"]["isa_mvm_compute"] = isa_mism
+    out["isa_launches"] = isa_launches
+    del ex, q_chunk, ds, q_spec, q_prec, q_id
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # clustering: one paper-average bucket (10,624 spectra); the bucket
+    # width takes every precursor of the synthetic set into one bucket
+    cds = generate_dataset(SyntheticMSConfig(
+        num_identities=CLUSTER_IDENTITIES,
+        spectra_per_identity=CLUSTER_REPLICATES, num_bins=1024, seed=0),
+        device="cuda")
+    ccfg = SpecPCMConfig(**PIPE_CLUSTER_CFG)
+    rec, patch = pipeline_recorder(torch, pipeline)
+    secs = {}
+    real_linkage = pipeline.complete_linkage
+
+    def linkage(dist, threshold):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_linkage(dist, threshold)
+        secs["linkage"] = time.perf_counter() - t0
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    imc_mvm.launches = 0
+    imc_mvm_plain.calls = 0
+    t0 = time.perf_counter()
+    with patch, mock.patch.object(pipeline, "complete_linkage", linkage):
+        crep = run_clustering(cds.spectra, cds.precursor, cds.identity, ccfg,
+                              bucket_width=2000.0, device="cuda")
+    wall = time.perf_counter() - t0
+    launches, plain = imc_mvm.launches, imc_mvm_plain.calls
+    nonfinite = int(rec["nonfinite"])
+    line = {
+        "path": "run_clustering (analog)", "spectra": cds.num_spectra,
+        "clustered_ratio": crep.clustered_ratio,
+        "incorrect_ratio": crep.incorrect_ratio,
+        "clusters": crep.num_clusters, "wall_s": wall,
+        "stage_s": dict(rec["secs"], **secs),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "imc_mvm_launches": launches, "imc_mvm_plain_calls": plain,
+        "modelled_specpcm_chip": {"latency_s": crep.cost.latency_s,
+                                  "energy_j": crep.cost.energy_j}}
+    print(json.dumps(line))
+    check(launches == 1 and plain == 0, "the clustering path did not launch "
+                                        "imc_mvm once, or ran its plain "
+                                        "version")
+    check(nonfinite == 0, f"{nonfinite} non-finite clustering scores")
+    out["cluster"] = line
+    out["cluster_launches"] = launches
+
+    # the bucket's first and last rows of scores, every column (the
+    # ragged 43-column tile included), against the plain version
+    check(len(rec["banks"]) == 1 and len(rec["first"]) == 1,
+          "the clustering run did not program and score one bucket")
+    (noisy,) = rec["banks"]
+    cacfg = ccfg.array_cfg()
+    q_all, got = rec["first"][noisy.data_ptr()]
+    cmism = {"first": plain_mismatches(torch, cacfg, got,
+                                       q_all[:PIPE_CHECK_QUERIES],
+                                       noisy[:PIPE_CHECK_ROWS])[0]}
+    q, got = rec["last"][noisy.data_ptr()]
+    cmism["last"] = plain_mismatches(torch, cacfg, got, q,
+                                     noisy[-PIPE_CHECK_ROWS:])[0]
+    print(f"pipelines: clustering scores of the first and last "
+          f"{PIPE_CHECK_QUERIES} rows x {noisy.shape[0]} columns vs the "
+          f"plain version: {cmism} mismatches")
+    check(not any(cmism.values()), "the clustering scores differ from the "
+                                   "plain imc_mvm")
+    out["check_mismatches"]["run_clustering"] = sum(cmism.values())
+    out["cluster_shape"] = imc_shape_times(torch, q_all, noisy, cacfg,
+                                           iters=10)
+    for key in ("db_shape", "cluster_shape"):
+        s = out[key]
+        print(f"pipelines: imc_mvm at {s['shape']}: {s['ms']:.4f} ms, float32 "
+              f"torch.matmul over the same operands (TF32 off, no ADC) "
+              f"{s['matmul_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+              f"({s['bound_by']}), the design's bound "
+              f"{s['design_bound_ms']:.4f} ms; sm clock, power, limit: "
+              f"{nvidia_smi('clocks.sm,power.draw,power.limit')}")
+    del rec, q_all, q, got, noisy, cds
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"pipelines: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def recording_executor(rows: int):
@@ -2335,6 +2737,22 @@ def main() -> int:
     phase_build(_build)
     phase_kernels_vs_plain(torch, np)
     tuned = phase_tune(torch, np)
+    print(f"reduced: pipelines: queries {QUERIES} of iPRG2012's "
+          f"{IPRG_QUERIES} (time limit); references {IDENTITIES * REPLICATES} "
+          f"synthetic targets and as many decoys (full); clustering one "
+          f"paper-average bucket of {CLUSTER_IDENTITIES * CLUSTER_REPLICATES}"
+          f" spectra (not cut)")
+    pipes = phase_pipelines(torch, np)
+    imc = next(e for e in tuned if e["name"] == "imc_mvm")
+    imc.update(
+        pipeline_launches={"run_db_search": pipes["db_launches"],
+                           "run_clustering": pipes["cluster_launches"],
+                           "isa_mvm_compute": pipes["isa_launches"]},
+        pipeline_shapes={"db_search_chunk": pipes["db_shape"],
+                         "clustering_bucket": pipes["cluster_shape"]},
+        pipeline_check_mismatches=pipes["check_mismatches"],
+        pipeline_check_plain_ms=pipes["db_check_plain_ms"],
+        pipeline_analog_over_ideal=pipes["analog_over_ideal"])
     print(f"reduced: queries {QUERIES} per run of iPRG2012's {IPRG_QUERIES} "
           f"(time limit); bank rows {2 * IDENTITIES * REPLICATES} (full), "
           f"D={DIM}; the OMS window (-20, +200) over synthetic precursors "

@@ -5,16 +5,21 @@ parity runs hand the reference's codebooks, banks and LM parameters to
 the port through these functions; both packages then compute on the same
 values. Packed uint32 words become their int32 bit-views (the port's
 storage convention); int8 hypervectors stay int8; the PCM array's
-programmed weights stay float32; LM matrices take the model's dtype. A
-tuning table does not cross: it is keyed by device kind and names the
-kernels' own launch knobs.
+programmed weights stay float32 (with their array and device
+configurations, as an ``IMCArrayState``); LM matrices take the model's
+dtype. A tuning table does not cross: it is keyed by device kind and
+names the kernels' own launch knobs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core.imc.array import ArrayConfig, IMCArrayState
+from repro_torch.core.imc.device import DeviceConfig
 from repro_torch.device import resolve_device
 from repro_torch.serve.db_search import QueryEncoder
 
@@ -49,6 +54,26 @@ def imc_weights_from_numpy(weights, device: str | torch.device = "cuda"
                          f"{a.shape}")
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(
         resolve_device(device))
+
+
+def imc_state_from_numpy(weights, array_cfg, device_cfg,
+                         device: str | torch.device = "cuda"):
+    """The reference's programmed bank (``IMCArrayState``'s weights and its
+    array and device configurations, any objects with the same fields) as
+    the port's :class:`~repro_torch.core.imc.array.IMCArrayState`."""
+    return IMCArrayState(
+        weights=imc_weights_from_numpy(weights, device),
+        cfg=ArrayConfig(**dataclasses.asdict(array_cfg)),
+        device=DeviceConfig(**dataclasses.asdict(device_cfg)))
+
+
+def codebooks_from_numpy(id_hvs, level_hvs,
+                         device: str | torch.device = "cuda"
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's bipolar int8 codebooks ((F, D) ID HVs, (m, D) level
+    HVs), in the form ``make_codebooks`` returns them."""
+    return (bank_rows_from_numpy(id_hvs, device),
+            bank_rows_from_numpy(level_hvs, device))
 
 
 def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",

@@ -139,6 +139,13 @@ def encode_levels_batch(levels: torch.Tensor, id_hvs: torch.Tensor,
                         width)
 
 
+def encode_batch_reference(features: torch.Tensor, id_hvs: torch.Tensor,
+                           level_hvs: torch.Tensor) -> torch.Tensor:
+    """Eq. 1 oracle on (B, F) features in [0, 1] -> bipolar (B, D) int8,
+    the reference's name for what :func:`encode_batch` computes."""
+    return encode_batch(features, id_hvs, level_hvs)
+
+
 def encode_batch(features: torch.Tensor, id_hvs: torch.Tensor,
                  level_hvs: torch.Tensor, *, chunk_elems: int = 1 << 28
                  ) -> torch.Tensor:

@@ -21,8 +21,9 @@ def pack_dimensions(hv: torch.Tensor, bits_per_cell: int) -> torch.Tensor:
     *lead, D = hv.shape
     if D % n != 0:
         raise ValueError(f"D={D} not divisible by bits_per_cell={n}")
-    packed = hv.reshape(*lead, D // n, n).to(torch.int32).sum(dim=-1)
-    return packed.to(torch.int8)
+    # summed in int8 (|sum| <= n): no wider copy of a whole bank's HVs
+    return hv.to(torch.int8).reshape(*lead, D // n, n).sum(
+        dim=-1, dtype=torch.int8)
 
 
 def unpack_dimensions(packed: torch.Tensor, bits_per_cell: int, dim: int
@@ -41,3 +42,9 @@ def unpack_dimensions(packed: torch.Tensor, bits_per_cell: int, dim: int
     idx = torch.arange(n, dtype=torch.int32, device=packed.device)
     block = torch.where(idx < num_pos[..., None], 1, -1).to(torch.int8)
     return block.reshape(*lead, dim)
+
+
+def packed_levels(bits_per_cell: int) -> int:
+    """Distinct stored values of n-bit packing: 2n + 1 levels in [-n, n],
+    held by a 2T2R cell pair as a signed difference (n = 3 -> 7)."""
+    return 2 * int(bits_per_cell) + 1

@@ -47,6 +47,24 @@ def dot_similarity(queries: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def hamming_similarity(queries: torch.Tensor, refs: torch.Tensor
+                       ) -> torch.Tensor:
+    """Hamming *similarity* (agreeing positions) of bipolar HVs:
+    ``(D + <q, r>) // 2``, (Q, R) int32."""
+    d = queries.shape[-1]
+    return torch.div(d + dot_similarity(queries, refs), 2,
+                     rounding_mode="floor")
+
+
+def top1_search(queries: torch.Tensor, refs: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Best match per query: (indices (Q,) int64, the first index of each
+    row's maximum, as ``jnp.argmax``; scores (Q,) int32)."""
+    scores = dot_similarity(queries, refs)
+    idx = torch.argmax(scores, dim=-1)
+    return idx, torch.gather(scores, 1, idx[:, None])[:, 0]
+
+
 def topk_search(queries: torch.Tensor, refs: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k matches per query: (indices (Q, k) int32, scores (Q, k))."""

@@ -106,7 +106,9 @@ def imc_mvm_plain(queries: torch.Tensor, weights: torch.Tensor, *,
     multiply-adds over the tile's columns (:func:`fma_f32`), then the
     ADC, then a sequential accumulation over the tiles, t = 0 first, each
     step ``fmaf(code, lsb, acc)``; weights in blocks of
-    :data:`CHUNK_ROWS` rows. (Q, Dp) x (R, Dp) -> (Q, R) float32."""
+    :data:`CHUNK_ROWS` rows. (Q, Dp) x (R, Dp) -> (Q, R) float32. Counts
+    its calls in ``imc_mvm_plain.calls``."""
+    imc_mvm_plain.calls += 1
     _check_operands(queries, weights, tile_cols, dac_limit, adc_levels)
     dev = queries.device
     q = torch.clamp(torch.round(queries.to(torch.float32)), -dac_limit,
@@ -135,6 +137,9 @@ def imc_mvm_plain(queries: torch.Tensor, weights: torch.Tensor, *,
             acc = fma_f32(code[:, :, t], lsb, acc)
         out[:, r0:r0 + CHUNK_ROWS] = acc
     return out
+
+
+imc_mvm_plain.calls = 0
 
 
 def _launcher():

@@ -45,6 +45,7 @@ from repro_torch.serve.db_search import (
     search_database_levels,
     search_with_fdr,
     shard_database,
+    sharded_topk_search,
 )
 from repro_torch.serve.delta import (
     DeltaBank,
@@ -109,4 +110,5 @@ __all__ = [
     "search_database_levels",
     "search_with_fdr",
     "shard_database",
+    "sharded_topk_search",
 ]

@@ -83,6 +83,14 @@ class QueryHVCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def __contains__(self, key: bytes) -> bool:
+        """Non-mutating membership test (no LRU touch, no counters)."""
+        return key in self._entries
+
+    @property
+    def current_bytes(self) -> int:
+        return self._bytes
+
     @property
     def hit_rate(self) -> float:
         total = self.hits + self.misses
@@ -118,6 +126,17 @@ class QueryHVCache:
             self._bytes -= evicted.nbytes
             self.evictions += 1
         return True
+
+    def get_or_encode(self, raw: Any, encode, *, variant: str = ""
+                      ) -> tuple[np.ndarray, bool]:
+        """Memoized ``encode(raw)``. Returns (encoded row, was_hit)."""
+        key = self.content_key(raw, variant=variant)
+        row = self.lookup(key)
+        if row is not None:
+            return row, True
+        row = np.asarray(encode(raw))
+        self.insert(key, row)
+        return row, False
 
     def summary(self) -> dict:
         return {
@@ -188,6 +207,12 @@ class BankRegistry:
         self.evictions = 0
         self.appends = 0
         self.compactions = 0
+
+    def __len__(self) -> int:
+        return len(self._specs)
+
+    def tenants(self) -> list[str]:
+        return list(self._specs)
 
     def register(self, tenant: str, refs, decoys=None, *,
                  pin: bool = False, precursor=None,

@@ -76,6 +76,7 @@ from repro_torch.core.hd.similarity import (
     bitpack_bipolar,
     dot_similarity,
     hamming_similarity_packed,
+    topk_search,
     topk_value_desc_index_asc,
 )
 from repro_torch.device import resolve_device
@@ -359,6 +360,34 @@ def search_database(db: ShardedDatabase, queries: torch.Tensor, k: int
     """Top-k of (Q, D) bipolar queries, bit-identical to ``topk_search``
     over the unsharded bank."""
     return search_database_encoded(db, encode_queries(db, queries), k)
+
+
+def sharded_topk_search(queries: torch.Tensor, refs: torch.Tensor, k: int,
+                        *, mesh=None, axis: str = "model",
+                        num_shards: int | None = None,
+                        pack: bool | str = "auto", fused: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-shot top-k over a bank (the oracle-comparable entry point):
+    with ``num_shards`` > 1, the local-top-k / merge pipeline over that
+    many emulated shards; with neither, plain ``topk_search``, or the
+    ``topk_hamming`` kernel over the whole bank when ``fused``. All routes
+    give the same (indices, scores), tie order included.
+
+    ``mesh`` / ``axis`` name the reference's shard_map route; the port
+    runs on one card and has none (ROADMAP Queue 1 item 5.6), so a mesh
+    raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"sharded_topk_search over a mesh (axis {axis!r}) is not ported: "
+            f"the port has no shard_map (ROADMAP Queue 1 item 5.6); pass "
+            f"num_shards to emulate shards on one device")
+    if num_shards is None or num_shards <= 1:
+        if not fused:
+            return topk_search(queries, refs, k)
+        num_shards = None
+    db = shard_database(refs, pack=pack, emulate_shards=num_shards,
+                        fused=fused)
+    return search_database(db, queries, k)
 
 
 # --------------------------------------------------------------------------

@@ -3,6 +3,7 @@ from repro_torch.spectra.fdr import (
     fdr_filter,
     make_decoys,
 )
+from repro_torch.spectra.preprocess import bin_spectra, bucket_by_precursor
 from repro_torch.spectra.synthetic import (
     MSDataset,
     SyntheticMSConfig,
@@ -10,6 +11,6 @@ from repro_torch.spectra.synthetic import (
     generate_query_set,
 )
 
-__all__ = ["MSDataset", "SyntheticMSConfig", "decoy_competition",
-           "fdr_filter", "generate_dataset", "generate_query_set",
-           "make_decoys"]
+__all__ = ["MSDataset", "SyntheticMSConfig", "bin_spectra",
+           "bucket_by_precursor", "decoy_competition", "fdr_filter",
+           "generate_dataset", "generate_query_set", "make_decoys"]

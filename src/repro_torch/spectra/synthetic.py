@@ -50,6 +50,10 @@ class MSDataset:
     is_modified: torch.Tensor  # (N,) bool
     templates: torch.Tensor    # (num_identities, num_bins)
 
+    @property
+    def num_spectra(self) -> int:
+        return self.spectra.shape[0]
+
 
 def identity_precursor(identity: torch.Tensor, cfg: SyntheticMSConfig
                        ) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (exact and banded top-k, the full Hamming
 similarity of clustering, the Eq. 1 encoder, the analog PCM MVM and the
 int8-KV decode attention) against their plain PyTorch versions, the
-clustering path around the Hamming kernel, the tuner's launch knobs, and
-LM decoding through the attention kernel, on the card.
+clustering path around the Hamming kernel, the tuner's launch knobs, LM
+decoding through the attention kernel, and the analog PCM model and the
+end-to-end pipelines on the ``imc_mvm`` kernel, on the card.
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import). Run on a machine
@@ -1110,3 +1111,131 @@ def test_each_route_dispatches_without_a_host_sync(cuda, route):
         torch.cuda.set_sync_debug_mode(0)
     live = srv.executor.finalize(h)
     assert len(live) == 16 and all(r.result is not None for r in live)
+
+
+# --------------------------------------------------------------------------
+# the analog PCM model and the end-to-end pipelines on the imc_mvm kernel
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Q,R,Dp,adc_bits,cols", [
+    (32, 3000, 2731, 6, 128),   # a DB-search chunk's shape, cut in R
+    (300, 300, 683, 6, 128),    # a clustering bucket's shape, cut
+    (5, 77, 342, 4, 128), (9, 40, 300, 6, 64)])
+def test_array_imc_mvm_on_cuda_matches_plain(cuda, Q, R, Dp, adc_bits, cols):
+    from repro_torch.core.imc.array import (
+        ArrayConfig,
+        default_full_scale,
+        imc_mvm as array_imc_mvm,
+        program_hvs,
+    )
+    from repro_torch.core.imc.device import DeviceConfig
+
+    g = torch.Generator(device=cuda).manual_seed(Q + R)
+    hv = torch.randint(-3, 4, (R, Dp), generator=g, device=cuda,
+                       dtype=torch.int8)
+    q = torch.randint(-3, 4, (Q, Dp), generator=g, device=cuda,
+                      dtype=torch.int8)
+    cfg = ArrayConfig(adc_bits=adc_bits, cols=cols)
+    state = program_hvs(g, hv, cfg, DeviceConfig("tite2", 3, 3))
+    before, plain = imc_mvm.launches, imc_mvm_plain.calls
+    got = array_imc_mvm(q, state)
+    assert imc_mvm.launches == before + 1 and imc_mvm_plain.calls == plain
+    want = imc_mvm_plain(q.float(), state.weights,
+                         full_scale=default_full_scale(cfg), tile_cols=cols,
+                         adc_levels=cfg.adc_levels)
+    assert torch.equal(got, want)
+
+
+def test_isa_mvm_compute_launches_the_kernel(cuda):
+    from repro_torch.core.imc.array import imc_mvm as array_imc_mvm
+    from repro_torch.core.imc.isa import ISAExecutor, compile_db_search
+    from repro_torch.core.pipeline import SpecPCMConfig
+
+    cfg = SpecPCMConfig(hd_dim=8193, mlc_bits=3, material="tite2",
+                        write_verify=3)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bank = torch.randint(-3, 4, (5000, 2731), generator=g, device=cuda,
+                         dtype=torch.int8)
+    ex = ISAExecutor(cfg.array_cfg(), cfg.device_cfg(), seed=1, device=cuda)
+    store, mvm = compile_db_search(5000, 2731, cfg.array_cfg(),
+                                   cfg.write_verify, cfg.adc_bits,
+                                   cfg.mlc_bits)
+    ex.load_stage(bank)
+    ex.execute_one(store)
+    ex.load_stage(bank[:32])
+    before, plain = imc_mvm.launches, imc_mvm_plain.calls
+    ex.execute_one(mvm)
+    assert imc_mvm.launches == before + 1 and imc_mvm_plain.calls == plain
+    assert torch.equal(ex.result, array_imc_mvm(bank[:32], ex.state))
+    assert ex.trace.instructions == 2
+
+
+def _cpu_noise(monkeypatch):
+    """Write noise drawn on the CPU and moved to the weights' device, so a
+    run on the card and one on the CPU program the same weights."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.imc.device import apply_write_noise
+
+    calls = []
+
+    def noise(generator, weights, cfg):
+        calls.append(1)
+        g = torch.Generator().manual_seed(len(calls))
+        return apply_write_noise(g, weights.cpu(), cfg).to(weights.device)
+
+    monkeypatch.setattr(pipeline, "apply_write_noise", noise)
+    return calls
+
+
+@pytest.mark.parametrize("ideal", [False, True])
+def test_db_search_on_the_card_equals_the_cpu(cuda, ideal, monkeypatch):
+    from repro_torch.core import SpecPCMConfig, run_db_search
+    from repro_torch.spectra import (
+        SyntheticMSConfig,
+        generate_dataset,
+        generate_query_set,
+    )
+
+    ms = SyntheticMSConfig(num_identities=300, spectra_per_identity=2,
+                           num_bins=512, modification_mass_range=(60, 150))
+    ds = generate_dataset(ms, device="cpu")
+    q = generate_query_set(ds, ms, 600)
+    cfg = SpecPCMConfig(hd_dim=2049, mlc_bits=3, num_levels=16,
+                        material="tite2", write_verify=3, ideal=ideal)
+    args = (q.spectra, q.precursor, ds.spectra, ds.precursor, cfg)
+    kw = dict(query_identity=q.identity, ref_identity=ds.identity)
+    calls = _cpu_noise(monkeypatch)
+    want = run_db_search(*args, device="cpu", **kw)
+    calls.clear()
+    before, plain = imc_mvm.launches, imc_mvm_plain.calls
+    got = run_db_search(*args, device=cuda, **kw)
+    assert imc_mvm_plain.calls == plain
+    assert imc_mvm.launches == before + (0 if ideal else 2)
+    np.testing.assert_array_equal(got.matches, want.matches)
+    np.testing.assert_array_equal(got.accepted, want.accepted)
+    assert (got.num_identified, got.num_no_candidate, got.recall) == (
+        want.num_identified, want.num_no_candidate, want.recall)
+    assert got.cost == want.cost
+
+
+@pytest.mark.parametrize("ideal", [False, True])
+def test_clustering_on_the_card_equals_the_cpu(cuda, ideal, monkeypatch):
+    from repro_torch.core import SpecPCMConfig, run_clustering
+    from repro_torch.spectra import SyntheticMSConfig, generate_dataset
+
+    ds = generate_dataset(SyntheticMSConfig(
+        num_identities=60, spectra_per_identity=8, num_bins=512),
+        device="cpu")
+    cfg = SpecPCMConfig(hd_dim=2049, mlc_bits=3, num_levels=16, ideal=ideal)
+    args = (ds.spectra, ds.precursor, ds.identity, cfg)
+    calls = _cpu_noise(monkeypatch)
+    want = run_clustering(*args, bucket_width=300.0, device="cpu")
+    calls.clear()
+    before, plain = imc_mvm.launches, imc_mvm_plain.calls
+    got = run_clustering(*args, bucket_width=300.0, device=cuda)
+    assert imc_mvm_plain.calls == plain
+    assert (imc_mvm.launches > before) != ideal
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert (got.clustered_ratio, got.incorrect_ratio, got.num_clusters) == (
+        want.clustered_ratio, want.incorrect_ratio, want.num_clusters)
+    assert got.cost == want.cost

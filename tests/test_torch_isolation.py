@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import SpecPCMConfig, run_clustering, run_db_search
 from repro_torch.core.hd.encoding import HDEncoderConfig, make_codebooks
+from repro_torch.core.imc import ArrayConfig, DeviceConfig, ISAExecutor
 from repro_torch.kernels import _build
 from repro_torch.kernels.encode_search import (
     encode_search,
@@ -84,7 +86,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.model_zoo, repro_torch.data.tokens, "
             "repro_torch.kernels.decode_attention, "
             "repro_torch.serve.scheduler, repro_torch.serve.delta, "
-            "repro_torch.serve.staging; "
+            "repro_torch.serve.staging, repro_torch.core, "
+            "repro_torch.core.imc, repro_torch.core.pipeline; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -102,7 +105,9 @@ def test_importing_the_port_loads_no_jax():
                                    "continuous_launcher",
                                    "append_launcher",
                                    "continuous_cluster_launcher",
-                                   "delta_bank", "continuous_server"])
+                                   "delta_bank", "continuous_server",
+                                   "run_db_search", "run_clustering",
+                                   "isa_executor"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -135,6 +140,14 @@ def test_default_device_raises_without_cuda(entry):
         "continuous_server": lambda: DBSearchServer(
             BankRegistry(), continuous=True,
             clustering=ClusteringConfig(dim=64, threshold=4.0)),
+        "run_db_search": lambda: run_db_search(
+            np.zeros((2, 8), np.float32), np.zeros(2, np.float32),
+            np.zeros((3, 8), np.float32), np.zeros(3, np.float32),
+            SpecPCMConfig(hd_dim=33)),
+        "run_clustering": lambda: run_clustering(
+            np.zeros((2, 8), np.float32), np.zeros(2, np.float32),
+            np.zeros(2, np.int32), SpecPCMConfig(hd_dim=33)),
+        "isa_executor": lambda: ISAExecutor(ArrayConfig(), DeviceConfig()),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
