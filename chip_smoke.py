@@ -178,6 +178,29 @@ exits non-zero and prints no result line:
    version and one ``scaled_dot_product_attention`` call over the
    dequantized cache, the kernel at other split counts, and the per-step
    weight-read bound.
+8. LM training: Qwen2-7B at full width with its depth cut to 4 of 28
+   layers (float32 master weights, gradients and AdamW moments), through
+   ``build_model`` -> ``init_train_state`` -> ``make_train_step`` ->
+   ``TokenPipeline.get_for``: batch 8 x 512 tokens, remat "full", three
+   exact steps, then three with ``imc_linear`` (every FFN
+   down-projection through ``_imc_linear`` on the ``imc_mvm`` kernel).
+   After the timed steps of each, one more step runs under
+   ``torch.profiler`` (the device's milliseconds by kernel: the
+   ``imc_mvm`` kernels, matmuls, the rest). Every loss and grad_norm must
+   be finite; the ``imc_mvm`` count is set to 0 just before the IMC steps
+   and must read 4 layers x 4 steps after (remat recomputes each block in
+   backward, but stops after the exact product, before the kernel), with
+   the plain version called 0 times. One layer's kernel operands at the
+   training shape (Q 4,096, R 3,584, Dp 18,944), kept by a recorder in an
+   evaluation forward, must give the plain version's output bit for bit
+   (computed 256 queries at a time). A ``CheckpointManager`` save of the
+   trained state into a temporary directory, restored into a state of
+   another draw, must equal it leaf for leaf and bit for bit. Prints the
+   step ms (CUDA events) and tokens/s of both, the peak memory, the
+   kernel's launches a step, its ms at the training shape beside its
+   bound and a float32 ``torch.matmul`` of the same operands, the
+   IMC-over-exact loss gap on one batch, and the checkpoint's size and
+   seconds.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -2478,8 +2501,11 @@ def profile_device_ms(torch, fn, steps):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us:
-            per[e.key[:60]] = us / 1e3 / steps
-            count[e.key[:60]] = e.count / steps
+            # kernels whose names share their first 60 characters (the
+            # templated elementwise kernels) add up under one key
+            k = e.key[:60]
+            per[k] = per.get(k, 0.0) + us / 1e3 / steps
+            count[k] = count.get(k, 0.0) + e.count / steps
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
     return (sum(per.values()) or None), top, per, count
 
@@ -2718,6 +2744,266 @@ def phase_serve_lm(torch, np):
     return entry
 
 
+# the training phase: Qwen2-7B at full width, depth cut to TRAIN_LAYERS
+# of 28 (float32 params, grads and both AdamW moments take 16 B a
+# parameter: ~122 GB at 28 layers, ~32 GB at 4), batch 8 x 512 tokens,
+# remat "full"; TRAIN_STEPS exact steps, then as many with imc_linear
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 3
+# the plain imc_mvm's (Q, R, T) float64 partials are held TRAIN_CHECK_Q
+# query rows at a time
+TRAIN_CHECK_Q = 256
+
+
+def device_groups(per: dict) -> dict:
+    """A step's device milliseconds (``profile_device_ms``'s per-name
+    dict) in groups: the ``imc_mvm`` kernels, cuBLAS / CUTLASS matmuls,
+    and the rest (elementwise, reductions, copies)."""
+    out = {"imc_mvm": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms in per.items():
+        if "imc_mvm_kernel" in name or "imc_dac_kernel" in name:
+            out["imc_mvm"] += ms
+        elif any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma")):
+            out["matmul"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def imc_recorder(layers_mod):
+    """A patch of ``models.layers.imc_mvm`` that calls the kernel's wrapper
+    and keeps the first call's operands, knobs and result."""
+    real = layers_mod.imc_mvm
+    rec = {}
+
+    def recording(q, w, **kw):
+        out = real(q, w, **kw)
+        rec.setdefault("call", (q, w, kw, out))
+        return out
+
+    return rec, mock.patch.object(layers_mod, "imc_mvm", recording)
+
+
+def phase_train_lm(torch, np):
+    """Qwen2-7B training at full width through ``build_model`` ->
+    ``init_train_state`` -> ``make_train_step`` ->
+    ``TokenPipeline.get_for``, exact then with ``imc_linear`` (the
+    ``imc_mvm`` kernel in every FFN down-projection); the kernel at the
+    training shape against its plain version; a checkpoint round trip.
+    Returns the numbers the ``imc_mvm`` entry gains."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.imc.array import ArrayConfig, default_full_scale
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        TrainState,
+        adamw_init,
+        init_train_state,
+        make_train_step,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the exact product would not be float32")
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2_7b"), num_layers=TRAIN_LAYERS)
+    cfg_imc = dataclasses.replace(cfg, imc_linear=True)
+    model, model_imc = build_model(cfg, "cuda"), build_model(cfg_imc, "cuda")
+    tcfg = TrainConfig(
+        optimizer=AdamWConfig(total_steps=2 * (TRAIN_STEPS + 1)),
+        remat="full")
+    pipe = TokenPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         vocab=cfg.vocab_size)
+    _build.load("imc_mvm")   # set-up: the kernel builds before the steps
+    t0 = time.perf_counter()
+    state = init_train_state(model, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def run(m, first):
+        """TRAIN_STEPS steps timed with CUDA events, then one more under
+        the profiler (the device's time by kernel)."""
+        nonlocal state
+        step_fn = make_train_step(m, tcfg)
+        batches = [pipe.get_for(m.cfg, s, "cuda")
+                   for s in range(first, first + TRAIN_STEPS + 1)]
+        events, metrics = [], []
+        for batch in batches[:-1]:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            state, mt = step_fn(state, batch)
+            metrics.append(mt)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+        def profiled():
+            nonlocal state
+            state, mt = step_fn(state, batches[-1])
+            metrics.append(mt)
+
+        dev_ms, top, per, _ = profile_device_ms(torch, profiled, steps=1)
+        return {"ms": ms, "loss": [float(mt["loss"]) for mt in metrics],
+                "grad_norm": [float(mt["grad_norm"]) for mt in metrics],
+                "device_ms": dev_ms, "top": top, "per": per}
+
+    exact = run(model, 0)
+    imc_mvm.launches = 0
+    imc_mvm_plain.calls = 0
+    imc = run(model_imc, TRAIN_STEPS + 1)
+    launches, plain = imc_mvm.launches, imc_mvm_plain.calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = TRAIN_STEPS + 1
+    # remat "full" runs each block's forward again in backward, but stops
+    # after the exact product, before the kernel: one launch a layer a step
+    expected = cfg.num_layers * steps
+    for key in ("loss", "grad_norm"):
+        for name, r in (("exact", exact), ("imc", imc)):
+            check(all(np.isfinite(r[key])), f"non-finite {name} {key}: "
+                                            f"{r[key]}")
+    check(launches == expected, f"imc_mvm launched {launches} times in "
+                                f"{steps} imc_linear steps, not {expected} "
+                                f"({cfg.num_layers} layers x steps)")
+    check(plain == 0, f"the plain imc_mvm ran {plain} times on the card's "
+                      f"training path")
+    check(state.step == 2 * steps, "the train state's step is off")
+
+    # the IMC-over-exact loss gap on one batch and the same parameters;
+    # the IMC forward keeps layer 0's kernel operands
+    batch = pipe.get_for(cfg, 2 * steps, "cuda")
+    rec, patch = imc_recorder(L)
+    with torch.no_grad():
+        loss_exact = float(model.loss(state.params, batch, remat="none"))
+        with patch:
+            loss_imc = float(model_imc.loss(state.params, batch,
+                                            remat="none"))
+    check(np.isfinite(loss_exact) and np.isfinite(loss_imc),
+          "non-finite evaluation loss")
+    q, w, kw, got = rec.pop("call")
+    Q, Dp = q.shape
+    R = w.shape[0]
+    acfg = ArrayConfig(adc_bits=cfg.imc_adc_bits,
+                       bits_per_cell=cfg.imc_mlc_bits)
+    check((Q, R, Dp) == (tokens, cfg.d_model, cfg.d_ff)
+          and kw["full_scale"] == default_full_scale(acfg),
+          f"the kernel ran at {(Q, R, Dp)}, not the training shape")
+    plain_s, mism = 0.0, 0
+    for i in range(0, Q, TRAIN_CHECK_Q):
+        t0 = time.perf_counter()
+        want = imc_mvm_plain(q[i:i + TRAIN_CHECK_Q], w, **kw)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        mism += int((got[i:i + TRAIN_CHECK_Q] != want).sum())
+        del want
+    check(mism == 0, f"imc_mvm at the training shape differs from its "
+                     f"plain version in {mism} elements")
+    ms = time_ms(torch, lambda: imc_mvm(q, w, **kw), iters=5, warmup=1)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        wt = w.t()
+        mm_ms = time_ms(torch, lambda: torch.matmul(q, wt), iters=5,
+                        warmup=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    b_ms, b_by = bound_ms(2 * Q * R * Dp, (Q * Dp + R * Dp + Q * R) * 4,
+                          FP32_OPS_PER_S)
+    del q, w, got, wt
+
+    # a checkpoint of the trained state, restored into a state of another
+    # draw and zero moments: every leaf and counter must equal bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*.bin"))
+        other = model.init(seed=1, trainable=True)
+        target = TrainState(params=other,
+                            opt=adamw_init(list(other.parameters())), step=0)
+        t0 = time.perf_counter()
+        got_ckpt = mgr.restore_latest(target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    check(got_ckpt is not None and got_ckpt[0] == state.step,
+          "the checkpoint did not restore")
+    restored = got_ckpt[1]
+    saved = (list(state.params.parameters()) + state.opt["mu"]
+             + state.opt["nu"])
+    back = (list(restored.params.parameters()) + restored.opt["mu"]
+            + restored.opt["nu"])
+    differ = sum(not torch.equal(a, b) for a, b in zip(saved, back))
+    check(len(saved) == len(back) and differ == 0
+          and restored.step == state.step
+          and restored.opt["step"] == state.opt["step"],
+          f"the restored state differs from the saved one ({differ} leaves)")
+    del restored, back, target, other, got_ckpt
+
+    # the first step of each run builds cuBLAS handles and workspaces
+    line = {"path": "lm train", "arch": cfg.name, "layers": cfg.num_layers,
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "remat": tcfg.remat, "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype, "init_s": init_s}
+    for name, r in (("exact", exact), ("imc", imc)):
+        med = float(np.median(r["ms"][1:]))
+        dev = r["device_ms"]
+        line.update({
+            f"{name}_step_ms": r["ms"],
+            f"{name}_ms_median_after_first": med,
+            f"{name}_tokens_per_s": 1e3 * tokens / med,
+            f"{name}_loss": r["loss"], f"{name}_grad_norm": r["grad_norm"],
+            f"{name}_device_ms_per_step": dev,
+            f"{name}_device_share_of_step": None if dev is None
+            else dev / med,
+            f"{name}_device_ms_by_group": device_groups(r["per"]),
+            f"{name}_device_ms_by_kernel": r["top"]})
+    line.update({
+        "eval_loss_exact": loss_exact, "eval_loss_imc": loss_imc,
+        "imc_minus_exact_loss": loss_imc - loss_exact,
+        "peak_gib": peak, "imc_mvm_launches": launches,
+        "imc_mvm_launches_per_step": launches / steps,
+        "imc_mvm_plain_calls": plain,
+        "checkpoint_gb": nbytes / 1e9, "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s,
+        "sm clock, power, limit":
+            nvidia_smi("clocks.sm,power.draw,power.limit")})
+    print(json.dumps(line))
+    print(f"train: imc_mvm at the training shape Q={Q}, R={R}, Dp={Dp}: "
+          f"{ms:.4f} ms (5 launches), float32 torch.matmul of the same "
+          f"operands (TF32 off, no DAC / ADC) {mm_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); kernel vs plain: {mism} mismatches "
+          f"(plain {plain_s:.2f} s in {-(-Q // TRAIN_CHECK_Q)} query "
+          f"blocks); phase {time.perf_counter() - t_phase:.1f} s")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_launches": launches,
+            "train_launches_per_step": launches / steps,
+            "train_shape": f"Q={Q}, R={R}, Dp={Dp} (Qwen2-7B FFN "
+                           f"down-projection, {TRAIN_BATCH} x {TRAIN_SEQ} "
+                           f"tokens)",
+            "train_ms": ms, "train_matmul_ms": mm_ms,
+            "train_bound_ms": b_ms, "train_bound_by": b_by,
+            "train_plain_ms": 1e3 * plain_s, "train_mismatches": mism}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2788,6 +3074,13 @@ def main() -> int:
           f"int8 cache alone, and a (B, H, S, S) prefill logit buffer); "
           f"parameters are the port's seeded random draw")
     kernels.append(phase_serve_lm(torch, np))
+    print(f"reduced: training Qwen2-7B at full width with {TRAIN_LAYERS} of "
+          f"its 28 layers (float32 params, grads and AdamW moments: ~122 GB "
+          f"at 28 layers, more than the card's 80 GB), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} timed and 1 profiled step, "
+          f"exact then imc_linear; parameters are the port's seeded random "
+          f"draw")
+    imc.update(phase_train_lm(torch, np))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ One ``ArchConfig`` describes any model family of the JAX package (dense /
 MoE / SSM / hybrid / enc-dec / VLM backbone). The port serves the dense
 decoder-only family; of the ten registered architectures only Qwen2-7B
 has a module here so far, and :func:`get_config` of another raises and
-names ROADMAP.md (Queue 1, item 12).
+names ROADMAP.md (Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -125,6 +125,6 @@ def get_config(arch_id: str) -> ArchConfig:
             raise NotImplementedError(
                 f"architecture {arch_id!r} is "
                 f"{'not ported yet' if known else 'unknown'}; the port has "
-                f"{', '.join(PORTED_ARCH_IDS)} (ROADMAP.md, Queue 1 item 12)")
+                f"{', '.join(PORTED_ARCH_IDS)} (ROADMAP.md, Queue 1 item 5)")
         importlib.import_module(f"repro_torch.configs.{arch_id}")
     return _REGISTRY[arch_id]()

@@ -7,8 +7,10 @@ values. Packed uint32 words become their int32 bit-views (the port's
 storage convention); int8 hypervectors stay int8; the PCM array's
 programmed weights stay float32 (with their array and device
 configurations, as an ``IMCArrayState``); LM matrices take the model's
-dtype. A tuning table does not cross: it is keyed by device kind and
-names the kernels' own launch knobs.
+dtype, or float32 with gradients for training (``train_state_from_numpy``
+carries the reference's whole ``TrainState`` across). A tuning table does
+not cross: it is keyed by device kind and names the kernels' own launch
+knobs.
 """
 
 from __future__ import annotations
@@ -77,7 +79,8 @@ def codebooks_from_numpy(id_hvs, level_hvs,
 
 
 def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
-                         dtype: torch.dtype | None = None):
+                         dtype: torch.dtype | None = None,
+                         trainable: bool = False):
     """The JAX package's LM parameter tree (numpy leaves, layers stacked on
     a leading ``layer`` axis, as ``repro.models.transformer.init_lm``
     makes it) as the port's :class:`~repro_torch.models.transformer.LM`.
@@ -85,14 +88,16 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
     Matrices, biases, ``embed`` and ``lm_head`` are stored in ``dtype``
     (default ``cfg.dtype``): the reference casts each of them to that dtype
     before every use, so the values are the same. Norm scales and biases
-    stay float32, as ``apply_norm`` computes in float32."""
+    stay float32, as ``apply_norm`` computes in float32. With
+    ``trainable`` every leaf is the reference's float32 master value
+    (``cfg.param_dtype``) and carries gradients, as training needs."""
     from torch import nn
 
     from repro_torch.models import transformer as T
-    from repro_torch.models.layers import _dtype, _param
+    from repro_torch.models.layers import _dtype, _leaf_dtype, _param
 
     dev = resolve_device(device)
-    dt = dtype or _dtype(cfg)
+    dt = _leaf_dtype(cfg, True) if trainable else dtype or _dtype(cfg)
     T.block_kind(cfg)  # raises for a family the port does not serve yet
 
     def tensor(a, norm=False):
@@ -100,7 +105,7 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
         return t.to(device=dev, dtype=torch.float32 if norm else dt)
 
     def group(tree, i, norm):
-        return nn.ParameterDict({name: _param(tensor(a[i], norm))
+        return nn.ParameterDict({name: _param(tensor(a[i], norm), trainable)
                                  for name, a in tree.items()})
 
     layers = params["layers"]
@@ -110,8 +115,29 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
     blocks = [nn.ModuleDict({name: group(layers[name], i, name.startswith(
         "norm")) for name in ("norm1", "attn", "norm2", "ffn")})
         for i in range(cfg.num_layers)]
-    final = nn.ParameterDict({name: _param(tensor(a, True)) for name, a in
-                              params["final_norm"].items()})
+    final = nn.ParameterDict({name: _param(tensor(a, True), trainable)
+                              for name, a in params["final_norm"].items()})
     head = params.get("lm_head")
     return T.LM(tensor(params["embed"]), blocks, final,
-                None if head is None else tensor(head))
+                None if head is None else tensor(head), trainable)
+
+
+def train_state_from_numpy(params, mu, nu, step, cfg,
+                           device: str | torch.device = "cuda"):
+    """The reference's ``TrainState`` (its ``params``, ``opt["mu"]``,
+    ``opt["nu"]`` as numpy trees of the same layout, and ``step``) as the
+    port's :class:`~repro_torch.train.train_step.TrainState`: float32
+    trainable parameters, and float32 moments in the order of
+    ``params.parameters()``."""
+    from repro_torch.train.train_step import TrainState
+
+    lm = lm_params_from_numpy(params, cfg, device, trainable=True)
+    dev = resolve_device(device)
+
+    def moments(tree):
+        m = lm_params_from_numpy(tree, cfg, "cpu", trainable=True)
+        return [t.detach().to(dev) for t in m.parameters()]
+
+    step = int(step)
+    return TrainState(params=lm, opt={"mu": moments(mu), "nu": moments(nu),
+                                      "step": step}, step=step)

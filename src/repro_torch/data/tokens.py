@@ -74,5 +74,5 @@ class TokenPipeline:
         if cfg.family == "vlm" or cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"{cfg.family} batches are not ported yet (ROADMAP.md, "
-                f"Queue 1 item 12)")
+                f"Queue 1 item 5.5)")
         return self.get(step, device)

@@ -1,0 +1,145 @@
+"""Training launcher (``repro.launch.train``) on one device.
+
+Wires together: config -> model -> train step -> synthetic token
+pipeline -> checkpointing (auto-resume, async, keep-N) -> straggler
+monitor. With ``--imc-linear`` every FFN down-projection runs through the
+SpecPCM analog chain (the ``imc_mvm`` kernel on the card) with a
+straight-through gradient.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_7b \
+      --reduced --steps 3 --device cpu [--imc-linear]
+
+The flags are the reference's plus ``--device`` (default ``cuda``; asking
+for it without a card raises). ``--mesh`` takes only ``debug``, here one
+device; the hierarchical DCN reduction and gradient compression flags
+must stay at their defaults (they raise, naming ROADMAP.md). Parameters
+are the port's own draw from seed 0. Each logged step prints its loss,
+grad_norm and the mean wall seconds a step (the log line reads the loss
+back, which waits for the device).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+from repro_torch.configs import get_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.device import resolve_device
+from repro_torch.dist.checkpoint import CheckpointManager
+from repro_torch.dist.straggler import Action, StragglerMonitor
+from repro_torch.kernels import _build
+from repro_torch.models.model_zoo import build_model
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.train_step import (
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="full")
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8", "topk"],
+                    help="legacy in-graph compression of the reduced grads "
+                         "(not ported: only none)")
+    ap.add_argument("--dcn-compression", default="none",
+                    choices=["none", "int8", "topk", "topk_ef"],
+                    help="wire compression on the cross-pod hop (not "
+                         "ported: only none)")
+    ap.add_argument("--dcn-pods", type=int, default=0,
+                    help="per-pod gradient slices (one device: 0 or 1)")
+    ap.add_argument("--dcn-topk-frac", type=float, default=0.01)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base of the per-step stochastic-rounding key "
+                         "(used by the compression routes)")
+    ap.add_argument("--imc-linear", action="store_true",
+                    help="route FFN down-projections through the SpecPCM "
+                         "IMC quantized-matmul model (the imc_mvm kernel)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mesh", default="debug",
+                    choices=["debug", "single", "multi"])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    if args.mesh != "debug":
+        raise NotImplementedError(
+            f"--mesh {args.mesh} spans many devices; the port trains on one "
+            f"(ROADMAP.md, Queue 1 item 5.6)")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.imc_linear:
+        cfg = dataclasses.replace(cfg, imc_linear=True)
+    print(f"mesh: one device ({device})")
+
+    model = build_model(cfg, device)
+    tcfg = TrainConfig(
+        optimizer=AdamWConfig(lr=args.lr, total_steps=args.steps),
+        remat=args.remat, microbatches=args.microbatches,
+        grad_compression=args.grad_compression,
+        dcn_compression=args.dcn_compression, dcn_pods=args.dcn_pods,
+        dcn_topk_frac=args.dcn_topk_frac, seed=args.seed,
+    )
+    step_fn = make_train_step(model, tcfg)
+    if device.type == "cuda" and cfg.imc_linear:
+        _build.load("imc_mvm")   # set-up: the kernel builds before step 1
+    state = init_train_state(model, seed=0)
+    pipe = TokenPipeline(batch=args.batch, seq=args.seq, vocab=cfg.vocab_size)
+
+    start_step = 0
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            start_step, state = restored
+            print(f"resumed from checkpoint step {start_step}")
+
+    monitor = StragglerMonitor(
+        on_warn=lambda s, dt: print(f"[straggler] step {s}: {dt:.3f}s"),
+        on_evict=lambda s, dt: print(
+            f"[straggler] step {s}: {dt:.3f}s — would evict+reshard"),
+    )
+
+    t_start = time.time()
+    for step in range(start_step, args.steps):
+        monitor.step_start()
+        batch = pipe.get_for(cfg, step, device)
+        state, metrics = step_fn(state, batch)
+        action = monitor.step_end()
+        if action == Action.EVICT and ckpt is not None:
+            ckpt.save_async(step + 1, state)
+        if (step + 1) % args.log_every == 0 or step == start_step:
+            loss = float(metrics["loss"])
+            gn = float(metrics["grad_norm"])
+            print(f"step {step + 1}: loss={loss:.4f} grad_norm={gn:.3f} "
+                  f"({(time.time() - t_start) / (step - start_step + 1):.2f}"
+                  f"s/step)", flush=True)
+        if ckpt is not None and (step + 1) % args.ckpt_every == 0:
+            ckpt.save_async(step + 1, state)
+    if ckpt is not None:
+        ckpt.save(args.steps, state)
+        ckpt.wait()
+    print(f"done: {args.steps - start_step} steps in "
+          f"{time.time() - t_start:.1f}s")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -16,9 +16,15 @@ kernel; the bfloat16 ``KVCache`` branch stays plain PyTorch, as the
 reference computes it in XLA. Caches are updated in place: a decode step
 writes one slot of each layer's cache instead of returning a new cache.
 
-Not ported yet (ROADMAP.md, Queue 1 item 12): the MoE layer
-(``init_moe`` / ``apply_moe``) and the IMC-routed down-projection
-(``_imc_linear``); configurations that reach them raise.
+With ``trainable=True`` the init functions store every leaf in
+``cfg.param_dtype`` (float32) with ``requires_grad``: the training path's
+master weights, which the layers cast to the activation dtype at use as
+the reference does. The FFN's IMC-routed down-projection
+(``_imc_linear``) runs the hand-written ``imc_mvm`` kernel on CUDA
+tensors.
+
+Not ported yet (ROADMAP.md, Queue 1 item 5.3): the MoE layer
+(``init_moe`` / ``apply_moe``); configurations that reach it raise.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.imc.array import ArrayConfig, default_full_scale
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.imc_mvm import imc_mvm
 
 Params = nn.ParameterDict
 
@@ -40,29 +48,36 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _leaf_dtype(cfg: ArchConfig, trainable: bool) -> torch.dtype:
+    """Where a matrix or bias is stored: ``cfg.dtype`` for serving,
+    ``cfg.param_dtype`` (the float32 master copy) for training."""
+    return getattr(torch, cfg.param_dtype) if trainable else _dtype(cfg)
 
 
-def _normal(shape, std: float, cfg: ArchConfig, device, generator
-            ) -> nn.Parameter:
-    """A float32 normal draw times ``std``, cast to ``cfg.dtype``: one
-    matrix at a time, so a full-width model never holds its float32
-    weights at once."""
+def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
+
+
+def _normal(shape, std: float, cfg: ArchConfig, device, generator,
+            trainable: bool = False) -> nn.Parameter:
+    """A float32 normal draw times ``std``, cast to the leaf dtype: one
+    matrix at a time, so a full-width serving model never holds its
+    float32 weights at once."""
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return _param(w.mul_(std).to(_dtype(cfg)))
+    return _param(w.mul_(std).to(_leaf_dtype(cfg, trainable)), trainable)
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
-def init_norm(cfg: ArchConfig, d: int | None = None, device="cpu") -> Params:
+def init_norm(cfg: ArchConfig, d: int | None = None, device="cpu",
+              trainable: bool = False) -> Params:
     d = d or cfg.d_model
-    p = {"scale": _param(torch.ones(d, device=device))}
+    p = {"scale": _param(torch.ones(d, device=device), trainable)}
     if cfg.norm == "layernorm":
-        p["bias"] = _param(torch.zeros(d, device=device))
+        p["bias"] = _param(torch.zeros(d, device=device), trainable)
     return nn.ParameterDict(p)
 
 
@@ -110,23 +125,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ArchConfig, device="cpu",
-                   generator: torch.Generator | None = None) -> Params:
+                   generator: torch.Generator | None = None,
+                   trainable: bool = False) -> Params:
     """The reference's distributions: normal x ``d**-0.5`` for wq / wk / wv,
     normal x ``(h * hd)**-0.5`` for wo, zero QKV biases."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     s = d ** -0.5
+    t = trainable
     p = {
-        "wq": _normal((d, h, hd), s, cfg, device, generator),
-        "wk": _normal((d, kv, hd), s, cfg, device, generator),
-        "wv": _normal((d, kv, hd), s, cfg, device, generator),
-        "wo": _normal((h, hd, d), (h * hd) ** -0.5, cfg, device, generator),
+        "wq": _normal((d, h, hd), s, cfg, device, generator, t),
+        "wk": _normal((d, kv, hd), s, cfg, device, generator, t),
+        "wv": _normal((d, kv, hd), s, cfg, device, generator, t),
+        "wo": _normal((h, hd, d), (h * hd) ** -0.5, cfg, device, generator,
+                      t),
     }
     if cfg.qkv_bias:
-        dt = _dtype(cfg)
-        p["bq"] = _param(torch.zeros((h, hd), dtype=dt, device=device))
-        p["bk"] = _param(torch.zeros((kv, hd), dtype=dt, device=device))
-        p["bv"] = _param(torch.zeros((kv, hd), dtype=dt, device=device))
+        dt = _leaf_dtype(cfg, t)
+        for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
+            p[name] = _param(torch.zeros((n, hd), dtype=dt, device=device), t)
     return nn.ParameterDict(p)
 
 
@@ -234,6 +251,21 @@ def attention_chunked(q, k, v, cfg: ArchConfig, chunk: int = 1024,
     out = acc / torch.clamp(denom[..., None], min=1e-30)
     # (b, kv, g, sq, hd) -> (b, sq, h, hd)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                    causal: bool = True, chunk_threshold: int = 8192
+                    ) -> torch.Tensor:
+    """Self-attention over a full sequence (training): the materialized
+    route up to ``chunk_threshold`` positions, the chunked one past it."""
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    if s <= chunk_threshold:
+        out = attention_full(q, k, v, cfg, causal=causal)
+    else:
+        out = attention_chunked(q, k, v, cfg, causal=causal)
+    return _out_proj(out, p["wo"])
 
 
 @dataclasses.dataclass
@@ -371,51 +403,99 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache,
 # ---------------------------------------------------------------------------
 
 def init_ffn(cfg: ArchConfig, d_ff: int | None = None, device="cpu",
-             generator: torch.Generator | None = None) -> Params:
+             generator: torch.Generator | None = None,
+             trainable: bool = False) -> Params:
     """The reference's distributions: normal x ``d**-0.5`` into the FFN,
     normal x ``f**-0.5`` out of it, zero biases."""
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     s_in, s_out = d ** -0.5, f ** -0.5
+    t = trainable
     if cfg.activation in ("swiglu", "geglu"):
         p = {
-            "w_gate": _normal((d, f), s_in, cfg, device, generator),
-            "w_up": _normal((d, f), s_in, cfg, device, generator),
-            "w_down": _normal((f, d), s_out, cfg, device, generator),
+            "w_gate": _normal((d, f), s_in, cfg, device, generator, t),
+            "w_up": _normal((d, f), s_in, cfg, device, generator, t),
+            "w_down": _normal((f, d), s_out, cfg, device, generator, t),
         }
     else:
-        dt = _dtype(cfg)
+        dt = _leaf_dtype(cfg, t)
         p = {
-            "w_up": _normal((d, f), s_in, cfg, device, generator),
-            "w_down": _normal((f, d), s_out, cfg, device, generator),
-            "b_up": _param(torch.zeros(f, dtype=dt, device=device)),
-            "b_down": _param(torch.zeros(d, dtype=dt, device=device)),
+            "w_up": _normal((d, f), s_in, cfg, device, generator, t),
+            "w_down": _normal((f, d), s_out, cfg, device, generator, t),
+            "b_up": _param(torch.zeros(f, dtype=dt, device=device), t),
+            "b_down": _param(torch.zeros(d, dtype=dt, device=device), t),
         }
     return nn.ParameterDict(p)
 
 
+def _imc_linear(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig
+                ) -> torch.Tensor:
+    """``x @ w`` through the SpecPCM analog chain, with a straight-through
+    gradient: the value is the chain's, the gradient the exact matmul's.
+
+    Activations are quantized to the DAC range ([-3, 3]) per token and
+    weights to [-mlc, mlc] per output column, as the reference computes
+    them; the quantized product then runs in ``imc_mvm`` (the kernel on
+    CUDA tensors, its plain version on CPU tensors) over d_ff padded to
+    whole 128-column tiles, and is scaled back by ``sx * sw``. The tiles'
+    partials are integers below 128 * 9, exact in float32 in any order,
+    so the ADC codes equal the reference's; ``y_imc`` differs from it only
+    in the order the codes times lsb are summed."""
+    acfg = ArrayConfig(adc_bits=cfg.imc_adc_bits,
+                       bits_per_cell=cfg.imc_mlc_bits)
+    dac = acfg.dac_levels
+    xf, wf = x.float(), w.float()
+    # the exact product first: it holds the last tensors autograd saves
+    # in a block, so a remat's recompute stops before the analog chain,
+    # whose value backward never reads (as XLA drops it from the
+    # reference's rematerialized forward)
+    y_exact = xf @ wf
+    with torch.no_grad():
+        # divisors as tensors: a Python-scalar divisor may become a
+        # multiply by its reciprocal on the card
+        mx = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-6)
+        sx = mx / torch.full_like(mx, dac)
+        mw = torch.clamp(wf.abs().amax(0, keepdim=True), min=1e-6)
+        sw = mw / torch.full_like(mw, cfg.imc_mlc_bits)
+        xq = torch.round(xf / sx)
+        wq = torch.round(wf / sw)
+        f = wq.shape[0]
+        pad = (-f) % acfg.cols
+        q = F.pad(xq.reshape(-1, f), (0, pad)).contiguous()
+        wt = F.pad(wq.t(), (0, pad)).contiguous()        # (d_out, f + pad)
+        y_imc = imc_mvm(q, wt, full_scale=default_full_scale(acfg),
+                        tile_cols=acfg.cols, dac_limit=dac,
+                        adc_levels=acfg.adc_levels)
+        y_imc = y_imc.reshape(*x.shape[:-1], -1) * sx * sw
+    # straight-through: value = imc, gradient = exact
+    y = y_exact + (y_imc - y_exact).detach()
+    return y.to(x.dtype)
+
+
 def apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The gate's activation and product are taken in place (each
-    elementwise step rounds as its out-of-place form), which keeps the
-    (tokens, d_ff) buffers of a full-width prefill to two."""
+    """Without autograd the gate's activation and product are taken in
+    place (each elementwise step rounds as its out-of-place form), which
+    keeps the (tokens, d_ff) buffers of a full-width prefill to two; under
+    autograd they are out of place, since backward reads their inputs.
+    With ``cfg.imc_linear`` the down-projection is :func:`_imc_linear`."""
     dt = x.dtype
-    if cfg.imc_linear:
-        raise NotImplementedError(
-            "the IMC-routed down-projection (_imc_linear) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 12)")
+    inplace = not torch.is_grad_enabled()
     if cfg.activation in ("swiglu", "geglu"):
         h = x @ p["w_gate"].to(dt)
         u = x @ p["w_up"].to(dt)
         if cfg.activation == "swiglu":
-            F.silu(h, inplace=True)
+            h = F.silu(h, inplace=inplace)
         else:
             h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-        h.mul_(u)
+        h = h.mul_(u) if inplace else h * u
         del u
     else:
         h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt),
                    approximate="tanh")
-    y = h @ p["w_down"].to(dt)
+    if cfg.imc_linear:
+        y = _imc_linear(h, p["w_down"], cfg)
+    else:
+        y = h @ p["w_down"].to(dt)
     if "b_down" in p:
         y = y + p["b_down"].to(dt)
     return y

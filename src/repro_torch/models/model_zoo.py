@@ -3,9 +3,10 @@ port serves: the dense decoder-only LM.
 
 ``build_model(cfg)`` returns a :class:`Model` on a device (CUDA unless the
 caller asks for the CPU; asking for CUDA without a card raises) with
-``init``, ``init_cache``, ``prefill`` and ``decode_step``. Inputs follow
-the reference: ``{"tokens": (B, S) int}``. The training loss waits for
-the training slice (ROADMAP.md, Queue 1 item 12).
+``init``, ``loss`` (training), ``init_cache``, ``prefill`` and
+``decode_step``. Inputs follow the reference: ``{"tokens": (B, S) int}``.
+The VLM and encoder-decoder losses are not ported yet (ROADMAP.md,
+Queue 1 item 5.5).
 """
 
 from __future__ import annotations
@@ -20,17 +21,42 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import Attend
 
 
+def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor
+          ) -> torch.Tensor:
+    """Masked mean cross-entropy; logits float32 (B, S, V)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
     device: torch.device
 
     # ---- init -------------------------------------------------------------
-    def init(self, seed: int = 0) -> T.LM:
+    def init(self, seed: int = 0, trainable: bool = False) -> T.LM:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed``
-        on the model's device."""
+        on the model's device; ``trainable``: float32 leaves with
+        gradients (``cfg.param_dtype``), as training needs."""
         g = torch.Generator(device=self.device).manual_seed(seed)
-        return T.init_lm(self.cfg, self.device, g)
+        return T.init_lm(self.cfg, self.device, g, trainable)
+
+    # ---- train ------------------------------------------------------------
+    def loss(self, params, batch: dict, remat: str = "full"
+             ) -> torch.Tensor:
+        """Next-token cross-entropy of the decoder-only LM."""
+        cfg = self.cfg
+        if cfg.family == "vlm" or cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"the {cfg.family} loss is not ported yet (ROADMAP.md, "
+                f"Queue 1 item 5.5)")
+        tokens = batch["tokens"]
+        logits = T.forward_train(params, tokens, cfg, remat=remat)
+        targets = tokens[:, 1:]
+        return _xent(logits[:, :-1], targets,
+                     torch.ones(targets.shape, device=logits.device))
 
     # ---- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list:

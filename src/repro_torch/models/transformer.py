@@ -1,20 +1,25 @@
 """Model assembly of the dense decoder-only family
 (``repro.models.transformer``): blocks, the LM's parameters, KV caches,
-prefill and decode.
+the training forward pass, prefill and decode.
 
 The reference stacks its layers' parameters on a leading ``layer`` axis
 and scans over them (``lax.scan``); here the layers are an
 ``nn.ModuleList`` walked by a Python loop, and the cache is a list with
-one ``KVCache`` / ``QuantKVCache`` per layer, updated in place.
+one ``KVCache`` / ``QuantKVCache`` per layer, updated in place. The
+training forward wraps each block in the remat policy (``_remat``), as
+the reference wraps its scan body.
 
 The MoE, SSM, hybrid, encoder-decoder and VLM families are not ported yet
-(ROADMAP.md, Queue 1 item 12); building or running one raises.
+(ROADMAP.md, Queue 1 items 5.3-5.5); building or running one raises.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -25,20 +30,35 @@ def block_kind(cfg: ArchConfig) -> str:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet; the "
             f"port runs dense decoder-only models (ROADMAP.md, Queue 1 "
-            f"item 12)")
+            f"items 5.3-5.5)")
     return "attn_ffn"
 
 
 def init_block(cfg: ArchConfig, kind: str, device="cpu",
-               generator: torch.Generator | None = None) -> nn.ModuleDict:
+               generator: torch.Generator | None = None,
+               trainable: bool = False) -> nn.ModuleDict:
     if kind != "attn_ffn":
         raise ValueError(kind)
+    t = trainable
     return nn.ModuleDict({
-        "norm1": L.init_norm(cfg, device=device),
-        "attn": L.init_attention(cfg, device, generator),
-        "norm2": L.init_norm(cfg, device=device),
-        "ffn": L.init_ffn(cfg, device=device, generator=generator),
+        "norm1": L.init_norm(cfg, device=device, trainable=t),
+        "attn": L.init_attention(cfg, device, generator, t),
+        "norm2": L.init_norm(cfg, device=device, trainable=t),
+        "ffn": L.init_ffn(cfg, device=device, generator=generator,
+                          trainable=t),
     })
+
+
+def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
+                      kind: str) -> torch.Tensor:
+    """One block over a full sequence (training). The reference's
+    ``constrain`` calls are the identity on one device."""
+    if kind != "attn_ffn":
+        raise ValueError(kind)
+    h = L.apply_norm(p["norm1"], x, cfg)
+    x = x + L.attention_train(p["attn"], h, cfg).to(x.dtype)
+    h = L.apply_norm(p["norm2"], x, cfg)
+    return x + L.apply_ffn(p["ffn"], h, cfg).to(x.dtype)
 
 
 def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
@@ -64,6 +84,34 @@ def apply_block_decode(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
     return x + L.apply_ffn(p["ffn"], h, cfg), cache
 
 
+# matmuls without batch dimensions: what the reference's "dots" policy
+# (``dots_with_no_batch_dims_saveable``) keeps; the attention's batched
+# einsums (bmm) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """The reference's remat policies on one block: ``none`` keeps every
+    activation, ``full`` keeps only the block's input and recomputes the
+    block in backward, ``dots`` recomputes it but keeps the outputs of
+    its unbatched matmuls."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r} (full | dots | none)")
+
+
 class LM(nn.Module):
     """The decoder-only LM's parameters under the reference's names:
     ``embed`` (V, D), ``layers`` (one ``ModuleDict`` per layer),
@@ -72,34 +120,40 @@ class LM(nn.Module):
 
     def __init__(self, embed: torch.Tensor, layers: list[nn.ModuleDict],
                  final_norm: nn.ParameterDict,
-                 lm_head: torch.Tensor | None = None):
+                 lm_head: torch.Tensor | None = None,
+                 trainable: bool = False):
         super().__init__()
-        self.embed = L._param(embed)
+        self.embed = L._param(embed, trainable)
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
-        self.lm_head = None if lm_head is None else L._param(lm_head)
+        self.lm_head = (None if lm_head is None
+                        else L._param(lm_head, trainable))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
 
 def init_lm(cfg: ArchConfig, device="cpu",
-            generator: torch.Generator | None = None) -> LM:
+            generator: torch.Generator | None = None,
+            trainable: bool = False) -> LM:
     """The port's own initialisation, drawn from ``generator`` on
     ``device``. It cannot reproduce ``jax.random``; it meets the
     reference's distributions: embed and lm_head normal x ``D**-0.5``,
     the attention and FFN scales of ``layers.init_attention`` /
     ``init_ffn``, zero biases, unit norms. Each matrix is drawn in float32
-    and cast to ``cfg.dtype`` before the next is drawn."""
+    and cast to ``cfg.dtype`` (``trainable``: kept in ``cfg.param_dtype``,
+    with gradients) before the next is drawn."""
     kind = block_kind(cfg)
     V, D = cfg.padded_vocab, cfg.d_model
-    embed = L._normal((V, D), D ** -0.5, cfg, device, generator)
-    layers = [init_block(cfg, kind, device, generator)
+    t = trainable
+    embed = L._normal((V, D), D ** -0.5, cfg, device, generator, t)
+    layers = [init_block(cfg, kind, device, generator, t)
               for _ in range(cfg.num_layers)]
     lm_head = None
     if not cfg.tie_embeddings:
-        lm_head = L._normal((D, V), D ** -0.5, cfg, device, generator)
-    return LM(embed, layers, L.init_norm(cfg, device=device), lm_head)
+        lm_head = L._normal((D, V), D ** -0.5, cfg, device, generator, t)
+    return LM(embed, layers, L.init_norm(cfg, device=device, trainable=t),
+              lm_head, t)
 
 
 def embed_tokens(p: LM, tokens: torch.Tensor, cfg: ArchConfig
@@ -113,6 +167,22 @@ def unembed(p: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         logits = x @ p["lm_head"].to(x.dtype)
     return logits.float()
+
+
+def forward_train(p, tokens: torch.Tensor, cfg: ArchConfig,
+                  remat: str = "full") -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, V) float32.
+    ``p`` is an :class:`LM` or a mapping with its layout (``"embed"``,
+    ``"layers"``, ``"final_norm"``, ``"lm_head"``), as the train step's
+    bfloat16 view of the parameters is."""
+    kind = block_kind(cfg)
+    body = _remat(functools.partial(apply_block_train, cfg=cfg, kind=kind),
+                  remat)
+    x = embed_tokens(p, tokens, cfg)
+    for lp in p["layers"]:
+        x = body(lp, x)
+    x = L.apply_norm(p["final_norm"], x, cfg)
+    return unembed(p, x, cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cpu"

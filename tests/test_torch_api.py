@@ -1,7 +1,8 @@
 """The port's public names against the JAX package's, on the CPU.
 
-* ``repro_torch.core``, ``.core.hd``, ``.core.imc``, ``.spectra`` and
-  ``.serve`` export every name of the matching reference ``__all__``;
+* ``repro_torch.core``, ``.core.hd``, ``.core.imc``, ``.spectra``,
+  ``.serve`` and ``.train`` export every name of the matching reference
+  ``__all__``;
 * the query-HV cache's ``__contains__`` / ``current_bytes`` /
   ``get_or_encode`` and the bank registry's ``__len__`` / ``tenants``
   behave as the reference's (the cases of ``tests/test_serve_cache.py``);
@@ -45,7 +46,7 @@ def _no_global_mesh():
 
 
 @pytest.mark.parametrize("module", ["core", "core.hd", "core.imc", "spectra",
-                                    "serve"])
+                                    "serve", "train"])
 def test_port_exports_every_reference_name(module):
     ref = importlib.import_module(f"repro.{module}")
     port = importlib.import_module(f"repro_torch.{module}")

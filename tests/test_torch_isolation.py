@@ -8,6 +8,8 @@
 """
 
 import ast
+import dataclasses
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -33,10 +35,12 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.kernels.hamming_pop import hamming_pop
 from repro_torch.kernels.hd_encode import hd_encode
-from repro_torch.kernels.imc_mvm import imc_mvm
+from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
 from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
 from repro_torch.launch import serve, serve_cluster, serve_db
+from repro_torch.launch import train as train_cli
 from repro_torch.launch import tune as tune_cli
+from repro_torch.models.layers import _imc_linear
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serve import (
     BankRegistry,
@@ -87,7 +91,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.decode_attention, "
             "repro_torch.serve.scheduler, repro_torch.serve.delta, "
             "repro_torch.serve.staging, repro_torch.core, "
-            "repro_torch.core.imc, repro_torch.core.pipeline; "
+            "repro_torch.core.imc, repro_torch.core.pipeline, "
+            "repro_torch.train, repro_torch.dist, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -107,7 +113,8 @@ def test_importing_the_port_loads_no_jax():
                                    "continuous_cluster_launcher",
                                    "delta_bank", "continuous_server",
                                    "run_db_search", "run_clustering",
-                                   "isa_executor"])
+                                   "isa_executor", "train_launcher",
+                                   "train_example"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -148,9 +155,20 @@ def test_default_device_raises_without_cuda(entry):
             np.zeros((2, 8), np.float32), np.zeros(2, np.float32),
             np.zeros(2, np.int32), SpecPCMConfig(hd_dim=33)),
         "isa_executor": lambda: ISAExecutor(ArrayConfig(), DeviceConfig()),
+        "train_launcher": lambda: train_cli.main(
+            ["--arch", "qwen2_7b", "--reduced", "--steps", "1"]),
+        "train_example": lambda: _train_example().main(["--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
+
+
+def _train_example():
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm_imc", ROOT / "examples" / "torch_train_lm_imc.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class _CudaLooking(torch.Tensor):
@@ -169,7 +187,7 @@ def _cuda_looking(a):
                                     "topk_hamming_banded",
                                     "encode_search_banded", "hamming_pop",
                                     "hd_encode", "imc_mvm",
-                                    "decode_attention"])
+                                    "decode_attention", "imc_linear"])
 def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR",
                         ROOT / "build" / "never_built_for_this_test")
@@ -191,6 +209,7 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
                decode_attention)
     before = [fn.launches for fn in kernels]
     plain_calls = decode_attention_plain.calls
+    imc_plain_calls = imc_mvm_plain.calls
     with pytest.raises(RuntimeError, match="nvcc"):
         if kernel == "topk_hamming":
             topk_hamming(rows[:3], rows, dim=64, k=2)
@@ -205,6 +224,11 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
         elif kernel == "imc_mvm":
             floats = _cuda_looking(np.ones((5, 130), np.float32))
             imc_mvm(floats, floats, full_scale=10.0)
+        elif kernel == "imc_linear":
+            cfg = dataclasses.replace(get_config("qwen2_7b").reduced(),
+                                      imc_linear=True)
+            _imc_linear(_cuda_looking(np.ones((2, 3, 200), np.float32)),
+                        _cuda_looking(np.ones((200, 64), np.float32)), cfg)
         elif kernel == "decode_attention":
             decode_attention(
                 _cuda_looking(np.ones((2, 2, 7, 16), np.float32)),
@@ -217,6 +241,7 @@ def test_cuda_tensor_without_a_built_kernel_raises(kernel, monkeypatch):
     assert [fn.launches for fn in kernels] == before
     # a CUDA tensor never reaches the plain version
     assert decode_attention_plain.calls == plain_calls
+    assert imc_mvm_plain.calls == imc_plain_calls
 
 
 def _has_nvcc():

@@ -103,8 +103,7 @@ def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.apply_ffn(None, torch.zeros(1, 1, 64), dataclasses.replace(
-            get_config("qwen2_7b").reduced(), imc_linear=True))
+        T.init_cache(cfg, 1, 8)
 
 
 # ----------------------------------------------------------------- tokens --
