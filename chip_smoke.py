@@ -34,7 +34,8 @@ exits non-zero and prints no result line:
    every compiled output tile, a partial that a float64 sum would round
    twice, weight rows off a 16-byte boundary, one 43-column tile, and
    Q = 1 and 33; for ``decode_attention`` the reference's
-   test shapes, G = 1 at hd = 256, G = 48, valid_len 0 / 1 / 70 of 128 /
+   test shapes, G = 1 at hd = 256, G = 48, G = 5 at hd = 128, valid_len
+   0 / 1 / 70 of 128 /
    S, S off every chunk multiple and the served shape, valid_len at a
    split boundary - 1 / + 0 / + 1, valid_len 1 with every later split
    empty, S under one split, and 1, 2, 7 and 17 forced splits, plus rows
@@ -178,6 +179,22 @@ exits non-zero and prints no result line:
    version and one ``scaled_dot_product_attention`` call over the
    dequantized cache, the kernel at other split counts, and the per-step
    weight-read bound.
+7b. LM decode serving of the other decoder-only configs:
+   ``repro_torch.launch.serve.main`` on ``gemma_7b``, ``granite_20b``,
+   ``granite_34b`` and ``deepseek_moe_16b`` at full width and depth and on
+   ``llama4_scout_17b_a16e`` at full width with 14 of its 48 layers (its
+   bfloat16 weights would not fit the card: a ``reduced:`` line says so),
+   bfloat16, the int8 KV store, batch 32, a 512-token prompt, 16 greedy
+   tokens; one model at a time, freed before the next. Each must launch
+   ``decode_attention`` layers x 15 times (the plain version 0 times),
+   give tokens in range and finite logits, agree with a teacher-forced
+   replay on the plain attention as phase 7 does, and run one decode step
+   under the sync debug mode "error". For the MoE configs the routing
+   (experts and kept mask, per layer and token) is recorded in the
+   served run and in the replay: at most 1% of the (step, layer, token)
+   decisions may differ, and the logits are held only on steps whose
+   routing is identical in every layer. Prints prefill seconds, decode
+   ms/step p50 / p95, tokens/s, peak memory and the routing counts.
 8. LM training: Qwen2-7B at full width with its depth cut to 4 of 28
    layers (float32 master weights, gradients and AdamW moments), through
    ``build_model`` -> ``init_train_state`` -> ``make_train_step`` ->
@@ -201,6 +218,18 @@ exits non-zero and prints no result line:
    bound and a float32 ``torch.matmul`` of the same operands, the
    IMC-over-exact loss gap on one batch, and the checkpoint's size and
    seconds.
+8b. Training the other families: ``deepseek_moe_16b`` at full width
+   with 4 of its 28 layers (~2.77 G float32 parameters, ~44 GB of state),
+   batch 8 x 512, remat "full", three timed exact steps and one profiled
+   (device milliseconds in matmuls, the index kernels of the MoE's
+   routing, dispatch and combine, and the rest); then ``granite_20b`` at full width with
+   4 of its 52 layers and ``imc_linear``, one timed and one profiled step:
+   ``imc_mvm`` must launch 4 times a step (the plain version never), and
+   one launch at the training shape (Q 4,096, R 6,144, Dp 24,576), kept
+   by a recorder in an evaluation forward, must equal the plain version
+   bit for bit on its first and last 256 query rows; it is timed beside
+   a float32 ``torch.matmul`` and its bound. Losses and grad norms must
+   be finite. Prints the step ms, tokens/s and peak memory of each.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -457,8 +486,9 @@ IMC_EDGE_CASES = [
 
 
 # decode_attention cases: (B, S, KV, G, hd, valid lengths): the
-# reference's test shapes (tests/test_kernels.py), G = 1 at hd = 256,
-# granite's MQA G = 48, valid_len 1 / 70 of 128 / S, S off every chunk
+# reference's test shapes (tests/test_kernels.py), G = 1 at hd = 256
+# (gemma), granite's MQA G = 48, llama4's G = 5 at hd 128 (last case),
+# valid_len 1 / 70 of 128 / S, S off every chunk
 # multiple, valid_len 0 (uniform weights), and the served shape at the
 # first and last decode steps. Then the split edges of the split rule
 # (decode_splits): valid_len at a split boundary - 1 / + 0 / + 1 (8
@@ -475,6 +505,7 @@ DECODE_EDGE_CASES = [
     (32, 1088, 4, 7, 128, (362, 363, 364, 1)),
     (4, 100, 2, 7, 128, (1, 99, 100, 0)),
     (2, 150, 2, 5, 48, (150, 77)), (1, 100, 1, 12, 96, (100, 33)),
+    (4, 600, 8, 5, 128, (600, 513, 1)),
 ]
 DECODE_RTOL = DECODE_ATOL = 2e-4
 # split counts forced on one shape (S = 300 takes each count asked)
@@ -2528,7 +2559,7 @@ def phase_serve_lm(torch, np):
         split_plan,
     )
     from repro_torch.launch import serve
-    from repro_torch.train.serve_step import make_decode_step, make_prefill
+    from repro_torch.train.serve_step import make_decode_step
     from repro_torch.tune.microbench import burst_seconds
 
     gc.collect()
@@ -2558,30 +2589,11 @@ def phase_serve_lm(torch, np):
 
     # teacher-forced replay: the same prompt and the served tokens, with
     # the plain decode attention on the card
-    prefill, decode = make_prefill(model), make_decode_step(model)
-    cache = model.init_cache(B, S + LM_GEN)
-    logits, cache = prefill(params, run.batch, cache)
-    prefill_agree = int((logits.argmax(-1).to(torch.int32)
-                         == run.tokens[:, :1]).sum())
-    max_diff, share, disagree, unexplained = [], [], 0, 0
-    for i in range(steps):
-        lp, cache = decode(params, run.tokens[:, i:i + 1], cache, S + i,
-                           decode_attention_plain)
-        served = run.logits[i]
-        diff = (lp - served).abs().amax(dim=(1, 2))           # per row
-        max_diff.append(float(diff.max()))
-        share.append(max_diff[-1] / float(served.abs().max()))
-        replay_tok = lp.argmax(-1)[:, 0]
-        served_tok = run.tokens[:, i + 1].long()
-        off = replay_tok != served_tok
-        disagree += int(off.sum())
-        if bool(off.any()):
-            # a flip must be a near tie: the served logits of the two
-            # tokens closer than twice the row's difference
-            sv = served[:, 0]
-            rows = off.nonzero()[:, 0]
-            gap = (sv[rows, served_tok[rows]] - sv[rows, replay_tok[rows]])
-            unexplained += int((gap > 2 * diff[rows]).sum())
+    decode = make_decode_step(model)
+    rep = replay_decode(torch, run, LM_GEN, decode_attention_plain)
+    cache, prefill_agree = rep["cache"], rep["prefill_agree"]
+    max_diff, share = rep["max_diff"], rep["share"]
+    disagree, unexplained = sum(rep["disagree"]), sum(rep["unexplained"])
     check(plain_calls == 0 and decode_attention_plain.calls
           == cfg.num_layers * steps, "the replay did not run the plain "
                                      "decode attention")
@@ -2738,10 +2750,268 @@ def phase_serve_lm(torch, np):
         "splits": splits, "positions_per_split": per,
         "at_valid_len": {str(k): v for k, v in timed.items()},
         "ms_by_splits": {str(k): v for k, v in sweep.items()}}
-    del run, params, cache, logits, ops, c, q
+    del run, params, cache, rep, ops, c, q
     gc.collect()
     torch.cuda.empty_cache()
     return entry
+
+
+def replay_decode(torch, run, gen: int, attend) -> dict:
+    """Teacher-forced replay of a served run on the card: the same prompt,
+    then each served token decoded with ``attend`` (the plain decode
+    attention, or the kernel to check determinism). Returns the replay's
+    cache, how many rows' prefill greedy token agrees, and per step the max |logits difference| over the
+    served logits, its share of the step's largest |logit|, the greedy
+    tokens that differ and those of them that are not near ties (the
+    served logits of the two tokens further apart than twice the row's
+    difference)."""
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    model, params = run.model, run.params
+    B, S = run.batch["tokens"].shape
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    cache = model.init_cache(B, S + gen)
+    logits, cache = prefill(params, run.batch, cache)
+    out = {"prefill_agree": int((logits.argmax(-1).to(torch.int32)
+                                 == run.tokens[:, :1]).sum()),
+           "max_diff": [], "share": [], "disagree": [], "unexplained": []}
+    for i in range(gen - 1):
+        lp, cache = decode(params, run.tokens[:, i:i + 1], cache, S + i,
+                           attend)
+        served = run.logits[i]
+        diff = (lp - served).abs().amax(dim=(1, 2))           # per row
+        out["max_diff"].append(float(diff.max()))
+        out["share"].append(out["max_diff"][-1]
+                            / float(served.abs().max()))
+        replay_tok = lp.argmax(-1)[:, 0]
+        served_tok = run.tokens[:, i + 1].long()
+        off = replay_tok != served_tok
+        out["disagree"].append(int(off.sum()))
+        unexplained = 0
+        if bool(off.any()):
+            sv = served[:, 0]
+            rows = off.nonzero()[:, 0]
+            gap = (sv[rows, served_tok[rows]] - sv[rows, replay_tok[rows]])
+            unexplained = int((gap > 2 * diff[rows]).sum())
+        out["unexplained"].append(unexplained)
+    out["cache"] = cache
+    return out
+
+
+# phase 7b: decode serving of the other decoder-only configs at published
+# widths, bfloat16, int8 KV store, batch 32 x (512 + LM_CONFIGS_GEN); the
+# depth is cut only where the bfloat16 weights would not fit the card
+# (llama4: ~2.2 G parameters a layer, ~216 GB at 48 layers)
+LM_CONFIGS = (("gemma_7b", None), ("granite_20b", None),
+              ("granite_34b", None), ("deepseek_moe_16b", None),
+              ("llama4_scout_17b_a16e", 14))
+LM_CONFIGS_BATCH, LM_CONFIGS_PROMPT, LM_CONFIGS_GEN = 32, 512, 16
+# MoE replays. The routing is hypersensitive to rounding: a bfloat16
+# difference in one attention output flips near-tied top-k choices, a flip
+# changes which other tokens the small decode capacity drops, and a token
+# routed elsewhere carries a different hidden state into every later
+# layer: in a free-running plain replay far more than 1% of the decode
+# decisions differ (PERF.md). So the served run is held three
+# ways: a replay on the kernel must route and score exactly as it did
+# (determinism); a replay on the plain attention with the served routing
+# forced must give its logits within LM_REPLAY_SHARE on every step (the
+# kernel through the whole MoE model); and the decisions that differ in
+# the free-running plain replay and in the forced replay's own routing
+# are counted and printed beside MOE_ROUTING_EXPECTED, the share expected
+# before it was measured (not a pass / fail limit).
+MOE_ROUTING_EXPECTED = 0.01
+
+
+def moe_route_recorder(layers_mod, sink: list, forced=None):
+    """A patch of ``models.layers.moe_route`` that calls the real routing
+    and appends each call's route to ``sink`` (on the device, no
+    read-back). With ``forced`` (the routes of another run, in call
+    order) each call returns that run's experts, positions and kept mask
+    instead, weighted by this run's own gates at those experts."""
+    real = layers_mod.moe_route
+    order = iter(forced or ())
+
+    def recording(router, xt, cfg, cap):
+        r = real(router, xt, cfg, cap)
+        sink.append(r)
+        if forced is None:
+            return r
+        f = next(order)
+        gates = (xt.float() @ router.float()).softmax(dim=-1)
+        topv = gates.gather(-1, f.expert)
+        weight = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+        return layers_mod.MoERoute(weight=weight, expert=f.expert,
+                                   pos=f.pos, keep=f.keep)
+
+    return mock.patch.object(layers_mod, "moe_route", recording)
+
+
+def routing_differs(torch, a: list, b: list, skip: int, shape):
+    """(steps, layers, tokens) bool: the decode routings of two runs (after
+    the first ``skip`` calls, the prefill's) that differ in a token's
+    experts or kept mask."""
+    return torch.stack([((x.expert != y.expert) | (x.keep != y.keep))
+                        .any(-1).reshape(-1)
+                        for x, y in zip(a[skip:], b[skip:])]).reshape(shape)
+
+
+def phase_serve_lm_configs(torch, np) -> dict:
+    """``repro_torch.launch.serve.main`` on each of LM_CONFIGS at published
+    widths with the int8 KV store; returns the ``decode_attention``
+    launches by config."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.train.serve_step import make_decode_step
+
+    gen, steps = LM_CONFIGS_GEN, LM_CONFIGS_GEN - 1
+    argv = ["--kv-quant", "--batch", str(LM_CONFIGS_BATCH), "--prompt-len",
+            str(LM_CONFIGS_PROMPT), "--gen", str(gen), "--device", "cuda"]
+    launches_by_config = {}
+    for arch, layers in LM_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cut = (full if layers is None
+               else dataclasses.replace(full, num_layers=layers))
+        if layers is not None:
+            print(f"reduced: {arch} served with {layers} of its "
+                  f"{full.num_layers} layers (published widths): its "
+                  f"bfloat16 weights take ~2.2 G parameters a layer, "
+                  f"~216 GB at full depth against the card's 80 GB")
+        decode_attention.launches = 0
+        decode_attention_plain.calls = 0
+        served = []
+        t0 = time.perf_counter()
+        with mock.patch.object(serve, "get_config", lambda a, c=cut: c), \
+                moe_route_recorder(L, served):
+            run = serve.main(["--arch", arch] + argv, keep_logits=True)
+        wall = time.perf_counter() - t0
+        launches, plain_calls = (decode_attention.launches,
+                                 decode_attention_plain.calls)
+        cfg, params = run.model.cfg, run.params
+        nl = cfg.num_layers
+        B, S = run.batch["tokens"].shape
+        check(nl == cut.num_layers and cfg.d_model == full.d_model,
+              f"{arch} ran {nl} layers of width {cfg.d_model}")
+        check(launches == nl * steps, f"{arch}: decode_attention launched "
+                                      f"{launches} times, not {nl} layers "
+                                      f"x {steps} steps")
+        check(plain_calls == 0, f"{arch}: the plain decode attention ran "
+                                f"{plain_calls} times on the main path")
+        check(tuple(run.tokens.shape) == (B, gen)
+              and int(run.tokens.min()) >= 0
+              and int(run.tokens.max()) < cfg.padded_vocab,
+              f"{arch}: generated tokens out of shape or range")
+        check(all(bool(torch.isfinite(lg).all()) for lg in run.logits),
+              f"{arch}: non-finite decode logits")
+        line = {"path": "lm serve config", "arch": arch, "layers": nl,
+                "published_layers": full.num_layers,
+                "d_model": cfg.d_model, "family": cfg.family, "batch": B,
+                "prompt": S, "gen": gen, "kv_cache": "int8",
+                "wall_s": wall, "prefill_s": run.prefill_s,
+                "decode_s": run.decode_s,
+                "decode_ms_p50": run.step_percentile_ms(0.5),
+                "decode_ms_p95": run.step_percentile_ms(0.95),
+                "decode_tokens_per_s": run.decode_tokens_per_s,
+                "peak_gib": run.peak_bytes / 2**30,
+                "weight_gb": sum(p.numel() * p.element_size()
+                                 for p in params.parameters()) / 1e9,
+                "decode_attention_launches": launches}
+        plain_runs = 1
+        if cfg.is_moe:
+            shape = (steps, nl, B)
+            check(len(served) == nl * gen, f"{arch}: {len(served)} "
+                                           f"routings, not {nl * gen}")
+            # determinism: on the kernel again, the same routing and logits
+            again = []
+            with moe_route_recorder(L, again):
+                krep = replay_decode(torch, run, gen, decode_attention)
+            same = sum(int(((a.expert != b.expert) | (a.keep != b.keep))
+                           .sum()) for a, b in zip(served, again))
+            check(len(again) == len(served) and same == 0
+                  and max(krep["max_diff"]) == 0.0,
+                  f"{arch}: a replay on the kernel differs from the served "
+                  f"run ({same} routing decisions, max |dlogits| "
+                  f"{max(krep['max_diff'])})")
+            del krep, again
+            # free running on the plain attention: counted
+            free = []
+            with moe_route_recorder(L, free):
+                frep = replay_decode(torch, run, gen, decode_attention_plain)
+            free_d = routing_differs(torch, served, free, nl, shape)
+            del free
+            # the served routing forced on the plain attention: held
+            own = []
+            with moe_route_recorder(L, own, forced=served):
+                rep = replay_decode(torch, run, gen, decode_attention_plain)
+            own_d = routing_differs(torch, served, own, nl, shape)
+            plain_runs = 2
+            pre = sum(int(((a.expert != b.expert) | (a.keep != b.keep))
+                          .sum()) for a, b in zip(served[:nl], own[:nl]))
+            dropped = sum(int((~r.keep).sum()) for r in served[nl:])
+            line.update({
+                "replay_on_the_kernel_identical": True,
+                "prefill_routing_pairs_differing": pre,
+                "decode_routing_decisions": free_d.numel(),
+                "free_replay_decisions_differing": int(free_d.sum()),
+                "free_replay_share_differing": float(free_d.float().mean()),
+                "free_replay_differing_by_step":
+                    free_d.sum(dim=(1, 2)).tolist(),
+                "free_replay_worst_share_of_max_logit": max(frep["share"]),
+                "forced_replay_own_decisions_differing": int(own_d.sum()),
+                "forced_replay_own_share_differing":
+                    float(own_d.float().mean()),
+                "forced_replay_own_differing_by_layer_step0":
+                    own_d[0].sum(-1).tolist(),
+                "routing_share_expected": MOE_ROUTING_EXPECTED,
+                "decode_pairs_dropped_served": dropped,
+                "decode_pairs": steps * nl * B * cfg.top_k,
+                "decode_capacity": L.moe_groups(B, cfg)[2]})
+            del frep, own, free_d, own_d
+        else:
+            rep = replay_decode(torch, run, gen, decode_attention_plain)
+        check(decode_attention_plain.calls == plain_runs * nl * steps,
+              f"{arch}: the replay did not run the plain decode attention")
+        line.update({
+            "replay_prefill_tokens_agreeing": rep["prefill_agree"],
+            "replay_worst_share_of_max_logit": max(rep["share"]),
+            "replay_share_by_step": rep["share"],
+            "replay_greedy_tokens_disagreeing": sum(rep["disagree"]),
+            "replay_disagreements_not_near_ties": sum(rep["unexplained"]),
+            "tolerance_share": LM_REPLAY_SHARE})
+        check(max(rep["share"]) <= LM_REPLAY_SHARE,
+              f"{arch}: decode logits on the kernel differ from the plain "
+              f"replay past the stated tolerance")
+        check(sum(rep["unexplained"]) == 0,
+              f"{arch}: a greedy token differs from the plain replay where "
+              f"the logits are not near a tie")
+        check(rep["prefill_agree"] == B, f"{arch}: the prefill's greedy "
+                                         f"tokens are not reproducible")
+        # one decode step under the sync debug mode "error"
+        decode = make_decode_step(run.model)
+        tok = run.tokens[:, steps - 1:steps]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode(params, tok, rep["cache"], S + steps - 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        line["sm clock, power, limit"] = nvidia_smi(
+            "clocks.sm,power.draw,power.limit")
+        print(json.dumps(line))
+        launches_by_config[arch] = launches
+        del run, params, rep, served, tok, decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches_by_config
 
 
 # the training phase: Qwen2-7B at full width, depth cut to TRAIN_LAYERS
@@ -2754,19 +3024,58 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 3
 TRAIN_CHECK_Q = 256
 
 
+# kernel names of gathers, scatters, top-k, sorts and scans: the MoE's
+# routing, dispatch and combine and their backward (the embedding lookup
+# and its backward fall here too)
+INDEX_KERNEL_NAMES = ("index", "scatter", "gather", "topk", "sort", "scan")
+
+
 def device_groups(per: dict) -> dict:
     """A step's device milliseconds (``profile_device_ms``'s per-name
     dict) in groups: the ``imc_mvm`` kernels, cuBLAS / CUTLASS matmuls,
-    and the rest (elementwise, reductions, copies)."""
-    out = {"imc_mvm": 0.0, "matmul": 0.0, "other": 0.0}
+    the index kernels (INDEX_KERNEL_NAMES), and the rest (elementwise,
+    reductions, copies)."""
+    out = {"imc_mvm": 0.0, "matmul": 0.0, "index": 0.0, "other": 0.0}
     for name, ms in per.items():
+        low = name.lower()
         if "imc_mvm_kernel" in name or "imc_dac_kernel" in name:
             out["imc_mvm"] += ms
-        elif any(k in name for k in ("nvjet", "gemm", "cutlass", "xmma")):
+        elif any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma")):
             out["matmul"] += ms
+        elif any(k in low for k in INDEX_KERNEL_NAMES):
+            out["index"] += ms
         else:
             out["other"] += ms
     return out
+
+
+def timed_train_steps(torch, step_fn, state, batches):
+    """One step a batch: all but the last timed with CUDA events, then the
+    last under the profiler (the device's time by kernel). Returns the
+    state after them, and the step ms, losses, grad norms and device
+    times."""
+    events, metrics = [], []
+    for batch in batches[:-1]:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        state, mt = step_fn(state, batch)
+        metrics.append(mt)
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    events.append(ev)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+    def profiled():
+        nonlocal state
+        state, mt = step_fn(state, batches[-1])
+        metrics.append(mt)
+
+    dev_ms, top, per, _ = profile_device_ms(torch, profiled, steps=1)
+    return state, {"ms": ms, "loss": [float(mt["loss"]) for mt in metrics],
+                   "grad_norm": [float(mt["grad_norm"]) for mt in metrics],
+                   "device_ms": dev_ms, "top": top, "per": per}
 
 
 def imc_recorder(layers_mod):
@@ -2795,7 +3104,6 @@ def phase_train_lm(torch, np):
     import tempfile
 
     from repro_torch.configs import get_config
-    from repro_torch.core.imc.array import ArrayConfig, default_full_scale
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.dist.checkpoint import CheckpointManager
     from repro_torch.kernels import _build
@@ -2834,34 +3142,12 @@ def phase_train_lm(torch, np):
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
     def run(m, first):
-        """TRAIN_STEPS steps timed with CUDA events, then one more under
-        the profiler (the device's time by kernel)."""
         nonlocal state
-        step_fn = make_train_step(m, tcfg)
         batches = [pipe.get_for(m.cfg, s, "cuda")
                    for s in range(first, first + TRAIN_STEPS + 1)]
-        events, metrics = [], []
-        for batch in batches[:-1]:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-            state, mt = step_fn(state, batch)
-            metrics.append(mt)
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-        torch.cuda.synchronize()
-        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-
-        def profiled():
-            nonlocal state
-            state, mt = step_fn(state, batches[-1])
-            metrics.append(mt)
-
-        dev_ms, top, per, _ = profile_device_ms(torch, profiled, steps=1)
-        return {"ms": ms, "loss": [float(mt["loss"]) for mt in metrics],
-                "grad_norm": [float(mt["grad_norm"]) for mt in metrics],
-                "device_ms": dev_ms, "top": top, "per": per}
+        state, out = timed_train_steps(torch, make_train_step(m, tcfg),
+                                       state, batches)
+        return out
 
     exact = run(model, 0)
     imc_mvm.launches = 0
@@ -2895,36 +3181,12 @@ def phase_train_lm(torch, np):
                                             remat="none"))
     check(np.isfinite(loss_exact) and np.isfinite(loss_imc),
           "non-finite evaluation loss")
-    q, w, kw, got = rec.pop("call")
-    Q, Dp = q.shape
-    R = w.shape[0]
-    acfg = ArrayConfig(adc_bits=cfg.imc_adc_bits,
-                       bits_per_cell=cfg.imc_mlc_bits)
-    check((Q, R, Dp) == (tokens, cfg.d_model, cfg.d_ff)
-          and kw["full_scale"] == default_full_scale(acfg),
-          f"the kernel ran at {(Q, R, Dp)}, not the training shape")
-    plain_s, mism = 0.0, 0
-    for i in range(0, Q, TRAIN_CHECK_Q):
-        t0 = time.perf_counter()
-        want = imc_mvm_plain(q[i:i + TRAIN_CHECK_Q], w, **kw)
-        torch.cuda.synchronize()
-        plain_s += time.perf_counter() - t0
-        mism += int((got[i:i + TRAIN_CHECK_Q] != want).sum())
-        del want
-    check(mism == 0, f"imc_mvm at the training shape differs from its "
-                     f"plain version in {mism} elements")
-    ms = time_ms(torch, lambda: imc_mvm(q, w, **kw), iters=5, warmup=1)
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        wt = w.t()
-        mm_ms = time_ms(torch, lambda: torch.matmul(q, wt), iters=5,
-                        warmup=1)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-    b_ms, b_by = bound_ms(2 * Q * R * Dp, (Q * Dp + R * Dp + Q * R) * 4,
-                          FP32_OPS_PER_S)
-    del q, w, got, wt
+    k = imc_launch_check(torch, cfg, rec.pop("call"), [
+        slice(i, i + TRAIN_CHECK_Q) for i in range(0, tokens, TRAIN_CHECK_Q)])
+    Q, R, Dp = k["Q"], k["R"], k["Dp"]
+    ms, mm_ms, b_ms, b_by = (k["ms"], k["matmul_ms"], k["bound_ms"],
+                             k["bound_by"])
+    mism, plain_s = k["mismatches"], k["plain_s"]
 
     # a checkpoint of the trained state, restored into a state of another
     # draw and zero moments: every leaf and counter must equal bit for bit
@@ -3004,6 +3266,189 @@ def phase_train_lm(torch, np):
             "train_plain_ms": 1e3 * plain_s, "train_mismatches": mism}
 
 
+# phase 8b: training the MoE family at published widths: deepseek_moe_16b
+# with MOE_TRAIN_LAYERS of 28 layers (~2.77 G float32 parameters x 16 B,
+# ~44 GB of state), batch 8 x 512, remat "full", exact; then granite_20b
+# with IMC_TRAIN_LAYERS of 52 layers and imc_linear (the imc_mvm kernel in
+# every FFN down-projection, d_ff 24,576), IMC_TRAIN_STEPS steps (the
+# last of each run's steps is the profiled one)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek_moe_16b", 4
+IMC_TRAIN_ARCH, IMC_TRAIN_LAYERS, IMC_TRAIN_STEPS = "granite_20b", 4, 2
+def phase_train_configs(torch, np) -> dict:
+    """deepseek_moe_16b training through ``build_model`` ->
+    ``init_train_state`` -> ``make_train_step`` -> ``TokenPipeline.get_for``
+    (exact), then granite_20b with ``imc_linear``: its ``imc_mvm``
+    launches counted and one launch at the training shape held against
+    the plain version on its first and last query rows. Returns the
+    numbers the ``imc_mvm`` entry gains."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    results = {}
+    for arch, layers, steps, imc in (
+            (MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, TRAIN_STEPS + 1, False),
+            (IMC_TRAIN_ARCH, IMC_TRAIN_LAYERS, IMC_TRAIN_STEPS, True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers, imc_linear=imc)
+        print(f"reduced: training {arch} at published widths with {layers} "
+              f"of its {full.num_layers} layers (float32 params, grads and "
+              f"AdamW moments: 16 B a parameter), batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, {steps - 1} timed and 1 profiled step"
+              f"{', imc_linear' if imc else ''}")
+        model = build_model(cfg, "cuda")
+        tcfg = TrainConfig(optimizer=AdamWConfig(total_steps=steps),
+                           remat="full")
+        pipe = TokenPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             vocab=cfg.vocab_size)
+        t0 = time.perf_counter()
+        state = init_train_state(model, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batches = [pipe.get_for(cfg, s, "cuda") for s in range(steps)]
+        imc_mvm.launches = 0
+        imc_mvm_plain.calls = 0
+        state, r = timed_train_steps(torch, make_train_step(model, tcfg),
+                                     state, batches)
+        launches, plain = imc_mvm.launches, imc_mvm_plain.calls
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for key in ("loss", "grad_norm"):
+            check(all(np.isfinite(r[key])), f"{arch}: non-finite {key}: "
+                                            f"{r[key]}")
+        want = layers * steps if imc else 0
+        check(launches == want, f"{arch}: imc_mvm launched {launches} "
+                                f"times in {steps} steps, not {want}")
+        check(plain == 0, f"{arch}: the plain imc_mvm ran {plain} times")
+        med = float(np.median(r["ms"][1:] or r["ms"]))
+        dev = r["device_ms"]
+        line = {
+            "path": "lm train config", "arch": arch, "layers": layers,
+            "published_layers": full.num_layers, "imc_linear": imc,
+            "params": sum(p.numel() for p in state.params.parameters()),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": tcfg.remat,
+            "init_s": init_s, "step_ms": r["ms"], "step_ms_used": med,
+            "tokens_per_s": 1e3 * tokens / med, "loss": r["loss"],
+            "grad_norm": r["grad_norm"], "device_ms_per_step": dev,
+            "device_share_of_step": None if dev is None else dev / med,
+            "device_ms_by_group": device_groups(r["per"]),
+            "device_ms_by_kernel": r["top"], "peak_gib": peak,
+            "imc_mvm_launches": launches,
+            "sm clock, power, limit":
+                nvidia_smi("clocks.sm,power.draw,power.limit")}
+        if imc:
+            line.update(imc_training_shape(torch, np, model, state, pipe,
+                                           cfg, L))
+            results = {"granite_train_launches": launches,
+                       "granite_train_launches_per_step": launches / steps,
+                       **{k: line[k] for k in (
+                           "granite_train_shape", "granite_train_ms",
+                           "granite_train_matmul_ms",
+                           "granite_train_bound_ms",
+                           "granite_train_bound_by",
+                           "granite_train_plain_ms",
+                           "granite_train_checked_rows",
+                           "granite_train_mismatches")}}
+        print(json.dumps(line))
+        del state, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train configs: phase {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def imc_launch_check(torch, cfg, call, rows: list) -> dict:
+    """One recorded ``imc_mvm`` launch (operands, knobs, result) at
+    ``cfg``'s training shape: the result's query ``rows`` (slices) against
+    the plain version, bit for bit, and the kernel timed beside a float32
+    ``torch.matmul`` of the same operands (TF32 off, no DAC / ADC) and
+    its bound."""
+    from repro_torch.core.imc.array import ArrayConfig, default_full_scale
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+
+    q, w, kw, got = call
+    Q, Dp = q.shape
+    R = w.shape[0]
+    acfg = ArrayConfig(adc_bits=cfg.imc_adc_bits,
+                       bits_per_cell=cfg.imc_mlc_bits)
+    check((Q, R, Dp) == (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff)
+          and kw["full_scale"] == default_full_scale(acfg),
+          f"the kernel ran at {(Q, R, Dp)}, not {cfg.name}'s training "
+          f"shape")
+    plain_s, mism, checked = 0.0, 0, 0
+    for r in rows:
+        t0 = time.perf_counter()
+        want = imc_mvm_plain(q[r], w, **kw)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        mism += int((got[r] != want).sum())
+        checked += want.shape[0]
+        del want
+    check(mism == 0, f"imc_mvm at {cfg.name}'s training shape differs "
+                     f"from its plain version in {mism} elements")
+    ms = time_ms(torch, lambda: imc_mvm(q, w, **kw), iters=5, warmup=1)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        wt = w.t()
+        mm_ms = time_ms(torch, lambda: torch.matmul(q, wt), iters=5,
+                        warmup=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    b_ms, b_by = bound_ms(2 * Q * R * Dp, (Q * Dp + R * Dp + Q * R) * 4,
+                          FP32_OPS_PER_S)
+    return {"Q": Q, "R": R, "Dp": Dp, "ms": ms, "matmul_ms": mm_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "plain_s": plain_s,
+            "mismatches": mism, "checked_rows": checked}
+
+
+def imc_training_shape(torch, np, model, state, pipe, cfg,
+                       layers_mod) -> dict:
+    """``imc_launch_check`` of the first launch of an evaluation forward,
+    on its first and last TRAIN_CHECK_Q query rows."""
+    rec, patch = imc_recorder(layers_mod)
+    with torch.no_grad(), patch:
+        loss = float(model.loss(state.params, pipe.get_for(
+            cfg, IMC_TRAIN_STEPS, "cuda"), remat="none"))
+    check(np.isfinite(loss), "non-finite evaluation loss")
+    n = TRAIN_BATCH * TRAIN_SEQ
+    k = imc_launch_check(torch, cfg, rec.pop("call"), [
+        slice(0, TRAIN_CHECK_Q), slice(n - TRAIN_CHECK_Q, n)])
+    print(f"train: imc_mvm at {cfg.name}'s training shape Q={k['Q']}, "
+          f"R={k['R']}, Dp={k['Dp']}: {k['ms']:.4f} ms (5 launches), "
+          f"float32 torch.matmul {k['matmul_ms']:.4f} ms, bound "
+          f"{k['bound_ms']:.4f} ms ({k['bound_by']}); kernel vs plain on "
+          f"query rows 0-{TRAIN_CHECK_Q - 1} and {n - TRAIN_CHECK_Q}-"
+          f"{n - 1}: {k['mismatches']} mismatches (plain "
+          f"{k['plain_s']:.2f} s)")
+    return {"eval_loss_imc": loss,
+            "granite_train_shape": f"Q={k['Q']}, R={k['R']}, Dp={k['Dp']} "
+                                   f"({cfg.name} FFN down-projection, "
+                                   f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
+            "granite_train_ms": k["ms"],
+            "granite_train_matmul_ms": k["matmul_ms"],
+            "granite_train_bound_ms": k["bound_ms"],
+            "granite_train_bound_by": k["bound_by"],
+            "granite_train_plain_ms": 1e3 * k["plain_s"],
+            "granite_train_checked_rows": k["checked_rows"],
+            "granite_train_mismatches": k["mismatches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3074,6 +3519,7 @@ def main() -> int:
           f"int8 cache alone, and a (B, H, S, S) prefill logit buffer); "
           f"parameters are the port's seeded random draw")
     kernels.append(phase_serve_lm(torch, np))
+    kernels[-1]["launches_by_config"] = phase_serve_lm_configs(torch, np)
     print(f"reduced: training Qwen2-7B at full width with {TRAIN_LAYERS} of "
           f"its 28 layers (float32 params, grads and AdamW moments: ~122 GB "
           f"at 28 layers, more than the card's 80 GB), batch {TRAIN_BATCH} x "
@@ -3081,6 +3527,7 @@ def main() -> int:
           f"exact then imc_linear; parameters are the port's seeded random "
           f"draw")
     imc.update(phase_train_lm(torch, np))
+    imc.update(phase_train_configs(torch, np))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

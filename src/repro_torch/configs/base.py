@@ -1,10 +1,10 @@
 """Architecture configuration (a copy of ``repro.configs.base``).
 
 One ``ArchConfig`` describes any model family of the JAX package (dense /
-MoE / SSM / hybrid / enc-dec / VLM backbone). The port serves the dense
-decoder-only family; of the ten registered architectures only Qwen2-7B
-has a module here so far, and :func:`get_config` of another raises and
-names ROADMAP.md (Queue 1, item 5).
+MoE / SSM / hybrid / enc-dec / VLM backbone). Every one of the ten
+architectures has a module in this package registering its published
+config and a ``reduced()`` smoke-test variant. Which families the port
+can build and run is decided by ``models.transformer.block_kind``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ ARCH_IDS = [
     "whisper_medium",
     "hymba_1_5b",
 ]
-PORTED_ARCH_IDS = ("qwen2_7b",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +81,15 @@ class ArchConfig:
         return self.num_experts > 0
 
     @property
+    def is_recurrent(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic / bounded-state decode (long_500k eligibility)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256 (whisper's 51865 -> 52224)."""
         return -(-self.vocab_size // 256) * 256
@@ -120,11 +128,13 @@ def register(arch_id: str):
 def get_config(arch_id: str) -> ArchConfig:
     arch_id = arch_id.replace("-", "_")
     if arch_id not in _REGISTRY:
-        if arch_id not in PORTED_ARCH_IDS:
-            known = arch_id in ARCH_IDS
-            raise NotImplementedError(
-                f"architecture {arch_id!r} is "
-                f"{'not ported yet' if known else 'unknown'}; the port has "
-                f"{', '.join(PORTED_ARCH_IDS)} (ROADMAP.md, Queue 1 item 5)")
+        # lazy import of the arch module
         importlib.import_module(f"repro_torch.configs.{arch_id}")
     return _REGISTRY[arch_id]()
+
+
+def list_archs() -> list[str]:
+    for a in ARCH_IDS:
+        if a not in _REGISTRY:
+            importlib.import_module(f"repro_torch.configs.{a}")
+    return sorted(_REGISTRY)

@@ -85,11 +85,15 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
     a leading ``layer`` axis, as ``repro.models.transformer.init_lm``
     makes it) as the port's :class:`~repro_torch.models.transformer.LM`.
 
+    A dense layer holds ``norm1``, ``attn``, ``norm2`` and ``ffn``; an MoE
+    layer ``moe`` in place of ``ffn`` (``router``, the 3-D expert leaves
+    ``w_gate`` / ``w_up`` / ``w_down`` and the ``shared_*`` matrices).
     Matrices, biases, ``embed`` and ``lm_head`` are stored in ``dtype``
     (default ``cfg.dtype``): the reference casts each of them to that dtype
     before every use, so the values are the same. Norm scales and biases
-    stay float32, as ``apply_norm`` computes in float32. With
-    ``trainable`` every leaf is the reference's float32 master value
+    stay float32, as ``apply_norm`` computes in float32, and so does the
+    MoE router, which the reference multiplies in float32 without a cast.
+    With ``trainable`` every leaf is the reference's float32 master value
     (``cfg.param_dtype``) and carries gradients, as training needs."""
     from torch import nn
 
@@ -98,23 +102,27 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
 
     dev = resolve_device(device)
     dt = _leaf_dtype(cfg, True) if trainable else dtype or _dtype(cfg)
-    T.block_kind(cfg)  # raises for a family the port does not serve yet
+    # raises for a family the port does not serve yet
+    kind = T.block_kind(cfg)
+    names = ("norm1", "attn", "norm2",
+             "moe" if kind == "attn_moe" else "ffn")
 
-    def tensor(a, norm=False):
+    def tensor(a, f32=False):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=torch.float32 if norm else dt)
+        return t.to(device=dev, dtype=torch.float32 if f32 else dt)
 
-    def group(tree, i, norm):
-        return nn.ParameterDict({name: _param(tensor(a[i], norm), trainable)
-                                 for name, a in tree.items()})
+    def group(g, i):
+        return nn.ParameterDict({
+            name: _param(tensor(a[i], g.startswith("norm") or (
+                g, name) == ("moe", "router")), trainable)
+            for name, a in layers[g].items()})
 
     layers = params["layers"]
-    if set(layers) != {"norm1", "attn", "norm2", "ffn"}:
-        raise ValueError(f"expected a dense decoder's layers, got "
-                         f"{sorted(layers)}")
-    blocks = [nn.ModuleDict({name: group(layers[name], i, name.startswith(
-        "norm")) for name in ("norm1", "attn", "norm2", "ffn")})
-        for i in range(cfg.num_layers)]
+    if set(layers) != set(names):
+        raise ValueError(f"expected the layers of an {kind} block "
+                         f"({sorted(names)}), got {sorted(layers)}")
+    blocks = [nn.ModuleDict({g: group(g, i) for g in names})
+              for i in range(cfg.num_layers)]
     final = nn.ParameterDict({name: _param(tensor(a, True), trainable)
                               for name, a in params["final_norm"].items()})
     head = params.get("lm_head")

@@ -4,7 +4,8 @@ Wires together: config -> model -> train step -> synthetic token
 pipeline -> checkpointing (auto-resume, async, keep-N) -> straggler
 monitor. With ``--imc-linear`` every FFN down-projection runs through the
 SpecPCM analog chain (the ``imc_mvm`` kernel on the card) with a
-straight-through gradient.
+straight-through gradient; an MoE config's layers have no dense FFN, so
+there it routes nothing, as in the reference.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_7b \

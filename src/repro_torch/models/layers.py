@@ -1,6 +1,7 @@
-"""Core transformer layers of the dense decoder (``repro.models.layers``):
+"""Core transformer layers of the decoder (``repro.models.layers``):
 norms, RoPE, GQA attention (full / chunked / prefill / decode against a
-KV cache) and the dense FFN variants (SwiGLU / GeGLU / GELU).
+KV cache), the dense FFN variants (SwiGLU / GeGLU / GELU) and the
+GShard-style MoE layer with capacity-factor dispatch and shared experts.
 
 Parameters are ``nn.ParameterDict``s keyed by the JAX package's names
 (``wq`` (D, H, hd), ``wo`` (H, hd, D), ``w_gate`` (D, F), ...), so a layer
@@ -23,8 +24,12 @@ the reference does. The FFN's IMC-routed down-projection
 (``_imc_linear``) runs the hand-written ``imc_mvm`` kernel on CUDA
 tensors.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5.3): the MoE layer
-(``init_moe`` / ``apply_moe``); configurations that reach it raise.
+The MoE layer routes with indices where the reference multiplies dense
+one-hot dispatch and combine tensors: each (expert, group, slot) of the
+capacity buffer receives at most one (token, slot) pair, so gathering
+gives the reference's dispatched values exactly, and the combine sums the
+same ``<= top_k`` weighted terms. The routing reads nothing back from the
+card. It never goes through ``_imc_linear``, as in the reference.
 """
 
 from __future__ import annotations
@@ -59,13 +64,15 @@ def _param(t: torch.Tensor, trainable: bool = False) -> nn.Parameter:
 
 
 def _normal(shape, std: float, cfg: ArchConfig, device, generator,
-            trainable: bool = False) -> nn.Parameter:
-    """A float32 normal draw times ``std``, cast to the leaf dtype: one
-    matrix at a time, so a full-width serving model never holds its
-    float32 weights at once."""
+            trainable: bool = False, dtype: torch.dtype | None = None
+            ) -> nn.Parameter:
+    """A float32 normal draw times ``std``, cast to the leaf dtype (or
+    ``dtype``): one matrix at a time, so a full-width serving model never
+    holds its float32 weights at once."""
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return _param(w.mul_(std).to(_leaf_dtype(cfg, trainable)), trainable)
+    dt = dtype or _leaf_dtype(cfg, trainable)
+    return _param(w.mul_(std).to(dt), trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -499,3 +506,125 @@ def apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if "b_down" in p:
         y = y + p["b_down"].to(dt)
     return y
+
+
+# ---------------------------------------------------------------------------
+# MoE (GShard-style capacity dispatch + shared experts)
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ArchConfig, device="cpu",
+             generator: torch.Generator | None = None,
+             trainable: bool = False) -> Params:
+    """The reference's distributions: the router and the experts' input
+    matrices normal x ``d**-0.5``, the output matrices (the shared
+    experts' too) normal x ``expert_d_ff**-0.5``. The router is kept in
+    float32 whatever ``cfg.dtype`` is: the reference multiplies it in
+    float32 without a cast, and a bfloat16 copy would change routing."""
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
+    s_in, s_out = d ** -0.5, f ** -0.5
+    t = trainable
+    p = {
+        "router": _normal((d, e), s_in, cfg, device, generator, t,
+                          dtype=torch.float32),
+        "w_gate": _normal((e, d, f), s_in, cfg, device, generator, t),
+        "w_up": _normal((e, d, f), s_in, cfg, device, generator, t),
+        "w_down": _normal((e, f, d), s_out, cfg, device, generator, t),
+    }
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        p["shared_gate"] = _normal((d, fs), s_in, cfg, device, generator, t)
+        p["shared_up"] = _normal((d, fs), s_in, cfg, device, generator, t)
+        p["shared_down"] = _normal((fs, d), s_out, cfg, device, generator,
+                                   t)
+    return nn.ParameterDict(p)
+
+
+def moe_groups(tokens: int, cfg: ArchConfig) -> tuple[int, int, int]:
+    """(group size, groups, capacity) of an MoE layer over ``tokens``
+    tokens, as the reference computes them; a token count that is not a
+    multiple of the group raises (the reference asserts)."""
+    g_sz = min(cfg.moe_group_size, tokens)
+    if tokens % g_sz:
+        raise ValueError(f"{tokens} tokens are not a multiple of the MoE "
+                         f"group size {g_sz}")
+    cap = max(int(g_sz * cfg.top_k * cfg.capacity_factor
+                  / cfg.num_experts), 1)
+    return g_sz, tokens // g_sz, cap
+
+
+@dataclasses.dataclass
+class MoERoute:
+    """One MoE layer's routing of its (G, g_sz) token groups, per
+    (group, token, top-k slot)."""
+    weight: torch.Tensor   # float32 top-k gates over their sum
+    expert: torch.Tensor   # int64, in lax.top_k's order
+    pos: torch.Tensor      # int32 arrival position within the expert
+    keep: torch.Tensor     # bool: pos < capacity
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ArchConfig,
+              cap: int) -> MoERoute:
+    """Router, top-k and capacity of ``xt`` (G, g_sz, D): float32 router
+    product and softmax; the top ``k`` experts in ``lax.top_k``'s order
+    (descending gates, ties to the lower expert); the gates normalised by
+    ``max(sum, 1e-9)``; arrival order over the group's (token, slot)
+    pairs flattened token-major, and a pair kept while its expert has
+    taken fewer than ``cap``. No host synchronization."""
+    e, k = cfg.num_experts, cfg.top_k
+    gates = torch.softmax(xt.float() @ router.float(), dim=-1)
+    # torch.topk promises no order among ties, so it ranks unique keys:
+    # the gates are >= 0, whose float32 bit patterns order as the values
+    # do, and the expert index breaks ties toward the lower one
+    idx = torch.arange(e, device=xt.device)
+    key = gates.detach().view(torch.int32).to(torch.int64) * e + (e - 1 - idx)
+    expert = torch.topk(key, k, dim=-1).indices
+    topv = torch.gather(gates, -1, expert)
+    weight = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    g, g_sz = expert.shape[:2]
+    flat = expert.reshape(g, g_sz * k)
+    onehot = (flat[..., None] == idx).to(torch.int32)        # (G, g_sz*k, E)
+    before = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    pos = torch.gather(before, -1, flat[..., None]).reshape(g, g_sz, k)
+    return MoERoute(weight=weight, expert=expert, pos=pos, keep=pos < cap)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Top-k capacity-factor MoE over ``x`` (B, S, D) in token groups of
+    ``moe_group_size``, dispatched by index into an (E, G, cap, D) buffer:
+    a kept pair lands in its (expert, group, arrival position) slot, a
+    dropped one in an overflow row past the buffer that is never read;
+    each token then sums its kept pairs' expert outputs times their
+    gates (a dropped pair reads row 0 with weight 0, as the reference's
+    combine multiplies it by 0). Plus the shared experts' SwiGLU over
+    ``expert_d_ff * num_shared_experts``."""
+    dt = x.dtype
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    n = b * s
+    g_sz, g, cap = moe_groups(n, cfg)
+    tokens = x.reshape(n, d)
+    xt = tokens.view(g, g_sz, d)
+    r = moe_route(p["router"], xt, cfg, cap)
+
+    slots = e * g * cap
+    dev = x.device
+    group = torch.arange(g, device=dev)[:, None, None]
+    dest = torch.where(r.keep, (r.expert * g + group) * cap + r.pos,
+                       slots).reshape(n * k)
+    token = torch.arange(n, device=dev)[:, None].expand(n, k).reshape(n * k)
+    src = torch.full((slots + 1,), n, dtype=torch.int64,
+                     device=dev).scatter(0, dest, token)
+    padded = torch.cat([tokens, tokens.new_zeros(1, d)])    # row n: zeros
+    expert_in = padded[src[:slots]].view(e, g * cap, d)
+    h = F.silu(torch.bmm(expert_in, p["w_gate"].to(dt)))
+    h = h * torch.bmm(expert_in, p["w_up"].to(dt))
+    expert_out = torch.bmm(h, p["w_down"].to(dt)).view(slots, d)
+
+    picked = expert_out[torch.where(dest < slots, dest, 0)].view(n, k, d)
+    w = (r.weight * r.keep).to(dt).view(n, 1, k)
+    y = torch.bmm(w, picked).view(g, g_sz, d)
+    if cfg.num_shared_experts:
+        sg = F.silu(xt @ p["shared_gate"].to(dt))
+        su = xt @ p["shared_up"].to(dt)
+        y = y + (sg * su) @ p["shared_down"].to(dt)
+    return y.reshape(b, s, d)

@@ -1,5 +1,5 @@
 """Unified Model API (``repro.models.model_zoo``) for the families the
-port serves: the dense decoder-only LM.
+port serves: the decoder-only dense and MoE LMs.
 
 ``build_model(cfg)`` returns a :class:`Model` on a device (CUDA unless the
 caller asks for the CPU; asking for CUDA without a card raises) with
@@ -46,7 +46,8 @@ class Model:
     # ---- train ------------------------------------------------------------
     def loss(self, params, batch: dict, remat: str = "full"
              ) -> torch.Tensor:
-        """Next-token cross-entropy of the decoder-only LM."""
+        """Next-token cross-entropy of the decoder-only LM (dense or
+        MoE)."""
         cfg = self.cfg
         if cfg.family == "vlm" or cfg.is_encoder_decoder:
             raise NotImplementedError(

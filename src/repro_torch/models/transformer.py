@@ -1,6 +1,7 @@
-"""Model assembly of the dense decoder-only family
-(``repro.models.transformer``): blocks, the LM's parameters, KV caches,
-the training forward pass, prefill and decode.
+"""Model assembly of the decoder-only families (``repro.models.transformer``):
+blocks (``attn_ffn`` for the dense family, ``attn_moe`` for the MoE one),
+the LM's parameters, KV caches, the training forward pass, prefill and
+decode.
 
 The reference stacks its layers' parameters on a leading ``layer`` axis
 and scans over them (``lax.scan``); here the layers are an
@@ -9,8 +10,8 @@ one ``KVCache`` / ``QuantKVCache`` per layer, updated in place. The
 training forward wraps each block in the remat policy (``_remat``), as
 the reference wraps its scan body.
 
-The MoE, SSM, hybrid, encoder-decoder and VLM families are not ported yet
-(ROADMAP.md, Queue 1 items 5.3-5.5); building or running one raises.
+The SSM, hybrid, encoder-decoder (audio) and VLM families are not ported
+yet (ROADMAP.md, Queue 1 items 5.4-5.5); building or running one raises.
 """
 
 from __future__ import annotations
@@ -24,69 +25,89 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
+KINDS = ("attn_ffn", "attn_moe")
 
-def block_kind(cfg: ArchConfig) -> str:
-    if cfg.family != "dense" or cfg.is_encoder_decoder or cfg.is_moe:
+
+def block_kind(cfg: ArchConfig, layer_idx: int = 0) -> str:
+    if (cfg.family in ("ssm", "hybrid", "audio", "vlm")
+            or cfg.is_encoder_decoder):
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet; the "
-            f"port runs dense decoder-only models (ROADMAP.md, Queue 1 "
-            f"items 5.3-5.5)")
-    return "attn_ffn"
+            f"port runs decoder-only dense and MoE models (ROADMAP.md, "
+            f"Queue 1 items 5.4-5.5)")
+    return "attn_moe" if cfg.family == "moe" else "attn_ffn"
 
 
 def init_block(cfg: ArchConfig, kind: str, device="cpu",
                generator: torch.Generator | None = None,
                trainable: bool = False) -> nn.ModuleDict:
-    if kind != "attn_ffn":
+    if kind not in KINDS:
         raise ValueError(kind)
     t = trainable
-    return nn.ModuleDict({
+    p = {
         "norm1": L.init_norm(cfg, device=device, trainable=t),
         "attn": L.init_attention(cfg, device, generator, t),
         "norm2": L.init_norm(cfg, device=device, trainable=t),
-        "ffn": L.init_ffn(cfg, device=device, generator=generator,
-                          trainable=t),
-    })
+    }
+    if kind == "attn_moe":
+        p["moe"] = L.init_moe(cfg, device, generator, t)
+    else:
+        p["ffn"] = L.init_ffn(cfg, device=device, generator=generator,
+                              trainable=t)
+    return nn.ModuleDict(p)
+
+
+def _mlp(p: nn.ModuleDict, h: torch.Tensor, cfg: ArchConfig, kind: str
+         ) -> torch.Tensor:
+    """The block's second half: the MoE layer or the dense FFN."""
+    if kind == "attn_moe":
+        return L.apply_moe(p["moe"], h, cfg)
+    return L.apply_ffn(p["ffn"], h, cfg)
 
 
 def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
                       kind: str) -> torch.Tensor:
     """One block over a full sequence (training). The reference's
     ``constrain`` calls are the identity on one device."""
-    if kind != "attn_ffn":
+    if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
     x = x + L.attention_train(p["attn"], h, cfg).to(x.dtype)
     h = L.apply_norm(p["norm2"], x, cfg)
-    return x + L.apply_ffn(p["ffn"], h, cfg).to(x.dtype)
+    return x + _mlp(p, h, cfg, kind).to(x.dtype)
 
 
 def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
                         kind: str, cache):
-    if kind != "attn_ffn":
+    if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
     attn, cache = L.attention_prefill(p["attn"], h, cfg, cache)
     x = x + attn
     h = L.apply_norm(p["norm2"], x, cfg)
-    return x + L.apply_ffn(p["ffn"], h, cfg), cache
+    return x + _mlp(p, h, cfg, kind), cache
 
 
 def apply_block_decode(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
                        kind: str, cache, pos: int,
                        attend: L.Attend | None = None):
-    if kind != "attn_ffn":
+    """One token a row; an MoE block routes the batch's B tokens as one
+    group (as the reference's decode does), so its capacity is small and
+    drops pairs as the reference's does."""
+    if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
     attn, cache = L.attention_decode(p["attn"], h, cfg, cache, pos, attend)
     x = x + attn
     h = L.apply_norm(p["norm2"], x, cfg)
-    return x + L.apply_ffn(p["ffn"], h, cfg), cache
+    return x + _mlp(p, h, cfg, kind), cache
 
 
 # matmuls without batch dimensions: what the reference's "dots" policy
-# (``dots_with_no_batch_dims_saveable``) keeps; the attention's batched
-# einsums (bmm) are recomputed
+# (``dots_with_no_batch_dims_saveable``) keeps, the MoE router and shared
+# experts' products among them; the attention's batched einsums and the
+# MoE's expert and combine products (bmm, with the expert or token axis
+# as batch) and its dispatch and combine gathers are recomputed
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -139,10 +160,11 @@ def init_lm(cfg: ArchConfig, device="cpu",
     """The port's own initialisation, drawn from ``generator`` on
     ``device``. It cannot reproduce ``jax.random``; it meets the
     reference's distributions: embed and lm_head normal x ``D**-0.5``,
-    the attention and FFN scales of ``layers.init_attention`` /
-    ``init_ffn``, zero biases, unit norms. Each matrix is drawn in float32
-    and cast to ``cfg.dtype`` (``trainable``: kept in ``cfg.param_dtype``,
-    with gradients) before the next is drawn."""
+    the attention, FFN and MoE scales of ``layers.init_attention`` /
+    ``init_ffn`` / ``init_moe``, zero biases, unit norms. Each matrix is
+    drawn in float32 and cast to ``cfg.dtype`` (the MoE router stays
+    float32; ``trainable``: kept in ``cfg.param_dtype``, with gradients)
+    before the next is drawn."""
     kind = block_kind(cfg)
     V, D = cfg.padded_vocab, cfg.d_model
     t = trainable
@@ -158,7 +180,12 @@ def init_lm(cfg: ArchConfig, device="cpu",
 
 def embed_tokens(p: LM, tokens: torch.Tensor, cfg: ArchConfig
                  ) -> torch.Tensor:
-    return p["embed"][tokens].to(L._dtype(cfg))
+    x = p["embed"][tokens].to(L._dtype(cfg))
+    if cfg.name.startswith("gemma"):
+        # the reference scales by sqrt(d_model) rounded to the activation
+        # dtype; a Python float, so nothing is copied to the card
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x
 
 
 def unembed(p: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -700,7 +700,8 @@ def test_burst_seconds_hides_the_hosts_issue_time(cuda):
 
 
 # decode_attention cases: (B, S, KV, G, hd, valid lengths); the reference's
-# test shapes, G = 1 at hd = 256, granite's G = 48, valid_len 1 / 70 / S,
+# test shapes, G = 1 at hd = 256 (gemma), granite's G = 48, llama4's G = 5
+# at hd 128, valid_len 1 / 70 / S,
 # S off every chunk multiple, valid_len 0 and the served shape; then the
 # split rule's edges on an H100's 132 SMs: valid_len at a split boundary
 # - 1 / + 0 / + 1 (8 splits of 125; the served 3 of 363), valid_len 1 with
@@ -716,6 +717,7 @@ DECODE_CASES = [
     (32, 1088, 4, 7, 128, (362, 363, 364, 1)),
     (4, 100, 2, 7, 128, (1, 99, 100, 0)),
     (2, 150, 2, 5, 48, (150, 77)), (1, 100, 1, 12, 96, (100, 33)),
+    (4, 600, 8, 5, 128, (600, 513, 1)),     # llama4's G = 5 at hd 128
 ]
 
 
@@ -1246,7 +1248,7 @@ def test_clustering_on_the_card_equals_the_cpu(cuda, ideal, monkeypatch):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("f,lead", [(128, (2, 5)), (200, (3, 33)),
-                                    (18_944, (1, 64))])
+                                    (18_944, (1, 64)), (24_576, (1, 64))])
 def test_imc_linear_kernel_matches_plain(cuda, f, lead, monkeypatch):
     """``_imc_linear`` on CUDA tensors launches ``imc_mvm`` once and equals,
     bit for bit, the same function with the plain version on the card;
@@ -1323,3 +1325,78 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, imc):
     np.testing.assert_allclose(gg, gc, rtol=1e-4)
     for a, b in zip(pg, pc):
         assert float((a - b).abs().max()) <= 2e-3 + 1e-6
+
+
+# --------------------------------------------------------------------------
+# the MoE layer on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "llama4_scout_17b_a16e"])
+@pytest.mark.parametrize("cf", [0.25, 1.25])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, arch, cf, monkeypatch):
+    """``apply_moe`` (float32, TF32 off) on the card against the same call
+    on the CPU: the routing (experts in ``lax.top_k``'s order, arrival
+    positions, kept mask) equal, outputs within rtol / atol 1e-5. Eight
+    all-zero rows tie every gate (the lower experts win); capacity
+    factor 0.25 drops pairs (1.25 may too: the tied rows crowd experts 0
+    and 1)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch).reduced(), capacity_factor=cf)
+    p = L.init_moe(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(4, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    x[1, :8] = 0.0
+    seen = []
+    route = L.moe_route
+
+    def recording(*args):
+        seen.append(route(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(L, "moe_route", recording)
+    want = L.apply_moe(p, x, cfg)
+    got = L.apply_moe(p.to(cuda), x.to(cuda), cfg)
+    cpu, card = seen
+    for name in ("expert", "pos", "keep"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), \
+            name
+    if cf < 1:      # capacity 2 of 32 tokens a group: pairs are dropped
+        assert bool((~cpu.keep).any())
+    torch.testing.assert_close(card.weight.cpu(), cpu.weight, rtol=1e-6,
+                               atol=1e-7)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "llama4_scout_17b_a16e"])
+def test_moe_decode_step_makes_no_host_sync(cuda, arch):
+    """An MoE decode step (bfloat16, int8 KV store, the decode kernel)
+    runs under the sync debug mode "error": the routing, dispatch and
+    combine read nothing back from the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              kv_quant_int8=True, dtype="bfloat16")
+    model = build_model(cfg, cuda)
+    params = model.init(seed=0)
+    batch = TokenPipeline(4, 16, cfg.vocab_size).get(0, cuda)
+    cache = model.init_cache(4, 20)
+    logits, cache = model.prefill(params, batch, cache, last_only=True)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pos in (16, 17):
+            logits, cache = model.decode_step(params, tok, cache, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tok.shape == (4, 1) and bool(torch.isfinite(logits).all())
