@@ -230,11 +230,51 @@ exits non-zero and prints no result line:
    bit for bit on its first and last 256 query rows; it is timed beside
    a float32 ``torch.matmul`` and its bound. Losses and grad norms must
    be finite. Prints the step ms, tokens/s and peak memory of each.
+7c. The recurrent families: ``repro_torch.launch.serve.main`` on
+   ``hymba_1_5b`` (attention and Mamba heads side by side, the int8 KV
+   store) and ``xlstm_125m`` (mLSTM blocks, an sLSTM every fourth) at
+   published width and full depth, bfloat16, batch 32, a 512-token
+   prompt, 16 greedy tokens. Hymba must launch ``decode_attention`` 32
+   layers x 15 times, xLSTM (no attention; ``--kv-quant`` changes
+   nothing) 0 times, the plain version 0 times. A teacher-forced replay
+   must reproduce each served run's logits exactly; in Hymba's, every
+   attention call also runs the plain version on the same inputs, within
+   rtol / atol 2e-4 (a free-running replay on the plain attention is
+   printed, not held: bfloat16 rounding, amplified through the
+   random-weight layers, moves it past 2^-4); one decode step runs under
+   the sync debug mode "error".
+   The state carry: a float32 copy of each model (8 of the rows) decodes
+   the same way, and each step's logits are held against
+   ``forward_train`` of the prompt and the generated tokens at that
+   position within 2^-4 (the served bfloat16 run's share is printed, not
+   held, for the same reason; CARRY_BATCH's comment). Then Hymba's ring
+   run, batch 4 x (2,048
+   + 64): the decode wraps the 2,048-slot window at position 2,048, a
+   replay runs the kernel and its plain version on the same inputs at
+   every layer of every wrapped step (``valid_len`` 2,048), within rtol /
+   atol 2e-4, and a float32 copy of the run is held against
+   ``forward_train`` as above. Prints prefill
+   seconds, decode ms/step p50 / p95, tokens/s, peak memory, the weights'
+   and states' bytes and the weight-read bound.
+8c. Training the recurrent families at published width and full depth,
+   batch 8 x 512, remat "full", AdamW, three timed steps and one
+   profiled: ``xlstm_125m`` exact, then ``hymba_1_5b`` exact and, on
+   the same state, with ``imc_linear``: ``imc_mvm`` must launch once a
+   layer a step (32), never for xLSTM, the plain version never, and
+   one launch at Hymba's training shape (Q 4,096, R 1,600, Dp 5,504)
+   must equal the plain version bit for bit on its first and last 256
+   query rows. Prints step ms, tokens/s, the device's milliseconds by
+   group and peak memory.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
 ``torch.cuda.is_available()`` is False, and where ``src/repro_torch`` is
 missing beside it.
+
+    python3 chip_smoke.py --only 7c,8c
+
+runs the build and the named phases alone (7c, 8c), printing their lines
+and no kernels or ``ok`` line: a quick check of one slice on the card.
 """
 
 from __future__ import annotations
@@ -3418,9 +3458,10 @@ def imc_launch_check(torch, cfg, call, rows: list) -> dict:
 
 
 def imc_training_shape(torch, np, model, state, pipe, cfg,
-                       layers_mod) -> dict:
+                       layers_mod, prefix: str = "granite_train") -> dict:
     """``imc_launch_check`` of the first launch of an evaluation forward,
-    on its first and last TRAIN_CHECK_Q query rows."""
+    on its first and last TRAIN_CHECK_Q query rows; the keys start with
+    ``prefix``."""
     rec, patch = imc_recorder(layers_mod)
     with torch.no_grad(), patch:
         loss = float(model.loss(state.params, pipe.get_for(
@@ -3437,19 +3478,480 @@ def imc_training_shape(torch, np, model, state, pipe, cfg,
           f"{n - 1}: {k['mismatches']} mismatches (plain "
           f"{k['plain_s']:.2f} s)")
     return {"eval_loss_imc": loss,
-            "granite_train_shape": f"Q={k['Q']}, R={k['R']}, Dp={k['Dp']} "
-                                   f"({cfg.name} FFN down-projection, "
-                                   f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
-            "granite_train_ms": k["ms"],
-            "granite_train_matmul_ms": k["matmul_ms"],
-            "granite_train_bound_ms": k["bound_ms"],
-            "granite_train_bound_by": k["bound_by"],
-            "granite_train_plain_ms": 1e3 * k["plain_s"],
-            "granite_train_checked_rows": k["checked_rows"],
-            "granite_train_mismatches": k["mismatches"]}
+            f"{prefix}_shape": f"Q={k['Q']}, R={k['R']}, Dp={k['Dp']} "
+                               f"({cfg.name} FFN down-projection, "
+                               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
+            f"{prefix}_ms": k["ms"],
+            f"{prefix}_matmul_ms": k["matmul_ms"],
+            f"{prefix}_bound_ms": k["bound_ms"],
+            f"{prefix}_bound_by": k["bound_by"],
+            f"{prefix}_plain_ms": 1e3 * k["plain_s"],
+            f"{prefix}_checked_rows": k["checked_rows"],
+            f"{prefix}_mismatches": k["mismatches"]}
 
 
-def main() -> int:
+# phase 7c: the recurrent families at published width and full depth,
+# bfloat16, batch 32 x (512 + 16) as phase 7b: hymba_1_5b with the int8
+# KV store (its attention heads run decode_attention) and xlstm_125m (no
+# attention: --kv-quant changes nothing); then Hymba's ring run, batch
+# RING_BATCH x (RING_PROMPT + RING_GEN), whose decode wraps the window
+RECURRENT_CONFIGS = ("hymba_1_5b", "xlstm_125m")
+RING_BATCH, RING_PROMPT, RING_GEN = 4, 2048, 64
+# The state carry is held in float32: the served bfloat16 run's decode
+# logits differ from its own forward_train by more than 2^-4 of the max
+# logit, bfloat16 rounding amplified through the random-weight layers (a
+# random xLSTM is chaotic: PERTURBATION, a relative change of the
+# embedding that small, moves its float32 logits by a visible share,
+# printed beside the check). The float32 copy runs CARRY_BATCH rows of
+# the same prompts.
+CARRY_BATCH = 8
+PERTURBATION = 1e-7
+
+
+def _prompt_and_tokens(torch, run):
+    """The prompt and the generated tokens, padded to a multiple of the
+    training forward's chunk (256 for mLSTM, 64 for Mamba); causality
+    leaves the earlier positions as they are."""
+    import torch.nn.functional as nnf
+
+    seq = torch.cat([run.batch["tokens"], run.tokens], dim=1)
+    chunk = 256 if run.model.cfg.family == "ssm" else 64
+    return nnf.pad(seq, (0, (-seq.shape[1]) % chunk))
+
+
+def perturbation_share(torch, run) -> float:
+    """How far ``forward_train``'s logits at the generated positions move
+    when every embedding entry is scaled by ``1 + PERTURBATION * N(0, 1)``:
+    max |difference| over the largest |logit|."""
+    from repro_torch.models import transformer as T
+
+    params, cfg = run.params, run.model.cfg
+    S = run.batch["tokens"].shape[1]
+    n = run.tokens.shape[1]
+    seq = _prompt_and_tokens(torch, run)
+    g = torch.Generator(device=seq.device).manual_seed(0)
+    noise = torch.randn(params.embed.shape, generator=g,
+                        device=seq.device, dtype=params.embed.dtype)
+    with torch.no_grad():
+        a = T.forward_train(params, seq, cfg, remat="none")[:, S:S + n]
+        saved = params.embed.detach().clone()
+        params.embed.mul_(1 + PERTURBATION * noise)
+        b = T.forward_train(params, seq, cfg, remat="none")[:, S:S + n]
+        params.embed.copy_(saved)
+    return float((a - b).abs().max() / a.abs().max())
+
+
+def forward_train_shares(torch, run, gen: int) -> list[float]:
+    """Each decode step's served logits against ``forward_train`` of the
+    prompt and the generated tokens at that position: per step, max
+    |difference| over the step's largest |served logit|."""
+    from repro_torch.models import transformer as T
+
+    params, cfg = run.params, run.model.cfg
+    B, S = run.batch["tokens"].shape
+    seq = _prompt_and_tokens(torch, run)
+    diff = torch.zeros(gen - 1, device=seq.device)
+    rows = max(1, B // 4)
+    with torch.no_grad():
+        for r in range(0, B, rows):
+            full = T.forward_train(params, seq[r:r + rows], cfg, remat="none")
+            for i in range(gen - 1):
+                d = (run.logits[i][r:r + rows, 0] - full[:, S + i]).abs()
+                diff[i] = torch.maximum(diff[i], d.max())
+            del full
+    top = torch.stack([lg.abs().max() for lg in run.logits])
+    return (diff / top).tolist()
+
+
+def float32_carry(torch, arch: str, argv: list) -> tuple[list, object]:
+    """``serve.main`` on a float32 copy of ``arch`` (the same seeded
+    draw), and its decode logits against ``forward_train`` per step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    with mock.patch.object(serve, "get_config", lambda a, c=cfg: c):
+        run = serve.main(["--arch", arch] + argv, keep_logits=True)
+    return forward_train_shares(torch, run, run.tokens.shape[1]), run
+
+
+def state_bytes(cache) -> int:
+    """Bytes of the recurrent states in a serving cache (MambaState,
+    MLSTMState, SLSTMState; the KV caches not counted)."""
+    import dataclasses
+
+    total = 0
+    for entry in cache:
+        for st in (entry if isinstance(entry, tuple) else (entry,)):
+            if type(st).__name__.endswith("State"):
+                total += sum(getattr(st, f.name).numel()
+                             * getattr(st, f.name).element_size()
+                             for f in dataclasses.fields(st))
+    return total
+
+
+def recurrent_serve_line(torch, run, arch, full, wall, launches) -> dict:
+    cfg, params = run.model.cfg, run.params
+    B, S = run.batch["tokens"].shape
+    wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    return {"path": "lm serve recurrent", "arch": arch,
+            "layers": cfg.num_layers, "published_layers": full.num_layers,
+            "d_model": cfg.d_model, "family": cfg.family, "batch": B,
+            "prompt": S, "gen": run.tokens.shape[1],
+            "kv_cache": "int8" if cfg.family == "hybrid" else "none",
+            "wall_s": wall, "prefill_s": run.prefill_s,
+            "decode_s": run.decode_s,
+            "decode_ms_p50": run.step_percentile_ms(0.5),
+            "decode_ms_p95": run.step_percentile_ms(0.95),
+            "decode_tokens_per_s": run.decode_tokens_per_s,
+            "peak_gib": run.peak_bytes / 2**30, "weight_gb": wbytes / 1e9,
+            "weight_read_bound_ms": 1e3 * wbytes / HBM_BYTES_PER_S,
+            "decode_attention_launches": launches}
+
+
+def phase_serve_recurrent(torch, np) -> dict:
+    """``repro_torch.launch.serve.main`` on RECURRENT_CONFIGS and Hymba's
+    ring run; returns the ``decode_attention`` numbers the kernel entry
+    gains."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.launch import serve
+    from repro_torch.train.serve_step import make_decode_step
+
+    t_phase = time.perf_counter()
+    gen, steps = LM_CONFIGS_GEN, LM_CONFIGS_GEN - 1
+    argv = ["--kv-quant", "--batch", str(LM_CONFIGS_BATCH), "--prompt-len",
+            str(LM_CONFIGS_PROMPT), "--gen", str(gen), "--device", "cuda"]
+    out = {}
+    for arch in RECURRENT_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        decode_attention.launches = 0
+        decode_attention_plain.calls = 0
+        t0 = time.perf_counter()
+        run = serve.main(["--arch", arch] + argv, keep_logits=True)
+        wall = time.perf_counter() - t0
+        launches, plain_calls = (decode_attention.launches,
+                                 decode_attention_plain.calls)
+        cfg, params = run.model.cfg, run.params
+        nl = cfg.num_layers
+        B, S = run.batch["tokens"].shape
+        attn_layers = nl if cfg.family == "hybrid" else 0
+        check(nl == full.num_layers and cfg.d_model == full.d_model,
+              f"{arch} ran {nl} layers of width {cfg.d_model}")
+        check(launches == attn_layers * steps,
+              f"{arch}: decode_attention launched {launches} times, not "
+              f"{attn_layers} attention layers x {steps} steps")
+        check(plain_calls == 0, f"{arch}: the plain decode attention ran "
+                                f"{plain_calls} times on the main path")
+        check(tuple(run.tokens.shape) == (B, gen)
+              and int(run.tokens.min()) >= 0
+              and int(run.tokens.max()) < cfg.padded_vocab,
+              f"{arch}: generated tokens out of shape or range")
+        check(all(bool(torch.isfinite(lg).all()) for lg in run.logits),
+              f"{arch}: non-finite decode logits")
+        line = recurrent_serve_line(torch, run, arch, full, wall, launches)
+        t0 = time.perf_counter()
+        bf16 = forward_train_shares(torch, run, gen)
+        # the state carry, held in float32 (CARRY_BATCH)
+        carry_argv = argv[:]
+        carry_argv[carry_argv.index("--batch") + 1] = str(CARRY_BATCH)
+        f32, crun = float32_carry(torch, arch, carry_argv)
+        check(max(f32) <= LM_REPLAY_SHARE,
+              f"{arch}: float32 decode logits differ from forward_train "
+              f"past the stated tolerance ({max(f32)})")
+        line.update({
+            "bf16_forward_train_worst_share_of_max_logit": max(bf16),
+            "float32_forward_train_worst_share_of_max_logit": max(f32),
+            "float32_forward_train_share_by_step": f32,
+            "float32_decode_attention_launches": crun.launches,
+            "float32_perturbation_share": perturbation_share(torch, crun),
+            "perturbation": PERTURBATION,
+            "forward_train_check_s": time.perf_counter() - t0,
+            "tolerance_share": LM_REPLAY_SHARE})
+        del crun
+        if attn_layers:
+            # every attention call of a replay on the kernel and the
+            # plain version alike; then a free-running plain replay,
+            # printed (bfloat16 rounding amplified, as above)
+            rep, k = kernel_vs_plain_replay(torch, run, gen)
+            check(k["calls"] == nl * steps
+                  and k["valid_len"] == list(range(S + 1, S + gen)),
+                  f"{arch}: the replay's attention calls ({k['calls']}, "
+                  f"valid_len {k['valid_len']}) are not the decode's")
+            free = replay_decode(torch, run, gen, decode_attention_plain)
+            line.update({
+                "kernel_vs_plain_calls": k["calls"],
+                "kernel_vs_plain_max_abs": k["max_abs"],
+                "kernel_vs_plain_mismatches": k["mismatches"],
+                "plain_replay_worst_share_of_max_logit": max(free["share"]),
+                "plain_replay_greedy_tokens_disagreeing":
+                    sum(free["disagree"])})
+            del free
+        else:
+            rep = replay_decode(torch, run, gen, None)
+            check(max(rep["max_diff"]) == 0.0,
+                  f"{arch}: a replay differs from the served run")
+        check(rep["prefill_agree"] == B, f"{arch}: the prefill's greedy "
+                                         f"tokens are not reproducible")
+        line["state_gb"] = state_bytes(rep["cache"]) / 1e9
+        # one decode step under the sync debug mode "error"
+        decode = make_decode_step(run.model)
+        tok = run.tokens[:, steps - 1:steps]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode(params, tok, rep["cache"], S + steps - 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # the device's share of a decode step and its operations (three
+        # steps under the profiler), for the CUDA-graph lead (H2)
+        dev_ms, top, _, count = profile_device_ms(
+            torch, lambda: decode(params, tok, rep["cache"], S + steps - 1),
+            steps=3)
+        line.update({
+            "decode_device_ms_per_step": dev_ms,
+            "decode_device_ops_per_step": sum(count.values()),
+            "decode_device_share_of_p50": None if dev_ms is None
+            else dev_ms / line["decode_ms_p50"],
+            "decode_device_ms_by_kernel": top,
+            "sm clock, power, limit":
+                nvidia_smi("clocks.sm,power.draw,power.limit")})
+        print(json.dumps(line))
+        out[arch] = launches
+        del run, params, rep, decode, tok
+    out.update(ring_run(torch, np))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve recurrent: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def kernel_vs_plain_replay(torch, run, gen: int) -> tuple[dict, dict]:
+    """A teacher-forced replay of a served run in which every attention
+    call runs the kernel and its plain version on the same inputs: the
+    replay must reproduce the served logits exactly, and each call's
+    outputs agree within rtol / atol DECODE_RTOL. Returns the replay and
+    a summary (calls, valid_len and cache slots seen, max |difference|,
+    elements past the tolerance)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    seen = []
+
+    def both(q, k8, v8, ks, vs, valid_len):
+        got = decode_attention(q, k8, v8, ks, vs, valid_len)
+        want = decode_attention_plain(q, k8, v8, ks, vs, valid_len)
+        bad = (got - want).abs() > DECODE_ATOL + DECODE_RTOL * want.abs()
+        seen.append((valid_len, k8.shape[1], (got - want).abs().max(),
+                     (bad | ~torch.isfinite(got)).sum()))
+        return got
+
+    rep = replay_decode(torch, run, gen, both)
+    summary = {
+        "calls": len(seen),
+        "valid_len": sorted({v for v, _, _, _ in seen}),
+        "slots": sorted({n for _, n, _, _ in seen}),
+        "max_abs": float(torch.stack([d for _, _, d, _ in seen]).max()),
+        "mismatches": int(torch.stack([b for _, _, _, b in seen]).sum())}
+    check(max(rep["max_diff"]) == 0.0,
+          "a replay on the kernel differs from the served run")
+    check(summary["mismatches"] == 0,
+          f"the kernel differs from its plain version in "
+          f"{summary['mismatches']} elements past rtol / atol {DECODE_RTOL}")
+    return rep, summary
+
+
+def ring_run(torch, np) -> dict:
+    """Hymba at batch RING_BATCH x (RING_PROMPT + RING_GEN): the decode
+    wraps the sliding window; a replay runs the kernel and its plain
+    version on the same inputs at every layer of every step."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.launch import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = "hymba_1_5b"
+    full = get_config(arch)
+    window = full.sliding_window
+    check(RING_PROMPT >= window, "the ring run's prompt does not fill the "
+                                 "window")
+    decode_attention.launches = 0
+    decode_attention_plain.calls = 0
+    t0 = time.perf_counter()
+    run = serve.main(["--arch", arch, "--kv-quant", "--batch",
+                      str(RING_BATCH), "--prompt-len", str(RING_PROMPT),
+                      "--gen", str(RING_GEN), "--device", "cuda"],
+                     keep_logits=True)
+    wall = time.perf_counter() - t0
+    launches, plain_calls = (decode_attention.launches,
+                             decode_attention_plain.calls)
+    nl, steps = run.model.cfg.num_layers, RING_GEN - 1
+    check(launches == nl * steps and plain_calls == 0,
+          f"ring run: decode_attention launched {launches} times (the "
+          f"plain version {plain_calls}), not {nl} x {steps}")
+    rep, k = kernel_vs_plain_replay(torch, run, RING_GEN)
+    check(k["calls"] == nl * steps, f"ring replay: {k['calls']} attention "
+                                    f"calls, not {nl * steps}")
+    check(k["valid_len"] == [window] and k["slots"] == [window],
+          f"ring run: valid_len {k['valid_len']} over {k['slots']} slots, "
+          f"not the whole {window}-slot window on every wrapped step")
+    line = recurrent_serve_line(torch, run, arch, full, wall, launches)
+    del rep
+    # the ring's alignment after the wrap: a float32 copy of the run
+    # (int8 store, so the kernel) against forward_train over the whole
+    # sequence with the sliding-window mask
+    bf16 = forward_train_shares(torch, run, RING_GEN)
+    del run
+    f32, crun = float32_carry(torch, arch, [
+        "--kv-quant", "--batch", str(RING_BATCH), "--prompt-len",
+        str(RING_PROMPT), "--gen", str(RING_GEN), "--device", "cuda"])
+    check(max(f32) <= LM_REPLAY_SHARE,
+          f"ring run: float32 decode logits differ from forward_train past "
+          f"the stated tolerance ({max(f32)})")
+    line.update({
+        "path": "lm serve ring", "window": window,
+        "wrapped_steps": steps, "kernel_vs_plain_calls": k["calls"],
+        "valid_len": k["valid_len"], "kernel_vs_plain_max_abs": k["max_abs"],
+        "kernel_vs_plain_mismatches": k["mismatches"],
+        "bf16_forward_train_worst_share_of_max_logit": max(bf16),
+        "float32_forward_train_worst_share_of_max_logit": max(f32),
+        "float32_decode_attention_launches": crun.launches,
+        "sm clock, power, limit":
+            nvidia_smi("clocks.sm,power.draw,power.limit")})
+    print(json.dumps(line))
+    del crun
+    return {"ring_launches": launches, "ring_checked_calls": k["calls"],
+            "ring_max_abs_err": k["max_abs"]}
+
+
+# phase 8c: training the recurrent families at published width and full
+# depth (xLSTM ~0.18 G float32 parameters; Hymba ~1.39 G, ~22 GB of
+# params, grads and moments), batch TRAIN_BATCH x TRAIN_SEQ, remat
+# "full": xlstm_125m exact, then hymba_1_5b exact and with imc_linear
+RECURRENT_TRAIN = (("xlstm_125m", (False,)), ("hymba_1_5b", (False, True)))
+
+
+def phase_train_recurrent(torch, np) -> dict:
+    """Training through ``build_model`` -> ``init_train_state`` ->
+    ``make_train_step`` -> ``TokenPipeline.get_for`` on RECURRENT_TRAIN;
+    returns the numbers the ``imc_mvm`` entry gains."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = TRAIN_STEPS + 1
+    results = {}
+    for arch, runs in RECURRENT_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        pipe = TokenPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             vocab=cfg.vocab_size)
+        t0 = time.perf_counter()
+        state = init_train_state(build_model(cfg, "cuda"), seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tcfg = TrainConfig(optimizer=AdamWConfig(
+            total_steps=steps * len(runs)), remat="full")
+        for j, imc in enumerate(runs):
+            mcfg = dataclasses.replace(cfg, imc_linear=imc)
+            model = build_model(mcfg, "cuda")
+            batches = [pipe.get_for(mcfg, s, "cuda")
+                       for s in range(j * steps, (j + 1) * steps)]
+            imc_mvm.launches = 0
+            imc_mvm_plain.calls = 0
+            state, r = timed_train_steps(
+                torch, make_train_step(model, tcfg), state, batches)
+            launches, plain = imc_mvm.launches, imc_mvm_plain.calls
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for key in ("loss", "grad_norm"):
+                check(all(np.isfinite(r[key])),
+                      f"{arch}: non-finite {key}: {r[key]}")
+            want = cfg.num_layers * steps if imc else 0
+            check(launches == want, f"{arch}: imc_mvm launched {launches} "
+                                    f"times in {steps} steps, not {want}")
+            check(plain == 0, f"{arch}: the plain imc_mvm ran {plain} "
+                              f"times")
+            med = float(np.median(r["ms"][1:]))
+            dev = r["device_ms"]
+            line = {
+                "path": "lm train recurrent", "arch": arch,
+                "layers": cfg.num_layers, "imc_linear": imc,
+                "params": sum(p.numel()
+                              for p in state.params.parameters()),
+                "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "remat": tcfg.remat, "dtype": cfg.dtype, "init_s": init_s,
+                "step_ms": r["ms"], "step_ms_median_after_first": med,
+                "tokens_per_s": 1e3 * tokens / med, "loss": r["loss"],
+                "grad_norm": r["grad_norm"], "device_ms_per_step": dev,
+                "device_share_of_step": None if dev is None else dev / med,
+                "device_ms_by_group": device_groups(r["per"]),
+                "device_ms_by_kernel": r["top"], "peak_gib": peak,
+                "imc_mvm_launches": launches,
+                "sm clock, power, limit":
+                    nvidia_smi("clocks.sm,power.draw,power.limit")}
+            if imc:
+                line.update(imc_training_shape(torch, np, model, state, pipe,
+                                               mcfg, L, "hymba_train"))
+                results = {"hymba_train_launches": launches,
+                           "hymba_train_launches_per_step": launches / steps,
+                           **{k: line[k] for k in line
+                              if k.startswith("hymba_train_")}}
+            print(json.dumps(line))
+            del batches, model
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train recurrent: phase {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+# phases that run alone after the build with ``--only NAME[,NAME]``
+STANDALONE = {"7c": lambda torch, np: phase_serve_recurrent(torch, np),
+              "8c": lambda torch, np: phase_train_recurrent(torch, np)}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = []
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or not set(
+                argv[1].split(",")) <= set(STANDALONE):
+            print(f"usage: chip_smoke.py [--only "
+                  f"{'|'.join(STANDALONE)}[,...]]", file=sys.stderr)
+            return 2
+        only = argv[1].split(",")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3466,6 +3968,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_build(_build)
+    if only:
+        # the named standalone phases alone: no kernels or ok line
+        for name in only:
+            print(json.dumps({"phase": name,
+                              "result": STANDALONE[name](torch, np)}))
+        print(f"total: {time.perf_counter() - t0:.1f} s")
+        return 0
     phase_kernels_vs_plain(torch, np)
     tuned = phase_tune(torch, np)
     print(f"reduced: pipelines: queries {QUERIES} of iPRG2012's "
@@ -3518,8 +4027,9 @@ def main() -> int:
           f"reference's decode_32k shape (batch 128 x 32,768: 124 GB of "
           f"int8 cache alone, and a (B, H, S, S) prefill logit buffer); "
           f"parameters are the port's seeded random draw")
-    kernels.append(phase_serve_lm(torch, np))
-    kernels[-1]["launches_by_config"] = phase_serve_lm_configs(torch, np)
+    dec = phase_serve_lm(torch, np)
+    kernels.append(dec)
+    dec["launches_by_config"] = phase_serve_lm_configs(torch, np)
     print(f"reduced: training Qwen2-7B at full width with {TRAIN_LAYERS} of "
           f"its 28 layers (float32 params, grads and AdamW moments: ~122 GB "
           f"at 28 layers, more than the card's 80 GB), batch {TRAIN_BATCH} x "
@@ -3528,6 +4038,17 @@ def main() -> int:
           f"draw")
     imc.update(phase_train_lm(torch, np))
     imc.update(phase_train_configs(torch, np))
+    print(f"recurrent: hymba_1_5b and xlstm_125m at published width and "
+          f"full depth (not cut); serving batch {LM_CONFIGS_BATCH} x "
+          f"({LM_CONFIGS_PROMPT} + {LM_CONFIGS_GEN}) as phase 7b, the ring "
+          f"run {RING_BATCH} x ({RING_PROMPT} + {RING_GEN}); training batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}; parameters are the port's seeded "
+          f"random draw")
+    rec = phase_serve_recurrent(torch, np)
+    dec["launches_by_config"]["hymba_1_5b"] = rec.pop("hymba_1_5b")
+    dec["launches_by_config"]["xlstm_125m"] = rec.pop("xlstm_125m")
+    dec.update(rec)
+    imc.update(phase_train_recurrent(torch, np))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

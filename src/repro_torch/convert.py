@@ -7,10 +7,11 @@ values. Packed uint32 words become their int32 bit-views (the port's
 storage convention); int8 hypervectors stay int8; the PCM array's
 programmed weights stay float32 (with their array and device
 configurations, as an ``IMCArrayState``); LM matrices take the model's
-dtype, or float32 with gradients for training (``train_state_from_numpy``
-carries the reference's whole ``TrainState`` across). A tuning table does
-not cross: it is keyed by device kind and names the kernels' own launch
-knobs.
+dtype where the reference casts them to it (the leaves it computes with
+in float32 stay float32), or float32 with gradients for training
+(``train_state_from_numpy`` carries the reference's whole ``TrainState``
+across). A tuning table does not cross: it is keyed by device kind and
+names the kernels' own launch knobs.
 """
 
 from __future__ import annotations
@@ -78,22 +79,53 @@ def codebooks_from_numpy(id_hvs, level_hvs,
             bank_rows_from_numpy(level_hvs, device))
 
 
+# each block kind's parameter groups, in the order ``init_block`` makes
+# them, and its loose leaves
+_GROUPS = {
+    "attn_ffn": ("norm1", "attn", "norm2", "ffn"),
+    "attn_moe": ("norm1", "attn", "norm2", "moe"),
+    "hybrid": ("norm1", "attn", "norm2", "ffn", "mamba"),
+    "mlstm": ("norm1", "mix"),
+    "slstm": ("norm1", "mix"),
+}
+_LEAVES = {"hybrid": ("alpha",)}
+
+
+def _stays_float32(kind: str, group: str, name: str) -> bool:
+    """Whether the serving store keeps a leaf in float32: norm scales and
+    biases, the MoE router, Mamba's ``a_log`` / ``d_skip`` / ``dt_bias``,
+    mLSTM's q / k / v projections and gates, every sLSTM leaf."""
+    if group.startswith("norm") or (group, name) == ("moe", "router"):
+        return True
+    from repro_torch.models import recurrent as R
+
+    if group == "mamba":
+        return name in R.MAMBA_FLOAT32
+    if group == "mix":
+        return kind == "slstm" or name in R.MLSTM_FLOAT32
+    return False
+
+
 def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
                          dtype: torch.dtype | None = None,
                          trainable: bool = False):
-    """The JAX package's LM parameter tree (numpy leaves, layers stacked on
-    a leading ``layer`` axis, as ``repro.models.transformer.init_lm``
-    makes it) as the port's :class:`~repro_torch.models.transformer.LM`.
+    """The JAX package's LM parameter tree (numpy leaves, as
+    ``repro.models.transformer.init_lm`` makes it: ``layers`` stacked on
+    a leading ``layer`` axis, or for the ``ssm`` family a list
+    ``blocks`` of unlike blocks) as the port's
+    :class:`~repro_torch.models.transformer.LM`.
 
     A dense layer holds ``norm1``, ``attn``, ``norm2`` and ``ffn``; an MoE
     layer ``moe`` in place of ``ffn`` (``router``, the 3-D expert leaves
-    ``w_gate`` / ``w_up`` / ``w_down`` and the ``shared_*`` matrices).
-    Matrices, biases, ``embed`` and ``lm_head`` are stored in ``dtype``
-    (default ``cfg.dtype``): the reference casts each of them to that dtype
-    before every use, so the values are the same. Norm scales and biases
-    stay float32, as ``apply_norm`` computes in float32, and so does the
-    MoE router, which the reference multiplies in float32 without a cast.
-    With ``trainable`` every leaf is the reference's float32 master value
+    ``w_gate`` / ``w_up`` / ``w_down`` and the ``shared_*`` matrices); a
+    hybrid layer adds ``mamba`` and the leaf ``alpha``; an xLSTM block
+    holds ``norm1`` and ``mix`` (an mLSTM or sLSTM). Matrices, biases,
+    ``embed`` and ``lm_head`` are stored in ``dtype`` (default
+    ``cfg.dtype``) where the reference casts them to that dtype before
+    every use, so the values are the same. The leaves it computes with in
+    float32 stay float32: norm scales and biases, the MoE router,
+    ``alpha``, and the recurrent leaves of ``_stays_float32``. With
+    ``trainable`` every leaf is the reference's float32 master value
     (``cfg.param_dtype``) and carries gradients, as training needs."""
     from torch import nn
 
@@ -103,31 +135,44 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
     dev = resolve_device(device)
     dt = _leaf_dtype(cfg, True) if trainable else dtype or _dtype(cfg)
     # raises for a family the port does not serve yet
-    kind = T.block_kind(cfg)
-    names = ("norm1", "attn", "norm2",
-             "moe" if kind == "attn_moe" else "ffn")
+    kinds = [T.block_kind(cfg, i) for i in range(cfg.num_layers)]
+    stack = T.stack_name(cfg)
 
     def tensor(a, f32=False):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
         return t.to(device=dev, dtype=torch.float32 if f32 else dt)
 
-    def group(g, i):
-        return nn.ParameterDict({
-            name: _param(tensor(a[i], g.startswith("norm") or (
-                g, name) == ("moe", "router")), trainable)
-            for name, a in layers[g].items()})
+    def block(kind, tree, take):
+        want = set(_GROUPS[kind] + _LEAVES.get(kind, ()))
+        if set(tree) != want:
+            raise ValueError(f"expected the {stack} of an {kind} block "
+                             f"({sorted(want)}), got {sorted(tree)}")
+        groups = {g: nn.ParameterDict({
+            name: _param(tensor(take(a), _stays_float32(kind, g, name)),
+                         trainable)
+            for name, a in tree[g].items()}) for g in _GROUPS[kind]}
+        leaves = {name: _param(tensor(take(tree[name]), True), trainable)
+                  for name in _LEAVES.get(kind, ())}
+        return T.Block(groups, **leaves)
 
-    layers = params["layers"]
-    if set(layers) != set(names):
-        raise ValueError(f"expected the layers of an {kind} block "
-                         f"({sorted(names)}), got {sorted(layers)}")
-    blocks = [nn.ModuleDict({g: group(g, i) for g in names})
-              for i in range(cfg.num_layers)]
+    if stack not in params:
+        raise ValueError(f"expected {stack!r} for the {cfg.family} family, "
+                         f"got {sorted(params)}")
+    tree = params[stack]
+    if stack == "blocks":
+        if len(tree) != cfg.num_layers:
+            raise ValueError(f"expected {cfg.num_layers} blocks, got "
+                             f"{len(tree)}")
+        blocks = [block(kind, bt, lambda a: a)
+                  for kind, bt in zip(kinds, tree)]
+    else:
+        blocks = [block(kinds[i], tree, lambda a, i=i: a[i])
+                  for i in range(cfg.num_layers)]
     final = nn.ParameterDict({name: _param(tensor(a, True), trainable)
                               for name, a in params["final_norm"].items()})
     head = params.get("lm_head")
     return T.LM(tensor(params["embed"]), blocks, final,
-                None if head is None else tensor(head), trainable)
+                None if head is None else tensor(head), trainable, stack)
 
 
 def train_state_from_numpy(params, mu, nu, step, cfg,

@@ -1,12 +1,14 @@
 """Unified Model API (``repro.models.model_zoo``) for the families the
-port serves: the decoder-only dense and MoE LMs.
+port serves: the decoder-only dense, MoE, SSM (xLSTM) and hybrid (Hymba)
+LMs.
 
 ``build_model(cfg)`` returns a :class:`Model` on a device (CUDA unless the
 caller asks for the CPU; asking for CUDA without a card raises) with
 ``init``, ``loss`` (training), ``init_cache``, ``prefill`` and
 ``decode_step``. Inputs follow the reference: ``{"tokens": (B, S) int}``.
-The VLM and encoder-decoder losses are not ported yet (ROADMAP.md,
-Queue 1 item 5.5).
+A recurrent layer's cache entry is its state (``models.recurrent``). The
+VLM and encoder-decoder (audio) families are not ported yet (ROADMAP.md,
+Queue 1 item 5.5): ``build_model`` and ``loss`` raise for them.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ class Model:
     # ---- train ------------------------------------------------------------
     def loss(self, params, batch: dict, remat: str = "full"
              ) -> torch.Tensor:
-        """Next-token cross-entropy of the decoder-only LM (dense or
-        MoE)."""
+        """Next-token cross-entropy of the decoder-only LM (dense, MoE, SSM
+        or hybrid)."""
         cfg = self.cfg
         if cfg.family == "vlm" or cfg.is_encoder_decoder:
             raise NotImplementedError(

@@ -1,17 +1,29 @@
 """Model assembly of the decoder-only families (``repro.models.transformer``):
-blocks (``attn_ffn`` for the dense family, ``attn_moe`` for the MoE one),
-the LM's parameters, KV caches, the training forward pass, prefill and
-decode.
+blocks (``attn_ffn`` for the dense family, ``attn_moe`` for the MoE one,
+``hybrid`` for Hymba's attention and Mamba heads side by side, ``mlstm``
+and ``slstm`` for xLSTM), the LM's parameters, caches, the training
+forward pass, prefill and decode.
 
-The reference stacks its layers' parameters on a leading ``layer`` axis
-and scans over them (``lax.scan``); here the layers are an
-``nn.ModuleList`` walked by a Python loop, and the cache is a list with
-one ``KVCache`` / ``QuantKVCache`` per layer, updated in place. The
-training forward wraps each block in the remat policy (``_remat``), as
-the reference wraps its scan body.
+The reference stacks a homogeneous family's layer parameters on a leading
+``layer`` axis and scans over them (``lax.scan``); here the layers are an
+``nn.ModuleList`` walked by a Python loop. The ``ssm`` family's blocks
+differ from layer to layer (every ``ssm_ratio``-th is an sLSTM), so the
+reference keeps them in a list ``params["blocks"]`` and unrolls it; the
+port's :class:`LM` has a ``blocks`` list for that family in place of
+``layers``. The cache is a list with one entry a layer: a ``KVCache`` /
+``QuantKVCache`` (attention, updated in place), ``(KV cache,
+MambaState)`` for a hybrid layer, an ``MLSTMState`` or an ``SLSTMState``
+(replaced by each step's new state). The training forward wraps each
+block in the remat policy (``_remat``), as the reference wraps its scan
+body or each unrolled block.
 
-The SSM, hybrid, encoder-decoder (audio) and VLM families are not ported
-yet (ROADMAP.md, Queue 1 items 5.4-5.5); building or running one raises.
+A prefill leaves each recurrent layer the state after the whole prompt,
+computed as the reference computes it (``_*_state_after``: one scan over
+the whole prompt, or a closed form), not the last carry of the chunked
+training scan, which rounds differently.
+
+The encoder-decoder (audio) and VLM families are not ported yet
+(ROADMAP.md, Queue 1 item 5.5); building or running one raises.
 """
 
 from __future__ import annotations
@@ -24,28 +36,66 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
-KINDS = ("attn_ffn", "attn_moe")
+KINDS = ("attn_ffn", "attn_moe", "hybrid", "mlstm", "slstm")
 
 
 def block_kind(cfg: ArchConfig, layer_idx: int = 0) -> str:
-    if (cfg.family in ("ssm", "hybrid", "audio", "vlm")
-            or cfg.is_encoder_decoder):
+    """The reference's rule: MoE, hybrid, or for the ``ssm`` family an
+    sLSTM block every ``ssm_ratio``-th layer and mLSTM blocks between;
+    ``attn_ffn`` otherwise. The audio and VLM families raise."""
+    if cfg.family in ("audio", "vlm") or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet; the "
-            f"port runs decoder-only dense and MoE models (ROADMAP.md, "
-            f"Queue 1 items 5.4-5.5)")
-    return "attn_moe" if cfg.family == "moe" else "attn_ffn"
+            f"port runs the decoder-only dense, MoE, SSM and hybrid models "
+            f"(ROADMAP.md, Queue 1 item 5.5)")
+    if cfg.family == "moe":
+        return "attn_moe"
+    if cfg.family == "hybrid":
+        return "hybrid"
+    if cfg.family == "ssm":
+        if cfg.ssm_ratio and (layer_idx + 1) % cfg.ssm_ratio == 0:
+            return "slstm"
+        return "mlstm"
+    return "attn_ffn"
+
+
+def stack_name(cfg: ArchConfig) -> str:
+    """Where the LM keeps its blocks: ``blocks`` (a list of unlike blocks,
+    the ``ssm`` family) or ``layers``."""
+    return "blocks" if cfg.family == "ssm" else "layers"
+
+
+class Block(nn.ModuleDict):
+    """One block: its parameter groups by name (``norm1``, ``attn``,
+    ``mix``, ...), read as ``p["attn"]``, and the leaves the reference
+    keeps beside them (the hybrid's ``alpha``), read as ``p["alpha"]``."""
+
+    def __init__(self, groups: dict, **leaves: nn.Parameter):
+        super().__init__(groups)
+        for name, t in leaves.items():
+            self.register_parameter(name, t)
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
 
 
 def init_block(cfg: ArchConfig, kind: str, device="cpu",
                generator: torch.Generator | None = None,
-               trainable: bool = False) -> nn.ModuleDict:
+               trainable: bool = False) -> Block:
     if kind not in KINDS:
         raise ValueError(kind)
     t = trainable
+    norm1 = L.init_norm(cfg, device=device, trainable=t)
+    if kind in ("mlstm", "slstm"):
+        init = R.init_mlstm if kind == "mlstm" else R.init_slstm
+        return Block({"norm1": norm1,
+                      "mix": init(cfg, device, generator, t)})
     p = {
-        "norm1": L.init_norm(cfg, device=device, trainable=t),
+        "norm1": norm1,
         "attn": L.init_attention(cfg, device, generator, t),
         "norm2": L.init_norm(cfg, device=device, trainable=t),
     }
@@ -54,7 +104,11 @@ def init_block(cfg: ArchConfig, kind: str, device="cpu",
     else:
         p["ffn"] = L.init_ffn(cfg, device=device, generator=generator,
                               trainable=t)
-    return nn.ModuleDict(p)
+    if kind == "hybrid":
+        p["mamba"] = R.init_mamba(cfg, device, generator, t)
+        return Block(p, alpha=L._param(torch.full((2,), 0.5, device=device),
+                                       t))
+    return Block(p)
 
 
 def _mlp(p: nn.ModuleDict, h: torch.Tensor, cfg: ArchConfig, kind: str
@@ -65,6 +119,14 @@ def _mlp(p: nn.ModuleDict, h: torch.Tensor, cfg: ArchConfig, kind: str
     return L.apply_ffn(p["ffn"], h, cfg)
 
 
+def _hybrid_mix(p, attn: torch.Tensor, ssm: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``alpha[0] * attn + alpha[1] * ssm``, alpha cast to the activation
+    dtype."""
+    alpha = p["alpha"].to(dtype)
+    return alpha[0] * attn + alpha[1] * ssm
+
+
 def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
                       kind: str) -> torch.Tensor:
     """One block over a full sequence (training). The reference's
@@ -72,17 +134,55 @@ def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
     if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
-    x = x + L.attention_train(p["attn"], h, cfg).to(x.dtype)
+    if kind == "mlstm":
+        return x + R.mlstm_train(p["mix"], h, cfg)
+    if kind == "slstm":
+        return x + R.slstm_train(p["mix"], h, cfg)
+    attn = L.attention_train(p["attn"], h, cfg)
+    if kind == "hybrid":
+        attn = _hybrid_mix(p, attn, R.mamba_train(p["mamba"], h, cfg),
+                           x.dtype)
+    x = x + attn.to(x.dtype)
     h = L.apply_norm(p["norm2"], x, cfg)
     return x + _mlp(p, h, cfg, kind).to(x.dtype)
 
 
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                     device="cpu"):
+    if kind in ("attn_ffn", "attn_moe"):
+        return L.init_kv_cache(cfg, batch, max_len, device=device)
+    if kind == "hybrid":
+        return (L.init_kv_cache(cfg, batch, max_len, device=device),
+                R.init_mamba_state(cfg, batch, device))
+    if kind == "mlstm":
+        return R.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return R.init_slstm_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
 def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
                         kind: str, cache):
+    """One block over the prompt: its output and its cache entry (the KV
+    cache filled in place; a recurrent layer's state after the prompt)."""
     if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
-    attn, cache = L.attention_prefill(p["attn"], h, cfg, cache)
+    if kind == "mlstm":
+        return (x + R.mlstm_train(p["mix"], h, cfg),
+                _mlstm_state_after(p["mix"], h, cfg))
+    if kind == "slstm":
+        return (x + R.slstm_train(p["mix"], h, cfg),
+                _slstm_state_after(p["mix"], h, cfg))
+    if kind == "hybrid":
+        kvc, _ = cache
+        attn, kvc = L.attention_prefill(p["attn"], h, cfg, kvc)
+        ssm = R.mamba_train(p["mamba"], h, cfg)
+        # the SSM state rolled forward over the whole prompt
+        cache = (kvc, _mamba_state_after(p["mamba"], h, cfg))
+        attn = _hybrid_mix(p, attn, ssm, x.dtype)
+    else:
+        attn, cache = L.attention_prefill(p["attn"], h, cfg, cache)
     x = x + attn
     h = L.apply_norm(p["norm2"], x, cfg)
     return x + _mlp(p, h, cfg, kind), cache
@@ -97,10 +197,63 @@ def apply_block_decode(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
     if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
-    attn, cache = L.attention_decode(p["attn"], h, cfg, cache, pos, attend)
+    if kind == "mlstm":
+        y, st = R.mlstm_decode(p["mix"], h, cfg, cache)
+        return x + y, st
+    if kind == "slstm":
+        y, st = R.slstm_decode(p["mix"], h, cfg, cache)
+        return x + y, st
+    if kind == "hybrid":
+        kvc, sst = cache
+        attn, kvc = L.attention_decode(p["attn"], h, cfg, kvc, pos, attend)
+        ssm, sst = R.mamba_decode(p["mamba"], h, cfg, sst)
+        cache = (kvc, sst)
+        attn = _hybrid_mix(p, attn, ssm, x.dtype)
+    else:
+        attn, cache = L.attention_decode(p["attn"], h, cfg, cache, pos,
+                                         attend)
     x = x + attn
     h = L.apply_norm(p["norm2"], x, cfg)
     return x + _mlp(p, h, cfg, kind), cache
+
+
+# --- the states after a prompt (prefill of the recurrent layers) ---------
+
+def _mamba_state_after(p, h: torch.Tensor, cfg: ArchConfig
+                       ) -> R.MambaState:
+    """The recurrence run again over the whole prompt (one associative
+    scan), keeping only the final state."""
+    xi_f, _, Bt, _, dt, a = R._mamba_inputs(p, h)
+    decay = torch.exp(dt[..., None] * a)
+    inp = (dt * xi_f)[..., None] * Bt[:, :, None, :]
+    _, bb = R.associative_scan(R._affine, (decay, inp), dim=1)
+    # a copy: a view would keep the whole (B, S, d, n) scan alive
+    return R.MambaState(h=bb[:, -1].clone())
+
+
+def _mlstm_state_after(p, h: torch.Tensor, cfg: ArchConfig
+                       ) -> R.MLSTMState:
+    """The closed form ``C = sum_s exp(F_T - F_s) i_s k_s v_s^T`` (and
+    ``n`` alike) over the whole prompt, k and v in float32."""
+    up = h @ p["w_up"].to(h.dtype)
+    xf = up.chunk(2, dim=-1)[0].float()
+    k = L._proj(xf, p["w_k"])
+    v = L._proj(xf, p["w_v"])
+    ig, fg = R._mlstm_gates(p, xf)
+    Fs = torch.cumsum(torch.log(torch.clamp(fg, min=1e-9)), dim=1)
+    wk = torch.exp(Fs[:, -1][:, None] - Fs) * ig            # (b, s, h)
+    C = torch.einsum("bshk,bshl->bhkl", k * wk[..., None], v)
+    n = torch.einsum("bshk,bsh->bhk", k, wk)
+    return R.MLSTMState(C=C, n=n)
+
+
+def _slstm_state_after(p, h: torch.Tensor, cfg: ArchConfig
+                       ) -> R.SLSTMState:
+    z, i, f = R._slstm_gates(p, h.float())
+    _, c = R.associative_scan(R._affine, (f, i * z), dim=1)
+    _, n = R.associative_scan(R._affine, (f, i), dim=1)
+    return R.SLSTMState(c=c[:, -1].clone(),
+                        n=torch.clamp(n[:, -1], min=1e-6))
 
 
 # matmuls without batch dimensions: what the reference's "dots" policy
@@ -135,17 +288,21 @@ def _remat(fn, policy: str):
 
 class LM(nn.Module):
     """The decoder-only LM's parameters under the reference's names:
-    ``embed`` (V, D), ``layers`` (one ``ModuleDict`` per layer),
-    ``final_norm`` and, unless embeddings are tied, ``lm_head`` (D, V).
-    ``lm["embed"]`` reads as ``params["embed"]`` does in the reference."""
+    ``embed`` (V, D), ``layers`` (one :class:`Block` per layer) or, for
+    the ``ssm`` family, ``blocks`` (``stack``), ``final_norm`` and,
+    unless embeddings are tied, ``lm_head`` (D, V). ``lm["embed"]`` reads
+    as ``params["embed"]`` does in the reference."""
 
     def __init__(self, embed: torch.Tensor, layers: list[nn.ModuleDict],
                  final_norm: nn.ParameterDict,
                  lm_head: torch.Tensor | None = None,
-                 trainable: bool = False):
+                 trainable: bool = False, stack: str = "layers"):
         super().__init__()
+        if stack not in ("layers", "blocks"):
+            raise ValueError(stack)
         self.embed = L._param(embed, trainable)
-        self.layers = nn.ModuleList(layers)
+        self.stack = stack
+        setattr(self, stack, nn.ModuleList(layers))
         self.final_norm = final_norm
         self.lm_head = (None if lm_head is None
                         else L._param(lm_head, trainable))
@@ -160,22 +317,31 @@ def init_lm(cfg: ArchConfig, device="cpu",
     """The port's own initialisation, drawn from ``generator`` on
     ``device``. It cannot reproduce ``jax.random``; it meets the
     reference's distributions: embed and lm_head normal x ``D**-0.5``,
-    the attention, FFN and MoE scales of ``layers.init_attention`` /
-    ``init_ffn`` / ``init_moe``, zero biases, unit norms. Each matrix is
-    drawn in float32 and cast to ``cfg.dtype`` (the MoE router stays
-    float32; ``trainable``: kept in ``cfg.param_dtype``, with gradients)
-    before the next is drawn."""
-    kind = block_kind(cfg)
+    the scales of ``layers.init_attention`` / ``init_ffn`` / ``init_moe``
+    and ``recurrent.init_mamba`` / ``init_mlstm`` / ``init_slstm``, zero
+    biases, unit norms. Each matrix is drawn in float32 and cast to
+    ``cfg.dtype`` before the next is drawn, except the leaves the
+    reference uses in float32 (the MoE router, the recurrent layers'
+    gates and sLSTM), which stay float32; ``trainable``: every leaf in
+    ``cfg.param_dtype``, with gradients."""
+    block_kind(cfg)     # raises for a family the port does not serve yet
     V, D = cfg.padded_vocab, cfg.d_model
     t = trainable
     embed = L._normal((V, D), D ** -0.5, cfg, device, generator, t)
-    layers = [init_block(cfg, kind, device, generator, t)
-              for _ in range(cfg.num_layers)]
+    layers = [init_block(cfg, block_kind(cfg, i), device, generator, t)
+              for i in range(cfg.num_layers)]
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = L._normal((D, V), D ** -0.5, cfg, device, generator, t)
     return LM(embed, layers, L.init_norm(cfg, device=device, trainable=t),
-              lm_head, t)
+              lm_head, t, stack_name(cfg))
+
+
+def _blocks(p, cfg: ArchConfig) -> list:
+    """(block parameters, kind) for each layer, from an :class:`LM` or a
+    mapping with its layout."""
+    return [(bp, block_kind(cfg, i))
+            for i, bp in enumerate(p[stack_name(cfg)])]
 
 
 def embed_tokens(p: LM, tokens: torch.Tensor, cfg: ArchConfig
@@ -200,13 +366,12 @@ def forward_train(p, tokens: torch.Tensor, cfg: ArchConfig,
                   remat: str = "full") -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> logits (B, S, V) float32.
     ``p`` is an :class:`LM` or a mapping with its layout (``"embed"``,
-    ``"layers"``, ``"final_norm"``, ``"lm_head"``), as the train step's
-    bfloat16 view of the parameters is."""
-    kind = block_kind(cfg)
-    body = _remat(functools.partial(apply_block_train, cfg=cfg, kind=kind),
-                  remat)
+    ``"layers"`` or ``"blocks"``, ``"final_norm"``, ``"lm_head"``), as
+    the train step's bfloat16 view of the parameters is."""
     x = embed_tokens(p, tokens, cfg)
-    for lp in p["layers"]:
+    for lp, kind in _blocks(p, cfg):
+        body = _remat(functools.partial(apply_block_train, cfg=cfg,
+                                        kind=kind), remat)
         x = body(lp, x)
     x = L.apply_norm(p["final_norm"], x, cfg)
     return unembed(p, x, cfg)
@@ -214,10 +379,9 @@ def forward_train(p, tokens: torch.Tensor, cfg: ArchConfig,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cpu"
                ) -> list:
-    """One cache per layer."""
-    block_kind(cfg)
-    return [L.init_kv_cache(cfg, batch, max_len, device=device)
-            for _ in range(cfg.num_layers)]
+    """One cache entry per layer (``init_block_cache``)."""
+    return [init_block_cache(cfg, block_kind(cfg, i), batch, max_len,
+                             device) for i in range(cfg.num_layers)]
 
 
 def forward_prefill(p: LM, tokens: torch.Tensor, cfg: ArchConfig, cache,
@@ -226,9 +390,8 @@ def forward_prefill(p: LM, tokens: torch.Tensor, cfg: ArchConfig, cache,
     With ``last_only`` only the last position is unembedded (B, 1, V): the
     same values for that position without a (B, S, V) buffer, which is
     what serving keeps."""
-    kind = block_kind(cfg)
     x = embed_tokens(p, tokens, cfg)
-    for i, lp in enumerate(p.layers):
+    for i, (lp, kind) in enumerate(_blocks(p, cfg)):
         x, cache[i] = apply_block_prefill(lp, x, cfg, kind, cache[i])
     if last_only:
         x = x[:, -1:]
@@ -239,9 +402,8 @@ def forward_prefill(p: LM, tokens: torch.Tensor, cfg: ArchConfig, cache,
 def forward_decode(p: LM, token: torch.Tensor, cfg: ArchConfig, cache,
                    pos: int, attend: L.Attend | None = None):
     """token: (B, 1) int; pos: the absolute position, a Python int."""
-    kind = block_kind(cfg)
     x = embed_tokens(p, token, cfg)
-    for i, lp in enumerate(p.layers):
+    for i, (lp, kind) in enumerate(_blocks(p, cfg)):
         x, cache[i] = apply_block_decode(lp, x, cfg, kind, cache[i], pos,
                                          attend)
     x = L.apply_norm(p["final_norm"], x, cfg)

@@ -67,18 +67,32 @@ def init_train_state(model: Model, seed: int = 0) -> TrainState:
 
 
 def _cast_bf16(params: LM) -> dict:
-    """The parameter tree with every float32 leaf of ndim > 1 cast to
-    bfloat16 (gradients flow back through the cast to the float32
-    leaves), in the layout ``forward_train`` reads."""
-    def cast(t):
-        if t is None or t.dtype != torch.float32 or t.ndim < 2:
+    """The parameter tree with the reference's float32 leaves of ndim > 1
+    cast to bfloat16 (gradients flow back through the cast to the float32
+    leaves), in the layout ``forward_train`` reads. The reference stacks
+    a ``layers`` leaf on a leading layer axis, so there every per-layer
+    leaf but a scalar is cast (norm scales, biases, Mamba's ``dt_bias``
+    and ``d_skip``, the hybrid's ``alpha``); the unstacked ``blocks`` of
+    the ``ssm`` family keep their vectors (``f_bias``, norm scales) in
+    float32; ``embed`` and ``lm_head`` are cast, ``final_norm`` is not."""
+    stacked = params.stack == "layers"
+
+    def cast(t, extra=0):
+        if t is None or t.dtype != torch.float32 or t.ndim + extra < 2:
             return t
         return t.to(torch.bfloat16)
 
+    def block(lp):
+        e = int(stacked)
+        out = {name: {k: cast(t, e) for k, t in group.items()}
+               for name, group in lp.items()}
+        out.update((k, cast(t, e)) for k, t in lp.named_parameters(
+            recurse=False))
+        return out
+
     return {
         "embed": cast(params.embed),
-        "layers": [{name: {k: cast(t) for k, t in group.items()}
-                    for name, group in lp.items()} for lp in params.layers],
+        params.stack: [block(lp) for lp in params[params.stack]],
         "final_norm": {k: cast(t) for k, t in params.final_norm.items()},
         "lm_head": cast(params.lm_head),
     }

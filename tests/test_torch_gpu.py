@@ -2,8 +2,9 @@
 similarity of clustering, the Eq. 1 encoder, the analog PCM MVM and the
 int8-KV decode attention) against their plain PyTorch versions, the
 clustering path around the Hamming kernel, the tuner's launch knobs, LM
-decoding through the attention kernel, and the analog PCM model and the
-end-to-end pipelines on the ``imc_mvm`` kernel, on the card.
+decoding through the attention kernel, the analog PCM model and the
+end-to-end pipelines on the ``imc_mvm`` kernel, and the recurrent layers
+and models (xLSTM, Hymba) against the CPU, on the card.
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import). Run on a machine
@@ -1400,3 +1401,186 @@ def test_moe_decode_step_makes_no_host_sync(cuda, arch):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert tok.shape == (4, 1) and bool(torch.isfinite(logits).all())
+
+
+# --------------------------------------------------------------------------
+# the recurrent families (xLSTM's mLSTM / sLSTM, Hymba's Mamba heads)
+# --------------------------------------------------------------------------
+
+def _close_to_scale(got, want, tol):
+    """Within ``tol`` of the reference tensor's largest magnitude (at least
+    1), elementwise."""
+    want = want.detach().float().cpu()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.detach().float().cpu(), want, rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("name", ["mamba", "mlstm", "slstm"])
+def test_recurrent_layer_on_the_card_matches_the_cpu(cuda, name):
+    """One recurrent layer (float32, TF32 off) on the card against the same
+    calls on the CPU: the chunked forward over two chunks, eight decode
+    steps with their states, and the state after the prompt; rtol and
+    atol 1e-4 of each tensor's scale (cuBLAS and the CPU sum in other
+    orders)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch = "hymba_1_5b" if name == "mamba" else "xlstm_125m"
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_model=128)
+    p = getattr(R, f"init_{name}")(cfg, generator=torch.Generator()
+                                   .manual_seed(0))
+    x = torch.randn(3, 32, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    pc, xc = copy.deepcopy(p).to(cuda), x.to(cuda)
+    kw = {} if name == "slstm" else {"chunk": 16}
+    train = getattr(R, f"{name}_train")
+    _close_to_scale(train(pc, xc, cfg, **kw), train(p, x, cfg, **kw), 1e-4)
+    after = getattr(T, f"_{name}_state_after")
+    got_after, want_after = after(pc, xc, cfg), after(p, x, cfg)
+    decode = getattr(R, f"{name}_decode")
+    sc = getattr(R, f"init_{name}_state")(cfg, 3, cuda)
+    s = getattr(R, f"init_{name}_state")(cfg, 3)
+    for t in range(8):
+        yc, sc = decode(pc, xc[:, t:t + 1], cfg, sc)
+        y, s = decode(p, x[:, t:t + 1], cfg, s)
+        _close_to_scale(yc, y, 1e-4)
+    for f in dataclasses.fields(s):
+        assert getattr(sc, f.name).is_cuda
+        _close_to_scale(getattr(sc, f.name), getattr(s, f.name), 1e-4)
+        _close_to_scale(getattr(got_after, f.name),
+                        getattr(want_after, f.name), 1e-4)
+
+
+def _hymba_g5(**kw):
+    """Hymba's attention grouping (G = 5, hd = 64) at a small width, a
+    16-position window and the int8 KV store, in bfloat16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("hymba_1_5b").reduced(), d_model=128, num_heads=10,
+        num_kv_heads=2, head_dim=64, kv_quant_int8=True, dtype="bfloat16",
+        **kw)
+
+
+def test_hymba_decode_through_the_kernel_across_the_ring(cuda):
+    """Hymba decodes 24 steps past a 16-position prompt (the ring wraps at
+    position 16) on the kernel and, on a copy of the same cache, on the
+    plain version, both fed the kernel run's tokens: one launch a layer a
+    step, the plain version only in its run, and logits within 2^-4 of
+    the step's largest |logit| (bfloat16 activations carry the kernel's
+    float32 rounding)."""
+    import copy
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.models.model_zoo import build_model
+    cfg = _hymba_g5()
+    assert cfg.num_heads // cfg.num_kv_heads == 5
+    model = build_model(cfg, cuda)
+    params = model.init(seed=0)
+    batch = TokenPipeline(4, 16, cfg.vocab_size).get(0, cuda)
+    cache = model.init_cache(4, 40)
+    logits, cache = model.prefill(params, batch, cache, last_only=True)
+    plain_cache = copy.deepcopy(cache)
+    tok = logits.argmax(-1).to(torch.int32)
+    before, calls = decode_attention.launches, decode_attention_plain.calls
+    for pos in range(16, 40):
+        lk, cache = model.decode_step(params, tok, cache, pos)
+        lp, plain_cache = model.decode_step(params, tok, plain_cache, pos,
+                                            decode_attention_plain)
+        share = float((lk - lp).abs().max()) / float(lp.abs().max())
+        assert share <= 2.0 ** -4, (pos, share)
+        tok = lk.argmax(-1).to(torch.int32)
+    steps = 24 * cfg.num_layers
+    assert decode_attention.launches - before == steps
+    assert decode_attention_plain.calls - calls == steps
+    for kv, st in cache:
+        assert kv.k.shape[1] == 16 and kv.k.dtype == torch.int8
+        assert st.h.dtype == torch.float32 and st.h.is_cuda
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1_5b"])
+def test_recurrent_decode_step_makes_no_host_sync(cuda, arch):
+    """A recurrent decode step (bfloat16; Hymba with the int8 KV store and
+    the kernel) runs under the sync debug mode "error"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=4,
+                              kv_quant_int8=True, dtype="bfloat16")
+    model = build_model(cfg, cuda)
+    params = model.init(seed=0)
+    batch = TokenPipeline(4, 16, cfg.vocab_size).get(0, cuda)
+    cache = model.init_cache(4, 24)
+    logits, cache = model.prefill(params, batch, cache, last_only=True)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pos in (16, 17):
+            logits, cache = model.decode_step(params, tok, cache, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tok.shape == (4, 1) and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch,imc", [("xlstm_125m", False),
+                                      ("hymba_1_5b", False),
+                                      ("hymba_1_5b", True)])
+def test_recurrent_train_step_on_the_card_matches_the_cpu(cuda, arch, imc):
+    """One ``make_train_step`` step of the reduced config (xLSTM with an
+    sLSTM block) on the card against the CPU (float32, TF32 off): loss
+    rtol 1e-5, grad_norm rtol 1e-4, parameters within 2 lr; Hymba with
+    ``imc_linear`` launches ``imc_mvm`` once a layer, xLSTM never."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=4,
+                              imc_linear=imc)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        state = init_train_state(build_model(cfg, "cpu"), seed=0)
+        if dev != "cpu":
+            state.params.to(dev)
+            state.opt["mu"] = [t.to(dev) for t in state.opt["mu"]]
+            state.opt["nu"] = [t.to(dev) for t in state.opt["nu"]]
+        batch = TokenPipeline(4, 64, cfg.vocab_size).get_for(cfg, 0, dev)
+        before, plain = imc_mvm.launches, imc_mvm_plain.calls
+        state, m = make_train_step(model, tcfg)(state, batch)
+        if dev != "cpu":
+            assert imc_mvm.launches - before == (cfg.num_layers
+                                                 if imc else 0)
+            assert imc_mvm_plain.calls == plain
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                         [p.detach().cpu() for p in state.params.parameters()])
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(gg, gc, rtol=1e-4)
+    for a, b in zip(pg, pc):
+        assert float((a - b).abs().max()) <= 2e-3 + 1e-6

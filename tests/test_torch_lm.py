@@ -90,25 +90,65 @@ def test_config_is_the_references():
     assert full_t.padded_vocab == 152_064 and full_t.resolved_head_dim == 128
 
 
-@pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1_5b",
-                                  "whisper_medium", "internvl2_76b"])
+@pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_76b"])
 def test_unported_arch_raises_and_names_roadmap(arch):
-    """Every config is registered; the four families still to port (ssm,
-    hybrid, audio, vlm) raise from ``build_model`` and ``init_cache``."""
+    """Every config is registered; the two families still to port (audio,
+    vlm) raise from ``build_model`` and ``init_cache``, naming item
+    5.5."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 5\.5"):
         build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 5\.5"):
         T.init_cache(cfg, 1, 8)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1_5b"])
+def test_recurrent_arch_builds_with_state_caches(arch):
+    """The ssm and hybrid families build: ``init_cache`` gives each layer
+    its state (an mLSTM / sLSTM state, or a KV cache and a Mamba state),
+    the reference's layout, and one decode step keeps every entry's
+    type and shape."""
+    jc, tc = (dataclasses.replace(c.reduced(), num_layers=4)
+              for c in (jax_get_config(arch), get_config(arch)))
+    model = build_model(tc, "cpu")
+    caches = T.init_cache(tc, 2, 20)
+    want = JT.init_cache(jc, 2, 20)
+    if arch == "xlstm_125m":
+        assert [type(c).__name__ for c in caches] == [
+            type(c).__name__ for c in want] == [
+            "MLSTMState", "MLSTMState", "MLSTMState", "SLSTMState"]
+        for c, w in zip(caches, want):
+            for f in dataclasses.fields(w):
+                assert tuple(getattr(c, f.name).shape) == getattr(
+                    w, f.name).shape
+    else:
+        kv, st = want
+        for c in caches:
+            assert isinstance(c[0], L.KVCache) and c[0].k.shape == (
+                2, 16, 2, 16) == kv.k.shape[1:]
+            assert c[1].h.shape == (2, 64, 8) == st.h.shape[1:]
+    params = model.init(0)
+    tok = torch.zeros((2, 1), dtype=torch.int32)
+    logits, after = model.decode_step(params, tok, caches, 0)
+    assert logits.shape == (2, 1, tc.padded_vocab)
+    assert [type(c) for c in after] == [type(c) for c in T.init_cache(
+        tc, 2, 20)]
 
 
 def test_unported_family_raises():
+    """The ``ssm`` family on Qwen's widths builds mLSTM blocks now; the
+    audio and vlm families still raise."""
     cfg = dataclasses.replace(get_config("qwen2_7b").reduced(), family="ssm",
                               ssm_state=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_cache(cfg, 1, 8)
+    assert build_model(cfg, "cpu").init(0).stack == "blocks"
+    assert all(type(c).__name__ == "MLSTMState"
+               for c in T.init_cache(cfg, 1, 8))
+    for family in ("audio", "vlm"):
+        bad = dataclasses.replace(cfg, family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(bad, "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.init_cache(bad, 1, 8)
 
 
 # ----------------------------------------------------------------- tokens --

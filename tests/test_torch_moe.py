@@ -68,7 +68,8 @@ torch.set_num_threads(1)
 MOE_ARCHS = ("deepseek_moe_16b", "llama4_scout_17b_a16e")
 DENSE_ARCHS = ("gemma_7b", "granite_20b", "granite_34b")
 NEW_ARCHS = MOE_ARCHS + DENSE_ARCHS
-UNPORTED = ("xlstm_125m", "hymba_1_5b", "whisper_medium", "internvl2_76b")
+RECURRENT = ("xlstm_125m", "hymba_1_5b")
+UNPORTED = ("whisper_medium", "internvl2_76b")
 B, S = 8, 64
 
 
@@ -154,17 +155,23 @@ def test_registry_and_shapes_are_the_references():
         get_config("gpt_5")
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + ("qwen2_7b",))
+@pytest.mark.parametrize("arch", NEW_ARCHS + ("qwen2_7b",) + RECURRENT)
 def test_block_kind_takes_every_decoder_only_config(arch):
+    """Every layer's kind is the reference's: attn_moe, attn_ffn, hybrid,
+    or xLSTM's mLSTM blocks with an sLSTM every ``ssm_ratio``-th."""
     cfg = get_config(arch)
-    want = "attn_moe" if cfg.family == "moe" else "attn_ffn"
-    assert T.block_kind(cfg) == want == JT.block_kind(jax_get_config(arch))
+    kinds = [T.block_kind(cfg, i) for i in range(cfg.num_layers)]
+    jc = jax_get_config(arch)
+    assert kinds == [JT.block_kind(jc, i) for i in range(jc.num_layers)]
+    want = {"moe": {"attn_moe"}, "hybrid": {"hybrid"},
+            "ssm": {"mlstm", "slstm"}}.get(cfg.family, {"attn_ffn"})
+    assert set(kinds) == want
     assert build_model(cfg.reduced(), "cpu").cfg == cfg.reduced()
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_block_kind_raises_for_the_unported_families(arch):
-    with pytest.raises(NotImplementedError, match=r"items 5\.4-5\.5"):
+    with pytest.raises(NotImplementedError, match=r"item 5\.5"):
         T.block_kind(get_config(arch))
 
 

@@ -72,6 +72,7 @@ from repro_torch.train.train_step import (
     make_train_step,
     resolve_pods,
 )
+from repro_torch.train.train_step import _cast_bf16 as Z_cast
 
 torch.set_num_threads(1)
 
@@ -481,6 +482,41 @@ def test_cast_params_bf16_loss_matches_the_reference(ref_init):
                                rtol=1e-5)
     np.testing.assert_allclose(float(m["grad_norm"]),
                                float(jm["grad_norm"]), rtol=1e-4)
+
+
+def test_cast_params_bf16_casts_the_stacked_layer_vectors(ref_init):
+    """The reference casts every float32 leaf of ndim > 1, and a leaf of
+    its stacked ``layers`` carries the layer axis: norm scales and QKV
+    biases are cast to bfloat16 too (``final_norm`` is not). With scales
+    and biases that bfloat16 does not hold exactly, the port's loss
+    equals the reference's."""
+    jc, tc = _cfgs()
+    params, mu, nu = (jax.tree.map(np.copy, t) for t in ref_init)
+    rng = np.random.default_rng(11)
+    layers = params["layers"]
+    for group, names in (("norm1", ("scale",)), ("norm2", ("scale",)),
+                         ("attn", ("bq", "bk", "bv"))):
+        for name in names:
+            a = layers[group][name]
+            layers[group][name] = (a + rng.normal(size=a.shape).astype(
+                np.float32) * 0.1)
+    params["final_norm"]["scale"] = params["final_norm"]["scale"] + 0.01
+    jb, tb = _batch(0)
+
+    def cast(p):
+        return jax.tree.map(lambda a: a.astype(jnp.bfloat16)
+                            if (a.dtype == jnp.float32 and a.ndim > 1)
+                            else a, p)
+
+    want = float(jax_build_model(jc).loss(
+        cast(jax.tree.map(jnp.asarray, params)), jb))
+    state = train_state_from_numpy(params, mu, nu, 0, tc, "cpu")
+    view = Z_cast(state.params)
+    assert view["layers"][0]["norm1"]["scale"].dtype == torch.bfloat16
+    assert view["layers"][0]["attn"]["bq"].dtype == torch.bfloat16
+    assert view["final_norm"]["scale"].dtype == torch.float32
+    got = float(build_model(tc, "cpu").loss(view, tb))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 def test_loss_decreases():
