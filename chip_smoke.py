@@ -34,7 +34,8 @@ exits non-zero and prints no result line:
    every compiled output tile, a partial that a float64 sum would round
    twice, weight rows off a 16-byte boundary, one 43-column tile, and
    Q = 1 and 33; for ``decode_attention`` the reference's
-   test shapes, G = 1 at hd = 256, G = 48, G = 5 at hd = 128, valid_len
+   test shapes, G = 1 at hd = 256, G = 48, G = 5 at hd = 128, Whisper's
+   G = 1 at hd = 64 and InternVL2's G = 8 at hd = 128, valid_len
    0 / 1 / 70 of 128 /
    S, S off every chunk multiple and the served shape, valid_len at a
    split boundary - 1 / + 0 / + 1, valid_len 1 with every later split
@@ -266,6 +267,38 @@ exits non-zero and prints no result line:
    query rows. Prints step ms, tokens/s, the device's milliseconds by
    group and peak memory.
 
+7d. The encoder-decoder and VLM families: ``repro_torch.launch.serve.main``
+   on ``whisper_medium`` at published width and full depth (24 encoder
+   and 24 decoder layers; 256 frame embeddings from the stub frontend and
+   256 tokens) and ``internvl2_76b`` at published width with 32 of its 80
+   layers (64 patch embeddings and 448 tokens; a ``reduced:`` line says
+   why), bfloat16, the int8 KV store, batch 32, 16 greedy tokens. Each
+   must launch ``decode_attention`` decoder layers x 15 times (360 and
+   480), the plain version 0 times. A teacher-forced replay on the kernel
+   must reproduce the served logits exactly, each of its attention calls
+   within rtol / atol 2e-4 of the plain version on the same inputs; a
+   free-running plain replay's share of the max logit is printed; one
+   decode step runs under the sync debug mode "error". Whisper's cross
+   K/V must be kept at the memory's 256 rows, and a float32 copy of it
+   (8 of the rows) must match ``forward_train`` over its encoded frames
+   and the prompt and generated tokens at every decode position within
+   2^-4 of the max logit (ROADMAP F4). Prints prefill seconds, decode
+   ms/step p50 / p95, tokens/s, the weights' and a decode step's bytes
+   and read bounds, the cross K/V's bytes, peak memory, and the kernel
+   at the last step's valid_len on a served cache beside its plain
+   version and bound.
+8d. Training them: batch 8 x 512, remat "full", three timed steps and
+   one profiled: ``whisper_medium`` at full depth exact, then on the same
+   state with ``imc_linear``: ``imc_mvm`` must launch 48 times a step
+   (its 24 encoder and 24 decoder FFN down-projections), the plain
+   version never, and one launch at the training shape (Q 2,048, R
+   1,024, Dp 4,096) must equal the plain version bit for bit on its first
+   and last 256 query rows; it is timed beside a float32 ``torch.matmul``
+   and its bound. Then ``internvl2_76b`` at published width with 1 of
+   its 80 layers, exact (a ``reduced:`` line says why). Losses and grad
+   norms must be finite. Prints step ms, tokens/s, the device's
+   milliseconds by group and peak memory.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
 ``torch.cuda.is_available()`` is False, and where ``src/repro_torch`` is
@@ -273,8 +306,9 @@ missing beside it.
 
     python3 chip_smoke.py --only 7c,8c
 
-runs the build and the named phases alone (7c, 8c), printing their lines
-and no kernels or ``ok`` line: a quick check of one slice on the card.
+runs the build and the named phases alone (7c, 8c, 7d, 8d), printing
+their lines and no kernels or ``ok`` line: a quick check of one slice on
+the card.
 """
 
 from __future__ import annotations
@@ -534,7 +568,10 @@ IMC_EDGE_CASES = [
 # (decode_splits): valid_len at a split boundary - 1 / + 0 / + 1 (8
 # splits of 125 at B 2, KV 2, S 1,000; 3 of 363 at the served shape),
 # valid_len 1 with every later split empty, and S under one split; hd
-# 48 and 96 (rows of 3 and 6 16-byte segments). Tolerance rtol / atol
+# 48 and 96 (rows of 3 and 6 16-byte segments). Whisper's G = 1 at hd
+# 64 and InternVL2's G = 8 at hd 128 (phase 7d) at their served shape
+# (S = 528, one split on 132 SMs) and with fewer rows (5 splits of 106):
+# valid_len at the boundary - 1 / + 0 / + 1. Tolerance rtol / atol
 # 2e-4 (float32; the reference's own kernel-vs-oracle tolerance).
 DECODE_EDGE_CASES = [
     (1, 128, 1, 4, 32, (128,)), (2, 256, 2, 8, 64, (256, 77)),
@@ -546,6 +583,10 @@ DECODE_EDGE_CASES = [
     (4, 100, 2, 7, 128, (1, 99, 100, 0)),
     (2, 150, 2, 5, 48, (150, 77)), (1, 100, 1, 12, 96, (100, 33)),
     (4, 600, 8, 5, 128, (600, 513, 1)),
+    (32, 528, 16, 1, 64, (257, 271, 528)),
+    (2, 528, 16, 1, 64, (105, 106, 107, 1)),
+    (32, 528, 8, 8, 128, (513, 527, 528)),
+    (4, 528, 8, 8, 128, (105, 106, 107, 1)),
 ]
 DECODE_RTOL = DECODE_ATOL = 2e-4
 # split counts forced on one shape (S = 300 takes each count asked)
@@ -2808,16 +2849,16 @@ def replay_decode(torch, run, gen: int, attend) -> dict:
     from repro_torch.train.serve_step import make_decode_step, make_prefill
 
     model, params = run.model, run.params
-    B, S = run.batch["tokens"].shape
+    B = run.batch["tokens"].shape[0]
     prefill, decode = make_prefill(model), make_decode_step(model)
-    cache = model.init_cache(B, S + gen)
+    cache = model.init_cache(B, run.cache_len)
     logits, cache = prefill(params, run.batch, cache)
     out = {"prefill_agree": int((logits.argmax(-1).to(torch.int32)
                                  == run.tokens[:, :1]).sum()),
            "max_diff": [], "share": [], "disagree": [], "unexplained": []}
     for i in range(gen - 1):
-        lp, cache = decode(params, run.tokens[:, i:i + 1], cache, S + i,
-                           attend)
+        lp, cache = decode(params, run.tokens[:, i:i + 1], cache,
+                           run.start + i, attend)
         served = run.logits[i]
         diff = (lp - served).abs().amax(dim=(1, 2))           # per row
         out["max_diff"].append(float(diff.max()))
@@ -3412,12 +3453,13 @@ def phase_train_configs(torch, np) -> dict:
     return results
 
 
-def imc_launch_check(torch, cfg, call, rows: list) -> dict:
+def imc_launch_check(torch, cfg, call, rows: list,
+                     tokens: int = TRAIN_BATCH * TRAIN_SEQ) -> dict:
     """One recorded ``imc_mvm`` launch (operands, knobs, result) at
-    ``cfg``'s training shape: the result's query ``rows`` (slices) against
-    the plain version, bit for bit, and the kernel timed beside a float32
-    ``torch.matmul`` of the same operands (TF32 off, no DAC / ADC) and
-    its bound."""
+    ``cfg``'s training shape (``tokens`` query rows): the result's query
+    ``rows`` (slices) against the plain version, bit for bit, and the
+    kernel timed beside a float32 ``torch.matmul`` of the same operands
+    (TF32 off, no DAC / ADC) and its bound."""
     from repro_torch.core.imc.array import ArrayConfig, default_full_scale
     from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
 
@@ -3426,7 +3468,7 @@ def imc_launch_check(torch, cfg, call, rows: list) -> dict:
     R = w.shape[0]
     acfg = ArrayConfig(adc_bits=cfg.imc_adc_bits,
                        bits_per_cell=cfg.imc_mlc_bits)
-    check((Q, R, Dp) == (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff)
+    check((Q, R, Dp) == (tokens, cfg.d_model, cfg.d_ff)
           and kw["full_scale"] == default_full_scale(acfg),
           f"the kernel ran at {(Q, R, Dp)}, not {cfg.name}'s training "
           f"shape")
@@ -3458,18 +3500,19 @@ def imc_launch_check(torch, cfg, call, rows: list) -> dict:
 
 
 def imc_training_shape(torch, np, model, state, pipe, cfg,
-                       layers_mod, prefix: str = "granite_train") -> dict:
-    """``imc_launch_check`` of the first launch of an evaluation forward,
-    on its first and last TRAIN_CHECK_Q query rows; the keys start with
-    ``prefix``."""
+                       layers_mod, prefix: str = "granite_train",
+                       tokens: int = TRAIN_BATCH * TRAIN_SEQ) -> dict:
+    """``imc_launch_check`` of the first launch of an evaluation forward
+    (``tokens`` query rows), on its first and last TRAIN_CHECK_Q query
+    rows; the keys start with ``prefix``."""
     rec, patch = imc_recorder(layers_mod)
     with torch.no_grad(), patch:
         loss = float(model.loss(state.params, pipe.get_for(
             cfg, IMC_TRAIN_STEPS, "cuda"), remat="none"))
     check(np.isfinite(loss), "non-finite evaluation loss")
-    n = TRAIN_BATCH * TRAIN_SEQ
+    n = tokens
     k = imc_launch_check(torch, cfg, rec.pop("call"), [
-        slice(0, TRAIN_CHECK_Q), slice(n - TRAIN_CHECK_Q, n)])
+        slice(0, TRAIN_CHECK_Q), slice(n - TRAIN_CHECK_Q, n)], tokens)
     print(f"train: imc_mvm at {cfg.name}'s training shape Q={k['Q']}, "
           f"R={k['R']}, Dp={k['Dp']}: {k['ms']:.4f} ms (5 launches), "
           f"float32 torch.matmul {k['matmul_ms']:.4f} ms, bound "
@@ -3480,7 +3523,7 @@ def imc_training_shape(torch, np, model, state, pipe, cfg,
     return {"eval_loss_imc": loss,
             f"{prefix}_shape": f"Q={k['Q']}, R={k['R']}, Dp={k['Dp']} "
                                f"({cfg.name} FFN down-projection, "
-                               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
+                               f"{n} tokens)",
             f"{prefix}_ms": k["ms"],
             f"{prefix}_matmul_ms": k["matmul_ms"],
             f"{prefix}_bound_ms": k["bound_ms"],
@@ -3509,14 +3552,34 @@ PERTURBATION = 1e-7
 
 
 def _prompt_and_tokens(torch, run):
-    """The prompt and the generated tokens, padded to a multiple of the
-    training forward's chunk (256 for mLSTM, 64 for Mamba); causality
-    leaves the earlier positions as they are."""
+    """The prompt's tokens and the generated tokens, padded to a multiple
+    of the training forward's chunk (256 for mLSTM, 64 for Mamba);
+    causality leaves the earlier positions as they are."""
     import torch.nn.functional as nnf
 
     seq = torch.cat([run.batch["tokens"], run.tokens], dim=1)
-    chunk = 256 if run.model.cfg.family == "ssm" else 64
+    chunk = {"ssm": 256, "hybrid": 64}.get(run.model.cfg.family, 1)
     return nnf.pad(seq, (0, (-seq.shape[1]) % chunk))
+
+
+def teacher_forced_logits(torch, run, seq, rows):
+    """``forward_train``'s logits over the prompt and the generated tokens
+    ``seq`` (its rows ``rows``): after the VLM's patches, or over the
+    encoder-decoder's encoded frames."""
+    from repro_torch.models import transformer as T
+
+    params, cfg = run.params, run.model.cfg
+    if cfg.is_encoder_decoder:
+        memory = T.encode(params, run.batch["frames"][rows], cfg,
+                          remat="none")
+        return T.forward_train(params, seq, cfg, remat="none",
+                               memory=memory)
+    if cfg.family == "vlm":
+        tok_x = T.embed_tokens(params, seq, cfg)
+        x = torch.cat([run.batch["patches"][rows].to(tok_x.dtype), tok_x], 1)
+        return T.forward_train(params, x, cfg, remat="none",
+                               is_embedded=True)
+    return T.forward_train(params, seq, cfg, remat="none")
 
 
 def perturbation_share(torch, run) -> float:
@@ -3545,18 +3608,19 @@ def forward_train_shares(torch, run, gen: int) -> list[float]:
     """Each decode step's served logits against ``forward_train`` of the
     prompt and the generated tokens at that position: per step, max
     |difference| over the step's largest |served logit|."""
-    from repro_torch.models import transformer as T
-
-    params, cfg = run.params, run.model.cfg
-    B, S = run.batch["tokens"].shape
+    B = run.batch["tokens"].shape[0]
     seq = _prompt_and_tokens(torch, run)
     diff = torch.zeros(gen - 1, device=seq.device)
     rows = max(1, B // 4)
     with torch.no_grad():
         for r in range(0, B, rows):
-            full = T.forward_train(params, seq[r:r + rows], cfg, remat="none")
+            full = teacher_forced_logits(torch, run, seq[r:r + rows],
+                                         slice(r, r + rows))
             for i in range(gen - 1):
-                d = (run.logits[i][r:r + rows, 0] - full[:, S + i]).abs()
+                # the decode's position i sits at run.start + i in the
+                # full sequence (after the patches, for the VLM)
+                d = (run.logits[i][r:r + rows, 0]
+                     - full[:, run.start + i]).abs()
                 diff[i] = torch.maximum(diff[i], d.max())
             del full
     top = torch.stack([lg.abs().max() for lg in run.logits])
@@ -3937,9 +4001,346 @@ def phase_train_recurrent(torch, np) -> dict:
     return results
 
 
+# phase 7d: the encoder-decoder and VLM families at published width,
+# bfloat16, the int8 KV store, batch 32 x (512 + 16) as phase 7b:
+# whisper_medium at full depth (24 encoder and 24 decoder layers; 256
+# frames + 256 tokens), internvl2_76b with VLM_SERVE_LAYERS of its 80
+# layers (64 patches + 448 tokens; its bfloat16 weights would not fit the
+# card at 80). Whisper's state carry (the cross K/V at the memory's
+# length, ROADMAP F4) is held on a float32 copy of CARRY_BATCH rows
+# against forward_train over the encoded frames.
+VLM_SERVE_LAYERS = 32
+ENCDEC_VLM_SERVE = (("whisper_medium", None),
+                    ("internvl2_76b", VLM_SERVE_LAYERS))
+
+
+def layer_params(cfg) -> int:
+    """Parameters of one attention + SwiGLU FFN layer of ``cfg`` (norms
+    left out): what one InternVL2 layer adds."""
+    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.resolved_head_dim, cfg.d_ff)
+    return 2 * d * h * hd + 2 * d * kv * hd + 3 * d * f
+
+
+def print_vlm_cut(full, layers: int, what: str, bytes_per_param: int):
+    per = layer_params(full)
+    head = 2 * full.padded_vocab * full.d_model
+    print(f"reduced: {full.name} {what} with {layers} of its "
+          f"{full.num_layers} layers (published widths): a layer holds "
+          f"{per / 1e9:.3f} G parameters ({per * bytes_per_param / 1e9:.2f} "
+          f"GB), the embedding and head {head / 1e9:.2f} G "
+          f"({head * bytes_per_param / 1e9:.2f} GB); {layers} layers come "
+          f"to ~{(head + layers * per) * bytes_per_param / 1e9:.0f} GB, "
+          f"{full.num_layers} to ~"
+          f"{(head + full.num_layers * per) * bytes_per_param / 1e9:.0f} GB "
+          f"against the card's 80 GB")
+
+
+def decode_attention_served(torch, cache, G: int, vl: int) -> dict:
+    """``decode_attention`` on a served layer's int8 cache at ``vl`` with
+    ``G`` query heads a KV head: held against its plain version and timed
+    beside it and its bound."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    B, S, KV, hd = cache.k.shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, KV, G, hd), generator=g, device="cuda") * hd ** -0.5
+    ops = (q, cache.k, cache.v, cache.k_scale, cache.v_scale)
+    got = decode_attention(*ops, vl)
+    want = decode_attention_plain(*ops, vl)
+    bad = close_count(torch, got, want, DECODE_RTOL, DECODE_ATOL)
+    check(bad == 0, f"decode_attention differs from its plain version on "
+                    f"the served cache ({B}, {S}, {KV}, {G}, {hd})")
+    nbytes = (2 * B * vl * KV * hd + 2 * 4 * B * vl * KV
+              + 2 * 4 * B * KV * G * hd)
+    b_ms, b_by = bound_ms(4 * B * KV * G * hd * vl, nbytes, FP32_OPS_PER_S)
+    return {"shape": f"B={B}, S={S}, KV={KV}, G={G}, hd={hd}",
+            "valid_len": vl,
+            "ms": time_ms(torch, lambda: decode_attention(*ops, vl),
+                          iters=200, warmup=10),
+            "plain_ms": time_ms(torch, lambda: decode_attention_plain(
+                *ops, vl), iters=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def phase_serve_encdec_vlm(torch, np) -> dict:
+    """``repro_torch.launch.serve.main`` on ENCDEC_VLM_SERVE; returns the
+    ``decode_attention`` launches by config."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.launch import serve
+    from repro_torch.train.serve_step import make_decode_step
+
+    t_phase = time.perf_counter()
+    gen, steps = LM_CONFIGS_GEN, LM_CONFIGS_GEN - 1
+    argv = ["--kv-quant", "--batch", str(LM_CONFIGS_BATCH), "--prompt-len",
+            str(LM_CONFIGS_PROMPT), "--gen", str(gen), "--device", "cuda"]
+    out = {}
+    for arch, layers in ENCDEC_VLM_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cut = (full if layers is None
+               else dataclasses.replace(full, num_layers=layers))
+        if layers is not None:
+            print_vlm_cut(full, layers, "served in bfloat16", 2)
+        decode_attention.launches = 0
+        decode_attention_plain.calls = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(serve, "get_config", lambda a, c=cut: c):
+            run = serve.main(["--arch", arch] + argv, keep_logits=True)
+        wall = time.perf_counter() - t0
+        launches, plain_calls = (decode_attention.launches,
+                                 decode_attention_plain.calls)
+        cfg, params = run.model.cfg, run.params
+        nl = cfg.num_layers
+        B = run.batch["tokens"].shape[0]
+        check(nl == cut.num_layers and cfg.d_model == full.d_model
+              and cfg.num_encoder_layers == full.num_encoder_layers,
+              f"{arch} ran {nl} layers of width {cfg.d_model}")
+        check(launches == nl * steps, f"{arch}: decode_attention launched "
+                                      f"{launches} times, not {nl} layers "
+                                      f"x {steps} steps")
+        check(plain_calls == 0, f"{arch}: the plain decode attention ran "
+                                f"{plain_calls} times on the main path")
+        check(tuple(run.tokens.shape) == (B, gen)
+              and int(run.tokens.min()) >= 0
+              and int(run.tokens.max()) < cfg.padded_vocab,
+              f"{arch}: generated tokens out of shape or range")
+        check(all(bool(torch.isfinite(lg).all()) for lg in run.logits),
+              f"{arch}: non-finite decode logits")
+        wbytes = sum(p.numel() * p.element_size()
+                     for p in params.parameters())
+        # what a decode step reads: the decoder's layers and the head (the
+        # encoder runs once, in the prefill)
+        dec_bytes = sum(p.numel() * p.element_size()
+                        for p in params.layers.parameters())
+        dec_bytes += params.lm_head.numel() * params.lm_head.element_size()
+        line = {"path": "lm serve encdec vlm", "arch": arch, "layers": nl,
+                "encoder_layers": cfg.num_encoder_layers,
+                "published_layers": full.num_layers,
+                "d_model": cfg.d_model, "family": cfg.family, "batch": B,
+                "prompt": {k: v.shape[1] for k, v in run.batch.items()},
+                "decode_start": run.start, "cache_len": run.cache_len,
+                "gen": gen, "kv_cache": "int8", "wall_s": wall,
+                "prefill_s": run.prefill_s, "decode_s": run.decode_s,
+                "decode_ms_p50": run.step_percentile_ms(0.5),
+                "decode_ms_p95": run.step_percentile_ms(0.95),
+                "decode_tokens_per_s": run.decode_tokens_per_s,
+                "peak_gib": run.peak_bytes / 2**30,
+                "weight_gb": wbytes / 1e9,
+                "weight_read_bound_ms": 1e3 * wbytes / HBM_BYTES_PER_S,
+                "decode_attention_launches": launches}
+        # every attention call of a replay on the kernel and the plain
+        # version alike; then a free-running plain replay, printed
+        rep, k = kernel_vs_plain_replay(torch, run, gen)
+        check(k["calls"] == nl * steps
+              and k["valid_len"] == list(range(run.start + 1,
+                                               run.start + gen))
+              and k["slots"] == [run.cache_len],
+              f"{arch}: the replay's attention calls ({k['calls']}, "
+              f"valid_len {k['valid_len']}, slots {k['slots']}) are not the "
+              f"decode's")
+        check(rep["prefill_agree"] == B, f"{arch}: the prefill's greedy "
+                                         f"tokens are not reproducible")
+        cache = rep["cache"]
+        if cfg.is_encoder_decoder:
+            xbytes = sum(x.k.numel() * x.k.element_size() * 2
+                         for _, x in cache)
+            check(all(x.k.shape[1] == run.batch["frames"].shape[1]
+                      for _, x in cache),
+                  f"{arch}: the cross K/V are not at the memory's length")
+            dec_bytes += xbytes
+            line["cross_kv_gb"] = xbytes / 1e9
+        self_kv = cache[0][0] if cfg.is_encoder_decoder else cache[0]
+        line.update({
+            "decode_read_gb": dec_bytes / 1e9,
+            "decode_read_bound_ms": 1e3 * dec_bytes / HBM_BYTES_PER_S,
+            "kernel_vs_plain_calls": k["calls"],
+            "kernel_vs_plain_max_abs": k["max_abs"],
+            "kernel_vs_plain_mismatches": k["mismatches"],
+            "decode_attention_at_last_step": decode_attention_served(
+                torch, self_kv, cfg.num_heads // cfg.num_kv_heads,
+                run.start + gen - 1)})
+        free = replay_decode(torch, run, gen, decode_attention_plain)
+        line.update({
+            "plain_replay_worst_share_of_max_logit": max(free["share"]),
+            "plain_replay_greedy_tokens_disagreeing": sum(free["disagree"]),
+            "plain_replay_disagreements_not_near_ties":
+                sum(free["unexplained"])})
+        del free
+        # one decode step under the sync debug mode "error"
+        decode = make_decode_step(run.model)
+        tok = run.tokens[:, steps - 1:steps]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode(params, tok, cache, run.start + steps - 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        line["bf16_forward_train_worst_share_of_max_logit"] = max(
+            forward_train_shares(torch, run, gen))
+        del rep, cache, self_kv, decode, tok
+        if cfg.is_encoder_decoder:
+            # F4 on the card: a float32 copy (CARRY_BATCH rows) against
+            # forward_train over its encoded frames at every position
+            t0 = time.perf_counter()
+            carry_argv = argv[:]
+            carry_argv[carry_argv.index("--batch") + 1] = str(CARRY_BATCH)
+            f32, crun = float32_carry(torch, arch, carry_argv)
+            check(max(f32) <= LM_REPLAY_SHARE,
+                  f"{arch}: float32 decode logits differ from forward_train "
+                  f"past the stated tolerance ({max(f32)})")
+            line.update({
+                "float32_forward_train_worst_share_of_max_logit": max(f32),
+                "float32_forward_train_share_by_step": f32,
+                "float32_decode_attention_launches": crun.launches,
+                "forward_train_check_s": time.perf_counter() - t0,
+                "tolerance_share": LM_REPLAY_SHARE})
+            del crun
+        line["sm clock, power, limit"] = nvidia_smi(
+            "clocks.sm,power.draw,power.limit")
+        print(json.dumps(line))
+        out[arch] = launches
+        del run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve encdec vlm: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase 8d: training the encoder-decoder and the VLM at published width,
+# batch TRAIN_BATCH x TRAIN_SEQ (Whisper: 256 frames + 256 tokens, so its
+# FFN down-projections take 2,048 query rows; InternVL2: 64 patches + 448
+# tokens), remat "full": whisper_medium at full depth (~0.81 G float32
+# parameters, ~13 GB of state) exact and with imc_linear (one imc_mvm
+# launch an encoder and a decoder layer a step), internvl2_76b with
+# VLM_TRAIN_LAYERS of its 80 layers (its embedding and head alone are 2.1
+# G parameters, ~34 GB of float32 params, grads and moments), exact
+VLM_TRAIN_LAYERS = 1
+ENCDEC_VLM_TRAIN = (("whisper_medium", None, (False, True)),
+                    ("internvl2_76b", VLM_TRAIN_LAYERS, (False,)))
+
+
+def phase_train_encdec_vlm(torch, np) -> dict:
+    """Training through ``build_model`` -> ``init_train_state`` ->
+    ``make_train_step`` -> ``TokenPipeline.get_for`` on ENCDEC_VLM_TRAIN;
+    returns the numbers the ``imc_mvm`` entry gains."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    steps = TRAIN_STEPS + 1
+    results = {}
+    for arch, layers, runs in ENCDEC_VLM_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full = get_config(arch)
+        cfg = (full if layers is None
+               else dataclasses.replace(full, num_layers=layers))
+        if layers is not None:
+            print_vlm_cut(full, layers, "trained (float32 params, grads and "
+                          "AdamW moments: 16 B a parameter)", 16)
+        pipe = TokenPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             vocab=cfg.vocab_size)
+        t0 = time.perf_counter()
+        state = init_train_state(build_model(cfg, "cuda"), seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tcfg = TrainConfig(optimizer=AdamWConfig(
+            total_steps=steps * len(runs)), remat="full")
+        for j, imc in enumerate(runs):
+            mcfg = dataclasses.replace(cfg, imc_linear=imc)
+            model = build_model(mcfg, "cuda")
+            batches = [pipe.get_for(mcfg, s, "cuda")
+                       for s in range(j * steps, (j + 1) * steps)]
+            # the text tokens a step trains on (the decoder's, or the
+            # VLM's after its patches)
+            text = batches[0]["tokens"].numel()
+            imc_mvm.launches = 0
+            imc_mvm_plain.calls = 0
+            state, r = timed_train_steps(
+                torch, make_train_step(model, tcfg), state, batches)
+            launches, plain = imc_mvm.launches, imc_mvm_plain.calls
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for key in ("loss", "grad_norm"):
+                check(all(np.isfinite(r[key])),
+                      f"{arch}: non-finite {key}: {r[key]}")
+            ffn_layers = cfg.num_layers + cfg.num_encoder_layers
+            want = ffn_layers * steps if imc else 0
+            check(launches == want, f"{arch}: imc_mvm launched {launches} "
+                                    f"times in {steps} steps, not {want}")
+            check(plain == 0, f"{arch}: the plain imc_mvm ran {plain} "
+                              f"times")
+            med = float(np.median(r["ms"][1:]))
+            dev = r["device_ms"]
+            line = {
+                "path": "lm train encdec vlm", "arch": arch,
+                "layers": cfg.num_layers,
+                "encoder_layers": cfg.num_encoder_layers,
+                "published_layers": full.num_layers, "imc_linear": imc,
+                "params": sum(p.numel()
+                              for p in state.params.parameters()),
+                "batch": {k: tuple(v.shape) for k, v in batches[0].items()},
+                "remat": tcfg.remat, "dtype": cfg.dtype, "init_s": init_s,
+                "step_ms": r["ms"], "step_ms_median_after_first": med,
+                "tokens_per_s": 1e3 * TRAIN_BATCH * TRAIN_SEQ / med,
+                "text_tokens_per_s": 1e3 * text / med, "loss": r["loss"],
+                "grad_norm": r["grad_norm"], "device_ms_per_step": dev,
+                "device_share_of_step": None if dev is None else dev / med,
+                "device_ms_by_group": device_groups(r["per"]),
+                "device_ms_by_kernel": r["top"], "peak_gib": peak,
+                "imc_mvm_launches": launches,
+                "sm clock, power, limit":
+                    nvidia_smi("clocks.sm,power.draw,power.limit")}
+            if imc:
+                # the first launch is the encoder's first layer, over
+                # the TRAIN_BATCH x TRAIN_SEQ / 2 frames
+                line.update(imc_training_shape(
+                    torch, np, model, state, pipe, mcfg, L, "whisper_train",
+                    tokens=TRAIN_BATCH * TRAIN_SEQ // 2))
+                results = {"whisper_train_launches": launches,
+                           "whisper_train_launches_per_step":
+                               launches / steps,
+                           **{k: line[k] for k in line
+                              if k.startswith("whisper_train_")}}
+            print(json.dumps(line))
+            del batches, model
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train encdec vlm: phase {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 # phases that run alone after the build with ``--only NAME[,NAME]``
 STANDALONE = {"7c": lambda torch, np: phase_serve_recurrent(torch, np),
-              "8c": lambda torch, np: phase_train_recurrent(torch, np)}
+              "8c": lambda torch, np: phase_train_recurrent(torch, np),
+              "7d": lambda torch, np: phase_serve_encdec_vlm(torch, np),
+              "8d": lambda torch, np: phase_train_encdec_vlm(torch, np)}
 
 
 def main(argv=None) -> int:
@@ -4049,6 +4450,16 @@ def main(argv=None) -> int:
     dec["launches_by_config"]["xlstm_125m"] = rec.pop("xlstm_125m")
     dec.update(rec)
     imc.update(phase_train_recurrent(torch, np))
+    print(f"encoder-decoder and VLM: whisper_medium at published width and "
+          f"full depth, internvl2_76b at published width with "
+          f"{VLM_SERVE_LAYERS} (serving) and {VLM_TRAIN_LAYERS} (training) of "
+          f"its 80 layers; serving batch {LM_CONFIGS_BATCH} x "
+          f"({LM_CONFIGS_PROMPT} + {LM_CONFIGS_GEN}) as phase 7b, training "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}; the frontends are stubs fed "
+          f"the token pipeline's embeddings; parameters are the port's "
+          f"seeded random draw")
+    dec["launches_by_config"].update(phase_serve_encdec_vlm(torch, np))
+    imc.update(phase_train_encdec_vlm(torch, np))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

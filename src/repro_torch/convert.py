@@ -87,6 +87,8 @@ _GROUPS = {
     "hybrid": ("norm1", "attn", "norm2", "ffn", "mamba"),
     "mlstm": ("norm1", "mix"),
     "slstm": ("norm1", "mix"),
+    "enc": ("norm1", "attn", "norm2", "ffn"),
+    "dec_cross": ("norm1", "attn", "norm_x", "xattn", "norm2", "ffn"),
 }
 _LEAVES = {"hybrid": ("alpha",)}
 
@@ -119,7 +121,10 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
     layer ``moe`` in place of ``ffn`` (``router``, the 3-D expert leaves
     ``w_gate`` / ``w_up`` / ``w_down`` and the ``shared_*`` matrices); a
     hybrid layer adds ``mamba`` and the leaf ``alpha``; an xLSTM block
-    holds ``norm1`` and ``mix`` (an mLSTM or sLSTM). Matrices, biases,
+    holds ``norm1`` and ``mix`` (an mLSTM or sLSTM); an encoder-decoder's
+    ``dec_cross`` layer holds ``norm1``, ``attn``, ``norm_x``, ``xattn``,
+    ``norm2`` and ``ffn``, and its ``enc_layers`` (stacked like
+    ``layers``) and ``enc_norm`` come across too. Matrices, biases,
     ``embed`` and ``lm_head`` are stored in ``dtype`` (default
     ``cfg.dtype``) where the reference casts them to that dtype before
     every use, so the values are the same. The leaves it computes with in
@@ -134,8 +139,7 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
 
     dev = resolve_device(device)
     dt = _leaf_dtype(cfg, True) if trainable else dtype or _dtype(cfg)
-    # raises for a family the port does not serve yet
-    kinds = [T.block_kind(cfg, i) for i in range(cfg.num_layers)]
+    kinds = [T.decoder_kind(cfg, i) for i in range(cfg.num_layers)]
     stack = T.stack_name(cfg)
 
     def tensor(a, f32=False):
@@ -168,11 +172,20 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
     else:
         blocks = [block(kinds[i], tree, lambda a, i=i: a[i])
                   for i in range(cfg.num_layers)]
-    final = nn.ParameterDict({name: _param(tensor(a, True), trainable)
-                              for name, a in params["final_norm"].items()})
+
+    def norm(tree):
+        return nn.ParameterDict({name: _param(tensor(a, True), trainable)
+                                 for name, a in tree.items()})
+
+    enc = enc_norm = None
+    if cfg.is_encoder_decoder:
+        enc = [block("enc", params["enc_layers"], lambda a, i=i: a[i])
+               for i in range(cfg.num_encoder_layers)]
+        enc_norm = norm(params["enc_norm"])
     head = params.get("lm_head")
-    return T.LM(tensor(params["embed"]), blocks, final,
-                None if head is None else tensor(head), trainable, stack)
+    return T.LM(tensor(params["embed"]), blocks, norm(params["final_norm"]),
+                None if head is None else tensor(head), trainable, stack,
+                enc, enc_norm)
 
 
 def train_state_from_numpy(params, mu, nu, step, cfg,

@@ -10,6 +10,14 @@ as every word fits there), and ``u ** 3`` is ``u * (u * u)``: XLA lowers
 the integer power by repeated squaring into those two rounded products,
 which the port writes out (``torch.pow(u, 3)`` gave the same bits on the
 CPU for the tested batches, but makes no such promise).
+
+The VLM and encoder-decoder batches add stub-frontend embeddings (patches,
+frames): a hash of each element's flat index, mapped to [-1, 1) in
+float32, rounded to the activation dtype and scaled by 0.02. The
+reference multiplies by a weakly typed 0.02, which JAX rounds to the
+activation dtype first; the port multiplies by that rounded constant (a
+bfloat16 product of two bfloat16 values is exact in float32 and rounds
+once, as XLA's does).
 """
 
 from __future__ import annotations
@@ -56,6 +64,24 @@ def synthetic_batch(step: int, batch: int, seq: int, vocab: int,
     return {"tokens": torch.clamp(tok, max=vocab - 1)}
 
 
+def _stub_embeddings(step_salt: int, batch: int, n: int, d_model: int,
+                     dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """(batch, n, d_model) stub-frontend embeddings: ``_hash2`` of each
+    element's flat index and ``step_salt``, as the reference's
+    ``vlm_get`` / ``encdec_get`` compute them in uint32."""
+    size = batch * n * d_model
+    if size > 2**32:
+        raise ValueError(f"{batch} x {n} x {d_model} embedding elements: the "
+                         f"reference's uint32 index cannot count past 2**32")
+    idx = torch.arange(size, dtype=torch.int64, device=dev)
+    h = _hash2(idx, torch.full((1,), step_salt & _MASK32, dtype=torch.int64,
+                               device=dev))
+    x = (h.to(torch.float64).to(torch.float32) / 2.0**31 - 1.0).to(dtype)
+    # 0.02 rounded to the activation dtype, as JAX rounds the weak scalar
+    scale = torch.tensor(0.02, dtype=dtype).item()
+    return (x * scale).reshape(batch, n, d_model)
+
+
 @dataclasses.dataclass
 class TokenPipeline:
     """Stateless data pipeline facade: ``get(step)`` -> batch dict."""
@@ -68,11 +94,39 @@ class TokenPipeline:
         return synthetic_batch(step, self.batch, self.seq, self.vocab,
                                self.seed, device)
 
+    def vlm_get(self, step: int, d_model: int, vision_fraction: int = 8,
+                dtype: torch.dtype = torch.bfloat16,
+                device: str | torch.device = "cuda") -> dict:
+        """``seq // vision_fraction`` patch embeddings (B, P, d_model) and
+        ``seq - P`` tokens."""
+        dev = resolve_device(device)
+        p_len = self.seq // vision_fraction
+        t = synthetic_batch(step, self.batch, self.seq - p_len, self.vocab,
+                            self.seed, dev)
+        patches = _stub_embeddings(int(step), self.batch, p_len, d_model,
+                                   dtype, dev)
+        return {"patches": patches, "tokens": t["tokens"]}
+
+    def encdec_get(self, step: int, d_model: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: str | torch.device = "cuda") -> dict:
+        """``seq // 2`` encoder frame embeddings (B, seq // 2, d_model) and
+        ``seq // 2`` decoder tokens."""
+        dev = resolve_device(device)
+        s2 = self.seq // 2
+        t = synthetic_batch(step, self.batch, s2, self.vocab, self.seed, dev)
+        frames = _stub_embeddings(int(step) + 7, self.batch, s2, d_model,
+                                  dtype, dev)
+        return {"frames": frames, "tokens": t["tokens"]}
+
     def get_for(self, cfg, step: int, device: str | torch.device = "cuda"
                 ) -> dict:
-        """Family-aware batch; the port has the decoder-only families."""
-        if cfg.family == "vlm" or cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.family} batches are not ported yet (ROADMAP.md, "
-                f"Queue 1 item 5.5)")
+        """Family-aware batch: patches and tokens (vlm), frames and tokens
+        (encoder-decoder), or tokens, the embeddings in ``cfg.dtype``."""
+        dtype = getattr(torch, cfg.dtype)
+        if cfg.family == "vlm":
+            return self.vlm_get(step, cfg.d_model, cfg.vision_fraction,
+                                dtype, device)
+        if cfg.is_encoder_decoder:
+            return self.encdec_get(step, cfg.d_model, dtype, device)
         return self.get(step, device)

@@ -11,9 +11,14 @@ without a card raises) and ``--kv-quant``, the reference's own switch for
 the int8 KV store (``kv_quant_int8``, as its dry run sets it), whose decode
 attention runs the ``decode_attention`` kernel on the card. Parameters are
 the port's own seeded draw (seed 0), prompts the synthetic token pipeline
-(step 0). The decode loop reads nothing back from the card: the greedy
-(or Gumbel-sampled) token stays on the device and the position is a
-Python int. On the card, prefill and every decode step are timed with
+(step 0; ``get_for``: a VLM's prompt is its patches then its tokens, an
+encoder-decoder's its frames and its decoder tokens, half of
+``--prompt-len`` each). The decode starts after the prompt's positions
+(the VLM's patches and tokens; the decoder's tokens) and the cache holds
+the prompt and ``--gen`` more, as the reference's launcher sizes it. The
+decode loop reads nothing back from the card: the greedy (or
+Gumbel-sampled) token stays on the device and the position is a Python
+int. On the card, prefill and every decode step are timed with
 CUDA events; on the CPU with the host clock.
 """
 
@@ -41,7 +46,9 @@ class ServeRun:
     """What one serving run produced and how long it took."""
     model: Model
     params: torch.nn.Module
-    batch: dict                 # the prompt, {"tokens": (B, S)}
+    batch: dict                 # the prompt, as get_for makes it
+    start: int                  # position of the first decoded token
+    cache_len: int              # positions the KV cache holds
     tokens: torch.Tensor        # (B, gen) generated ids
     prefill_s: float
     step_ms: list[float]        # one per decode step
@@ -85,15 +92,29 @@ class _Clock:
         return [b - a for a, b in zip(self.marks, self.marks[1:])]
 
 
+def prompt_positions(cfg, batch: dict) -> tuple[int, int]:
+    """(the first decode position, the prompt's length) of a batch: a
+    VLM's patches and tokens both; an encoder-decoder's decoder tokens,
+    and its frames and tokens; else its tokens."""
+    n = batch["tokens"].shape[1]
+    if cfg.family == "vlm":
+        n += batch["patches"].shape[1]
+        return n, n
+    if cfg.is_encoder_decoder:
+        return n, batch["frames"].shape[1] + n
+    return n, n
+
+
 def generate(model: Model, params, batch: dict, gen: int,
              temperature: float = 0.0, keep_logits: bool = False
              ) -> ServeRun:
     """Prefill ``batch`` then decode ``gen - 1`` tokens, as the reference's
-    launcher does; returns the tokens and the timings."""
+    launcher does (a cache of the prompt's length + ``gen`` positions);
+    returns the tokens and the timings."""
     dev = model.device
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    cache = model.init_cache(B, S + gen)
+    B = batch["tokens"].shape[0]
+    start, prompt = prompt_positions(model.cfg, batch)
+    cache = model.init_cache(B, prompt + gen)
     prefill = make_prefill(model)
     decode = make_decode_step(model)
     sampler = torch.Generator(device=dev).manual_seed(SAMPLE_SEED)
@@ -114,7 +135,7 @@ def generate(model: Model, params, batch: dict, gen: int,
     steps = _Clock(dev)
     steps.mark()
     for i in range(gen - 1):
-        logits, cache = decode(params, tok, cache, S + i)
+        logits, cache = decode(params, tok, cache, start + i)
         tok = pick(logits)
         out_tokens.append(tok)
         if keep_logits:
@@ -123,8 +144,9 @@ def generate(model: Model, params, batch: dict, gen: int,
     step_s = steps.intervals_s()
     prefill_s = pre.intervals_s()[0]
     return ServeRun(
-        model=model, params=params, batch=batch,
-        tokens=torch.cat(out_tokens, dim=1), prefill_s=prefill_s,
+        model=model, params=params, batch=batch, start=start,
+        cache_len=prompt + gen, tokens=torch.cat(out_tokens, dim=1),
+        prefill_s=prefill_s,
         step_ms=[1e3 * s for s in step_s], decode_s=sum(step_s),
         clock="cuda events" if dev.type == "cuda" else "host",
         peak_bytes=(torch.cuda.max_memory_allocated(dev)
@@ -166,7 +188,9 @@ def main(argv=None, keep_logits: bool = False) -> ServeRun:
                    keep_logits)
 
     steps = len(run.step_ms)
-    print(f"model: {cfg.name}, {cfg.num_layers} layers, d_model "
+    enc = (f" (+ {cfg.num_encoder_layers} encoder)"
+           if cfg.is_encoder_decoder else "")
+    print(f"model: {cfg.name}, {cfg.num_layers} layers{enc}, d_model "
           f"{cfg.d_model}, {cfg.dtype}, kv cache "
           f"{'int8' if cfg.kv_quant_int8 else cfg.dtype}, device {device} "
           f"(timed by {run.clock})")

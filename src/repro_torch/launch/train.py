@@ -2,10 +2,12 @@
 
 Wires together: config -> model -> train step -> synthetic token
 pipeline -> checkpointing (auto-resume, async, keep-N) -> straggler
-monitor. With ``--imc-linear`` every FFN down-projection runs through the
-SpecPCM analog chain (the ``imc_mvm`` kernel on the card) with a
-straight-through gradient; an MoE config's layers have no dense FFN, so
-there it routes nothing, as in the reference.
+monitor. With ``--imc-linear`` every FFN down-projection (an
+encoder-decoder's encoder layers too) runs through the SpecPCM analog
+chain (the ``imc_mvm`` kernel on the card) with a straight-through
+gradient; an MoE config's layers have no dense FFN, so there it routes
+nothing, as in the reference. ``TokenPipeline.get_for`` gives each family
+its batch (the VLM's patches, the encoder-decoder's frames).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_7b \

@@ -1,14 +1,20 @@
-"""Unified Model API (``repro.models.model_zoo``) for the families the
-port serves: the decoder-only dense, MoE, SSM (xLSTM) and hybrid (Hymba)
-LMs.
+"""Unified Model API (``repro.models.model_zoo``) over every family: the
+decoder-only dense, MoE, SSM (xLSTM) and hybrid (Hymba) LMs, the VLM
+(InternVL2) and the encoder-decoder (Whisper).
 
 ``build_model(cfg)`` returns a :class:`Model` on a device (CUDA unless the
 caller asks for the CPU; asking for CUDA without a card raises) with
 ``init``, ``loss`` (training), ``init_cache``, ``prefill`` and
-``decode_step``. Inputs follow the reference: ``{"tokens": (B, S) int}``.
-A recurrent layer's cache entry is its state (``models.recurrent``). The
-VLM and encoder-decoder (audio) families are not ported yet (ROADMAP.md,
-Queue 1 item 5.5): ``build_model`` and ``loss`` raise for them.
+``decode_step``. Inputs follow the reference:
+
+* decoder LM / moe / ssm / hybrid: ``{"tokens": (B, S) int}``;
+* vlm: ``{"patches": (B, P, D), "tokens": (B, S - P) int}``, the patch
+  embeddings of the stub frontend placed before the text;
+* audio (encoder-decoder): ``{"frames": (B, S_enc, D), "tokens": (B,
+  S_dec) int}``, the stub frontend's frame embeddings for the encoder.
+
+A recurrent layer's cache entry is its state (``models.recurrent``); a
+``dec_cross`` layer's holds its cross K/V (``transformer.CrossKV``).
 """
 
 from __future__ import annotations
@@ -48,15 +54,22 @@ class Model:
     # ---- train ------------------------------------------------------------
     def loss(self, params, batch: dict, remat: str = "full"
              ) -> torch.Tensor:
-        """Next-token cross-entropy of the decoder-only LM (dense, MoE, SSM
-        or hybrid)."""
+        """Next-token cross-entropy; for the VLM over the text positions
+        only (positions P-1 .. P+St-2 predict the St tokens), for the
+        encoder-decoder of the decoder over the encoded frames."""
         cfg = self.cfg
-        if cfg.family == "vlm" or cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"the {cfg.family} loss is not ported yet (ROADMAP.md, "
-                f"Queue 1 item 5.5)")
         tokens = batch["tokens"]
-        logits = T.forward_train(params, tokens, cfg, remat=remat)
+        if cfg.family == "vlm":
+            logits = T.forward_train(params, _vlm_inputs(params, batch, cfg),
+                                     cfg, remat=remat, is_embedded=True)
+            text_logits = logits[:, batch["patches"].shape[1] - 1:-1]
+            return _xent(text_logits, tokens,
+                         torch.ones(tokens.shape, device=logits.device))
+        memory = None
+        if cfg.is_encoder_decoder:
+            memory = T.encode(params, batch["frames"], cfg, remat=remat)
+        logits = T.forward_train(params, tokens, cfg, remat=remat,
+                                 memory=memory)
         targets = tokens[:, 1:]
         return _xent(logits[:, :-1], targets,
                      torch.ones(targets.shape, device=logits.device))
@@ -68,8 +81,20 @@ class Model:
     @torch.no_grad()
     def prefill(self, params: T.LM, batch: dict, cache,
                 last_only: bool = False):
-        return T.forward_prefill(params, batch["tokens"], self.cfg, cache,
-                                 last_only=last_only)
+        """The prompt's logits and the filled cache: the VLM's patches and
+        tokens as one embedded sequence; the encoder-decoder's frames
+        encoded into the memory its decoder attends to."""
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return T.forward_prefill(params, _vlm_inputs(params, batch, cfg),
+                                     cfg, cache, last_only=last_only,
+                                     is_embedded=True)
+        memory = None
+        if cfg.is_encoder_decoder:
+            # no gradients here, so the remat policy changes nothing
+            memory = T.encode(params, batch["frames"], cfg, remat="none")
+        return T.forward_prefill(params, batch["tokens"], cfg, cache,
+                                 last_only=last_only, memory=memory)
 
     @torch.no_grad()
     def decode_step(self, params: T.LM, token: torch.Tensor, cache,
@@ -77,7 +102,13 @@ class Model:
         return T.forward_decode(params, token, self.cfg, cache, pos, attend)
 
 
+def _vlm_inputs(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The VLM's embedded sequence: the patches (cast to the activation
+    dtype) before the embedded tokens."""
+    tok_x = T.embed_tokens(params, batch["tokens"], cfg)
+    return torch.cat([batch["patches"].to(tok_x.dtype), tok_x], dim=1)
+
+
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda"
                 ) -> Model:
-    T.block_kind(cfg)  # raises for a family the port does not serve yet
     return Model(cfg=cfg, device=resolve_device(device))

@@ -1,8 +1,9 @@
-"""Model assembly of the decoder-only families (``repro.models.transformer``):
-blocks (``attn_ffn`` for the dense family, ``attn_moe`` for the MoE one,
-``hybrid`` for Hymba's attention and Mamba heads side by side, ``mlstm``
-and ``slstm`` for xLSTM), the LM's parameters, caches, the training
-forward pass, prefill and decode.
+"""Model assembly (``repro.models.transformer``): blocks (``attn_ffn``
+for the dense and VLM families, ``attn_moe`` for the MoE one, ``hybrid``
+for Hymba's attention and Mamba heads side by side, ``mlstm`` and
+``slstm`` for xLSTM, ``enc`` and ``dec_cross`` for the encoder-decoder),
+the LM's parameters, caches, the training forward pass, the encoder,
+prefill and decode.
 
 The reference stacks a homogeneous family's layer parameters on a leading
 ``layer`` axis and scans over them (``lax.scan``); here the layers are an
@@ -12,22 +13,31 @@ reference keeps them in a list ``params["blocks"]`` and unrolls it; the
 port's :class:`LM` has a ``blocks`` list for that family in place of
 ``layers``. The cache is a list with one entry a layer: a ``KVCache`` /
 ``QuantKVCache`` (attention, updated in place), ``(KV cache,
-MambaState)`` for a hybrid layer, an ``MLSTMState`` or an ``SLSTMState``
-(replaced by each step's new state). The training forward wraps each
-block in the remat policy (``_remat``), as the reference wraps its scan
-body or each unrolled block.
+MambaState)`` for a hybrid layer, ``(KV cache, CrossKV)`` for a
+``dec_cross`` layer, an ``MLSTMState`` or an ``SLSTMState`` (replaced by
+each step's new state). The training forward wraps each block in the
+remat policy (``_remat``), as the reference wraps its scan body or each
+unrolled block.
 
 A prefill leaves each recurrent layer the state after the whole prompt,
 computed as the reference computes it (``_*_state_after``: one scan over
 the whole prompt, or a closed form), not the last carry of the chunked
 training scan, which rounds differently.
 
-The encoder-decoder (audio) and VLM families are not ported yet
-(ROADMAP.md, Queue 1 item 5.5); building or running one raises.
+The encoder-decoder (``whisper_medium``) runs ``encode`` (sinusoids, then
+a stack of non-causal ``enc`` blocks with RoPE, then ``enc_norm``) over
+the stub frontend's frame embeddings, and its decoder's ``dec_cross``
+blocks attend to that memory (no RoPE). The VLM (``internvl2_76b``) is a
+decoder-only ``attn_ffn`` stack fed patch embeddings before the text
+(``Model.loss`` / ``prefill``). A ``dec_cross`` layer's cross K/V are
+kept at the memory's own length: the reference keeps them in a
+``max_len``-row buffer of zeros and decode attends every row, zeros
+included (ROADMAP.md, Queue 3, F4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -38,18 +48,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
-KINDS = ("attn_ffn", "attn_moe", "hybrid", "mlstm", "slstm")
+KINDS = ("attn_ffn", "attn_moe", "hybrid", "mlstm", "slstm", "enc",
+         "dec_cross")
 
 
 def block_kind(cfg: ArchConfig, layer_idx: int = 0) -> str:
     """The reference's rule: MoE, hybrid, or for the ``ssm`` family an
     sLSTM block every ``ssm_ratio``-th layer and mLSTM blocks between;
-    ``attn_ffn`` otherwise. The audio and VLM families raise."""
-    if cfg.family in ("audio", "vlm") or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet; the "
-            f"port runs the decoder-only dense, MoE, SSM and hybrid models "
-            f"(ROADMAP.md, Queue 1 item 5.5)")
+    ``attn_ffn`` otherwise (the VLM and audio families too: an
+    encoder-decoder's stacks are chosen by :func:`decoder_kind`)."""
     if cfg.family == "moe":
         return "attn_moe"
     if cfg.family == "hybrid":
@@ -59,6 +66,14 @@ def block_kind(cfg: ArchConfig, layer_idx: int = 0) -> str:
             return "slstm"
         return "mlstm"
     return "attn_ffn"
+
+
+def decoder_kind(cfg: ArchConfig, layer_idx: int = 0) -> str:
+    """The kind of the LM's ``layer_idx``-th decoder block: ``dec_cross``
+    for an encoder-decoder (as the reference's ``init_lm``,
+    ``init_cache`` and forwards choose it), else :func:`block_kind`."""
+    return "dec_cross" if cfg.is_encoder_decoder else block_kind(
+        cfg, layer_idx)
 
 
 def stack_name(cfg: ArchConfig) -> str:
@@ -94,11 +109,11 @@ def init_block(cfg: ArchConfig, kind: str, device="cpu",
         init = R.init_mlstm if kind == "mlstm" else R.init_slstm
         return Block({"norm1": norm1,
                       "mix": init(cfg, device, generator, t)})
-    p = {
-        "norm1": norm1,
-        "attn": L.init_attention(cfg, device, generator, t),
-        "norm2": L.init_norm(cfg, device=device, trainable=t),
-    }
+    p = {"norm1": norm1, "attn": L.init_attention(cfg, device, generator, t)}
+    if kind == "dec_cross":
+        p["norm_x"] = L.init_norm(cfg, device=device, trainable=t)
+        p["xattn"] = L.init_attention(cfg, device, generator, t)
+    p["norm2"] = L.init_norm(cfg, device=device, trainable=t)
     if kind == "attn_moe":
         p["moe"] = L.init_moe(cfg, device, generator, t)
     else:
@@ -127,10 +142,36 @@ def _hybrid_mix(p, attn: torch.Tensor, ssm: torch.Tensor,
     return alpha[0] * attn + alpha[1] * ssm
 
 
+@dataclasses.dataclass
+class CrossKV:
+    """A ``dec_cross`` layer's cross-attention keys and values over the
+    encoder memory, (B, S_enc, KV, hd) in ``cfg.dtype``: empty (S_enc =
+    0) until a prefill stores them."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def cross_kv(p: nn.ParameterDict, memory: torch.Tensor, cfg: ArchConfig
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The memory's keys and values (no RoPE, no bias), in its dtype."""
+    return L._proj(memory, p["wk"]), L._proj(memory, p["wv"])
+
+
+def _cross_attention(p: nn.ParameterDict, x: torch.Tensor, memory_kv,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Non-causal attention of ``x`` over the memory's K/V (no RoPE)."""
+    k, v = memory_kv
+    q = L._proj(x, p["wq"])
+    return L._out_proj(L.attention_full(q, k, v, cfg, causal=False),
+                       p["wo"])
+
+
 def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
-                      kind: str) -> torch.Tensor:
-    """One block over a full sequence (training). The reference's
-    ``constrain`` calls are the identity on one device."""
+                      kind: str, memory: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """One block over a full sequence (training; ``enc``: the encoder,
+    non-causal; ``dec_cross``: also attending to ``memory``). The
+    reference's ``constrain`` calls are the identity on one device."""
     if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
@@ -138,7 +179,12 @@ def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
         return x + R.mlstm_train(p["mix"], h, cfg)
     if kind == "slstm":
         return x + R.slstm_train(p["mix"], h, cfg)
-    attn = L.attention_train(p["attn"], h, cfg)
+    attn = L.attention_train(p["attn"], h, cfg, causal=kind != "enc")
+    if kind == "dec_cross":
+        x = x + attn
+        h = L.apply_norm(p["norm_x"], x, cfg)
+        attn = _cross_attention(p["xattn"], h, cross_kv(p["xattn"], memory,
+                                                        cfg), cfg)
     if kind == "hybrid":
         attn = _hybrid_mix(p, attn, R.mamba_train(p["mamba"], h, cfg),
                            x.dtype)
@@ -158,14 +204,21 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
         return R.init_mlstm_state(cfg, batch, device)
     if kind == "slstm":
         return R.init_slstm_state(cfg, batch, device)
+    if kind == "dec_cross":
+        empty = torch.zeros((batch, 0, cfg.num_kv_heads,
+                             cfg.resolved_head_dim), dtype=L._dtype(cfg),
+                            device=device)
+        return (L.init_kv_cache(cfg, batch, max_len, device=device),
+                CrossKV(k=empty, v=empty.clone()))
     raise ValueError(kind)
 
 
 def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
-                        kind: str, cache):
+                        kind: str, cache, memory: torch.Tensor | None = None):
     """One block over the prompt: its output and its cache entry (the KV
-    cache filled in place; a recurrent layer's state after the prompt)."""
-    if kind not in KINDS:
+    cache filled in place; a recurrent layer's state after the prompt; a
+    ``dec_cross`` layer's cross K/V over the whole ``memory``)."""
+    if kind not in KINDS or kind == "enc":
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
     if kind == "mlstm":
@@ -181,6 +234,16 @@ def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
         # the SSM state rolled forward over the whole prompt
         cache = (kvc, _mamba_state_after(p["mamba"], h, cfg))
         attn = _hybrid_mix(p, attn, ssm, x.dtype)
+    elif kind == "dec_cross":
+        kvc, _ = cache
+        attn, kvc = L.attention_prefill(p["attn"], h, cfg, kvc)
+        x = x + attn
+        xk, xv = cross_kv(p["xattn"], memory, cfg)
+        h = L.apply_norm(p["norm_x"], x, cfg)
+        attn = _cross_attention(p["xattn"], h, (xk, xv), cfg)
+        # stored at the memory's length, in cfg.dtype
+        dt = L._dtype(cfg)
+        cache = (kvc, CrossKV(k=xk.to(dt), v=xv.to(dt)))
     else:
         attn, cache = L.attention_prefill(p["attn"], h, cfg, cache)
     x = x + attn
@@ -193,8 +256,9 @@ def apply_block_decode(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
                        attend: L.Attend | None = None):
     """One token a row; an MoE block routes the batch's B tokens as one
     group (as the reference's decode does), so its capacity is small and
-    drops pairs as the reference's does."""
-    if kind not in KINDS:
+    drops pairs as the reference's does. A ``dec_cross`` block attends
+    to exactly the memory rows its prefill stored."""
+    if kind not in KINDS or kind == "enc":
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
     if kind == "mlstm":
@@ -209,6 +273,16 @@ def apply_block_decode(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
         ssm, sst = R.mamba_decode(p["mamba"], h, cfg, sst)
         cache = (kvc, sst)
         attn = _hybrid_mix(p, attn, ssm, x.dtype)
+    elif kind == "dec_cross":
+        kvc, xkv = cache
+        if xkv.k.shape[1] == 0:
+            raise ValueError("a dec_cross layer decodes after a prefill has "
+                             "stored its cross K/V")
+        attn, kvc = L.attention_decode(p["attn"], h, cfg, kvc, pos, attend)
+        x = x + attn
+        h = L.apply_norm(p["norm_x"], x, cfg)
+        attn = _cross_attention(p["xattn"], h, (xkv.k, xkv.v), cfg)
+        cache = (kvc, xkv)
     else:
         attn, cache = L.attention_decode(p["attn"], h, cfg, cache, pos,
                                          attend)
@@ -287,16 +361,19 @@ def _remat(fn, policy: str):
 
 
 class LM(nn.Module):
-    """The decoder-only LM's parameters under the reference's names:
-    ``embed`` (V, D), ``layers`` (one :class:`Block` per layer) or, for
-    the ``ssm`` family, ``blocks`` (``stack``), ``final_norm`` and,
-    unless embeddings are tied, ``lm_head`` (D, V). ``lm["embed"]`` reads
-    as ``params["embed"]`` does in the reference."""
+    """The LM's parameters under the reference's names: ``embed`` (V, D),
+    ``layers`` (one :class:`Block` per layer) or, for the ``ssm`` family,
+    ``blocks`` (``stack``), ``final_norm``, unless embeddings are tied
+    ``lm_head`` (D, V), and for an encoder-decoder ``enc_layers`` (one
+    ``enc`` block per encoder layer) and ``enc_norm``. ``lm["embed"]``
+    reads as ``params["embed"]`` does in the reference."""
 
     def __init__(self, embed: torch.Tensor, layers: list[nn.ModuleDict],
                  final_norm: nn.ParameterDict,
                  lm_head: torch.Tensor | None = None,
-                 trainable: bool = False, stack: str = "layers"):
+                 trainable: bool = False, stack: str = "layers",
+                 enc_layers: list[nn.ModuleDict] | None = None,
+                 enc_norm: nn.ParameterDict | None = None):
         super().__init__()
         if stack not in ("layers", "blocks"):
             raise ValueError(stack)
@@ -306,6 +383,9 @@ class LM(nn.Module):
         self.final_norm = final_norm
         self.lm_head = (None if lm_head is None
                         else L._param(lm_head, trainable))
+        self.enc_layers = (None if enc_layers is None
+                           else nn.ModuleList(enc_layers))
+        self.enc_norm = enc_norm
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -323,24 +403,30 @@ def init_lm(cfg: ArchConfig, device="cpu",
     ``cfg.dtype`` before the next is drawn, except the leaves the
     reference uses in float32 (the MoE router, the recurrent layers'
     gates and sLSTM), which stay float32; ``trainable``: every leaf in
-    ``cfg.param_dtype``, with gradients."""
-    block_kind(cfg)     # raises for a family the port does not serve yet
+    ``cfg.param_dtype``, with gradients. An encoder-decoder's decoder
+    blocks are ``dec_cross``, its ``num_encoder_layers`` encoder blocks
+    ``enc``, drawn after the head."""
     V, D = cfg.padded_vocab, cfg.d_model
     t = trainable
     embed = L._normal((V, D), D ** -0.5, cfg, device, generator, t)
-    layers = [init_block(cfg, block_kind(cfg, i), device, generator, t)
+    layers = [init_block(cfg, decoder_kind(cfg, i), device, generator, t)
               for i in range(cfg.num_layers)]
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = L._normal((D, V), D ** -0.5, cfg, device, generator, t)
+    enc_layers = enc_norm = None
+    if cfg.is_encoder_decoder:
+        enc_layers = [init_block(cfg, "enc", device, generator, t)
+                      for _ in range(cfg.num_encoder_layers)]
+        enc_norm = L.init_norm(cfg, device=device, trainable=t)
     return LM(embed, layers, L.init_norm(cfg, device=device, trainable=t),
-              lm_head, t, stack_name(cfg))
+              lm_head, t, stack_name(cfg), enc_layers, enc_norm)
 
 
 def _blocks(p, cfg: ArchConfig) -> list:
     """(block parameters, kind) for each layer, from an :class:`LM` or a
     mapping with its layout."""
-    return [(bp, block_kind(cfg, i))
+    return [(bp, decoder_kind(cfg, i))
             for i, bp in enumerate(p[stack_name(cfg)])]
 
 
@@ -362,37 +448,72 @@ def unembed(p: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return logits.float()
 
 
-def forward_train(p, tokens: torch.Tensor, cfg: ArchConfig,
-                  remat: str = "full") -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, V) float32.
-    ``p`` is an :class:`LM` or a mapping with its layout (``"embed"``,
-    ``"layers"`` or ``"blocks"``, ``"final_norm"``, ``"lm_head"``), as
-    the train step's bfloat16 view of the parameters is."""
-    x = embed_tokens(p, tokens, cfg)
-    for lp, kind in _blocks(p, cfg):
+def _run_stack(blocks, x: torch.Tensor, cfg: ArchConfig, remat: str,
+               memory: torch.Tensor | None = None) -> torch.Tensor:
+    """``apply_block_train`` over (block parameters, kind) pairs, each
+    block wrapped in the remat policy. ``memory`` is passed to the
+    wrapped block as an argument, so its gradient reaches the encoder."""
+    for lp, kind in blocks:
         body = _remat(functools.partial(apply_block_train, cfg=cfg,
                                         kind=kind), remat)
-        x = body(lp, x)
+        x = body(lp, x) if memory is None else body(lp, x, memory=memory)
+    return x
+
+
+def forward_train(p, tokens_or_x: torch.Tensor, cfg: ArchConfig,
+                  remat: str = "full", is_embedded: bool = False,
+                  memory: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) (or, ``is_embedded``, their
+    embeddings (B, S, D)) -> logits (B, S, V) float32; an
+    encoder-decoder's decoder attends to ``memory`` (``encode``'s
+    output). ``p`` is an :class:`LM` or a mapping with its layout
+    (``"embed"``, ``"layers"`` or ``"blocks"``, ``"final_norm"``,
+    ``"lm_head"``, ``"enc_layers"``, ``"enc_norm"``), as the train step's
+    bfloat16 view of the parameters is."""
+    x = tokens_or_x if is_embedded else embed_tokens(p, tokens_or_x, cfg)
+    x = _run_stack(_blocks(p, cfg), x, cfg, remat, memory)
     x = L.apply_norm(p["final_norm"], x, cfg)
     return unembed(p, x, cfg)
+
+
+def encode(p, frames: torch.Tensor, cfg: ArchConfig, remat: str = "full"
+           ) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings (B, S, D): plus
+    sinusoids (``freq = exp(-(arange(D / 2) / (D / 2)) * 9)`` in float32,
+    sin then cos, cast to the frames' dtype), the ``enc`` blocks, then
+    ``enc_norm``."""
+    _, s, d = frames.shape
+    pos = torch.arange(s, dtype=torch.float32, device=frames.device)
+    half = d // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=frames.device) / half * 9.0)
+    ang = pos[:, None] * freq[None, :]
+    x = frames + torch.cat([torch.sin(ang), torch.cos(ang)],
+                           -1).to(frames.dtype)[None]
+    x = _run_stack([(lp, "enc") for lp in p["enc_layers"]], x, cfg, remat)
+    return L.apply_norm(p["enc_norm"], x, cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cpu"
                ) -> list:
     """One cache entry per layer (``init_block_cache``)."""
-    return [init_block_cache(cfg, block_kind(cfg, i), batch, max_len,
+    return [init_block_cache(cfg, decoder_kind(cfg, i), batch, max_len,
                              device) for i in range(cfg.num_layers)]
 
 
-def forward_prefill(p: LM, tokens: torch.Tensor, cfg: ArchConfig, cache,
-                    last_only: bool = False):
-    """tokens (B, S) -> logits (B, S, V) float32 and the filled cache.
-    With ``last_only`` only the last position is unembedded (B, 1, V): the
-    same values for that position without a (B, S, V) buffer, which is
-    what serving keeps."""
-    x = embed_tokens(p, tokens, cfg)
+def forward_prefill(p: LM, tokens_or_x: torch.Tensor, cfg: ArchConfig,
+                    cache, last_only: bool = False,
+                    is_embedded: bool = False,
+                    memory: torch.Tensor | None = None):
+    """tokens (B, S) (or, ``is_embedded``, their embeddings) -> logits
+    (B, S, V) float32 and the filled cache; an encoder-decoder's decoder
+    attends to ``memory``. With ``last_only`` only the last position is
+    unembedded (B, 1, V): the same values for that position without a
+    (B, S, V) buffer, which is what serving keeps."""
+    x = tokens_or_x if is_embedded else embed_tokens(p, tokens_or_x, cfg)
     for i, (lp, kind) in enumerate(_blocks(p, cfg)):
-        x, cache[i] = apply_block_prefill(lp, x, cfg, kind, cache[i])
+        x, cache[i] = apply_block_prefill(lp, x, cfg, kind, cache[i],
+                                          memory)
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(p["final_norm"], x, cfg)

@@ -70,11 +70,12 @@ def _cast_bf16(params: LM) -> dict:
     """The parameter tree with the reference's float32 leaves of ndim > 1
     cast to bfloat16 (gradients flow back through the cast to the float32
     leaves), in the layout ``forward_train`` reads. The reference stacks
-    a ``layers`` leaf on a leading layer axis, so there every per-layer
-    leaf but a scalar is cast (norm scales, biases, Mamba's ``dt_bias``
-    and ``d_skip``, the hybrid's ``alpha``); the unstacked ``blocks`` of
-    the ``ssm`` family keep their vectors (``f_bias``, norm scales) in
-    float32; ``embed`` and ``lm_head`` are cast, ``final_norm`` is not."""
+    a ``layers`` (and ``enc_layers``) leaf on a leading layer axis, so
+    there every per-layer leaf but a scalar is cast (norm scales, biases,
+    Mamba's ``dt_bias`` and ``d_skip``, the hybrid's ``alpha``); the
+    unstacked ``blocks`` of the ``ssm`` family keep their vectors
+    (``f_bias``, norm scales) in float32; ``embed`` and ``lm_head`` are
+    cast, ``final_norm`` and ``enc_norm`` are not."""
     stacked = params.stack == "layers"
 
     def cast(t, extra=0):
@@ -82,20 +83,24 @@ def _cast_bf16(params: LM) -> dict:
             return t
         return t.to(torch.bfloat16)
 
-    def block(lp):
-        e = int(stacked)
+    def block(lp, e):
         out = {name: {k: cast(t, e) for k, t in group.items()}
                for name, group in lp.items()}
         out.update((k, cast(t, e)) for k, t in lp.named_parameters(
             recurse=False))
         return out
 
-    return {
+    tree = {
         "embed": cast(params.embed),
-        params.stack: [block(lp) for lp in params[params.stack]],
+        params.stack: [block(lp, int(stacked))
+                       for lp in params[params.stack]],
         "final_norm": {k: cast(t) for k, t in params.final_norm.items()},
         "lm_head": cast(params.lm_head),
     }
+    if params.enc_layers is not None:
+        tree["enc_layers"] = [block(lp, 1) for lp in params.enc_layers]
+        tree["enc_norm"] = {k: cast(t) for k, t in params.enc_norm.items()}
+    return tree
 
 
 def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:

@@ -3,8 +3,9 @@ similarity of clustering, the Eq. 1 encoder, the analog PCM MVM and the
 int8-KV decode attention) against their plain PyTorch versions, the
 clustering path around the Hamming kernel, the tuner's launch knobs, LM
 decoding through the attention kernel, the analog PCM model and the
-end-to-end pipelines on the ``imc_mvm`` kernel, and the recurrent layers
-and models (xLSTM, Hymba) against the CPU, on the card.
+end-to-end pipelines on the ``imc_mvm`` kernel, the recurrent layers and
+models (xLSTM, Hymba) and the encoder-decoder and VLM decode (Whisper,
+InternVL2) against the CPU, on the card.
 
 Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is
 False (decided inside the fixture, never at import). Run on a machine
@@ -719,6 +720,12 @@ DECODE_CASES = [
     (4, 100, 2, 7, 128, (1, 99, 100, 0)),
     (2, 150, 2, 5, 48, (150, 77)), (1, 100, 1, 12, 96, (100, 33)),
     (4, 600, 8, 5, 128, (600, 513, 1)),     # llama4's G = 5 at hd 128
+    # Whisper's G = 1 at hd 64 and InternVL2's G = 8 at hd 128, served
+    # (S = 528: one split) and at 5 splits of 106 (valid_len 105-107)
+    (32, 528, 16, 1, 64, (257, 271, 528)),
+    (2, 528, 16, 1, 64, (105, 106, 107, 1)),
+    (32, 528, 8, 8, 128, (513, 527, 528)),
+    (4, 528, 8, 8, 128, (105, 106, 107, 1)),
 ]
 
 
@@ -1584,3 +1591,45 @@ def test_recurrent_train_step_on_the_card_matches_the_cpu(cuda, arch, imc):
     np.testing.assert_allclose(gg, gc, rtol=1e-4)
     for a, b in zip(pg, pc):
         assert float((a - b).abs().max()) <= 2e-3 + 1e-6
+
+
+@pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_76b"])
+def test_encdec_and_vlm_decode_on_the_card_equals_the_cpu(cuda, arch):
+    """``serve.generate`` of the reduced encoder-decoder and VLM (float32,
+    the int8 KV store, so the kernel on the card) on the card against the
+    same parameters and prompt on the CPU (TF32 off): equal greedy
+    tokens, each step's logits within 2^-6 of its largest |logit| (a K/V
+    element on a rounding boundary may take the other int8 code), and
+    ``decode_attention`` launched once a decoder layer a step, its plain
+    version never."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+    from repro_torch.launch import serve
+    from repro_torch.models.model_zoo import build_model
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch).reduced(), kv_quant_int8=True)
+    params = build_model(cfg, "cpu").init(seed=0)
+    batch = TokenPipeline(3, 32, cfg.vocab_size).get_for(cfg, 0, "cpu")
+    gen = 8
+    want = serve.generate(build_model(cfg, "cpu"), params, batch, gen,
+                          keep_logits=True)
+    before, plain = decode_attention.launches, decode_attention_plain.calls
+    got = serve.generate(build_model(cfg, cuda), copy.deepcopy(params).to(
+        cuda), {k: v.to(cuda) for k, v in batch.items()}, gen,
+        keep_logits=True)
+    torch.cuda.synchronize()
+    assert decode_attention.launches - before == cfg.num_layers * (gen - 1)
+    assert decode_attention_plain.calls == plain
+    assert got.start == want.start and got.cache_len == want.cache_len
+    torch.testing.assert_close(got.tokens.cpu(), want.tokens, rtol=0, atol=0)
+    for a, b in zip(got.logits, want.logits):
+        share = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        assert share <= 2.0 ** -6, share

@@ -91,15 +91,34 @@ def test_config_is_the_references():
 
 
 @pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_76b"])
-def test_unported_arch_raises_and_names_roadmap(arch):
-    """Every config is registered; the two families still to port (audio,
-    vlm) raise from ``build_model`` and ``init_cache``, naming item
-    5.5."""
+def test_encdec_and_vlm_archs_build_and_decode(arch):
+    """Every config is registered and builds: the encoder-decoder with
+    ``dec_cross`` layers (a KV cache and empty cross K/V a layer until a
+    prefill stores the memory's) and an encoder, the VLM with
+    ``attn_ffn`` layers; a prefill and a decode step from the token
+    pipeline's batch give finite logits."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 5\.5"):
-        build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 5\.5"):
-        T.init_cache(cfg, 1, 8)
+    model = build_model(cfg, "cpu")
+    params = model.init(0)
+    caches = T.init_cache(cfg, 2, 24)
+    batch = TokenPipeline(2, 16, cfg.vocab_size).get_for(cfg, 0, "cpu")
+    if cfg.is_encoder_decoder:
+        assert set(params.layers[0]) == {"norm1", "attn", "norm_x", "xattn",
+                                         "norm2", "ffn"}
+        assert len(params.enc_layers) == cfg.num_encoder_layers
+        assert all(xkv.k.shape[1] == 0 for _, xkv in caches)
+        start = batch["tokens"].shape[1]
+    else:
+        assert set(params.layers[0]) == {"norm1", "attn", "norm2", "ffn"}
+        assert all(isinstance(c, L.KVCache) for c in caches)
+        start = 16
+    logits, caches = model.prefill(params, batch, caches, last_only=True)
+    if cfg.is_encoder_decoder:
+        assert all(xkv.k.shape[1] == 8 for _, xkv in caches)
+    logits, _ = model.decode_step(params, logits.argmax(-1).to(torch.int32),
+                                  caches, start)
+    assert logits.shape == (2, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1_5b"])
@@ -135,20 +154,25 @@ def test_recurrent_arch_builds_with_state_caches(arch):
         tc, 2, 20)]
 
 
-def test_unported_family_raises():
-    """The ``ssm`` family on Qwen's widths builds mLSTM blocks now; the
-    audio and vlm families still raise."""
-    cfg = dataclasses.replace(get_config("qwen2_7b").reduced(), family="ssm",
-                              ssm_state=8)
+def test_family_decides_the_stack():
+    """On Qwen's widths the ``ssm`` family builds mLSTM blocks, an
+    encoder-decoder ``dec_cross`` layers and an encoder, and the vlm
+    family ``attn_ffn`` layers; each cache follows its layers."""
+    base = get_config("qwen2_7b").reduced()
+    cfg = dataclasses.replace(base, family="ssm", ssm_state=8)
     assert build_model(cfg, "cpu").init(0).stack == "blocks"
     assert all(type(c).__name__ == "MLSTMState"
                for c in T.init_cache(cfg, 1, 8))
-    for family in ("audio", "vlm"):
-        bad = dataclasses.replace(cfg, family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(bad, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init_cache(bad, 1, 8)
+    audio = dataclasses.replace(base, family="audio",
+                                is_encoder_decoder=True,
+                                num_encoder_layers=3)
+    lm = build_model(audio, "cpu").init(0)
+    assert len(lm.enc_layers) == 3 and "xattn" in lm.layers[1]
+    assert all(isinstance(c[1], T.CrossKV) for c in T.init_cache(audio, 1, 8))
+    vlm = dataclasses.replace(base, family="vlm")
+    lm = build_model(vlm, "cpu").init(0)
+    assert lm.enc_layers is None and "xattn" not in lm.layers[0]
+    assert all(isinstance(c, L.KVCache) for c in T.init_cache(vlm, 1, 8))
 
 
 # ----------------------------------------------------------------- tokens --
@@ -173,9 +197,17 @@ def test_token_pipeline_get_for_matches():
         jax_get_config("qwen2_7b"), 2)["tokens"])
     got = TokenPipeline(4, 300, cfg.vocab_size).get_for(cfg, 2, "cpu")
     np.testing.assert_array_equal(got["tokens"].numpy(), want)
-    with pytest.raises(NotImplementedError):
-        TokenPipeline(1, 8, 256).get_for(
-            dataclasses.replace(cfg, family="vlm"), 0, "cpu")
+    # the vlm family on Qwen's widths: patches before the text, bit-exact
+    jvlm = dataclasses.replace(jax_get_config("qwen2_7b"), family="vlm")
+    want = JaxTokenPipeline(2, 64, cfg.vocab_size).get_for(jvlm, 1)
+    got = TokenPipeline(2, 64, cfg.vocab_size).get_for(
+        dataclasses.replace(cfg, family="vlm"), 1, "cpu")
+    assert got["patches"].shape == (2, 8, cfg.d_model)
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  _np(want["tokens"]))
+    np.testing.assert_array_equal(
+        got["patches"].float().numpy(),
+        _np(want["patches"].astype(jnp.float32)))
 
 
 # ----------------------------------------------------------------- layers --

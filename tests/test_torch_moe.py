@@ -69,7 +69,7 @@ MOE_ARCHS = ("deepseek_moe_16b", "llama4_scout_17b_a16e")
 DENSE_ARCHS = ("gemma_7b", "granite_20b", "granite_34b")
 NEW_ARCHS = MOE_ARCHS + DENSE_ARCHS
 RECURRENT = ("xlstm_125m", "hymba_1_5b")
-UNPORTED = ("whisper_medium", "internvl2_76b")
+ENCDEC_VLM = ("whisper_medium", "internvl2_76b")
 B, S = 8, 64
 
 
@@ -155,10 +155,12 @@ def test_registry_and_shapes_are_the_references():
         get_config("gpt_5")
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + ("qwen2_7b",) + RECURRENT)
+@pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
 def test_block_kind_takes_every_decoder_only_config(arch):
     """Every layer's kind is the reference's: attn_moe, attn_ffn, hybrid,
-    or xLSTM's mLSTM blocks with an sLSTM every ``ssm_ratio``-th."""
+    or xLSTM's mLSTM blocks with an sLSTM every ``ssm_ratio``-th (the
+    VLM's and Whisper's ``block_kind`` is attn_ffn, as the reference's);
+    every config builds."""
     cfg = get_config(arch)
     kinds = [T.block_kind(cfg, i) for i in range(cfg.num_layers)]
     jc = jax_get_config(arch)
@@ -169,10 +171,25 @@ def test_block_kind_takes_every_decoder_only_config(arch):
     assert build_model(cfg.reduced(), "cpu").cfg == cfg.reduced()
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_block_kind_raises_for_the_unported_families(arch):
-    with pytest.raises(NotImplementedError, match=r"item 5\.5"):
-        T.block_kind(get_config(arch))
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
+def test_decoder_stacks_of_the_encdec_and_vlm_families(arch):
+    """The LM's decoder blocks are the reference's ``init_lm`` choice:
+    ``dec_cross`` for the encoder-decoder (with ``num_encoder_layers``
+    ``enc`` blocks beside them), ``attn_ffn`` for the VLM."""
+    cfg = get_config(arch)
+    kinds = {T.decoder_kind(cfg, i) for i in range(cfg.num_layers)}
+    assert kinds == ({"dec_cross"} if cfg.is_encoder_decoder
+                     else {"attn_ffn"})
+    lm = build_model(cfg.reduced(), "cpu").init(0)
+    jshapes = jax.eval_shape(
+        lambda: JT.init_lm(jax.random.PRNGKey(0), jax_get_config(arch)
+                           .reduced())[0])
+    assert set(lm.layers[0]) == set(jshapes["layers"])
+    if cfg.is_encoder_decoder:
+        assert set(lm.enc_layers[0]) == set(jshapes["enc_layers"])
+        assert len(lm.enc_layers) == cfg.reduced().num_encoder_layers
+    else:
+        assert "enc_layers" not in jshapes and lm.enc_layers is None
 
 
 # ------------------------------------------------------------- MoE layer --

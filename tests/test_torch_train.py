@@ -234,14 +234,28 @@ def test_model_loss_and_grads_match(ref_init, imc):
                                    rtol=1e-4, atol=1e-6, err_msg=name)
 
 
-def test_unported_losses_raise():
-    for kw in ({"family": "vlm"}, {"is_encoder_decoder": True}):
+def test_encdec_and_vlm_losses_on_qwen_widths():
+    """The vlm family and an encoder-decoder on Qwen's reduced widths take
+    their ``get_for`` batches: finite losses with gradients for every
+    leaf, the encoder's included."""
+    for kw in ({"family": "vlm"},
+               {"family": "audio", "is_encoder_decoder": True,
+                "num_encoder_layers": 2}):
         cfg = dataclasses.replace(get_config("qwen2_7b").reduced(), **kw)
-        with pytest.raises(NotImplementedError, match="item 5.5"):
-            Model(cfg=cfg, device=torch.device("cpu")).loss(
-                None, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, "cpu")
+        model = build_model(cfg, "cpu")
+        lm = model.init(0, trainable=True)
+        batch = TokenPipeline(2, 16, cfg.vocab_size).get_for(cfg, 0, "cpu")
+        loss = model.loss(lm, batch)
+        assert bool(torch.isfinite(loss)) and float(loss) > 0
+        grads = torch.autograd.grad(loss, list(lm.parameters()),
+                                    materialize_grads=True)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        if cfg.is_encoder_decoder:
+            names = [n for n, _ in lm.named_parameters()]
+            g = grads[names.index("enc_layers.0.attn.wq")]
+            assert bool((g != 0).any())
+            # the cross-attention takes no QKV biases, as the reference's
+            assert not grads[names.index("layers.0.xattn.bq")].any()
 
 
 # ------------------------------------------------------------- optimizer --
