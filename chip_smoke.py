@@ -298,6 +298,28 @@ exits non-zero and prints no result line:
    its 80 layers, exact (a ``reduced:`` line says why). Losses and grad
    norms must be finite. Prints step ms, tokens/s, the device's
    milliseconds by group and peak memory.
+8e. The hierarchical DCN gradient reduction: Qwen2-7B at published width
+   (4 of its 28 layers; 2 for ``topk_ef``, whose residuals take 8 B a
+   parameter more; a ``reduced:`` line says why), batch 8 x 512 in 2 pod
+   slices on the emulated route, remat "full", ``imc_linear``, with
+   ``dcn_compression`` none, int8, topk and topk_ef at a top-k fraction
+   of 0.01, three timed steps and one profiled each. ``imc_mvm`` must
+   launch once a layer a pod a step, the plain version never; losses and
+   grad norms must be finite; ``none`` runs beside one step of
+   ``microbatches=2`` from the same draw (the largest parameter
+   difference is printed: bit identity is held on the CPU). On pod 0's
+   gradients (the reference's leaves: a stacked layer leaf whole) one
+   ``dcn_send`` of the whole tree is timed; int8's codes must lie in
+   [-127, 127] within one scale step of every leaf; ``topk_ef``'s
+   ``sent + new residual == grads + old residual`` bit for bit on every
+   leaf, the embedding's top-k mask (545 M elements) must equal the
+   CPU's on a host copy, and ``dcn_allreduce_tree`` (every method) and
+   ``cross_pod_allreduce`` on a 1-rank NCCL group (a ``file://`` store)
+   must equal the emulated route leaf by leaf. One ``imc_mvm`` launch at
+   the per-pod shape (Q 2,048, R 3,584, Dp 18,944) must equal the plain
+   version bit for bit on its first and last 256 query rows. Prints step
+   ms, tokens/s, peak memory, the DCN bytes over the raw bytes, the
+   device's milliseconds by group and ``imc_mvm`` launches a step.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -306,7 +328,7 @@ missing beside it.
 
     python3 chip_smoke.py --only 7c,8c
 
-runs the build and the named phases alone (7c, 8c, 7d, 8d), printing
+runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e), printing
 their lines and no kernels or ``ok`` line: a quick check of one slice on
 the card.
 """
@@ -3501,14 +3523,17 @@ def imc_launch_check(torch, cfg, call, rows: list,
 
 def imc_training_shape(torch, np, model, state, pipe, cfg,
                        layers_mod, prefix: str = "granite_train",
-                       tokens: int = TRAIN_BATCH * TRAIN_SEQ) -> dict:
+                       tokens: int = TRAIN_BATCH * TRAIN_SEQ,
+                       batch=None) -> dict:
     """``imc_launch_check`` of the first launch of an evaluation forward
-    (``tokens`` query rows), on its first and last TRAIN_CHECK_Q query
+    on ``batch`` (default: the pipeline's batch IMC_TRAIN_STEPS;
+    ``tokens`` query rows), on its first and last TRAIN_CHECK_Q query
     rows; the keys start with ``prefix``."""
+    if batch is None:
+        batch = pipe.get_for(cfg, IMC_TRAIN_STEPS, "cuda")
     rec, patch = imc_recorder(layers_mod)
     with torch.no_grad(), patch:
-        loss = float(model.loss(state.params, pipe.get_for(
-            cfg, IMC_TRAIN_STEPS, "cuda"), remat="none"))
+        loss = float(model.loss(state.params, batch, remat="none"))
     check(np.isfinite(loss), "non-finite evaluation loss")
     n = tokens
     k = imc_launch_check(torch, cfg, rec.pop("call"), [
@@ -4336,11 +4361,292 @@ def phase_train_encdec_vlm(torch, np) -> dict:
     return results
 
 
+# phase 8e: the hierarchical DCN reduction on the card: the emulated route
+# over DCN_PODS pod slices with each wire compression, Qwen2-7B at full
+# width, batch TRAIN_BATCH x TRAIN_SEQ, remat "full", imc_linear (one
+# imc_mvm launch a layer a pod a step, at the per-pod shape of 2,048 query
+# rows), DCN_STEPS timed and 1 profiled step a method, at DCN_TOPK_FRAC.
+# Each method's layers of 28: float32 params and AdamW moments take 12 B a
+# parameter, the fold's accumulator and a pod's grads 8 B more, and
+# topk_ef's residuals 4 B a pod (8 B at 2 pods): ~50 GB at 4 layers
+# without residuals, ~66 GB with them, so topk_ef runs with 2 (~45 GB),
+# leaving room for the top-k's int64 keys (8 B an element of a leaf: 4.4
+# GB for the embedding or head) and the checks' copies of the grads
+DCN_PODS, DCN_TOPK_FRAC, DCN_STEPS = 2, 0.01, 3
+DCN_TRAIN = (("none", 4), ("int8", 4), ("topk", 4), ("topk_ef", 2))
+
+
+def grouped(torch, ts: list, groups: list) -> list:
+    """The reference's tree leaves from per-parameter tensors
+    (``tree_leaf_groups``): a parameter alone, or a stacked leaf's layers
+    stacked."""
+    return [ts[idx[0]] if len(idx) == 1
+            else torch.stack([ts[j] for j in idx]) for idx in groups]
+
+
+def dcn_collectives_on_nccl(torch, C, g: list, e: list, key: int) -> dict:
+    """``dcn_allreduce_tree`` (every method) and ``cross_pod_allreduce``
+    (none / int8 / topk) on a 1-rank NCCL group, leaf by leaf over the
+    card's gradient leaves ``g`` (residuals ``e``), against the emulated
+    route's one-pod fold of ``dcn_send``: mismatching leaves."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+            for method in C.DCN_METHODS:
+                bad = 0
+                for i, gi in enumerate(g):
+                    ei = [e[i]] if method == "topk_ef" else []
+                    red, new = C.dcn_allreduce_tree(
+                        [gi[None]], [t[None] for t in ei] or {}, mesh,
+                        "pod", method, DCN_TOPK_FRAC, key)
+                    sent, kept = C.dcn_send([gi], ei or {}, method,
+                                            DCN_TOPK_FRAC, C.fold_in(key, 0))
+                    bad += not torch.equal(red[0],
+                                           torch.zeros_like(gi) + sent[0])
+                    if method == "topk_ef":
+                        bad += not torch.equal(new[0][0], kept[0])
+                    del red, new, sent, kept
+                    if method != "topk_ef":
+                        got = C.cross_pod_allreduce(gi, mesh, "pod", method,
+                                                    DCN_TOPK_FRAC, key)
+                        want = {"none": lambda: gi,
+                                "topk": lambda: C._topk(gi, DCN_TOPK_FRAC),
+                                "int8": lambda: C._int8_stochastic(
+                                    gi, C.fold_in(key, 0))}[method]()
+                        bad += not torch.equal(got, want)
+                        del got, want
+                out[method] = bad
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def phase_train_dcn(torch, np) -> dict:
+    """Qwen2-7B training through ``build_model`` -> ``init_train_state``
+    -> ``make_train_step`` -> ``TokenPipeline.get_for`` with
+    ``dcn_pods=DCN_PODS`` and each ``dcn_compression`` (the emulated
+    route, ``imc_linear``): finite losses, the ``imc_mvm`` launches of
+    every step counted, ``none`` beside ``microbatches=DCN_PODS``, one
+    ``dcn_send`` of the whole tree timed; int8's codes and bounds, the EF
+    invariant and the top-k mask against the CPU's, the NCCL collectives
+    and the kernel at the per-pod shape checked. Returns the numbers the
+    ``imc_mvm`` entry gains."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist import compression as C
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the exact product would not be float32")
+    t_phase = time.perf_counter()
+    full = get_config("qwen2_7b")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pod_rows = TRAIN_BATCH // DCN_PODS
+    steps = DCN_STEPS + 1
+    results = {"dcn_train_launches": {}, "dcn_train_launches_per_step": {}}
+    for method, layers in DCN_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(full, num_layers=layers, imc_linear=True)
+        print(f"reduced: the DCN hierarchy ({method}) trains {full.name} at "
+              f"published widths with {layers} of its {full.num_layers} "
+              f"layers (float32 params and moments 12 B a parameter, the "
+              f"fold's accumulator and a pod's grads 8 B"
+              f"{', the residuals 8 B' if method == 'topk_ef' else ''}), "
+              f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {DCN_PODS} pod slices "
+              f"emulated on the card, imc_linear")
+        model = build_model(cfg, "cuda")
+        pipe = TokenPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             vocab=cfg.vocab_size)
+        batches = [pipe.get_for(cfg, s, "cuda") for s in range(steps)]
+        opt = AdamWConfig(total_steps=steps)
+        tcfg = TrainConfig(optimizer=opt, remat="full", dcn_pods=DCN_PODS,
+                           dcn_compression=method,
+                           dcn_topk_frac=DCN_TOPK_FRAC)
+        ref = None
+        if method == "none":
+            # the route it equals on the CPU: microbatches=DCN_PODS, one
+            # step from the same draw
+            state = init_train_state(model, 0)
+            state, _ = make_train_step(model, TrainConfig(
+                optimizer=opt, remat="full", microbatches=DCN_PODS))(
+                state, batches[0])
+            ref = [p.detach().clone() for p in state.params.parameters()]
+            del state
+        t0 = time.perf_counter()
+        state = init_train_state(model, 0, tcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step_fn = make_train_step(model, tcfg)
+        check(step_fn.dcn_route == "emulated"
+              and step_fn.dcn_pods == DCN_PODS,
+              f"{method}: route {step_fn.dcn_route} over "
+              f"{step_fn.dcn_pods} pods")
+        imc_mvm.launches = 0
+        imc_mvm_plain.calls = 0
+        events, metrics, mb_diff = [], [], None
+        for s in range(DCN_STEPS):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, m = step_fn(state, batches[s])
+            ev[1].record()
+            events.append(ev)
+            metrics.append(m)
+            if ref is not None:
+                mb_diff = max(float((p.detach() - r).abs().max()) for p, r
+                              in zip(state.params.parameters(), ref))
+                ref = None
+
+        def profiled():
+            nonlocal state
+            state, m = step_fn(state, batches[DCN_STEPS])
+            metrics.append(m)
+
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in events]
+        dev_ms, top, per, _ = profile_device_ms(torch, profiled, steps=1)
+        launches, plain = imc_mvm.launches, imc_mvm_plain.calls
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(m["loss"]) for m in metrics]
+        gnorms = [float(m["grad_norm"]) for m in metrics]
+        check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+              f"{method}: non-finite losses {losses} or grad norms "
+              f"{gnorms}")
+        want = cfg.num_layers * DCN_PODS * steps
+        check(launches == want, f"{method}: imc_mvm launched {launches} "
+                                f"times in {steps} steps, not {want} "
+                                f"(layers x pods x steps)")
+        check(plain == 0, f"{method}: the plain imc_mvm ran {plain} times")
+        sent_b, raw_b = metrics[0]["dcn_bytes"], metrics[0]["dcn_raw_bytes"]
+        med = float(np.median(ms[1:]))
+        line = {
+            "path": "lm train dcn", "arch": full.name, "layers": layers,
+            "published_layers": full.num_layers, "pods": DCN_PODS,
+            "dcn_compression": method, "topk_frac": DCN_TOPK_FRAC,
+            "route": step_fn.dcn_route, "imc_linear": True,
+            "params": sum(p.numel() for p in state.params.parameters()),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": tcfg.remat,
+            "init_s": init_s, "step_ms": ms,
+            "step_ms_median_after_first": med,
+            "tokens_per_s": 1e3 * tokens / med, "loss": losses,
+            "grad_norm": gnorms, "dcn_bytes": sent_b,
+            "dcn_raw_bytes": raw_b, "dcn_over_raw": sent_b / raw_b,
+            "device_ms_per_step": dev_ms,
+            "device_share_of_step": None if dev_ms is None else dev_ms / med,
+            "device_ms_by_group": device_groups(per),
+            "device_ms_by_kernel": top, "peak_gib": peak,
+            "imc_mvm_launches": launches,
+            "imc_mvm_launches_per_step": launches / steps}
+        if mb_diff is not None:
+            line["none_vs_microbatches_max_abs_diff"] = mb_diff
+        results["dcn_train_launches"][method] = launches
+        results["dcn_train_launches_per_step"][method] = launches / steps
+
+        # pod 0's gradients on the reference's tree (stacked layer leaves
+        # whole) and its residual row: one dcn_send of the whole tree
+        half = {k: v[:pod_rows] for k, v in batches[0].items()}
+        leaves = list(state.params.parameters())
+        groups = T.tree_leaf_groups(state.params)
+        grads = list(torch.autograd.grad(
+            model.loss(state.params, half, remat="full"), leaves))
+        g = grouped(torch, grads, groups)
+        del grads
+        e = (grouped(torch, [r[0] for r in state.ef], groups)
+             if state.ef else [])
+        key = C.per_step_key(tcfg.seed, state.step)
+        line["dcn_send_ms"] = time_ms(
+            torch, lambda: C.dcn_send(g, e or {}, method, DCN_TOPK_FRAC,
+                                      key), iters=2, warmup=1)
+        if method == "int8":
+            bad = 0
+            for i, gi in enumerate(g):
+                q, sc = C._int8_quantize(gi, C.fold_in(key, i))
+                bad += not (torch.equal(q, q.round())
+                            and float(q.abs().max()) <= 127
+                            and bool(((q * sc - gi).abs() <= sc).all()))
+                del q
+            check(bad == 0, f"int8: {bad} leaves with codes off [-127, 127]"
+                            f" or more than one scale step off")
+            line["int8_leaves_checked"] = len(g)
+        if method == "topk_ef":
+            bad = 0
+            for gi, ei in zip(g, e):
+                (s_i,), (k_i,) = C.topk_ef_compress([gi], [ei],
+                                                    DCN_TOPK_FRAC)
+                bad += not torch.equal(s_i + k_i, gi + ei)
+                del s_i, k_i
+            check(bad == 0, f"topk_ef: sent + new residual != grads + old "
+                            f"residual on {bad} of {len(g)} leaves")
+            # the embedding's accumulator: the card's mask and the CPU's
+            acc = g[0] + e[0]
+            mask = C._topk_mask(acc, DCN_TOPK_FRAC).cpu()
+            t0 = time.perf_counter()
+            cpu_mask = C._topk_mask(acc.cpu(), DCN_TOPK_FRAC)
+            line["mask_cpu_s"] = time.perf_counter() - t0
+            check(torch.equal(mask, cpu_mask),
+                  "the embedding's top-k mask on the card differs from the "
+                  "CPU's")
+            line["mask_checked_elements"] = acc.numel()
+            del acc, mask, cpu_mask
+            line["ef_invariant_leaves"] = len(g)
+            nccl = dcn_collectives_on_nccl(torch, C, g, e, key)
+            check(not any(nccl.values()),
+                  f"the 1-rank NCCL collectives differ from the emulated "
+                  f"route: {nccl}")
+            line["nccl_mismatching_leaves"] = nccl
+        del g, e
+        if method == "none":
+            line.update(imc_training_shape(
+                torch, np, model, state, pipe, cfg, L, "dcn_train",
+                tokens=tokens // DCN_PODS, batch=half))
+            results.update({k: line[k] for k in line
+                            if k.startswith("dcn_train_")})
+        line["sm clock, power, limit"] = nvidia_smi(
+            "clocks.sm,power.draw,power.limit")
+        print(json.dumps(line))
+        print(f"train dcn: {method} over {DCN_PODS} pods, {layers} layers: "
+              f"{med:.2f} ms a step ({1e3 * tokens / med:.0f} tokens/s), "
+              f"peak {peak:.2f} GiB, dcn/raw {sent_b / raw_b:.5f}, "
+              f"imc_mvm {launches / steps:.0f} launches a step, dcn_send "
+              f"{line['dcn_send_ms']:.2f} ms"
+              + (f", none vs microbatches={DCN_PODS}: max abs "
+                 f"{mb_diff:.3g}" if mb_diff is not None else ""))
+        del state, model, batches, half
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train dcn: phase {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 # phases that run alone after the build with ``--only NAME[,NAME]``
 STANDALONE = {"7c": lambda torch, np: phase_serve_recurrent(torch, np),
               "8c": lambda torch, np: phase_train_recurrent(torch, np),
               "7d": lambda torch, np: phase_serve_encdec_vlm(torch, np),
-              "8d": lambda torch, np: phase_train_encdec_vlm(torch, np)}
+              "8d": lambda torch, np: phase_train_encdec_vlm(torch, np),
+              "8e": lambda torch, np: phase_train_dcn(torch, np)}
 
 
 def main(argv=None) -> int:
@@ -4460,6 +4766,7 @@ def main(argv=None) -> int:
           f"seeded random draw")
     dec["launches_by_config"].update(phase_serve_encdec_vlm(torch, np))
     imc.update(phase_train_encdec_vlm(torch, np))
+    imc.update(phase_train_dcn(torch, np))
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

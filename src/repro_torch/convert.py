@@ -188,22 +188,39 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
                 enc, enc_norm)
 
 
+def _pod_slice(tree, p: int):
+    """The numpy tree with every leaf's leading (per-pod) dim indexed at
+    ``p``."""
+    if isinstance(tree, dict):
+        return {k: _pod_slice(v, p) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_pod_slice(v, p) for v in tree]
+    return np.asarray(tree)[p]
+
+
 def train_state_from_numpy(params, mu, nu, step, cfg,
-                           device: str | torch.device = "cuda"):
+                           device: str | torch.device = "cuda", ef=None):
     """The reference's ``TrainState`` (its ``params``, ``opt["mu"]``,
-    ``opt["nu"]`` as numpy trees of the same layout, and ``step``) as the
-    port's :class:`~repro_torch.train.train_step.TrainState`: float32
-    trainable parameters, and float32 moments in the order of
-    ``params.parameters()``."""
+    ``opt["nu"]`` as numpy trees of the same layout, ``step`` and, for
+    ``topk_ef``, its ``ef`` tree of ``(P, *shape)`` leaves) as the port's
+    :class:`~repro_torch.train.train_step.TrainState`: float32 trainable
+    parameters, and float32 moments and ``(P, *shape)`` residuals in the
+    order of ``params.parameters()`` (each pod's slice mapped as the
+    parameters are)."""
     from repro_torch.train.train_step import TrainState
 
     lm = lm_params_from_numpy(params, cfg, device, trainable=True)
     dev = resolve_device(device)
 
-    def moments(tree):
+    def leaves(tree):
         m = lm_params_from_numpy(tree, cfg, "cpu", trainable=True)
         return [t.detach().to(dev) for t in m.parameters()]
 
+    state_ef = {}
+    if ef is not None and len(ef):
+        pods = len(np.asarray(ef["embed"]))
+        rows = [leaves(_pod_slice(ef, p)) for p in range(pods)]
+        state_ef = [torch.stack(per_leaf) for per_leaf in zip(*rows)]
     step = int(step)
-    return TrainState(params=lm, opt={"mu": moments(mu), "nu": moments(nu),
-                                      "step": step}, step=step)
+    return TrainState(params=lm, opt={"mu": leaves(mu), "nu": leaves(nu),
+                                      "step": step}, step=step, ef=state_ef)

@@ -1,5 +1,6 @@
 """Straggler detection (``repro.dist.straggler``): an EWMA step-time
-spike monitor. Pure host code, the reference's, with no JAX in it.
+spike monitor and host heartbeats. Pure host code, the reference's, with
+no JAX in it.
 
 A synchronous job runs at the speed of its slowest participant. The
 monitor tracks an EWMA of *healthy* step times (spikes are excluded from
@@ -7,8 +8,8 @@ the statistics, so a straggler cannot poison its own detection
 threshold) and escalates WARN -> EVICT after ``consecutive_limit``
 consecutive slow steps. The trainer reacts to EVICT by checkpointing
 (``launch/train.py``). Warmup steps always return OK, so the first steps'
-kernel builds cannot trip it. The reference's ``HeartbeatRegistry``
-(multi-host) is not ported: the port runs on one host.
+kernel builds cannot trip it. ``HeartbeatRegistry`` reports hosts whose
+heartbeats stopped; it only reports, and fences nothing.
 """
 
 from __future__ import annotations
@@ -87,3 +88,26 @@ class StragglerMonitor:
         dt = time.monotonic() - self._t0
         self._t0 = None
         return self.observe(dt)
+
+
+class HeartbeatRegistry:
+    """Dead-host detection by missed heartbeats.
+
+    Hosts call ``beat(host)`` each step; the coordinator calls ``tick()``
+    once per step and gets back the hosts whose last beat is at least
+    ``timeout_steps`` ticks old.
+    """
+
+    def __init__(self, num_hosts: int, timeout_steps: int = 3):
+        self.num_hosts = num_hosts
+        self.timeout_steps = timeout_steps
+        self._tick = 0
+        self._last_seen = {h: 0 for h in range(num_hosts)}
+
+    def beat(self, host: int) -> None:
+        self._last_seen[host] = self._tick
+
+    def tick(self) -> list[int]:
+        self._tick += 1
+        return [h for h in range(self.num_hosts)
+                if self._tick - self._last_seen[h] >= self.timeout_steps]

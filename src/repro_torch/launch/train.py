@@ -2,7 +2,12 @@
 
 Wires together: config -> model -> train step -> synthetic token
 pipeline -> checkpointing (auto-resume, async, keep-N) -> straggler
-monitor. With ``--imc-linear`` every FFN down-projection (an
+monitor. The gradient reduction is the reference's: global, or with
+``--dcn-pods P`` / ``--dcn-compression`` the emulated hierarchy over P pod
+slices on this device (a ``grad sync:`` line names it, and each logged
+step adds the pod's DCN bytes beside the raw ones), its ``topk_ef``
+residuals checkpointed with the rest of the state. With ``--imc-linear``
+every FFN down-projection (an
 encoder-decoder's encoder layers too) runs through the SpecPCM analog
 chain (the ``imc_mvm`` kernel on the card) with a straight-through
 gradient; an MoE config's layers have no dense FFN, so there it routes
@@ -11,15 +16,15 @@ its batch (the VLM's patches, the encoder-decoder's frames).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_7b \
-      --reduced --steps 3 --device cpu [--imc-linear]
+      --reduced --steps 3 --device cpu [--imc-linear] \
+      [--dcn-pods 2 --dcn-compression topk_ef]
 
 The flags are the reference's plus ``--device`` (default ``cuda``; asking
 for it without a card raises). ``--mesh`` takes only ``debug``, here one
-device; the hierarchical DCN reduction and gradient compression flags
-must stay at their defaults (they raise, naming ROADMAP.md). Parameters
-are the port's own draw from seed 0. Each logged step prints its loss,
-grad_norm and the mean wall seconds a step (the log line reads the loss
-back, which waits for the device).
+device (``single`` and ``multi`` raise, naming ROADMAP.md Queue 1 item
+5.6b). Parameters are the port's own draw from seed 0. Each logged step
+prints its loss, grad_norm and the mean wall seconds a step (the log line
+reads the loss back, which waits for the device).
 """
 
 from __future__ import annotations
@@ -55,18 +60,18 @@ def main(argv=None):
     ap.add_argument("--remat", default="full")
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8", "topk"],
-                    help="legacy in-graph compression of the reduced grads "
-                         "(not ported: only none)")
+                    help="legacy in-graph compression of the already-"
+                         "reduced grads (simulation only)")
     ap.add_argument("--dcn-compression", default="none",
                     choices=["none", "int8", "topk", "topk_ef"],
-                    help="wire compression on the cross-pod hop (not "
-                         "ported: only none)")
+                    help="wire compression on the cross-pod (DCN) hop of "
+                         "the hierarchical gradient reduction")
     ap.add_argument("--dcn-pods", type=int, default=0,
-                    help="per-pod gradient slices (one device: 0 or 1)")
+                    help="per-pod gradient slices, emulated on this device; "
+                         "0 = size of the mesh's 'pod' axis (1 here)")
     ap.add_argument("--dcn-topk-frac", type=float, default=0.01)
     ap.add_argument("--seed", type=int, default=0,
-                    help="base of the per-step stochastic-rounding key "
-                         "(used by the compression routes)")
+                    help="base of the per-step stochastic-rounding key")
     ap.add_argument("--imc-linear", action="store_true",
                     help="route FFN down-projections through the SpecPCM "
                          "IMC quantized-matmul model (the imc_mvm kernel)")
@@ -74,7 +79,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", default="debug",
-                    choices=["debug", "single", "multi"])
+                    choices=["debug", "single", "multi"],
+                    help="debug: this one device (single and multi span "
+                         "many devices and are not ported)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -83,7 +90,7 @@ def main(argv=None):
     if args.mesh != "debug":
         raise NotImplementedError(
             f"--mesh {args.mesh} spans many devices; the port trains on one "
-            f"(ROADMAP.md, Queue 1 item 5.6)")
+            f"(ROADMAP.md, Queue 1 item 5.6b)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -100,9 +107,13 @@ def main(argv=None):
         dcn_topk_frac=args.dcn_topk_frac, seed=args.seed,
     )
     step_fn = make_train_step(model, tcfg)
+    if step_fn.dcn_route != "global":
+        print(f"grad sync: {step_fn.dcn_route} hierarchy over "
+              f"{step_fn.dcn_pods} pod(s), "
+              f"dcn_compression={tcfg.dcn_compression}")
     if device.type == "cuda" and cfg.imc_linear:
         _build.load("imc_mvm")   # set-up: the kernel builds before step 1
-    state = init_train_state(model, seed=0)
+    state = init_train_state(model, seed=0, tcfg=tcfg)
     pipe = TokenPipeline(batch=args.batch, seq=args.seq, vocab=cfg.vocab_size)
 
     start_step = 0
@@ -131,9 +142,14 @@ def main(argv=None):
         if (step + 1) % args.log_every == 0 or step == start_step:
             loss = float(metrics["loss"])
             gn = float(metrics["grad_norm"])
+            dcn = ""
+            sent, raw = metrics["dcn_bytes"], metrics["dcn_raw_bytes"]
+            if sent > 0:
+                dcn = (f" dcn={sent / 2**20:.2f}MiB/pod "
+                       f"({raw / max(sent, 1.0):.1f}x smaller)")
             print(f"step {step + 1}: loss={loss:.4f} grad_norm={gn:.3f} "
                   f"({(time.time() - t_start) / (step - start_step + 1):.2f}"
-                  f"s/step)", flush=True)
+                  f"s/step)" + dcn, flush=True)
         if ckpt is not None and (step + 1) % args.ckpt_every == 0:
             ckpt.save_async(step + 1, state)
     if ckpt is not None:

@@ -423,6 +423,83 @@ def init_lm(cfg: ArchConfig, device="cpu",
               lm_head, t, stack_name(cfg), enc_layers, enc_norm)
 
 
+# the logical axes the reference's init functions give each leaf (a
+# stacked layer's without its leading "layer"), by parameter group
+_ATTN_AXES = {"wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None),
+              "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp"),
+              "bq": ("heads", None), "bk": ("kv_heads", None),
+              "bv": ("kv_heads", None)}
+_FFN_AXES = {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+             "w_down": ("ff", "fsdp"), "b_up": ("ff",), "b_down": (None,)}
+_MOE_AXES = {"router": (None, None), "w_gate": ("experts", "fsdp", None),
+             "w_up": ("experts", "fsdp", None),
+             "w_down": ("experts", None, "fsdp"),
+             "shared_gate": ("fsdp", "ff"), "shared_up": ("fsdp", "ff"),
+             "shared_down": ("ff", "fsdp")}
+_MAMBA_AXES = {"w_in": ("fsdp", "ff"), "w_b": ("fsdp", None),
+               "w_c": ("fsdp", None), "w_dt": ("fsdp", None),
+               "a_log": (None, None), "d_skip": (None,),
+               "w_out": ("fsdp", None), "dt_bias": (None,)}
+_MLSTM_AXES = {"w_up": ("fsdp", "ff"), "w_q": (None, "heads", None),
+               "w_k": (None, "heads", None), "w_v": (None, "heads", None),
+               "w_i": (None, "heads"), "w_f": (None, "heads"),
+               "f_bias": (None,), "w_down": ("ff", "fsdp")}
+_SLSTM_AXES = {"w_z": ("fsdp", None), "w_i": ("fsdp", None),
+               "w_f": ("fsdp", None), "w_o": ("fsdp", None),
+               "f_bias": (None,), "w_down": ("fsdp", None)}
+_GROUP_AXES = {"attn": _ATTN_AXES, "xattn": _ATTN_AXES, "ffn": _FFN_AXES,
+               "moe": _MOE_AXES, "mamba": _MAMBA_AXES}
+
+
+def param_axes(p: LM, cfg: ArchConfig) -> list[tuple]:
+    """The logical axes (``repro_torch.dist.sharding``'s names) of each
+    leaf of ``p``, in ``p.parameters()`` order: the reference's
+    ``init_lm`` axes, a per-layer leaf's without the stacked tree's
+    leading ``"layer"``."""
+    out = []
+    for name, _ in p.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "embed":
+            out.append(("vocab", "fsdp"))
+        elif parts[0] == "lm_head":
+            out.append(("fsdp", "vocab"))
+        elif parts[0] in ("final_norm", "enc_norm") or parts[-1] == "alpha":
+            out.append((None,))
+        else:
+            stack, i, group, leaf = parts
+            kind = "enc" if stack == "enc_layers" else decoder_kind(cfg,
+                                                                    int(i))
+            if group.startswith("norm"):
+                out.append((None,))
+            elif group == "mix":
+                table = _MLSTM_AXES if kind == "mlstm" else _SLSTM_AXES
+                out.append(table[leaf])
+            else:
+                out.append(_GROUP_AXES[group][leaf])
+    return out
+
+
+def tree_leaf_groups(p: LM) -> list[list[int]]:
+    """The reference's parameter tree leaves, in its flatten order (dict
+    keys sorted, list items in order), as groups of indices into
+    ``p.parameters()``: a leaf of a stacked stack (``layers``,
+    ``enc_layers``: one ``(L, ...)`` leaf a name) groups its layers'
+    parameters of that name in layer order; any other leaf (``embed``,
+    a norm, each ``ssm`` block's) is one parameter. Gradient compression
+    treats a group as the one leaf it is in the reference."""
+    groups: dict[tuple, list[int]] = {}
+    for i, (name, _) in enumerate(p.named_parameters()):
+        parts = name.split(".")
+        if parts[0] in ("layers", "enc_layers"):
+            path = (parts[0], *parts[2:])
+        elif parts[0] == "blocks":
+            path = ("blocks", int(parts[1]), *parts[2:])
+        else:
+            path = tuple(parts)
+        groups.setdefault(path, []).append(i)
+    return [groups[k] for k in sorted(groups)]
+
+
 def _blocks(p, cfg: ArchConfig) -> list:
     """(block parameters, kind) for each layer, from an :class:`LM` or a
     mapping with its layout."""

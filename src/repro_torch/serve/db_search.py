@@ -374,12 +374,12 @@ def sharded_topk_search(queries: torch.Tensor, refs: torch.Tensor, k: int,
     give the same (indices, scores), tie order included.
 
     ``mesh`` / ``axis`` name the reference's shard_map route; the port
-    runs on one card and has none (ROADMAP Queue 1 item 5.6), so a mesh
+    runs on one card and has none (ROADMAP Queue 1 item 5.6b), so a mesh
     raises."""
     if mesh is not None:
         raise NotImplementedError(
             f"sharded_topk_search over a mesh (axis {axis!r}) is not ported: "
-            f"the port has no shard_map (ROADMAP Queue 1 item 5.6); pass "
+            f"the port has no shard_map (ROADMAP Queue 1 item 5.6b); pass "
             f"num_shards to emulate shards on one device")
     if num_shards is None or num_shards <= 1:
         if not fused:

@@ -1633,3 +1633,133 @@ def test_encdec_and_vlm_decode_on_the_card_equals_the_cpu(cuda, arch):
     for a, b in zip(got.logits, want.logits):
         share = float((a.cpu() - b).abs().max()) / float(b.abs().max())
         assert share <= 2.0 ** -6, share
+
+
+# ------------------------------------------------- gradient compression --
+
+@pytest.mark.parametrize("frac", [0.01, 0.25])
+def test_topk_mask_on_the_card_equals_the_cpu(cuda, frac):
+    """The unique-key top-k mask on the card selects exactly the CPU's
+    coordinates, on many ties and zeros (ties to the lower flat index)."""
+    from repro_torch.dist import compression as C
+
+    rng = np.random.default_rng(3)
+    for shape in ((1_000_003,), (333, 1024), (7,)):
+        x = (rng.integers(-6, 7, size=shape) / 4.0).astype(np.float32)
+        x[rng.random(shape) < 0.05] = -0.0
+        want = C._topk_mask(torch.from_numpy(x), frac)
+        got = C._topk_mask(torch.from_numpy(x).to(cuda), frac)
+        assert int(got.sum()) == C.topk_count(x.size, frac)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_int8_rounding_with_a_cuda_generator(cuda):
+    """int8 codes in [-127, 127], within one scale step of the input, the
+    same key the same draws, another key other draws, unbiased over
+    keys; seeding makes no host sync."""
+    from repro_torch.dist import compression as C
+
+    x = torch.randn(4096, 257, device=cuda) * 1e-3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q, s = C._int8_quantize(x, C.per_step_key(0, 1))
+        out = C._int8_stochastic(x, C.per_step_key(0, 1))
+        again = C._int8_stochastic(x, C.per_step_key(0, 1))
+        other = C._int8_stochastic(x, C.per_step_key(0, 2))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(q, q.round()) and float(q.abs().max()) <= 127
+    assert bool(((q * s - x).abs() <= s).all())
+    assert torch.equal(out, q * s) and torch.equal(out, again)
+    assert not torch.equal(out, other)
+    err = torch.stack([C._int8_stochastic(x[:8], C.per_step_key(k, 0))
+                       - x[:8] for k in range(64)]).double()
+    assert abs(float(err.mean())) < 0.05 * float(s)
+
+
+def test_dcn_allreduce_tree_on_a_1_rank_nccl_group(cuda, tmp_path):
+    """``dcn_allreduce_tree`` and ``cross_pod_allreduce`` through NCCL on
+    a 1-rank group equal the emulated route's one-pod fold, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import compression as C
+
+    rng = np.random.default_rng(5)
+    g = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+         for s in ((64, 33), (129,), (1,))]
+    key = C.per_step_key(4, 2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        for method in ("none", "int8", "topk", "topk_ef"):
+            e = [torch.randn_like(t) for t in g] if method == "topk_ef" \
+                else []
+            red, new_e = C.dcn_allreduce_tree(
+                [t[None] for t in g], [t[None] for t in e] or {}, mesh,
+                "pod", method, 0.1, key)
+            sent, kept = C.dcn_send(g, e or {}, method, 0.1,
+                                    C.fold_in(key, 0))
+            for a, b in zip(red, sent):
+                assert torch.equal(a, torch.zeros_like(b) + b)
+            for a, b in zip(new_e or [], kept or []):
+                assert torch.equal(a[0], b)
+            if method != "topk_ef":
+                got = C.cross_pod_allreduce(g[0], mesh, "pod", method, 0.1,
+                                            key)
+                want = {"none": g[0], "topk": C._topk(g[0], 0.1),
+                        "int8": C._int8_stochastic(
+                            g[0], C.fold_in(key, 0))}[method]
+                assert torch.equal(got, want)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_topk_ef_train_step_on_the_card_matches_the_cpu(cuda):
+    """One emulated ``topk_ef`` step over 2 pods of the reduced Qwen
+    (float32, TF32 off) on the card against the CPU: loss within 1e-5,
+    grad norm within 1e-3 (a near-tied coordinate may be sent on one
+    side and kept on the other), parameters within 2 lr; the residuals
+    hold what was not sent: nonzero, finite, (2, *shape)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("qwen2_7b").reduced()
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), dcn_pods=2,
+                       dcn_compression="topk_ef", dcn_topk_frac=0.25)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, "cpu")
+        state = init_train_state(model, 0, tcfg)
+        model = build_model(cfg, dev)
+        state.params.to(dev)
+        state.opt["mu"] = [t.to(dev) for t in state.opt["mu"]]
+        state.opt["nu"] = [t.to(dev) for t in state.opt["nu"]]
+        state.ef = [t.to(dev) for t in state.ef]
+        batch = TokenPipeline(4, 64, cfg.vocab_size).get_for(cfg, 0, dev)
+        step = make_train_step(model, tcfg)
+        assert step.dcn_route == "emulated" and step.dcn_pods == 2
+        state, m = step(state, batch)
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                         [p.detach().cpu() for p in state.params.parameters()],
+                         [e.cpu() for e in state.ef], m["dcn_bytes"])
+    (lc, gc, pc, ec, bc), (lg, gg, pg, eg, bg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(gg, gc, rtol=1e-3)
+    assert bg == bc
+    for a, b in zip(pg, pc):
+        assert float((a - b).abs().max()) <= 2e-3 + 1e-6
+    for a, b in zip(eg, ec):
+        assert a.shape == b.shape and a.shape[0] == 2
+        assert bool(torch.isfinite(a).all())
+    assert sum(float(e.abs().sum()) for e in eg) > 0

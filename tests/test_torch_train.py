@@ -11,7 +11,12 @@ and two). Both sides run ``qwen2_7b.reduced()`` in float32. Then the
 port's own behaviour the reference's trainer tests pin: microbatching,
 remat, the bfloat16 parameter cast, training with ``imc_linear``, exact
 checkpoint resume, the checkpoint manager, the straggler monitor, the
-branches that raise, and the launcher on the CPU.
+branches that raise, and the launcher on the CPU. The hierarchical DCN
+reduction mirrors the reference's ``tests/test_train_loop.py``
+(``TestHierarchicalDCN``, ``TestSeedDeterminism``) on the port, and
+holds the emulated step, the routes, the wire counts, the abstract
+state's shapes and axes and a ``topk_ef`` send with the reference's
+residuals (carried by ``convert.py``) against the reference.
 
 Tolerances, float32 (the two libraries sum in different orders, and XLA
 fuses multiply-adds on the CPU):
@@ -28,7 +33,13 @@ fuses multiply-adds on the CPU):
   either side;
 - the port against itself: remat policies, checkpoint resume and the
   in-place / out-of-place FFN are exact; microbatches 2 against 1 rtol
-  2e-3 / atol 2e-5 (the reference's own test).
+  2e-3 / atol 2e-5 (the reference's own test);
+- the DCN hierarchy: ``none`` on P pods against ``microbatches=P``, the
+  residuals, sends, wire counts, seeds and resumes exact; pods 2 x
+  microbatches 2 against microbatches 4 rtol 2e-3 / atol 2e-5, and the
+  compressed losses within 0.25 of the uncompressed (the reference's
+  tests); the emulated step against the reference's as one train step
+  above.
 
 Every test that runs JAX model code first clears ``repro.dist.sharding``'s
 global mesh; none calls a JAX launcher.
@@ -36,6 +47,7 @@ global mesh; none calls a JAX launcher.
 
 import dataclasses
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +57,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.data.tokens import TokenPipeline as JaxTokenPipeline
+from repro.dist import compression as JC
 from repro.dist.sharding import set_mesh
 from repro.dist.straggler import StragglerMonitor as JaxStragglerMonitor
 from repro.models import layers as JL
@@ -56,6 +69,7 @@ from repro.train import train_step as JS
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy, train_state_from_numpy
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.dist import compression as C
 from repro_torch.dist.checkpoint import CheckpointManager
 from repro_torch.dist.straggler import Action, StragglerMonitor
 from repro_torch.kernels.imc_mvm import imc_mvm_plain
@@ -68,9 +82,12 @@ from repro_torch.train import optimizer as O
 from repro_torch.train.train_step import (
     TrainConfig,
     TrainState,
+    abstract_train_state,
+    init_ef_state,
     init_train_state,
     make_train_step,
     resolve_pods,
+    state_axes,
 )
 from repro_torch.train.train_step import _cast_bf16 as Z_cast
 
@@ -389,32 +406,26 @@ def test_train_step_attributes_and_pods():
     assert resolve_pods(TrainConfig(dcn_pods=4)) == 4
 
 
-@pytest.mark.parametrize("kw", [
-    {"dcn_compression": "int8"}, {"dcn_compression": "topk"},
-    {"dcn_compression": "topk_ef"}, {"dcn_pods": 2},
-    {"grad_compression": "int8"}, {"grad_compression": "topk"},
-])
-def test_dcn_and_compression_routes_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 5.6"):
-        make_train_step(build_model(_cfgs()[1], "cpu"), TrainConfig(**kw))
-
-
 def test_unknown_dcn_method_is_a_value_error():
     with pytest.raises(ValueError, match="unknown dcn_compression"):
         make_train_step(build_model(_cfgs()[1], "cpu"),
                         TrainConfig(dcn_compression="fp4"))
 
 
-def _run(tc, tcfg, steps, state=None, start=0, seed=0):
+def _run(tc, tcfg, steps, state=None, start=0, seed=0, metrics=False):
+    """``steps`` steps from ``start`` (a fresh state from ``seed``, with
+    the residuals ``tcfg`` needs, unless ``state``): the state and the
+    losses, or with ``metrics`` each step's metrics as floats."""
     model = build_model(tc, "cpu")
-    state = state or init_train_state(model, seed)
+    state = state or init_train_state(model, seed, tcfg)
     step_fn = make_train_step(model, tcfg)
     pipe = TokenPipeline(B, S, tc.vocab_size)
-    losses = []
+    out = []
     for s in range(start, steps):
         state, m = step_fn(state, pipe.get_for(tc, s, "cpu"))
-        losses.append(float(m["loss"]))
-    return state, losses
+        out.append({k: float(v) for k, v in m.items()} if metrics
+                   else float(m["loss"]))
+    return state, out
 
 
 def _leaves(state):
@@ -436,6 +447,442 @@ def test_microbatches_must_divide_the_batch():
     _, tc = _cfgs()
     with pytest.raises(ValueError, match="microbatches"):
         _run(tc, TrainConfig(microbatches=3), 1)
+
+
+# ------------------------------------------------ hierarchical DCN routes --
+# the reference's tests/test_train_loop.py TestHierarchicalDCN and
+# TestSeedDeterminism, on the port
+
+def _assert_states_equal(a, b):
+    for x, y in zip(_leaves(a) + list(a.ef or []),
+                    _leaves(b) + list(b.ef or [])):
+        assert torch.equal(x, y)
+    assert a.step == b.step and a.opt["step"] == b.opt["step"]
+
+
+@pytest.mark.parametrize("pods", [2, 4, 8])
+def test_dcn_none_bit_identical_to_microbatches(pods):
+    """The emulated route with ``none`` on ``pods`` slices reproduces the
+    global route with ``microbatches=pods`` bit for bit (parameters,
+    moments, loss, grad_norm) over 3 steps."""
+    _, tc = _cfgs()
+    opt = O.AdamWConfig(lr=1e-3)
+    s_mb, m_mb = _run(tc, TrainConfig(optimizer=opt, microbatches=pods), 3,
+                      metrics=True)
+    s_h, m_h = _run(tc, TrainConfig(optimizer=opt, dcn_pods=pods), 3,
+                    metrics=True)
+    _assert_states_equal(s_mb, s_h)
+    for a, b in zip(m_mb, m_h):
+        assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        assert a["dcn_bytes"] == 0.0 and b["dcn_bytes"] == b["dcn_raw_bytes"]
+
+
+def test_dcn_pods1_none_is_the_global_step():
+    _, tc = _cfgs()
+    opt = O.AdamWConfig(lr=1e-3)
+    s_old, l_old = _run(tc, TrainConfig(optimizer=opt), 3)
+    s_new, l_new = _run(tc, TrainConfig(optimizer=opt, dcn_pods=1,
+                                        dcn_compression="none"), 3)
+    _assert_states_equal(s_old, s_new)
+    assert l_old == l_new
+
+
+def test_dcn_hierarchy_composes_with_microbatches():
+    """pods 2 x microbatches 2 see the slices of microbatches 4 in the same
+    order; only where 1/P scales differs (the reference's tolerance)."""
+    _, tc = _cfgs()
+    opt = O.AdamWConfig(lr=1e-3)
+    s_flat, _ = _run(tc, TrainConfig(optimizer=opt, microbatches=4), 2)
+    s_h, _ = _run(tc, TrainConfig(optimizer=opt, dcn_pods=2,
+                                  microbatches=2), 2)
+    for a, b in zip(s_flat.params.parameters(), s_h.params.parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("method", ["int8", "topk_ef"])
+def test_dcn_compressed_tracks_uncompressed(method):
+    """int8 and EF top-k on 8 emulated pods at frac 0.25 track the
+    uncompressed losses within 0.25 over 22 steps."""
+    _, tc = _cfgs()
+    opt = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=25)
+    _, l_ref = _run(tc, TrainConfig(optimizer=opt, dcn_pods=8), 22)
+    _, l_c = _run(tc, TrainConfig(optimizer=opt, dcn_pods=8,
+                                  dcn_compression=method,
+                                  dcn_topk_frac=0.25), 22)
+    assert np.isfinite(l_c).all()
+    assert l_c[-1] < l_c[0] - 0.3, (l_c[0], l_c[-1])
+    dev = np.abs(np.asarray(l_c) - np.asarray(l_ref)).max()
+    assert dev < 0.25, (dev, method)
+
+
+def test_dcn_ef_state_carried_and_conserved():
+    """TrainState.ef is per pod, zero at first and nonzero after a step,
+    and each pod's new residual is what ``topk_ef_compress`` keeps of its
+    gradients plus its old residual, bit for bit."""
+    _, tc = _cfgs()
+    model = build_model(tc, "cpu")
+    tcfg = TrainConfig(optimizer=O.AdamWConfig(lr=1e-3), dcn_pods=2,
+                       dcn_compression="topk_ef", dcn_topk_frac=0.1)
+    state = init_train_state(model, 0, tcfg)
+    leaves = list(state.params.parameters())
+    assert [e.shape for e in state.ef] == [(2, *p.shape) for p in leaves]
+    assert all(e.dtype == torch.float32 and not e.any() for e in state.ef)
+    step_fn = make_train_step(model, tcfg)
+    pipe = TokenPipeline(B, S, tc.vocab_size)
+    state, _ = step_fn(state, pipe.get_for(tc, 0, "cpu"))
+    assert sum(float(e.abs().sum()) for e in state.ef) > 0.0
+    # the next step, pod by pod, against the compressor on the same inputs
+    # (the reference's leaves: a stacked layer leaf whole)
+    groups = T.tree_leaf_groups(state.params)
+
+    def stack(ts, idx):
+        return torch.stack([ts[j] for j in idx])
+
+    batch = pipe.get_for(tc, 1, "cpu")
+    old = [e.clone() for e in state.ef]
+    want = []
+    for p in range(2):
+        part = {k: v[p * B // 2:(p + 1) * B // 2] for k, v in batch.items()}
+        grads = torch.autograd.grad(model.loss(state.params, part), leaves)
+        g = [stack(grads, idx) for idx in groups]
+        e = [stack([o[p] for o in old], idx) for idx in groups]
+        want.append((g, e, *C.topk_ef_compress(g, e, 0.1)))
+    state, _ = step_fn(state, batch)
+    for p in range(2):
+        for idx, g, e, sent, kept in zip(groups, *want[p]):
+            got = stack([r[p] for r in state.ef], idx)
+            assert torch.equal(got, kept)
+            assert torch.equal(sent + got, g + e)
+
+
+def test_dcn_bytes_metric():
+    """The step reports its wire footprint: none == raw float32 bytes,
+    int8 ~4x smaller, EF top-k >= 4x smaller (the reference's bar)."""
+    _, tc = _cfgs()
+    opt = O.AdamWConfig(lr=1e-3)
+    byt = {}
+    for method in ("none", "int8", "topk_ef"):
+        _, ms = _run(tc, TrainConfig(optimizer=opt, dcn_pods=2,
+                                     dcn_compression=method), 1,
+                     metrics=True)
+        byt[method] = ms[0]["dcn_bytes"]
+        assert ms[0]["dcn_raw_bytes"] == byt["none"]
+    n = sum(p.numel() for p in init_train_state(
+        build_model(tc, "cpu"), 0).params.parameters())
+    assert byt["none"] == 4 * n
+    assert byt["none"] / byt["int8"] > 3.9
+    assert byt["none"] / byt["topk_ef"] >= 4.0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(microbatches=4, remat="none"),
+    dict(dcn_pods=4, dcn_compression="int8"),
+    dict(dcn_pods=2, dcn_compression="topk_ef", microbatches=2,
+         remat="dots"),
+], ids=["plain", "microbatch-noremat", "hier-int8", "hier-ef-mb-dots"])
+def test_same_seed_same_metrics(kw):
+    _, tc = _cfgs()
+    tcfg = TrainConfig(optimizer=O.AdamWConfig(lr=1e-3), **kw)
+    _, m1 = _run(tc, tcfg, 3, metrics=True)
+    _, m2 = _run(tc, tcfg, 3, metrics=True)
+    assert m1 == m2
+
+
+def test_different_seed_different_rounding():
+    _, tc = _cfgs()
+    base = dict(optimizer=O.AdamWConfig(lr=1e-3), dcn_pods=2,
+                dcn_compression="int8")
+    _, l0 = _run(tc, TrainConfig(**base, seed=0), 2)
+    _, l1 = _run(tc, TrainConfig(**base, seed=1), 2)
+    assert l0[1] != l1[1]  # step 1's loss sees step 0's rounding noise
+
+
+def test_dcn_checkpoint_roundtrip_with_ef(tmp_path):
+    """The residuals are part of TrainState: saved and restored mid-run
+    (into a state of another draw), the continued run equals an
+    uninterrupted one bit for bit."""
+    _, tc = _cfgs()
+    tcfg = TrainConfig(optimizer=O.AdamWConfig(lr=1e-3), dcn_pods=2,
+                       dcn_compression="topk_ef")
+    s_a, _ = _run(tc, tcfg, 4)
+    s_b, _ = _run(tc, tcfg, 2)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(2, s_b)
+    meta = json.loads((tmp_path / "step_00000002" / "meta.json").read_text())
+    assert sum(m["path"].startswith("/ef/") for m in meta["leaves"]) == \
+        len(s_b.ef)
+    target = init_train_state(build_model(tc, "cpu"), 1, tcfg)
+    _, s_c = mgr.restore_latest(target)
+    s_c, _ = _run(tc, tcfg, 4, state=s_c, start=2)
+    _assert_states_equal(s_a, s_c)
+
+
+def test_checkpoint_without_ef_restores_with_empty_ef(tmp_path):
+    _, tc = _cfgs()
+    tcfg = TrainConfig(optimizer=O.AdamWConfig(lr=1e-3))
+    s_a, _ = _run(tc, tcfg, 2)
+    assert s_a.ef == {}
+    CheckpointManager(tmp_path).save(2, s_a)
+    target = init_train_state(build_model(tc, "cpu"), 1, tcfg)
+    step, got = CheckpointManager(tmp_path).restore_latest(target)
+    assert step == 2 and got.ef == {}
+    _assert_states_equal(s_a, got)
+    # a state that carries residuals does not take it
+    ef_target = init_train_state(build_model(tc, "cpu"), 1, TrainConfig(
+        dcn_pods=2, dcn_compression="topk_ef"))
+    assert CheckpointManager(tmp_path).restore_latest(ef_target) is None
+
+
+@pytest.mark.parametrize("dcn,mesh", [
+    (dict(), None), (dict(), {"pod": 2, "data": 2}),
+    (dict(dcn_pods=1), None), (dict(dcn_pods=2), None),
+    (dict(dcn_compression="int8"), None),
+    (dict(dcn_compression="int8"), {"data": 4}),
+    (dict(dcn_compression="topk_ef"), {"pod": 4, "data": 2}),
+    (dict(dcn_compression="topk", dcn_pods=2), {"pod": 2}),
+    (dict(dcn_compression="topk", dcn_pods=4), {"pod": 2}),
+    (dict(dcn_pods=2), {"pod": 2}),
+])
+def test_dcn_route_and_pods_match_the_reference(dcn, mesh):
+    jc, tc = _cfgs()
+    ref = JS.make_train_step(jax_build_model(jc), JS.TrainConfig(**dcn),
+                             None if mesh is None
+                             else types.SimpleNamespace(shape=mesh))
+    got = make_train_step(build_model(tc, "cpu"), TrainConfig(**dcn), mesh)
+    assert (got.dcn_route, got.dcn_pods) == (ref.dcn_route, ref.dcn_pods)
+    assert resolve_pods(TrainConfig(**dcn), mesh) == JS.resolve_pods(
+        JS.TrainConfig(**dcn), None if mesh is None
+        else types.SimpleNamespace(shape=mesh))
+    ef = init_ef_state(build_model(tc, "cpu").init(0), TrainConfig(**dcn),
+                       mesh)
+    if dcn.get("dcn_compression") == "topk_ef":
+        rows = 1 if got.dcn_route == "shard_map" else got.dcn_pods
+        assert ef and all(e.shape[0] == rows for e in ef)
+    else:
+        assert ef == {}
+
+
+def test_process_group_route_needs_a_device_mesh():
+    _, tc = _cfgs()
+    model = build_model(tc, "cpu")
+    tcfg = TrainConfig(dcn_pods=2)
+    step = make_train_step(model, tcfg, {"pod": 2})
+    assert step.dcn_route == "shard_map"
+    state = init_train_state(model, 0, tcfg, {"pod": 2})
+    with pytest.raises(ValueError, match="needs a DeviceMesh"):
+        step(state, _batch(0)[1])
+
+
+def test_residual_rows_must_match_the_route():
+    _, tc = _cfgs()
+    model = build_model(tc, "cpu")
+    ef4 = TrainConfig(dcn_pods=4, dcn_compression="topk_ef")
+    state = init_train_state(model, 0, ef4)
+    with pytest.raises(ValueError, match="keeps 2"):
+        make_train_step(model, TrainConfig(
+            dcn_pods=2, dcn_compression="topk_ef"))(state, _batch(0)[1])
+    with pytest.raises(ValueError, match="dcn_pods 3"):
+        make_train_step(model, TrainConfig(dcn_pods=3))(
+            init_train_state(model, 0), _batch(0)[1])
+
+
+def _ref_axes(tree, name):
+    """The reference's axes (or shape) behind a port parameter name; a
+    stacked layer's without its leading layer entry."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "enc_layers"):
+        node = tree[parts[0]]
+        for p in parts[2:]:
+            node = node[p]
+        return tuple(node)[1:]
+    if parts[0] == "blocks":
+        node = tree["blocks"][int(parts[1])]
+        for p in parts[2:]:
+            node = node[p]
+        return tuple(node)
+    node = tree
+    for p in parts:
+        node = node[p]
+    return tuple(node)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "deepseek_moe_16b",
+                                  "hymba_1_5b", "xlstm_125m",
+                                  "whisper_medium", "internvl2_76b"])
+def test_abstract_train_state_and_axes_match_the_reference(arch):
+    jc = jax_get_config(arch).reduced()
+    if arch == "xlstm_125m":     # both block kinds
+        jc = dataclasses.replace(jc, num_layers=4)
+    tc = get_config(arch).reduced()
+    tc = dataclasses.replace(tc, num_layers=jc.num_layers)
+    kw = dict(dcn_pods=2, dcn_compression="topk_ef")
+    jstate, jaxes = JS.abstract_train_state(jax_build_model(jc),
+                                            JS.TrainConfig(**kw))
+    jst_axes = JS.state_axes(jaxes, JS.TrainConfig(**kw))
+    state, axes = abstract_train_state(build_model(tc, "cpu"),
+                                       TrainConfig(**kw))
+    st_axes = state_axes(axes, TrainConfig(**kw))
+    named = list(state.params.named_parameters())
+    assert len(named) == len(axes) == len(state.ef) == len(st_axes.ef)
+    jshape = jax.tree.map(lambda x: tuple(x.shape), jstate.params)
+    # the reference's residuals: (P, *param shape), a stacked layer's too
+    assert all(jax.tree.leaves(jax.tree.map(
+        lambda e, p: e.shape == (2, *p.shape), jstate.ef, jstate.params)))
+    for (name, p), a, mu, e, ea in zip(named, axes, state.opt["mu"],
+                                       state.ef, st_axes.ef):
+        assert p.device.type == "meta" and e.device.type == "meta"
+        assert a == _ref_axes(jaxes, name), name
+        assert tuple(p.shape) == tuple(mu.shape) == _ref_axes(jshape, name)
+        assert tuple(e.shape) == (2, *p.shape)
+        if name.startswith(("layers", "enc_layers")):
+            # the reference's ("dcn_pod", "layer", ...) less its "layer"
+            rest = _ref_axes(jst_axes.ef, name)
+            assert rest[0] == "layer" and ea == ("dcn_pod", *rest[1:])
+        else:
+            assert ea == _ref_axes(jst_axes.ef, name)
+    # the reference's leaves, in its order, as groups of the parameters
+    groups = T.tree_leaf_groups(state.params)
+    jleaves = jax.tree.leaves(jstate.params)
+    assert len(groups) == len(jleaves)
+    params = list(state.params.parameters())
+    for idx, jl in zip(groups, jleaves):
+        shapes = {tuple(params[j].shape) for j in idx}
+        assert len(shapes) == 1
+        shape = shapes.pop()
+        assert tuple(jl.shape) in ((len(idx), *shape), shape)
+    assert st_axes.opt["mu"] is axes and st_axes.step == ()
+    assert state_axes(axes).ef == {} and state_axes(axes).opt["step"] == ()
+    none_state, _ = abstract_train_state(build_model(tc, "cpu"))
+    assert none_state.ef == {}
+
+
+@pytest.mark.parametrize("method", ["int8", "topk"])
+def test_grad_compression_applies_to_the_reduced_grads(method):
+    """The legacy grad_compression compresses the reduced gradients (int8
+    with its own stream) before AdamW: the step equals that by hand."""
+    _, tc = _cfgs()
+    model = build_model(tc, "cpu")
+    opt = O.AdamWConfig(lr=1e-3)
+    tcfg = TrainConfig(optimizer=opt, grad_compression=method, seed=3)
+    state = init_train_state(model, 0, tcfg)
+    manual = init_train_state(model, 0)
+    batch = _batch(0)[1]
+    leaves = list(manual.params.parameters())
+    grads = torch.autograd.grad(model.loss(manual.params, batch), leaves)
+    # one reference leaf a group: a stacked layer leaf is compressed whole
+    groups = T.tree_leaf_groups(manual.params)
+    sent = C.compress_tree(
+        [torch.stack([grads[j] for j in idx]) for idx in groups], method,
+        key=C.fold_in(C.per_step_key(3, 0), C.LEGACY_STREAM))
+    flat = [None] * len(leaves)
+    for idx, t in zip(groups, sent):
+        for j, tj in zip(idx, t.unbind(0)):
+            flat[j] = tj
+    O.adamw_update(opt, leaves, flat, manual.opt)
+    state, m = make_train_step(model, tcfg)(state, batch)
+    for a, b in zip(state.params.parameters(), leaves):
+        assert torch.equal(a, b)
+    assert m["dcn_bytes"] == 0.0
+
+
+@pytest.mark.parametrize("method", ["int8", "topk"])
+def test_grad_compression_trains(method):
+    _, tc = _cfgs()
+    tcfg = TrainConfig(optimizer=O.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                               total_steps=15),
+                       grad_compression=method)
+    _, losses = _run(tc, tcfg, 15)
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0] - 0.1
+
+
+@pytest.mark.parametrize("pods", [2, 4])
+def test_emulated_step_matches_the_reference(ref_init, pods):
+    """The reference's emulated ``none`` route and the port's from the
+    same state, within the global route's tolerances."""
+    jc, tc = _cfgs()
+    opt = dict(lr=1e-3, warmup_steps=1)
+    jb, tb = _batch(0)
+    jmodel = jax_build_model(jc)
+    jstate, _ = JS.init_train_state(jmodel, jax.random.PRNGKey(0))
+    jgrads = _np(jax.grad(lambda p: jmodel.loss(p, jb))(jstate.params))
+    jstep = JS.make_train_step(jmodel, JS.TrainConfig(
+        optimizer=JO.AdamWConfig(**opt), dcn_pods=pods))
+    assert jstep.dcn_route == "emulated"
+    jstate, jm = jax.jit(jstep)(jstate, jb)
+    step = make_train_step(build_model(tc, "cpu"), TrainConfig(
+        optimizer=O.AdamWConfig(**opt), dcn_pods=pods))
+    state, m = step(_port_state(ref_init, tc), tb)
+    assert set(m) == set(jm)
+    np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-6)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-6)
+    assert m["dcn_bytes"] == float(jm["dcn_bytes"]) > 0
+    assert m["dcn_raw_bytes"] == float(jm["dcn_raw_bytes"])
+    _assert_step_params(state, _np(jstate.params), jgrads, opt["lr"])
+
+
+@pytest.mark.parametrize("frac", [0.01, 0.25])
+def test_topk_ef_send_matches_the_reference_with_converted_ef(ref_init,
+                                                              frac):
+    """The reference's residuals carried across by ``convert.py``: on the
+    same gradients (the reference's, of each pod's slice), ``dcn_send``
+    gives the reference's ``sent`` and new residual bit for bit."""
+    jc, tc = _cfgs()
+    params, mu, nu = ref_init
+    rng = np.random.default_rng(4)
+    ef = jax.tree.map(lambda a: rng.normal(size=(2, *a.shape)).astype(
+        np.float32) * 1e-3, params)
+    state = train_state_from_numpy(params, mu, nu, 0, tc, "cpu", ef=ef)
+    names = [n for n, _ in state.params.named_parameters()]
+    assert [e.shape for e in state.ef] == [
+        (2, *p.shape) for p in state.params.parameters()]
+    for name, e in zip(names, state.ef):
+        for p in range(2):
+            np.testing.assert_array_equal(
+                e[p].numpy(), _ref_leaf(jax.tree.map(lambda a: a[p], ef),
+                                        name))
+    jmodel = jax_build_model(jc)
+    jb, _ = _batch(0)
+    groups = T.tree_leaf_groups(state.params)
+    for p in range(2):
+        jpart = jax.tree.map(lambda x: x[p * B // 2:(p + 1) * B // 2], jb)
+        jg = jax.grad(lambda q: jmodel.loss(q, jpart))(
+            jax.tree.map(jnp.asarray, params))
+        jef = jax.tree.map(lambda a: jnp.asarray(a[p]), ef)
+        jsent, jnew = JC.dcn_send(jg, jef, "topk_ef", frac)
+        # the port's grads are the reference's, mapped by name; the
+        # compressor sees the reference's leaves (stacked layers whole)
+        g = [torch.from_numpy(np.array(_ref_leaf(_np(jg), n))) for n in names]
+        sent, new = C.dcn_send(
+            [torch.stack([g[j] for j in idx]) if len(idx) > 1 else g[idx[0]]
+             for idx in groups],
+            [torch.stack([state.ef[j][p] for j in idx]) if len(idx) > 1
+             else state.ef[idx[0]][p] for idx in groups], "topk_ef", frac)
+        want_s, want_n = jax.tree.leaves(jsent), jax.tree.leaves(jnew)
+        assert len(sent) == len(want_s) == len(groups)
+        for a, b, wa, wb in zip(sent, new, want_s, want_n):
+            np.testing.assert_array_equal(a.numpy(), _np(wa))
+            np.testing.assert_array_equal(b.numpy(), _np(wb))
+
+
+@pytest.mark.parametrize("method", ["int8", "topk", "topk_ef"])
+def test_dcn_bytes_match_the_reference(method):
+    """The wire count of a compressed send, one stacked layer leaf counted
+    whole as in the reference, equals the reference's step's."""
+    jc, tc = _cfgs()
+    kw = dict(dcn_pods=2, dcn_compression=method, dcn_topk_frac=0.05)
+    jmodel = jax_build_model(jc)
+    jstate, _ = JS.init_train_state(jmodel, jax.random.PRNGKey(0),
+                                    JS.TrainConfig(**kw))
+    _, jm = JS.make_train_step(jmodel, JS.TrainConfig(**kw))(
+        jstate, _batch(0)[0])
+    _, ms = _run(tc, TrainConfig(**kw), 1, metrics=True)
+    assert ms[0]["dcn_bytes"] == float(jm["dcn_bytes"])
+    assert ms[0]["dcn_raw_bytes"] == float(jm["dcn_raw_bytes"])
+
 
 
 @pytest.mark.parametrize("imc", [False, True])
@@ -801,10 +1248,60 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     assert CheckpointManager(tmp_path).list_steps() == [1, 2, 3]
 
 
+@pytest.mark.parametrize("argv,pods,factor", [
+    (["--dcn-pods", "2", "--dcn-compression", "topk_ef"], 2, "49.9x"),
+    (["--dcn-pods", "2", "--dcn-compression", "int8"], 2, "4.0x"),
+    (["--dcn-compression", "topk"], 1, "49.9x"),
+    (["--dcn-pods", "2"], 2, "1.0x"),
+])
+def test_launcher_runs_the_dcn_hierarchy(capsys, argv, pods, factor):
+    state = train_cli.main(["--arch", "qwen2_7b", "--reduced", "--steps",
+                            "2", "--batch", "4", "--seq", "16",
+                            "--log-every", "1", "--device", "cpu"] + argv)
+    out = capsys.readouterr().out
+    method = argv[-1] if "--dcn-compression" in argv else "none"
+    assert (f"grad sync: emulated hierarchy over {pods} pod(s), "
+            f"dcn_compression={method}") in out
+    lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    assert len(lines) == 2
+    assert all(" dcn=" in ln and f"MiB/pod ({factor} smaller)" in ln
+               for ln in lines), lines
+    assert state.step == 2
+    n = len(list(state.params.parameters()))
+    assert len(state.ef or []) == (n if method == "topk_ef" else 0)
+
+
+def test_launcher_grad_compression_runs(capsys):
+    state = train_cli.main(["--arch", "qwen2_7b", "--reduced", "--steps",
+                            "2", "--batch", "2", "--seq", "16",
+                            "--device", "cpu", "--grad-compression", "int8"])
+    out = capsys.readouterr().out
+    assert "grad sync:" not in out and " dcn=" not in out
+    assert state.step == 2
+
+
+def test_launcher_resumes_the_dcn_residuals(tmp_path, capsys):
+    """Resumed from its checkpoint, the ``topk_ef`` run continues with the
+    saved residuals: 2 + 2 steps equal 4 straight."""
+    argv = ["--arch", "qwen2_7b", "--reduced", "--batch", "4", "--seq",
+            "16", "--device", "cpu", "--dcn-pods", "2", "--dcn-compression",
+            "topk_ef", "--log-every", "1"]
+    ckpt = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    train_cli.main(argv + ckpt + ["--steps", "2"])
+    resumed = train_cli.main(argv + ckpt + ["--steps", "4"])
+    out = capsys.readouterr().out
+    assert "resumed from checkpoint step 2" in out
+    assert out.count("grad sync: emulated hierarchy over 2 pod(s)") == 2
+    straight = train_cli.main(argv + ["--steps", "4"])
+    assert resumed.step == straight.step == 4
+    for a, b in zip(_leaves(resumed) + resumed.ef,
+                    _leaves(straight) + straight.ef):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("argv", [["--mesh", "single"],
-                                  ["--dcn-compression", "int8"],
-                                  ["--dcn-pods", "2"]])
+                                  ["--mesh", "multi"]])
 def test_launcher_multi_device_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="item 5.6"):
+    with pytest.raises(NotImplementedError, match="item 5.6b"):
         train_cli.main(["--arch", "qwen2_7b", "--reduced", "--steps", "1",
                         "--device", "cpu"] + argv)
