@@ -196,8 +196,9 @@ exits non-zero and prints no result line:
    decisions may differ, and the logits are held only on steps whose
    routing is identical in every layer. Prints prefill seconds, decode
    ms/step p50 / p95, tokens/s, peak memory and the routing counts.
-8. LM training: Qwen2-7B at full width with its depth cut to 4 of 28
-   layers (float32 master weights, gradients and AdamW moments), through
+8. LM training: Qwen2-7B at full width with its depth cut to 2 of 28
+   layers (4 until PR 27, whose phase 9 needed the time; float32 master
+   weights, gradients and AdamW moments), through
    ``build_model`` -> ``init_train_state`` -> ``make_train_step`` ->
    ``TokenPipeline.get_for``: batch 8 x 512 tokens, remat "full", three
    exact steps, then three with ``imc_linear`` (every FFN
@@ -206,7 +207,7 @@ exits non-zero and prints no result line:
    ``torch.profiler`` (the device's milliseconds by kernel: the
    ``imc_mvm`` kernels, matmuls, the rest). Every loss and grad_norm must
    be finite; the ``imc_mvm`` count is set to 0 just before the IMC steps
-   and must read 4 layers x 4 steps after (remat recomputes each block in
+   and must read 2 layers x 4 steps after (remat recomputes each block in
    backward, but stops after the exact product, before the kernel), with
    the plain version called 0 times. One layer's kernel operands at the
    training shape (Q 4,096, R 3,584, Dp 18,944), kept by a recorder in an
@@ -320,6 +321,25 @@ exits non-zero and prints no result line:
    version bit for bit on its first and last 256 query rows. Prints step
    ms, tokens/s, peak memory, the DCN bytes over the raw bytes, the
    device's milliseconds by group and ``imc_mvm`` launches a step.
+9. DB search over a device mesh: ``serve_db`` on a 1-rank NCCL group
+   (``make_debug_mesh`` gives the (1, 1) mesh and the local route; 4,096
+   x 4 references), then 2 and then 4 processes sharing the one card in a
+   gloo group (NCCL refuses two ranks on one card; gloo stages each
+   collective through the host), each rank serving phase 4's four routes
+   at the iPRG2012 scale over the (1, n) debug mesh with its own block of
+   the bank on the card (the kernels were built in this process first).
+   Every served request must equal phase 4's one-process run of the same
+   stream (indices, scores, has_candidate), every rank's results rank
+   0's, and the FDR accept masks and matches a replay of the mesh run's
+   batches on the one-process scores; each rank must launch the route's
+   kernel. Prints q/s and p50 / p95, the kernel a shard alone on the card
+   (the ranks take turns), the gather + merge of its candidates and the
+   whole route (all ranks together, host clock), each rank's block and
+   peak memory, and the kernels' launches; then ``ring_matmul_reduce``
+   and ``ag_matmul_pipelined`` at 2,048 x 4,096 x 4,096 float32 on the
+   ranks, bit for bit against their ring-order replays and within 1e-5 of
+   one ``x @ w`` (relative to its largest entry). These are processes
+   sharing one card, not a multi-card deployment.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -328,7 +348,8 @@ missing beside it.
 
     python3 chip_smoke.py --only 7c,8c
 
-runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e), printing
+runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e, 9; 9
+alone first serves phase 4's four routes in one process), printing
 their lines and no kernels or ``ok`` line: a quick check of one slice on
 the card.
 """
@@ -1440,11 +1461,15 @@ def phase_pipelines(torch, np):
 def recording_executor(rows: int):
     """A ``SearchExecutor`` subclass that keeps the device batch, bank,
     encoder, results and OMS plan of the first served batch of ``rows``
-    queries."""
+    queries, and every served request's result (``results``: request id
+    -> (indices, scores, accept, match, has_candidate)) and the request
+    ids of every batch (``batches``)."""
     from repro_torch.serve import SearchExecutor
 
     class Recording(SearchExecutor):
         got = None
+        results: dict = {}
+        batches: list = []
 
         def dispatch(self, reqs):
             h = super().dispatch(reqs)
@@ -1452,6 +1477,16 @@ def recording_executor(rows: int):
                 Recording.got = (h.db, self.server.encoder, h.batch.clone(),
                                  h.idx.clone(), h.vals.clone(), h.plan)
             return h
+
+        def finalize(self, handle):
+            live = super().finalize(handle)
+            Recording.batches.append([r.rid for r in handle.reqs])
+            for r in live:
+                res = r.result
+                Recording.results[r.rid] = (
+                    res.indices.copy(), res.scores.copy(), bool(res.accept),
+                    int(res.match), bool(res.has_candidate))
+            return live
 
     return Recording
 
@@ -1544,6 +1579,19 @@ def design_rows(starts, lens, R: int, plan) -> tuple[int, int]:
     return rows, runs
 
 
+def serve_route(fused_e2e: bool, oms: bool) -> tuple[str, str, list]:
+    """(path, kernel, ``serve_db`` argv) of one served route at the
+    iPRG2012 scale."""
+    route = "fused-e2e" if fused_e2e else "fused"
+    kernel = ("encode_search" if fused_e2e else "topk_hamming") + (
+        "_banded" if oms else "")
+    argv = ["--hd-dim", str(DIM), "--identities", str(IDENTITIES),
+            "--refs-per-identity", str(REPLICATES), "--queries",
+            str(QUERIES), "--k", str(K), "--max-batch", str(MAX_BATCH),
+            "--device", "cuda", f"--{route}"] + (["--oms"] if oms else [])
+    return (f"oms {route}" if oms else route), kernel, argv
+
+
 def phase_serve(torch, np, fused_e2e: bool, oms: bool):
     import dataclasses
     import gc
@@ -1575,15 +1623,8 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
         search_database_levels,
     )
 
-    route = "fused-e2e" if fused_e2e else "fused"
-    path = f"oms {route}" if oms else route
-    kernel = ("encode_search" if fused_e2e else "topk_hamming") + (
-        "_banded" if oms else "")
+    path, kernel, argv = serve_route(fused_e2e, oms)
     recorder = recording_executor(MAX_BATCH)
-    argv = ["--hd-dim", str(DIM), "--identities", str(IDENTITIES),
-            "--refs-per-identity", str(REPLICATES), "--queries",
-            str(QUERIES), "--k", str(K), "--max-batch", str(MAX_BATCH),
-            "--device", "cuda", f"--{route}"] + (["--oms"] if oms else [])
     gc.collect()  # an earlier run's server and banks sit in reference cycles
     torch.cuda.reset_peak_memory_stats()
     for fn in serve_db.KERNELS.values():
@@ -1610,6 +1651,7 @@ def phase_serve(torch, np, fused_e2e: bool, oms: bool):
             iprg2012_candidate_fraction=IPRG_CANDIDATE_FRACTION)
     print(json.dumps(line))
     SERVED[path] = line
+    ONE_PROCESS[path] = (recorder.results, s["identified"])
     check(launches[kernel] > 0, f"{kernel} never launched on the {path} path")
     check(s["count"] == QUERIES, f"{path}: served {s['count']} of {QUERIES}")
     check(recorder.got is not None, f"{path}: no served batch of {MAX_BATCH}")
@@ -2069,6 +2111,12 @@ def phase_bucket(torch, np, entry):
 # the flush-sync runs' summary lines, by path, for the continuous runs'
 # side-by-side lines
 SERVED: dict = {}
+SERVED_PATHS = {"topk_hamming": "fused", "encode_search": "fused-e2e",
+                "topk_hamming_banded": "oms fused",
+                "encode_search_banded": "oms fused-e2e"}
+# path -> (request id -> result, identifications) of phase 4's one-process
+# runs, the yardstick of phase 9's mesh runs
+ONE_PROCESS: dict = {}
 # the continuous runs: two slots; 5% of each bank (a suffix of its targets
 # and decoys) held out and appended halfway through the run
 NUM_SLOTS, APPEND = 2, 0.05
@@ -3119,9 +3167,10 @@ def phase_serve_lm_configs(torch, np) -> dict:
 
 # the training phase: Qwen2-7B at full width, depth cut to TRAIN_LAYERS
 # of 28 (float32 params, grads and both AdamW moments take 16 B a
-# parameter: ~122 GB at 28 layers, ~32 GB at 4), batch 8 x 512 tokens,
-# remat "full"; TRAIN_STEPS exact steps, then as many with imc_linear
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 3
+# parameter: ~122 GB at 28 layers, ~32 GB at 4, ~20 GB at 2; 2 since
+# phase 9 joined the time limit), batch 8 x 512 tokens, remat "full";
+# TRAIN_STEPS exact steps, then as many with imc_linear
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8, 512, 3
 # the plain imc_mvm's (Q, R, T) float64 partials are held TRAIN_CHECK_Q
 # query rows at a time
 TRAIN_CHECK_Q = 256
@@ -4641,12 +4690,446 @@ def phase_train_dcn(torch, np) -> dict:
     return results
 
 
+# phase 9: DB search over a device mesh. The one card holds 2 and then 4
+# processes, a gloo group (NCCL refuses two ranks on one card; gloo stages
+# each collective through the host), each rank serving serve_db's four
+# routes at the iPRG2012 scale over make_debug_mesh's (1, n) mesh: its own
+# block of the bank on the card, the (Q, k) candidates gathered over
+# 'model' and merged. Held request by request against phase 4's
+# one-process runs of the same stream
+MESH_WORLDS = (2, 4)
+MESH_ROUTES = ((False, False), (True, False), (False, True), (True, True))
+MESH_JOIN_S = 600
+MESH_MATMUL = (2048, 4096, 4096)  # collective matmuls' M, K, N, float32
+NCCL_LOCAL_IDENTITIES = 4096
+
+
+def wall_ms(torch, fn, iters: int, warmup: int = 1) -> float:
+    """Host wall-clock ms of ``fn`` (the card synchronized around it): a
+    step of the mesh routes crosses the host through gloo."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def mesh_route(torch, dist, rank: int, world: int, fused_e2e: bool,
+               oms: bool) -> dict:
+    """One rank's ``serve_db`` run of one route over the debug mesh (the
+    kernels' counts set to 0 just before and read just after), then, on
+    the first served batch of 32: the kernel on this rank's block alone on
+    the card (the ranks take turns), the gather + merge of its candidates
+    and the whole route, all ranks together."""
+    import gc
+
+    from repro_torch.launch import serve_db
+    from repro_torch.serve import db_search as DS
+
+    path, kernel, argv = serve_route(fused_e2e, oms)
+    recorder = recording_executor(MAX_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in serve_db.KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    s = serve_db.main(argv, executor_cls=recorder)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in serve_db.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    db, enc, batch, _, _, plan = recorder.got
+    base = db.coords[db.axis] * db.shard_rows
+    if oms:
+        starts = torch.from_numpy(plan.starts).to(batch.device)
+        ends = starts + torch.from_numpy(plan.lens).to(batch.device)
+        tiles = int(plan.num_tiles)
+
+    def local():
+        if oms and fused_e2e:
+            return DS._local_oms_e2e(batch, enc, db.data, base, K,
+                                     db.num_rows, db.dim, starts, ends, tiles)
+        if oms:
+            return DS._local_oms_topk_fused(batch, db.data, base, K,
+                                            db.num_rows, db.dim, starts,
+                                            ends, tiles)
+        if fused_e2e:
+            return DS._local_topk_e2e(batch, enc, db.data, base, K,
+                                      db.num_rows, db.dim)
+        return DS._local_topk_fused(batch, db.data, base, K, db.num_rows,
+                                    db.dim)
+
+    def route():
+        if oms and fused_e2e:
+            return DS.oms_search_levels(db, enc, batch, plan, K,
+                                        fused_e2e=True)
+        if oms:
+            return DS.oms_search_encoded(db, batch, plan, K)
+        if fused_e2e:
+            return DS.search_database_levels(db, enc, batch, K,
+                                             fused_e2e=True)
+        return DS.search_database_encoded(db, batch, K)
+
+    kernel_ms = None
+    for turn in range(world):
+        if turn == rank:
+            kernel_ms = time_ms(torch, local, iters=20, warmup=2)
+        dist.barrier()
+    vals, gidx = local()
+
+    def gather_merge():
+        return DS._gather_merge(db, vals, gidx, K)
+
+    out = {
+        "path": path, "kernel": kernel, "wall_s": wall,
+        "summary": {key: s[key] for key in (
+            "count", "qps", "p50_ms", "p95_ms", "identified", "correct",
+            "library_s", "bank_build_s", "batches", "device_busy_s")},
+        "results": recorder.results, "batches": recorder.batches,
+        "launches": launches, "peak_gib": peak,
+        "block_rows": int(db.data.shape[0]), "on_card": db.data.is_cuda,
+        "num_shards": db.num_shards, "kernel_ms": kernel_ms,
+        "gather_merge_ms": wall_ms(torch, gather_merge, iters=10),
+        "route_ms": wall_ms(torch, route, iters=10)}
+    del recorder.got, db, enc, batch, vals, gidx
+    return out
+
+
+def mesh_matmuls(torch, world: int) -> dict:
+    """``ring_matmul_reduce`` and ``ag_matmul_pipelined`` over the (1, n)
+    mesh on the card (float32, TF32 off): against one ``x @ w`` (largest
+    difference over its largest magnitude) and bit for bit against a
+    replay of their order from this rank's gathered partial products."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.collective_matmul import (
+        ag_matmul_pipelined,
+        ring_matmul_reduce,
+    )
+    from repro_torch.dist.sharding import all_gather_axis, axis_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    M, Kd, N = MESH_MATMUL
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(M, Kd, device="cuda", generator=g)
+    w = torch.randn(Kd, N, device="cuda", generator=g)
+    c = axis_ranks(mesh, "model").index(dist.get_rank())
+    kl, ml, nl = Kd // world, M // world, N // world
+    ring = ring_matmul_reduce(x, w, mesh)
+    ag = ag_matmul_pipelined(x, w, mesh)
+    plain = x @ w
+    parts = all_gather_axis((x[:, c * kl:(c + 1) * kl]
+                             @ w[c * kl:(c + 1) * kl])[None], mesh, "model", 0)
+    acc = parts[c]
+    for t in range(1, world):
+        acc = acc + parts[(c - t) % world]
+    wl = w[:, c * nl:(c + 1) * nl]
+    col = torch.cat([x[s * ml:(s + 1) * ml] @ wl for s in range(world)])
+    replay_ag = all_gather_axis(col, mesh, "model", 1)
+    scale = float(plain.abs().max())
+    out = {
+        "ring_replay_equal": bool(torch.equal(ring, acc)),
+        "ag_replay_equal": bool(torch.equal(ag, replay_ag)),
+        "ring_rel_err": float((ring - plain).abs().max()) / scale,
+        "ag_rel_err": float((ag - plain).abs().max()) / scale,
+        "ring_ms": wall_ms(torch, lambda: ring_matmul_reduce(x, w, mesh), 5),
+        "ag_ms": wall_ms(torch, lambda: ag_matmul_pipelined(x, w, mesh), 5),
+        "plain_ms": time_ms(torch, lambda: x @ w, iters=10)}
+    return out
+
+
+def memoize_library(serve_db) -> None:
+    """Patches ``serve_db``'s library generation in this rank so that a
+    route reuses the library the route before it drew from the same
+    configuration (the two exact routes share one, the two OMS routes
+    another; the draws are deterministic, so only set-up time is saved).
+    The encoded references and decoys are kept on the host, as a sharded
+    ``serve_db`` keeps them; a new configuration drops the old library
+    first."""
+    held: dict = {}
+    generate, encode, decoys = (serve_db.generate_dataset,
+                                serve_db.encode_and_pack,
+                                serve_db.make_decoys)
+
+    def generate_dataset(ms, device):
+        if held.get("ms") != ms:
+            held.clear()
+            held.update(ms=ms, ds=generate(ms, device=device),
+                        decoy_key=object())
+        return held["ds"]
+
+    def make_decoys(spectra):
+        if spectra is held["ds"].spectra and "decoys" in held:
+            return held["decoy_key"]
+        return decoys(spectra)
+
+    def encode_and_pack(spectra, cfg):
+        if spectra is held["decoy_key"]:
+            return held["decoys"]
+        name = "refs" if spectra is held["ds"].spectra else None
+        if name is None and "refs" in held and "decoys" not in held and (
+                spectra.shape == held["ds"].spectra.shape):
+            name = "decoys"
+        if name is None:
+            return encode(spectra, cfg)
+        if name not in held:
+            held[name] = encode(spectra, cfg).cpu()
+        return held[name]
+
+    serve_db.generate_dataset = generate_dataset
+    serve_db.make_decoys = make_decoys
+    serve_db.encode_and_pack = encode_and_pack
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of phase 9, in a process of its own: joins the gloo group
+    through the ``file://`` store, serves every route, runs the collective
+    matmuls and writes its results to ``<out>/rank<r>.pkl`` (a failure
+    writes its traceback to ``<out>/rank<r>.err`` first)."""
+    import pickle
+    import traceback
+
+    out_dir = Path(out)
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.launch import serve_db
+
+        torch.cuda.set_device(0)
+        memoize_library(serve_db)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        try:
+            res = {"routes": [mesh_route(torch, dist, rank, world, e2e, oms)
+                              for e2e, oms in MESH_ROUTES],
+                   "matmuls": mesh_matmuls(torch, world)}
+        finally:
+            dist.destroy_process_group()
+        (out_dir / f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    except BaseException:
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(world: int, out: Path) -> list:
+    """``world`` processes of ``mesh_rank`` (spawned; the kernels were
+    built in this process); joined within MESH_JOIN_S, else killed and
+    failed. Returns each rank's results."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, str(out / "store"), str(out)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        alive = sum(p.is_alive() for p in procs)
+        errs = [f.read_text() for f in sorted(out.glob("rank*.err"))]
+        check(alive == 0 and not errs and all(
+            p.exitcode == 0 for p in procs),
+            f"{world} ranks: {alive} still running after {MESH_JOIN_S} s, "
+            f"exit codes {[p.exitcode for p in procs]}, errors {errs}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [pickle.loads((out / f"rank{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def fdr_replay(torch, np, one: dict, batches: list, oms: bool) -> dict:
+    """The FDR accept mask and match of every request when the mesh run's
+    batches are filtered with the one-process run's scores: request id ->
+    (accept, match)."""
+    import types
+
+    from repro_torch.serve import fdr_route
+
+    decoys = types.SimpleNamespace(num_decoys=IDENTITIES * REPLICATES)
+    out = {}
+    for rids in batches:
+        idx = torch.from_numpy(np.stack([one[r][0] for r in rids]))
+        vals = torch.from_numpy(np.stack([one[r][1] for r in rids]))
+        valid = (torch.tensor([one[r][4] for r in rids]) if oms else None)
+        routed = fdr_route(decoys, idx, vals, fdr=0.01, valid=valid)
+        for i, r in enumerate(rids):
+            out[r] = (bool(routed.accept[i]), int(routed.match[i]))
+    return out
+
+
+def nccl_local_serve(torch) -> dict:
+    """``serve_db --fused`` on a 1-rank NCCL group (a ``file://`` store):
+    ``make_debug_mesh`` gives the (1, 1) mesh and the local route; a
+    smaller library (NCCL_LOCAL_IDENTITIES x 4)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve_db
+
+    argv = ["--hd-dim", str(DIM), "--identities", str(NCCL_LOCAL_IDENTITIES),
+            "--refs-per-identity", str(REPLICATES), "--queries", "512",
+            "--k", str(K), "--max-batch", str(MAX_BATCH), "--device", "cuda",
+            "--fused"]
+    serve_db.topk_hamming.launches = 0
+    text = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            with contextlib.redirect_stdout(text):
+                s = serve_db.main(argv)
+        finally:
+            dist.destroy_process_group()
+    mesh_line = next(line for line in text.getvalue().splitlines()
+                     if line.startswith("mesh:"))
+    return {"mesh_line": mesh_line, "count": s["count"], "qps": s["qps"],
+            "identified": s["identified"],
+            "launches": serve_db.topk_hamming.launches}
+
+
+def phase_mesh(torch, np) -> dict:
+    """Phase 9 (see the module docstring): per world size and route the
+    served requests against the one-process run's (phase 4's, or run here
+    when phase 4 did not run), the FDR accept masks against a replay of
+    the mesh run's batches on the one-process scores, every rank's results
+    against rank 0's, the kernels' launches, each rank's block and peak
+    memory; the collective matmuls; a 1-rank NCCL ``serve_db``. Returns
+    each route's launches and times by world size."""
+    import gc
+    import tempfile
+
+    from repro_torch.launch import serve_db
+
+    t_phase = time.perf_counter()
+    for e2e, oms in MESH_ROUTES:
+        path, _, argv = serve_route(e2e, oms)
+        if path not in ONE_PROCESS:
+            recorder = recording_executor(MAX_BATCH)
+            s = serve_db.main(argv, executor_cls=recorder)
+            ONE_PROCESS[path] = (recorder.results, s["identified"])
+            recorder.got = None
+    nccl = nccl_local_serve(torch)
+    print(json.dumps({"path": "serve_db on a 1-rank NCCL group", **nccl}))
+    check(nccl["mesh_line"] == "mesh: {'data': 1, 'model': 1}"
+          and nccl["launches"] > 0 and nccl["count"] == 512,
+          f"the 1-rank NCCL serve_db: {nccl}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    limit = nvidia_smi("name,power.limit")
+    results = {path: {} for path, _, _ in (serve_route(e, o)
+                                           for e, o in MESH_ROUTES)}
+    for world in MESH_WORLDS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn_ranks(world, Path(tmp))
+        spawn_s = time.perf_counter() - t0
+        for i, (e2e, oms) in enumerate(MESH_ROUTES):
+            got = [r["routes"][i] for r in ranks]
+            path, kernel = got[0]["path"], got[0]["kernel"]
+            one, one_identified = ONE_PROCESS[path]
+            mesh_res = got[0]["results"]
+            check(sorted(mesh_res) == sorted(one),
+                  f"{path} on {world} ranks served other requests than "
+                  f"the one-process run")
+            mismatches = sum(
+                int((mesh_res[r][0] != one[r][0]).sum()
+                    + (mesh_res[r][1] != one[r][1]).sum()
+                    + (mesh_res[r][4] != one[r][4])) for r in one)
+            replay = fdr_replay(torch, np, one, got[0]["batches"], oms)
+            fdr_diff = sum(replay[r] != (mesh_res[r][2], mesh_res[r][3])
+                           for r in one)
+            ranks_diff = sum(
+                int(any((g["results"][r][0] != mesh_res[r][0]).any()
+                        or (g["results"][r][1] != mesh_res[r][1]).any()
+                        or g["results"][r][2:] != mesh_res[r][2:]
+                        for r in mesh_res)) for g in got[1:])
+            replay_identified = sum(m >= 0 for _, m in replay.values())
+            line = {
+                "path": f"mesh {path}", "ranks": world,
+                "processes_on_one_card": True, "backend": "gloo",
+                "queries": got[0]["summary"]["count"],
+                "qps": got[0]["summary"]["qps"],
+                "p50_ms": got[0]["summary"]["p50_ms"],
+                "p95_ms": got[0]["summary"]["p95_ms"],
+                "batches": got[0]["summary"]["batches"],
+                "identified_at_fdr": got[0]["summary"]["identified"],
+                "identified_replay": replay_identified,
+                "identified_one_process": one_identified,
+                "mismatches_vs_one_process": mismatches,
+                "fdr_mismatches_vs_replay": fdr_diff,
+                "ranks_differing_from_rank0": ranks_diff,
+                "block_rows": [g["block_rows"] for g in got],
+                "kernel_ms_a_shard": [g["kernel_ms"] for g in got],
+                "gather_merge_ms": [g["gather_merge_ms"] for g in got],
+                "route_ms": [g["route_ms"] for g in got],
+                "launches": [g["launches"][kernel] for g in got],
+                "peak_gib": [g["peak_gib"] for g in got],
+                "library_s": got[0]["summary"]["library_s"],
+                "bank_build_s": got[0]["summary"]["bank_build_s"],
+                "run_s": [g["wall_s"] for g in got],
+                "card, power limit": limit}
+            print(json.dumps(line))
+            print(f"mesh {path}: {world} ranks on one card, "
+                  f"{line['qps']:.1f} q/s, p50 {line['p50_ms']:.2f} ms, "
+                  f"{kernel} {min(line['kernel_ms_a_shard']):.4f}-"
+                  f"{max(line['kernel_ms_a_shard']):.4f} ms a shard, "
+                  f"gather + merge {max(line['gather_merge_ms']):.3f} ms, "
+                  f"route {max(line['route_ms']):.3f} ms, peak "
+                  f"{max(line['peak_gib']):.2f} GiB a rank; {mismatches} "
+                  f"mismatches vs one process, {fdr_diff} FDR, identified "
+                  f"{line['identified_at_fdr']} (replay {replay_identified},"
+                  f" one process {one_identified})")
+            check(all(g["on_card"] and g["num_shards"] == world
+                      and g["launches"][kernel] > 0 for g in got),
+                  f"mesh {path}: a rank's block off the card, or {kernel} "
+                  f"not launched on a rank: {line['launches']}")
+            check(mismatches == 0 and fdr_diff == 0 and ranks_diff == 0
+                  and line["identified_at_fdr"] == replay_identified,
+                  f"mesh {path} on {world} ranks differs from the "
+                  f"one-process route")
+            results[path][world] = {
+                "launches": line["launches"],
+                "kernel_ms_a_shard": line["kernel_ms_a_shard"],
+                "gather_merge_ms": line["gather_merge_ms"],
+                "route_ms": line["route_ms"], "qps": line["qps"]}
+        mm = [r["matmuls"] for r in ranks]
+        print(json.dumps({"path": "mesh collective matmuls", "ranks": world,
+                          "shape": MESH_MATMUL, "per_rank": mm,
+                          "card, power limit": limit}))
+        check(all(m["ring_replay_equal"] and m["ag_replay_equal"]
+                  and m["ring_rel_err"] < 1e-5 and m["ag_rel_err"] < 1e-5
+                  for m in mm),
+              f"collective matmuls on {world} ranks: {mm}")
+        print(f"mesh: {world} ranks in {spawn_s:.1f} s")
+        del ranks
+    print(f"mesh: phase {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 # phases that run alone after the build with ``--only NAME[,NAME]``
 STANDALONE = {"7c": lambda torch, np: phase_serve_recurrent(torch, np),
               "8c": lambda torch, np: phase_train_recurrent(torch, np),
               "7d": lambda torch, np: phase_serve_encdec_vlm(torch, np),
               "8d": lambda torch, np: phase_train_encdec_vlm(torch, np),
-              "8e": lambda torch, np: phase_train_dcn(torch, np)}
+              "8e": lambda torch, np: phase_train_dcn(torch, np),
+              "9": lambda torch, np: phase_mesh(torch, np)}
 
 
 def main(argv=None) -> int:
@@ -4767,6 +5250,15 @@ def main(argv=None) -> int:
     dec["launches_by_config"].update(phase_serve_encdec_vlm(torch, np))
     imc.update(phase_train_encdec_vlm(torch, np))
     imc.update(phase_train_dcn(torch, np))
+    print(f"mesh: the iPRG2012-scale bank over {MESH_WORLDS} ranks, "
+          f"processes sharing the one card in a gloo group (not a "
+          f"multi-card deployment); {QUERIES} queries per route, as phase "
+          f"4; the 1-rank NCCL serve_db with {NCCL_LOCAL_IDENTITIES} x "
+          f"{REPLICATES} references")
+    mesh = phase_mesh(torch, np)
+    for entry in kernels[:4]:
+        entry["mesh"] = {f"{world} ranks": by_world for world, by_world in
+                         mesh[SERVED_PATHS[entry["name"]]].items()}
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,33 @@
 """The distribution substrate (``repro.dist``): checkpointing, gradient
 compression and the compressed cross-pod all-reduces on
-``torch.distributed``, the pure half of the logical-axis sharding rules,
-and straggler detection (the EWMA monitor and host heartbeats).
+``torch.distributed``, the logical-axis sharding rules and their DTensor
+placements, the collective matmuls, and straggler detection (the EWMA
+monitor and host heartbeats).
 
   * ``checkpoint`` — atomic step directories, keep-N GC, async save;
+  * ``collective_matmul`` — ``ring_matmul_reduce`` and
+    ``ag_matmul_pipelined``, rings of point-to-point steps over a mesh
+    axis's process group with the next partial product issued while a
+    step is in flight;
   * ``compression`` — stochastic-rounding int8 and error-feedback top-k,
     ``dcn_allreduce_tree`` / ``cross_pod_allreduce`` over a mesh axis's
     process group, and the wire accounting behind ``dcn_bytes``;
   * ``sharding`` — ``ShardingRules``, ``logical_to_spec``, the global
-    mesh and the ``pod`` axis size;
+    mesh and the ``pod`` axis size; ``logical_to_sharding``,
+    ``tree_shardings`` and ``constrain`` on DTensor placements;
+    ``baseline_mode``;
   * ``straggler`` — ``StragglerMonitor`` and ``HeartbeatRegistry``.
 
-Placing tensors on a mesh (DTensor shardings, ``constrain``) and the
-collective matmuls are not ported yet (ROADMAP.md, Queue 1 item 5.6b)."""
+The models do not run on DTensors yet: the reference's ``constrain``
+call sites in the LM wait for ROADMAP.md Queue 1 item 5.6c."""
 
-from repro_torch.dist import checkpoint, compression, sharding, straggler
+from repro_torch.dist import (
+    checkpoint,
+    collective_matmul,
+    compression,
+    sharding,
+    straggler,
+)
 
-__all__ = ["checkpoint", "compression", "sharding", "straggler"]
+__all__ = ["checkpoint", "collective_matmul", "compression", "sharding",
+           "straggler"]

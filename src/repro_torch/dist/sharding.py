@@ -1,4 +1,4 @@
-"""Logical-axis sharding rules (``repro.dist.sharding``), the pure half.
+"""Logical-axis sharding rules and placements (``repro.dist.sharding``).
 
 Model code names *logical* axes (``batch``, ``heads``, ``ff``, ``fsdp``,
 ``dcn_pod``, ...); a :class:`ShardingRules` table maps each to zero or
@@ -17,16 +17,26 @@ either as names and sizes. ``set_mesh`` installs a process-global mesh
 and rules, as the reference's does, so the train step can find the
 ``pod`` axis without a mesh threaded through every call.
 
-Nothing here places a tensor. The placing half of the reference
-(``logical_to_sharding``, ``tree_shardings``, ``constrain``,
-``baseline_mode``) maps onto DTensor placements and waits for ROADMAP.md
-Queue 1 item 5.6b.
+The placing half maps a spec onto DTensor placements:
+``logical_to_sharding`` gives one placement a mesh dim (``Shard(d)``
+where the spec puts that mesh axis on tensor dim ``d``, else
+``Replicate()``), ``tree_shardings`` maps it over nested dict / list /
+tuple trees, and ``constrain`` redistributes a ``DTensor`` against the
+global mesh (the reference's ``with_sharding_constraint``).
+
+A spec entry that is a tuple puts several mesh axes on one tensor dim.
+GSPMD orders their blocks by the tuple's order, DTensor by the mesh's
+dim order; the two agree when the tuple follows the mesh's order, as
+every rule of ``DEFAULT_RULES`` and ``RULE_PRESETS`` does. A tuple out of
+the mesh's order raises ``ValueError`` in ``logical_to_sharding``
+rather than being laid out in another block order than the reference's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from collections.abc import Mapping
 from typing import Union
 
@@ -127,6 +137,12 @@ def rules_override(**kw):
         _STATE["rules"] = old
 
 
+def baseline_mode() -> bool:
+    """REPRO_BASELINE=1 disables the tuned sharding-constraint placements
+    (the reference's A/B lever; the port keeps its own copy)."""
+    return os.environ.get("REPRO_BASELINE", "0") == "1"
+
+
 def logical_to_spec(axes: tuple, shape: tuple, mesh,
                     rules: ShardingRules | None = None) -> tuple:
     """Resolve logical axis names against a mesh into the entries of a
@@ -165,3 +181,107 @@ def is_axes_leaf(x) -> bool:
     """True for a logical-axes tuple leaf like ('batch', None, 'heads')."""
     return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
                                         for e in x)
+
+
+def logical_to_sharding(axes: tuple, shape: tuple, mesh,
+                        rules: ShardingRules | None = None) -> tuple:
+    """The DTensor placements of ``logical_to_spec``'s entries, one a mesh
+    dim in the mesh's order: ``Shard(d)`` on each mesh dim the spec puts
+    on tensor dim ``d``, ``Replicate()`` on every other. A tuple entry
+    whose axes are out of the mesh's order raises ``ValueError`` (see the
+    module docstring)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_shape(mesh))
+    placements: list = [Replicate()] * len(names)
+    for d, entry in enumerate(logical_to_spec(axes, shape, mesh, rules)):
+        if entry is None:
+            continue
+        picked = (entry,) if isinstance(entry, str) else tuple(entry)
+        order = [names.index(a) for a in picked]
+        if order != sorted(order):
+            raise ValueError(
+                f"the spec entry {picked} of dim {d} puts mesh axes on one "
+                f"tensor dim out of the mesh's order {tuple(names)}: GSPMD "
+                f"would order its blocks {picked}, DTensor by the mesh")
+        for i in order:
+            placements[i] = Shard(d)
+    return tuple(placements)
+
+
+def tree_shardings(axes_tree, shapes_tree, mesh,
+                   rules: ShardingRules | None = None):
+    """Map a tree (nested dicts, lists, tuples) of logical-axes tuples and
+    a matching tree of tensors (or anything with ``.shape``, or shape
+    tuples) to the same tree of placements."""
+    if is_axes_leaf(axes_tree):
+        shape = getattr(shapes_tree, "shape", shapes_tree)
+        return logical_to_sharding(axes_tree, tuple(shape), mesh, rules)
+    if isinstance(axes_tree, Mapping):
+        return {k: tree_shardings(v, shapes_tree[k], mesh, rules)
+                for k, v in axes_tree.items()}
+    if isinstance(axes_tree, (list, tuple)):
+        out = [tree_shardings(a, s, mesh, rules)
+               for a, s in zip(axes_tree, shapes_tree, strict=True)]
+        return out if isinstance(axes_tree, list) else tuple(out)
+    raise TypeError(f"not an axes tree node: {axes_tree!r}")
+
+
+def constrain(x, *axes):
+    """The reference's ``with_sharding_constraint`` against the global
+    mesh: a ``DTensor`` is redistributed to the placements of ``axes``.
+    With no mesh, or a mesh given as a mapping (no process group), it is
+    the identity. A plain tensor is returned as it is when a mesh is set:
+    it is this rank's own value, and nothing says how it relates to the
+    other ranks' (placing it is ``distribute_tensor``'s work)."""
+    mesh = get_mesh()
+    if mesh is None or isinstance(mesh, Mapping):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, logical_to_sharding(tuple(axes),
+                                                    tuple(x.shape), mesh))
+
+
+# --------------------------------------------------------------------------
+# a mesh axis's process group, in the axis's order
+# --------------------------------------------------------------------------
+
+def axis_ranks(mesh, axis: str) -> list[int]:
+    """The global ranks along ``axis`` through this rank, in ascending
+    coordinate of the axis (the order of its blocks). A mapping mesh
+    carries no ranks: its axis must have size 1, and this rank is taken
+    alone."""
+    sizes = mesh_shape(mesh)
+    if axis not in sizes:
+        raise ValueError(f"the mesh {sizes} has no {axis!r} axis")
+    if isinstance(mesh, Mapping):
+        if sizes[axis] > 1:
+            raise ValueError(
+                f"a mesh given as a mapping carries no process group: the "
+                f"{axis!r} axis of size {sizes[axis]} needs a DeviceMesh")
+        return [0]
+    d = list(sizes).index(axis)
+    coord = list(mesh.get_coordinate())
+    index = tuple(slice(None) if i == d else c for i, c in enumerate(coord))
+    return [int(r) for r in mesh.mesh[index].tolist()]
+
+
+def all_gather_axis(t, mesh, axis: str, dim: int):
+    """Every rank's ``t`` along ``axis``, concatenated on ``dim`` in
+    ascending coordinate of the axis (read from the mesh, not from the
+    group's rank order). ``t`` has one shape on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    ranks = axis_ranks(mesh, axis)
+    if len(ranks) == 1:
+        return t
+    group = mesh.get_group(axis)
+    t = t.contiguous()
+    bufs = [torch.empty_like(t) for _ in ranks]
+    dist.all_gather(bufs, t, group=group)
+    by_rank = {dist.get_global_rank(group, i): b for i, b in enumerate(bufs)}
+    return torch.cat([by_rank[r] for r in ranks], dim=dim)

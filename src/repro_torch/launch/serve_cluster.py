@@ -41,7 +41,9 @@ from repro_torch.core.hd.clustering import (
     incorrect_clustering_ratio,
 )
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import mesh_shape
 from repro_torch.kernels.hamming_pop import hamming_pop
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.serve import (
     BankRegistry,
     ClusteringConfig,
@@ -103,6 +105,8 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         num_bins = 1024
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {dev} ({name})")
+    # the clustering state has no mesh (as in the reference): one device
+    print(f"mesh: {mesh_shape(make_debug_mesh(device_type=dev.type))}")
 
     cfg = SpecPCMConfig(hd_dim=dim, mlc_bits=1, num_levels=16, ideal=True,
                         seed=args.seed)

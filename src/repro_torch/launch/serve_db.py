@@ -1,5 +1,5 @@
 """Multi-tenant DB-search serving launcher, exact or open-modification,
-in PyTorch, on one card.
+in PyTorch, on one card or over a device mesh.
 
 HD-encodes one synthetic spectral library (+ m/z-reversed decoys) per
 tenant, registers them in a lazy
@@ -35,6 +35,18 @@ only its window (``query - ref`` in ``(-tolerance, open-tol)``), through
 the banded twins of those kernels, and the run prints its candidate and
 scanned fractions. Runs on CUDA unless ``--device cpu``.
 
+**Over a mesh.** The run prints ``mesh: {...}`` from
+:func:`~repro_torch.launch.mesh.make_debug_mesh`. Under ``torchrun``
+(``WORLD_SIZE`` > 1) it joins the process group from the environment
+(NCCL on CUDA; gloo on the CPU, and where a node runs more ranks than it
+has cards, which NCCL refuses) and
+serves flush-sync over the debug mesh: every bank is row-sharded over
+``model`` (each rank keeps its own block on its device; the library's
+rows wait on the host), queries split over ``data``, every rank draws
+the same traffic from ``--seed`` and the ranks agree on each flush, and
+rank 0 alone prints. ``--continuous`` over more than one rank raises
+``NotImplementedError``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced --fused
   PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced --oms \\
@@ -44,24 +56,32 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced \\
       --device cpu --fused --continuous --append 0.25 \\
       --compact-threshold 0.1
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
+      repro_torch.launch.serve_db --reduced --device cpu --fused
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import SpecPCMConfig, encode_and_pack
 from repro_torch.core.hd.encoding import quantize_levels
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import mesh_shape
 from repro_torch.kernels.encode_search import (
     encode_search,
     encode_search_banded,
 )
 from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.serve import (
     BankRegistry,
     DBSearchServer,
@@ -175,6 +195,54 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     if not 0.0 <= args.append < 1.0:
         raise SystemExit("--append must be in [0, 1)")
     dev = resolve_device(args.device)
+    own_group = _join_group(dev)
+    try:
+        # rank 0 alone reports
+        quiet = dist.is_initialized() and dist.get_rank() > 0
+        with (contextlib.redirect_stdout(io.StringIO()) if quiet
+              else contextlib.nullcontext()):
+            return _serve(args, dev, executor_cls)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _join_group(dev: torch.device) -> bool:
+    """Joins the process group ``torchrun`` describes (``WORLD_SIZE`` > 1)
+    unless one is initialized already; returns whether it started one.
+    On CUDA each rank takes the card ``LOCAL_RANK`` modulo the cards
+    present, and the backend is NCCL unless the node runs more ranks
+    than it has cards (NCCL refuses two ranks on one card): then, as on
+    the CPU, gloo."""
+    if (int(os.environ.get("WORLD_SIZE", "1")) <= 1
+            or dist.is_initialized()):
+        return False
+    backend = "gloo"
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % cards)
+        if int(os.environ.get("LOCAL_WORLD_SIZE", "1")) <= cards:
+            backend = "nccl"
+    dist.init_process_group(backend, init_method="env://")
+    return True
+
+
+def _serve(args, dev: torch.device, executor_cls):
+    """The launcher's run on this rank (the only one without a process
+    group); returns the server summary with the launcher's keys."""
+    mesh = make_debug_mesh(device_type=dev.type)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if args.continuous and world > 1:
+        raise NotImplementedError(
+            "--continuous over more than one rank is not ported: each "
+            "rank's scheduler forms batches from its own timing, and batches "
+            "that differ across ranks break the collectives (ROADMAP.md "
+            "Queue 1 item 5.6d)")
+    # banks row-shard over 'model': the library's rows wait on the host
+    sharded = mesh_shape(mesh)["model"] > 1
+
     if args.reduced:
         dim = args.hd_dim or 512
         n_id = args.identities or 48
@@ -191,13 +259,15 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
         num_bins = 1024
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {dev} ({name})")
+    print(f"mesh: {mesh_shape(mesh)}"
+          + (f" over {world} ranks" if world > 1 else ""))
 
     # SLC (1-bit) encoding keeps the HVs bipolar so the bank can be
     # bit-packed whenever D % 32 == 0.
     cfg = SpecPCMConfig(hd_dim=dim, mlc_bits=1, num_levels=16, ideal=True,
                         seed=args.seed)
     pack = False if args.no_pack else "auto"
-    registry = BankRegistry(pack=pack, max_banks=args.max_banks,
+    registry = BankRegistry(mesh=mesh, pack=pack, max_banks=args.max_banks,
                             fused=args.fused)
 
     # OMS traffic: modified queries carry a heavier precursor (a
@@ -209,6 +279,10 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     datasets, query_pools, precursor_pools = {}, {}, {}
     holdouts = {}  # tenant -> (refs, decoys, precursor) appended mid-run
     t0 = time.perf_counter()
+    # on a sharded mesh the ranks generate in turn, each moving its
+    # library to the host and freeing the device before the next
+    for _ in range(rank if sharded else 0):
+        dist.barrier()
     for t in range(args.tenants):
         tenant = f"tenant{t}"
         ms = SyntheticMSConfig(num_identities=n_id,
@@ -226,10 +300,12 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
             # restores the original row order: the identity arrays keep
             # indexing matches directly
             holdouts[tenant] = (
-                refs_hv[keep:], decoys_hv[keep:],
+                refs_hv[keep:].clone(), decoys_hv[keep:].clone(),
                 None if prec is None else prec[keep:])
             refs_hv, decoys_hv = refs_hv[:keep], decoys_hv[:keep]
             prec = None if prec is None else prec[:keep]
+        if sharded:
+            refs_hv, decoys_hv = refs_hv.cpu(), decoys_hv.cpu()
         registry.register(tenant, refs_hv, decoys=decoys_hv, pin=t == 0,
                           precursor=prec)
         qs = generate_query_set(ds, ms, num_queries=n_q,
@@ -246,6 +322,11 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
                                                   cfg).cpu().numpy()
         del ds, qs, refs_hv, decoys_hv
     _sync(dev)
+    if sharded:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        for _ in range(world - 1 - rank):
+            dist.barrier()
     library_s = time.perf_counter() - t0
     print(f"libraries: {args.tenants} x {n_id * per_id} spectra (+ as many "
           f"decoys) and their query pools generated and encoded in "
@@ -283,7 +364,9 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     bank_build_s = time.perf_counter() - t0
     print(f"bank tenant0: {db0.num_rows} rows ({db0.num_decoys} decoys), "
           f"{db0.data.numel() * db0.data.element_size() / 2**20:.1f} MiB "
-          f"on {dev}, built in {bank_build_s:.3f} s")
+          f"on {dev}" + (f" on each of {db0.num_shards} model shards"
+                         if db0.mesh is not None else "")
+          + f", built in {bank_build_s:.3f} s")
     warm_prec = (np.sort(np.resize(precursor_pools["tenant0"], max_batch))
                  if args.oms else None)
     if args.fused_e2e:

@@ -22,7 +22,7 @@ Usage:
 The flags are the reference's plus ``--device`` (default ``cuda``; asking
 for it without a card raises). ``--mesh`` takes only ``debug``, here one
 device (``single`` and ``multi`` raise, naming ROADMAP.md Queue 1 item
-5.6b). Parameters are the port's own draw from seed 0. Each logged step
+5.6c). Parameters are the port's own draw from seed 0. Each logged step
 prints its loss, grad_norm and the mean wall seconds a step (the log line
 reads the loss back, which waits for the device).
 """
@@ -90,7 +90,7 @@ def main(argv=None):
     if args.mesh != "debug":
         raise NotImplementedError(
             f"--mesh {args.mesh} spans many devices; the port trains on one "
-            f"(ROADMAP.md, Queue 1 item 5.6b)")
+            f"(ROADMAP.md, Queue 1 item 5.6c)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -187,13 +187,21 @@ class BankRegistry:
     to the compacted tenant (every other tenant's built bank and the
     content-keyed query-HV cache are unaffected). A batch already in
     flight keeps the bank and delta it was dispatched with.
+
+    With ``mesh=`` every bank is built row-sharded over its ``axis``
+    (:func:`~repro_torch.serve.db_search.shard_database`): each rank holds
+    its own block, on the mesh's device, and a tenant's delta lives there
+    too. The specs' rows may stay on the host.
     """
 
-    def __init__(self, *, pack: bool | str = "auto",
+    def __init__(self, *, mesh=None, axis: str = "model",
+                 pack: bool | str = "auto",
                  max_banks: int | None = None, fused: bool = False,
                  emulate_shards: int | None = None):
         if max_banks is not None and max_banks < 1:
             raise ValueError(f"max_banks must be >= 1, got {max_banks}")
+        self.mesh = mesh
+        self.axis = axis
         self.pack = pack
         self.max_banks = max_banks
         self.fused = fused
@@ -260,6 +268,7 @@ class BankRegistry:
                     f"evicted; re-register or adopt it again")
             from repro_torch.serve.db_search import shard_database
             db = shard_database(spec.refs, decoys=spec.decoys,
+                                mesh=self.mesh, axis=self.axis,
                                 pack=self.pack, fused=self.fused,
                                 emulate_shards=self.emulate_shards,
                                 precursor=spec.precursor,
@@ -293,7 +302,7 @@ class BankRegistry:
         if delta is None:
             from repro_torch.serve.delta import DeltaBank
             delta = DeltaBank(spec.dim, oms=spec.precursor is not None,
-                              device=_device_of(spec.refs))
+                              device=self._bank_device(spec.refs))
             self._deltas[tenant] = delta
         rows = delta.append(refs, decoys, precursor=precursor,
                             decoy_precursor=decoy_precursor)
@@ -343,15 +352,15 @@ class BankRegistry:
         if d is None:
             return False
         spec = self._specs[tenant]
-        dev = d.device
-        refs = torch.cat([_rows_on(spec.refs, dev), d.refs])
+        dev = _device_of(spec.refs)
+        refs = torch.cat([_rows_on(spec.refs, dev), d.refs.to(dev)])
         n_dec = 0 if spec.decoys is None else int(spec.decoys.shape[0])
         decoys = None
         if n_dec or d.num_decoys:
             old_dec = (_rows_on(spec.decoys, dev) if n_dec else
                        torch.zeros((0, spec.dim), dtype=torch.int8,
                                    device=dev))
-            decoys = torch.cat([old_dec, d.decoys])
+            decoys = torch.cat([old_dec, d.decoys.to(dev)])
             del old_dec
         precursor = decoy_precursor = None
         if spec.precursor is not None:
@@ -365,7 +374,8 @@ class BankRegistry:
                 decoy_precursor = np.concatenate(
                     [base_dprec, d.decoy_precursor])
         from repro_torch.serve.db_search import shard_database
-        db = shard_database(refs, decoys=decoys, pack=self.pack,
+        db = shard_database(refs, decoys=decoys, mesh=self.mesh,
+                            axis=self.axis, pack=self.pack,
                             fused=self.fused,
                             emulate_shards=self.emulate_shards,
                             precursor=precursor,
@@ -382,6 +392,16 @@ class BankRegistry:
         self.compactions += 1
         self._evict_cold()
         return True
+
+    def _bank_device(self, rows) -> torch.device:
+        """Where a tenant's banks live: the mesh's device when its axis is
+        sharded, else the device of the spec's rows."""
+        from repro_torch.dist.sharding import mesh_shape
+        if (self.mesh is not None
+                and mesh_shape(self.mesh).get(self.axis, 1) > 1):
+            from repro_torch.serve.db_search import _mesh_device
+            return _mesh_device(self.mesh)
+        return _device_of(rows)
 
     def _evict_cold(self) -> None:
         if self.max_banks is None:

@@ -2,11 +2,24 @@
 k-merge, open-modification search, target-decoy FDR, micro-batched
 multi-tenant serving.
 
-Counterpart of ``repro.serve.db_search`` without its mesh. One card
-holds the whole bank, so there is no mesh: a bank is searched whole, or
+Counterpart of ``repro.serve.db_search``. A bank is searched whole, or
 split into ``emulate_shards`` row blocks that run the identical
-local-top-k / merge pipeline one after another (the reference's tier-1
-stand-in for its shard_map path).
+local-top-k / merge pipeline one after another on one device (the
+reference's tier-1 stand-in for its shard_map path), or row-sharded over
+the ``model`` axis of a device mesh (``shard_database(mesh=)``).
+
+**The mesh routes.** ``mesh`` is a ``DeviceMesh`` over a
+``torch.distributed`` process group (:mod:`repro_torch.launch.mesh`),
+one process a rank, every rank running the same calls on the same
+queries (the reference's one controller becomes SPMD). When the mesh's
+``axis`` has size n > 1 each rank keeps only its own block of
+``shard_rows`` rows of the padded bank, on the mesh's device. Each route
+then (1) splits the queries, and the OMS plan's bands, over ``data``
+when ``Q % data_n == 0`` (the reference's rule), (2) runs the same
+per-shard top-k on this rank's block, (3) gathers the (Q_local, k)
+values and global rows over the ``model`` process group in ascending
+model coordinate, (4) merges, and (5) gathers over ``data``, so every
+rank returns the full (Q, k). A size-1 axis takes the local route.
 
 **Routes.** Per shard, the unfused route materialises the (Q, rows)
 score matrix and takes :func:`topk_value_desc_index_asc`; the fused
@@ -60,7 +73,8 @@ import collections
 import dataclasses
 import functools
 import time
-from typing import Callable, Sequence
+from collections.abc import Mapping
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -80,6 +94,7 @@ from repro_torch.core.hd.similarity import (
     topk_value_desc_index_asc,
 )
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import all_gather_axis, mesh_shape
 from repro_torch.kernels.topk_hamming.ops import BANDED_BLOCK_Q
 from repro_torch.serve.cache import BankRegistry, QueryHVCache
 from repro_torch.serve.clustering import ClusteringConfig, StreamingClusterer
@@ -211,6 +226,11 @@ class ShardedDatabase:
     sorted by precursor mass; ``oms.perm`` maps sorted rows back to the
     original rows, and ``perm`` is its copy on the bank's device. The OMS
     routes translate their results, so callers see original rows.
+
+    On a mesh (``mesh`` set, its ``axis`` of size ``num_shards`` > 1)
+    ``data`` holds this rank's block alone: rows ``[c * shard_rows, (c +
+    1) * shard_rows)`` of the padded bank, where ``c = coords[axis]``;
+    ``coords`` are this rank's coordinates on every mesh axis.
     """
 
     data: torch.Tensor
@@ -223,16 +243,54 @@ class ShardedDatabase:
     fused: bool = False
     oms: PrecursorIndex | None = None
     perm: torch.Tensor | None = None
+    mesh: Any = None
+    axis: str = "model"
+    coords: dict[str, int] | None = None
 
     @property
     def num_shards(self) -> int:
-        return self.emulated_shards
+        if self.mesh is None:
+            return self.emulated_shards
+        return mesh_shape(self.mesh)[self.axis]
 
     def shard(self, s: int) -> torch.Tensor:
+        if self.mesh is not None:
+            raise ValueError("a mesh bank holds this rank's block alone")
         return self.data[s * self.shard_rows:(s + 1) * self.shard_rows]
 
 
+def _check_mesh(mesh) -> None:
+    """A mesh is a ``DeviceMesh`` with named dims or a ``{name: size}``
+    mapping; anything else raises ``TypeError``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, (DeviceMesh, Mapping)):
+        raise TypeError(f"mesh must be a DeviceMesh or a {{axis: size}} "
+                        f"mapping, got {type(mesh).__name__}")
+
+
+def _mesh_rank(mesh, axis: str) -> tuple[dict[str, int], torch.device]:
+    """This rank's coordinates on ``mesh`` and the mesh's device (the
+    current CUDA device for a ``cuda`` mesh). A mapping carries no
+    process group, so its axis of size > 1 raises."""
+    if isinstance(mesh, Mapping):
+        raise ValueError(
+            f"a mesh given as a mapping carries no process group: the "
+            f"{axis!r} axis of size {mesh_shape(mesh)[axis]} needs a "
+            f"DeviceMesh")
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())), (
+        _mesh_device(mesh))
+
+
+def _mesh_device(mesh) -> torch.device:
+    """A ``DeviceMesh``'s device on this rank (the current CUDA device for
+    a ``cuda`` mesh)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
+                   mesh=None, axis: str = "model",
                    pack: bool | str = "auto",
                    emulate_shards: int | None = None,
                    fused: bool = False,
@@ -243,9 +301,14 @@ def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
     on their device.
 
     decoys: optional (Rd, D) decoy HVs, stored *before* the targets.
+    mesh: a ``DeviceMesh`` (or a ``{name: size}`` mapping). When its
+      ``axis`` has size n > 1 the bank is row-sharded over it: this rank
+      gathers, packs and keeps only its own block of the padded bank, on
+      the mesh's device (the rows may stay on the host until then). A
+      size-1 axis, or none, takes the local route.
     pack: True / False / "auto" (bit-pack whenever D % 32 == 0).
     emulate_shards: split the bank into this many equal row blocks,
-      searched one after another and merged.
+      searched one after another and merged (no mesh axis of size > 1).
     fused: search each shard with the ``topk_hamming`` kernel (the
       ``topk_hamming_banded`` kernel on the OMS routes).
     precursor: optional (R,) target precursor masses; enables the OMS
@@ -254,6 +317,13 @@ def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
     decoy_precursor: the decoys' masses; defaults to ``precursor``
       (m/z-reversed decoys keep their target's mass).
     """
+    mesh_n = 1
+    if mesh is not None:
+        _check_mesh(mesh)
+        mesh_n = mesh_shape(mesh).get(axis, 1)
+    emu = int(emulate_shards or 1)
+    if emu > 1 and mesh_n > 1:
+        raise ValueError("emulate_shards requires no (or size-1) mesh axis")
     dim = int(refs.shape[-1])
     blocks = [refs]
     num_decoys = 0
@@ -278,33 +348,65 @@ def shard_database(refs: torch.Tensor, *, decoys: torch.Tensor | None = None,
                 raise ValueError(f"decoy_precursor has {dprec.shape[0]} "
                                  f"entries for {num_decoys} decoys")
         oms_index = build_precursor_index(prec, dprec)
-        # each block sorts within itself: permute block by block
-        bounds = oms_index.block_bounds
-        blocks = [b[torch.from_numpy(
-            oms_index.perm[bounds[i]:bounds[i + 1]] - bounds[i]).to(
-                b.device, torch.int64)] for i, b in enumerate(blocks)]
     if pack == "auto":
         packed = dim % 32 == 0
     else:
         packed = bool(pack)
         if packed and dim % 32 != 0:
             raise ValueError(f"pack=True requires D % 32 == 0, got D={dim}")
-    # packed block by block: the unpacked bank is never concatenated
-    store = torch.cat([bitpack_bipolar(b) if packed else b.to(torch.int8)
-                       for b in blocks])
-    n = int(emulate_shards or 1)
+    n = mesh_n if mesh_n > 1 else emu
     shard_rows = -(-num_rows // n)
     if oms_index is not None and n > 1:
+        # tile-aligned shard bases: a band clipped to a shard spans no
+        # more tiles than the plan's budget
         shard_rows = -(-shard_rows // _OMS_ALIGN) * _OMS_ALIGN
-    pad_rows = n * shard_rows - num_rows
-    if pad_rows:
-        store = nnf.pad(store, (0, 0, 0, pad_rows))
+    coords, dev = None, refs.device
+    lo, hi, held = 0, num_rows, n * shard_rows
+    if mesh_n > 1:
+        coords, dev = _mesh_rank(mesh, axis)
+        lo = coords[axis] * shard_rows
+        hi, held = min(lo + shard_rows, num_rows), shard_rows
+    store = _stored_rows(blocks, oms_index, lo, hi, packed, dim, dev)
+    if held > store.shape[0]:
+        store = nnf.pad(store, (0, 0, 0, held - store.shape[0]))
     return ShardedDatabase(
         data=store.contiguous(), num_rows=num_rows, num_decoys=num_decoys,
-        dim=dim, shard_rows=shard_rows, packed=packed, emulated_shards=n,
-        fused=bool(fused), oms=oms_index,
+        dim=dim, shard_rows=shard_rows, packed=packed,
+        emulated_shards=1 if mesh_n > 1 else n, fused=bool(fused),
+        oms=oms_index,
         perm=None if oms_index is None else torch.from_numpy(
-            oms_index.perm).to(store.device))
+            oms_index.perm).to(store.device),
+        mesh=mesh if mesh_n > 1 else None, axis=axis, coords=coords)
+
+
+def _stored_rows(blocks: list, oms_index: PrecursorIndex | None, lo: int,
+                 hi: int, packed: bool, dim: int, device: torch.device
+                 ) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of the stored bank (the blocks concatenated, each
+    sorted within itself by ``oms_index.perm`` when given), moved to
+    ``device`` and packed (or cast to int8) block by block: the unpacked
+    rows are never concatenated, and rows outside the range never leave
+    their device."""
+    parts = []
+    b0 = 0
+    for b in blocks:
+        b1 = b0 + int(b.shape[0])
+        a, z = max(lo, b0), min(hi, b1)
+        if a < z:
+            if oms_index is None:
+                rows = b[a - b0:z - b0]
+            else:
+                rows = b[torch.from_numpy(oms_index.perm[a:z] - b0).to(
+                    b.device, torch.int64)]
+            rows = rows.to(device)
+            parts.append(bitpack_bipolar(rows) if packed
+                         else rows.to(torch.int8))
+        b0 = b1
+    if not parts:
+        return torch.zeros((0, dim // 32 if packed else dim),
+                           dtype=torch.int32 if packed else torch.int8,
+                           device=device)
+    return torch.cat(parts)
 
 
 def encode_queries(db: ShardedDatabase, queries: torch.Tensor
@@ -323,19 +425,54 @@ def _check_k(db: ShardedDatabase, k: int) -> None:
             f"a smaller k (local top-k needs k candidates per shard)")
 
 
-def _over_shards(db: ShardedDatabase, k: int, local):
-    """Runs ``local(refs_local, base) -> (vals, global_idx)`` per shard and
-    merges; a single shard needs no merge."""
+_ALL = slice(None)
+
+
+def _over_shards(db: ShardedDatabase, k: int, num_queries: int, local):
+    """Runs ``local(refs_local, base, rows) -> (vals, global_idx)`` per
+    shard, on the queries ``rows`` (a slice), and merges; a single shard
+    needs no merge. On a mesh this rank runs its own shard and the
+    results travel as the module docstring says."""
+    if db.mesh is not None:
+        return _over_mesh(db, k, num_queries, local)
     if db.num_shards == 1:
-        vals, gidx = local(db.data, 0)
+        vals, gidx = local(db.data, 0, _ALL)
         return gidx, vals
     vals_blocks, idx_blocks = [], []
     for s in range(db.num_shards):
-        vals, gidx = local(db.shard(s), s * db.shard_rows)
+        vals, gidx = local(db.shard(s), s * db.shard_rows, _ALL)
         vals_blocks.append(vals)
         idx_blocks.append(gidx)
     return _merge_topk(torch.cat(vals_blocks, dim=1),
                        torch.cat(idx_blocks, dim=1), k)
+
+
+def _over_mesh(db: ShardedDatabase, k: int, num_queries: int, local):
+    """The process-group branch of :func:`_over_shards`: this rank's
+    queries (split over ``data`` when ``num_queries % data_n == 0``) on
+    this rank's block, gathered over ``db.axis`` in ascending coordinate,
+    merged, and gathered over ``data``."""
+    data_n = mesh_shape(db.mesh).get("data", 1)
+    split = db.axis != "data" and data_n > 1 and num_queries % data_n == 0
+    rows = _ALL
+    if split:
+        ql = num_queries // data_n
+        d = db.coords["data"]
+        rows = slice(d * ql, (d + 1) * ql)
+    vals, gidx = local(db.data, db.coords[db.axis] * db.shard_rows, rows)
+    idx, vals = _gather_merge(db, vals, gidx, k)
+    if split:
+        idx, vals = all_gather_axis(torch.stack([idx, vals]), db.mesh,
+                                    "data", 1).unbind(0)
+    return idx, vals
+
+
+def _gather_merge(db: ShardedDatabase, vals, gidx, k: int):
+    """This rank's (Q, k) candidates, values and global rows stacked into
+    one int32 tensor, gathered over ``db.axis`` in ascending coordinate
+    (one collective), then merged: (idx, vals)."""
+    both = all_gather_axis(torch.stack([vals, gidx]), db.mesh, db.axis, 2)
+    return _merge_topk(both[0], both[1], k)
 
 
 def search_database_encoded(db: ShardedDatabase, q_enc: torch.Tensor, k: int
@@ -344,15 +481,15 @@ def search_database_encoded(db: ShardedDatabase, q_enc: torch.Tensor, k: int
     (indices (Q, k), scores (Q, k)) over global bank rows."""
     _check_k(db, k)
 
-    def local(refs_local, base):
+    def local(refs_local, base, rows):
         if db.fused:
-            return _local_topk_fused(q_enc, refs_local, base, k, db.num_rows,
-                                     db.dim)
-        scores = _local_scores(q_enc, refs_local, dim=db.dim,
+            return _local_topk_fused(q_enc[rows], refs_local, base, k,
+                                     db.num_rows, db.dim)
+        scores = _local_scores(q_enc[rows], refs_local, dim=db.dim,
                                packed=db.packed)
         return _local_topk(scores, base, k, db.num_rows)
 
-    return _over_shards(db, k, local)
+    return _over_shards(db, k, q_enc.shape[0], local)
 
 
 def search_database(db: ShardedDatabase, queries: torch.Tensor, k: int
@@ -373,14 +510,14 @@ def sharded_topk_search(queries: torch.Tensor, refs: torch.Tensor, k: int,
     ``topk_hamming`` kernel over the whole bank when ``fused``. All routes
     give the same (indices, scores), tie order included.
 
-    ``mesh`` / ``axis`` name the reference's shard_map route; the port
-    runs on one card and has none (ROADMAP Queue 1 item 5.6b), so a mesh
-    raises."""
+    With ``mesh`` (a ``DeviceMesh``, or a ``{name: size}`` mapping), the
+    bank is row-sharded over ``axis`` (:func:`shard_database`) and every
+    rank returns the full result; anything else passed as ``mesh`` raises
+    ``TypeError``."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"sharded_topk_search over a mesh (axis {axis!r}) is not ported: "
-            f"the port has no shard_map (ROADMAP Queue 1 item 5.6b); pass "
-            f"num_shards to emulate shards on one device")
+        db = shard_database(refs, mesh=mesh, axis=axis, pack=pack,
+                            fused=fused)
+        return search_database(db, queries, k)
     if num_shards is None or num_shards <= 1:
         if not fused:
             return topk_search(queries, refs, k)
@@ -456,9 +593,11 @@ def _oms_search_inner(db: ShardedDatabase, q_enc: torch.Tensor,
         raise ValueError("bank was built without precursor=")
     _check_k(db, k)
     starts, ends = bands
-    return _over_shards(db, k, lambda refs_local, base: _local_oms(
-        q_enc, refs_local, base, k, db.num_rows, db.dim, db.packed, db.fused,
-        starts, ends, int(plan.num_tiles)))
+    return _over_shards(db, k, q_enc.shape[0], lambda refs_local, base, rows:
+                        _local_oms(q_enc[rows], refs_local, base, k,
+                                   db.num_rows, db.dim, db.packed, db.fused,
+                                   starts[:, rows], ends[:, rows],
+                                   int(plan.num_tiles)))
 
 
 def _oms_finish(db: ShardedDatabase, idx, vals, starts, ends):
@@ -567,8 +706,9 @@ def search_database_levels(db: ShardedDatabase, enc: QueryEncoder,
         hv = encode_levels_batch(levels, enc.id_hvs, enc.level_hvs)
         return search_database_encoded(db, encode_queries(db, hv), k)
     _check_k(db, k)
-    return _over_shards(db, k, lambda refs_local, base: _local_topk_e2e(
-        levels, enc, refs_local, base, k, db.num_rows, db.dim))
+    return _over_shards(db, k, levels.shape[0], lambda refs_local, base, rows:
+                        _local_topk_e2e(levels[rows], enc, refs_local, base,
+                                        k, db.num_rows, db.dim))
 
 
 def _local_oms_e2e(levels, enc: QueryEncoder, refs_local, base: int, k: int,
@@ -606,9 +746,10 @@ def oms_search_levels(db: ShardedDatabase, enc: QueryEncoder,
                                   arena=arena)
     _check_k(db, k)
     starts, ends = _plan_bands(db, plan, arena)
-    idx, vals = _over_shards(db, k, lambda refs_local, base: _local_oms_e2e(
-        levels, enc, refs_local, base, k, db.num_rows, db.dim, starts, ends,
-        int(plan.num_tiles)))
+    idx, vals = _over_shards(
+        db, k, levels.shape[0], lambda refs_local, base, rows: _local_oms_e2e(
+            levels[rows], enc, refs_local, base, k, db.num_rows, db.dim,
+            starts[:, rows], ends[:, rows], int(plan.num_tiles)))
     return _oms_finish(db, idx, vals, starts, ends)
 
 
@@ -1072,6 +1213,27 @@ class SearchExecutor:
 _NUMPY_DTYPE = {torch.int32: np.int32, torch.int8: np.int8}
 
 
+def _ranks(mesh) -> int:
+    """Ranks of a ``DeviceMesh`` (1 for no mesh or a mapping)."""
+    if mesh is None or isinstance(mesh, Mapping):
+        return 1
+    return int(mesh.mesh.numel())
+
+
+def _any_rank(mesh, flag: bool) -> bool:
+    """True on every rank when ``flag`` is True on any rank of ``mesh``
+    (one all-reduce over the default group, which the mesh must span)."""
+    import torch.distributed as dist
+    if _ranks(mesh) != dist.get_world_size():
+        raise ValueError(f"the mesh spans {_ranks(mesh)} of "
+                         f"{dist.get_world_size()} ranks; serving over it "
+                         f"needs all of them")
+    t = torch.tensor([int(flag)], dtype=torch.int32,
+                     device=_mesh_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 class DBSearchServer:
     """Micro-batched, multi-tenant DB-search server.
 
@@ -1115,6 +1277,13 @@ class DBSearchServer:
     :class:`ClusterAssignment` objects and its centroid snapshots live on
     ``cluster_device``. Clustering tenants need no bank: a server over an
     empty :class:`BankRegistry` serves clustering alone.
+
+    **Over a mesh.** With banks sharded over a multi-rank mesh
+    (``BankRegistry(mesh=)``), every rank runs the same server on the same
+    submissions; ``step`` agrees each flush across the ranks, so they
+    dispatch the same batches and meet in the routes' collectives.
+    Continuous mode raises there (``NotImplementedError``): each rank's
+    scheduler would admit by its own timing.
 
     ``executor_cls`` is the :class:`SearchExecutor` subclass built on this
     server (to observe or replace batches).
@@ -1183,6 +1352,15 @@ class DBSearchServer:
                                else resolve_device(cluster_device))
         self.clusterers: dict[str, StreamingClusterer] = {}
         self._cluster_requests = 0
+        # the mesh the banks are sharded over: its ranks must take the
+        # same batches, so flush decisions are agreed across them
+        self.mesh = self.banks.mesh if self.db is None else self.db.mesh
+        if continuous and _ranks(self.mesh) > 1:
+            raise NotImplementedError(
+                "continuous serving over a multi-rank mesh is not ported: "
+                "each rank's scheduler would form batches from its own "
+                "timing, and batches that differ across ranks break the "
+                "collectives (ROADMAP.md Queue 1 item 5.6d)")
         self.executor = executor_cls(self)
         self.scheduler = (ContinuousScheduler(self.queue, self.executor,
                                               num_slots=num_slots,
@@ -1372,11 +1550,19 @@ class DBSearchServer:
         compactions run first: compaction happens between batches, never
         under one, so no queued request is dropped (slots already in
         flight keep their pre-compaction bank and delta, whose merged
-        results are bit-identical anyway)."""
+        results are bit-identical anyway).
+
+        Over a multi-rank mesh every rank must call ``step`` alike, with
+        the same requests submitted in the same order: whether to flush is
+        agreed across the ranks (any rank's flush policy firing flushes
+        all), so they take the same batch."""
         self._maybe_compact()
         if self.scheduler is not None:
             return self.scheduler.step(block=force)
-        if not (self.queue.ready() or (force and len(self.queue))):
+        flush = self.queue.ready() or (force and len(self.queue) > 0)
+        if _ranks(self.mesh) > 1:
+            flush = _any_rank(self.mesh, flush)
+        if not flush:
             return []
         reqs = self.queue.take_batch()
         if not reqs:

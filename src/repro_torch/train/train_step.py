@@ -26,7 +26,7 @@ share that math:
   its gradients and sums them with ``all_reduce`` over the ``pod`` dim's
   process group (``dcn_allreduce_tree``), and the loss likewise. Ranks
   along the mesh's other dims repeat their pod's work: in-pod sharding is
-  ROADMAP.md Queue 1 item 5.6b.
+  ROADMAP.md Queue 1 item 5.6c.
 
 The compressors see the reference's tree (``transformer.tree_leaf_groups``):
 a stacked layer leaf is compressed as one leaf (one int8 scale, one top-k

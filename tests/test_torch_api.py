@@ -9,7 +9,8 @@
 * ``sharded_topk_search`` gives the reference's indices and scores,
   exactly and in the same tie order, on its emulated-shard, single-bank
   and fused routes (the cases of ``tests/test_serve.py`` and
-  ``tests/test_topk_fused.py``), and raises for a mesh;
+  ``tests/test_topk_fused.py``), and raises ``TypeError`` for a ``mesh``
+  that is not one;
 * the HD core's leftover names (``hamming_similarity``, ``top1_search``,
   ``encode_batch_reference``, ``packed_levels``) and
   ``MSDataset.num_spectra`` equal the reference's on the same inputs.
@@ -272,8 +273,11 @@ def test_sharded_topk_k_exceeding_shard_rows_raises():
 
 
 def test_sharded_topk_with_a_mesh_raises():
+    """``mesh=`` takes a DeviceMesh or a ``{name: size}`` mapping (the mesh
+    routes themselves are held in ``tests/test_torch_mesh.py``); anything
+    else is a TypeError."""
     refs = torch.ones((8, 32), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sharded_topk_search(refs[:2], refs, 2, mesh=object())
 
 

@@ -1763,3 +1763,45 @@ def test_topk_ef_train_step_on_the_card_matches_the_cpu(cuda):
         assert a.shape == b.shape and a.shape[0] == 2
         assert bool(torch.isfinite(a).all())
     assert sum(float(e.abs().sum()) for e in eg) > 0
+
+
+# --------------------------------------------------------------------------
+# the mesh routes on the card: 2 processes sharing it in a gloo group
+# --------------------------------------------------------------------------
+
+def test_two_rank_fused_routes_on_the_card_equal_one_process(cuda, tmp_path):
+    import _torch_mesh_ranks as MR
+    from repro_torch.serve import (
+        OMSConfig,
+        encode_queries,
+        oms_plan,
+        oms_search_encoded,
+        search_database,
+        shard_database,
+    )
+
+    rng = np.random.default_rng(27)
+    refs = rng.choice([-1, 1], size=(3000, 256)).astype(np.int8)
+    refs[2000:2100] = refs[:100]               # ties across the shards
+    decoys = -refs
+    q = np.concatenate([refs[:20], rng.choice([-1, 1], size=(12, 256))
+                        .astype(np.int8)])
+    prec = rng.uniform(400, 1600, 3000).astype(np.float32)
+    qprec = np.sort(rng.uniform(420, 1650, 32).astype(np.float32))
+    inputs = dict(refs=refs, decoys=decoys, q=q, prec=prec, qprec=qprec)
+    got = MR.spawn(MR.card_worker, 2, tmp_path, inputs, 300)
+    t = {n: torch.from_numpy(inputs[n]).to(cuda) for n in ("refs", "decoys",
+                                                          "q")}
+    db = shard_database(t["refs"], decoys=t["decoys"], fused=True)
+    odb = shard_database(t["refs"], decoys=t["decoys"], fused=True,
+                         precursor=prec)
+    plan = oms_plan(odb, qprec, OMSConfig(**MR.CFG))
+    want = {"exact": search_database(db, t["q"], MR.K),
+            "oms": oms_search_encoded(odb, encode_queries(odb, t["q"]), plan,
+                                      MR.K)}
+    for res in got:
+        assert res["rows_held"] == 3000
+        assert res["launches"][0] >= 1 and res["launches"][1] >= 1
+        for name, (wi, wv) in want.items():
+            np.testing.assert_array_equal(res[name][0], wi.cpu().numpy())
+            np.testing.assert_array_equal(res[name][1], wv.cpu().numpy())

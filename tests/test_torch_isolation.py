@@ -1,7 +1,9 @@
 """The PyTorch port stands alone and never hides the device.
 
-* no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports JAX or
-  the JAX package, and importing the port's serving stack loads no JAX;
+* no module of ``src/repro_torch`` (nor ``chip_smoke.py``, nor the tests'
+  rank-worker modules ``tests/_torch_*.py``) imports JAX or the JAX
+  package, and importing the port's serving stack, its mesh modules and
+  the rank workers loads no JAX;
 * entry points default to CUDA and raise on a host without it;
 * a CUDA tensor reaching a kernel wrapper launches the kernel or raises:
   there is no quiet fall back to the plain version.
@@ -58,7 +60,7 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tests").glob("_torch_*.py"))
 
 
 def _imported_roots(path):
@@ -93,13 +95,15 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serve.staging, repro_torch.core, "
             "repro_torch.core.imc, repro_torch.core.pipeline, "
             "repro_torch.train, repro_torch.dist, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.dist.collective_matmul, _torch_mesh_ranks, "
+            "_torch_dist_ranks; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=300,
-                         env={**os.environ,
-                              "PYTHONPATH": str(ROOT / "src")})
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             [str(ROOT / "src"), str(ROOT / "tests")])})
     assert out.stdout.strip() == "[]", out.stdout
 
 

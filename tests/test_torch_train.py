@@ -1302,6 +1302,6 @@ def test_launcher_resumes_the_dcn_residuals(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--mesh", "single"],
                                   ["--mesh", "multi"]])
 def test_launcher_multi_device_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="item 5.6b"):
+    with pytest.raises(NotImplementedError, match="item 5.6c"):
         train_cli.main(["--arch", "qwen2_7b", "--reduced", "--steps", "1",
                         "--device", "cpu"] + argv)
