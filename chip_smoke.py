@@ -258,11 +258,12 @@ exits non-zero and prints no result line:
    ``forward_train`` as above. Prints prefill
    seconds, decode ms/step p50 / p95, tokens/s, peak memory, the weights'
    and states' bytes and the weight-read bound.
-8c. Training the recurrent families at published width and full depth,
-   batch 8 x 512, remat "full", AdamW, three timed steps and one
-   profiled: ``xlstm_125m`` exact, then ``hymba_1_5b`` exact and, on
-   the same state, with ``imc_linear``: ``imc_mvm`` must launch once a
-   layer a step (32), never for xLSTM, the plain version never, and
+8c. Training the recurrent families at published width, batch 8 x 512,
+   remat "full", AdamW, three timed steps and one profiled:
+   ``xlstm_125m`` exact at full depth, then ``hymba_1_5b`` (8 of its 32
+   layers) exact and, on the same state, with ``imc_linear``:
+   ``imc_mvm`` must launch once a layer a step, never for xLSTM, the
+   plain version never, and
    one launch at Hymba's training shape (Q 4,096, R 1,600, Dp 5,504)
    must equal the plain version bit for bit on its first and last 256
    query rows. Prints step ms, tokens/s, the device's milliseconds by
@@ -300,8 +301,8 @@ exits non-zero and prints no result line:
    norms must be finite. Prints step ms, tokens/s, the device's
    milliseconds by group and peak memory.
 8e. The hierarchical DCN gradient reduction: Qwen2-7B at published width
-   (4 of its 28 layers; 2 for ``topk_ef``, whose residuals take 8 B a
-   parameter more; a ``reduced:`` line says why), batch 8 x 512 in 2 pod
+   (2 of its 28 layers, for the time limit; a ``reduced:`` line says
+   why), batch 8 x 512 in 2 pod
    slices on the emulated route, remat "full", ``imc_linear``, with
    ``dcn_compression`` none, int8, topk and topk_ef at a top-k fraction
    of 0.01, three timed steps and one profiled each. ``imc_mvm`` must
@@ -340,6 +341,23 @@ exits non-zero and prints no result line:
    ranks, bit for bit against their ring-order replays and within 1e-5 of
    one ``x @ w`` (relative to its largest entry). These are processes
    sharing one card, not a multi-card deployment.
+10. The dense LM over a device mesh: Qwen2-7B served (full width and
+   depth, the int8 KV store, 32 x (512 + 16)) and trained (full width, 2
+   layers, 8 x 512, remat "full", ``imc_linear``, 2 steps) in this
+   process, then by 2 and 4 processes sharing the card in a gloo group:
+   serving on (1, 2) and (1, 4) with the one-process tokens forced into
+   the decode steps, every step's whole logits within 2^-4 of its largest
+   against the one-process run's, ``decode_attention`` launched 28 x 15
+   times on every rank and held against its plain version at the rank's
+   cache shape; training on (2, 1), (1, 2) and (2, 2), each loss within
+   rtol 1e-3 of the one-process run's, ``imc_mvm`` launched once a layer
+   a step on every rank and held bit for bit against its plain version on
+   the rank's ff shard; the (2, 2) state saved and restored on (1, 4),
+   every rank's blocks as the files hold them. Prints prefill s, decode
+   p50 / p95 ms, tokens/s, step ms, each rank's peak memory and the gloo
+   collectives' count and host ms a step. Then ``launch.train`` and
+   ``launch.serve`` on a 1-rank NCCL group ((1, 1) ``DeviceMesh``, the
+   parameters DTensors, both kernels launched).
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -348,8 +366,8 @@ missing beside it.
 
     python3 chip_smoke.py --only 7c,8c
 
-runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e, 9; 9
-alone first serves phase 4's four routes in one process), printing
+runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e, 9, 10;
+9 alone first serves phase 4's four routes in one process), printing
 their lines and no kernels or ``ok`` line: a quick check of one slice on
 the card.
 """
@@ -3979,11 +3997,14 @@ def ring_run(torch, np) -> dict:
             "ring_max_abs_err": k["max_abs"]}
 
 
-# phase 8c: training the recurrent families at published width and full
-# depth (xLSTM ~0.18 G float32 parameters; Hymba ~1.39 G, ~22 GB of
-# params, grads and moments), batch TRAIN_BATCH x TRAIN_SEQ, remat
-# "full": xlstm_125m exact, then hymba_1_5b exact and with imc_linear
-RECURRENT_TRAIN = (("xlstm_125m", (False,)), ("hymba_1_5b", (False, True)))
+# phase 8c: training the recurrent families at published width, batch
+# TRAIN_BATCH x TRAIN_SEQ, remat "full": xlstm_125m exact at full depth
+# (~0.18 G float32 parameters), then hymba_1_5b exact and with
+# imc_linear at 8 of its 32 layers (~3.9 s a step at 32: its depth is cut
+# for the script's time limit, the layers being alike); (arch, layers or
+# None for all, imc_linear runs)
+RECURRENT_TRAIN = (("xlstm_125m", None, (False,)),
+                   ("hymba_1_5b", 8, (False, True)))
 
 
 def phase_train_recurrent(torch, np) -> dict:
@@ -4009,11 +4030,13 @@ def phase_train_recurrent(torch, np) -> dict:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steps = TRAIN_STEPS + 1
     results = {}
-    for arch, runs in RECURRENT_TRAIN:
+    for arch, layers, runs in RECURRENT_TRAIN:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         pipe = TokenPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                              vocab=cfg.vocab_size)
         t0 = time.perf_counter()
@@ -4417,12 +4440,13 @@ def phase_train_encdec_vlm(torch, np) -> dict:
 # rows), DCN_STEPS timed and 1 profiled step a method, at DCN_TOPK_FRAC.
 # Each method's layers of 28: float32 params and AdamW moments take 12 B a
 # parameter, the fold's accumulator and a pod's grads 8 B more, and
-# topk_ef's residuals 4 B a pod (8 B at 2 pods): ~50 GB at 4 layers
-# without residuals, ~66 GB with them, so topk_ef runs with 2 (~45 GB),
-# leaving room for the top-k's int64 keys (8 B an element of a leaf: 4.4
-# GB for the embedding or head) and the checks' copies of the grads
+# topk_ef's residuals 4 B a pod (8 B at 2 pods): ~45 GB at 2 layers with
+# them, leaving room for the top-k's int64 keys (8 B an element of a
+# leaf: 4.4 GB for the embedding or head) and the checks' copies of the
+# grads; every method at 2 layers, for the script's time limit (the
+# embedding and head, the leaves the compressors spend most on, stay)
 DCN_PODS, DCN_TOPK_FRAC, DCN_STEPS = 2, 0.01, 3
-DCN_TRAIN = (("none", 4), ("int8", 4), ("topk", 4), ("topk_ef", 2))
+DCN_TRAIN = (("none", 2), ("int8", 2), ("topk", 2), ("topk_ef", 2))
 
 
 def grouped(torch, ts: list, groups: list) -> list:
@@ -4523,9 +4547,10 @@ def phase_train_dcn(torch, np) -> dict:
               f"published widths with {layers} of its {full.num_layers} "
               f"layers (float32 params and moments 12 B a parameter, the "
               f"fold's accumulator and a pod's grads 8 B"
-              f"{', the residuals 8 B' if method == 'topk_ef' else ''}), "
-              f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {DCN_PODS} pod slices "
-              f"emulated on the card, imc_linear")
+              f"{', the residuals 8 B' if method == 'topk_ef' else ''}; "
+              f"and the script's time limit), batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} in {DCN_PODS} pod slices emulated on the card, "
+              f"imc_linear")
         model = build_model(cfg, "cuda")
         pipe = TokenPipeline(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                              vocab=cfg.vocab_size)
@@ -5123,13 +5148,519 @@ def phase_mesh(torch, np) -> dict:
     return results
 
 
+# phase 10: the dense LM over a device mesh. Qwen2-7B served at full width
+# and depth (bfloat16, the int8 KV store, phase 7b's 32 x (512 + 16)) and
+# trained at full width with TRAIN_LAYERS layers (batch TRAIN_BATCH x
+# TRAIN_SEQ, remat "full", imc_linear), first in this process, then by 2
+# and 4 processes sharing the card in a gloo group over (data, model)
+# meshes: DTensor parameters, activations and optimizer state, the
+# kernels on each rank's blocks. Processes on one card, not a multi-card
+# deployment: what the sharding layer and its collectives cost, and no
+# multi-card speed-up. Then the LM launchers on a 1-rank NCCL group.
+LM_MESH_JOBS = {2: (("serve", (1, 2)), ("train", (2, 1)),
+                    ("train", (1, 2))),
+                4: (("serve", (1, 4)), ("train", (2, 2)),
+                    ("restore", (1, 4)))}
+LM_MESH_STEPS = 2
+LM_MESH_JOIN_S = 600
+LM_MESH_LOSS_RTOL = 1e-3
+LM_MESH_ARGV = ["--arch", "qwen2_7b", "--kv-quant",
+                "--batch", str(LM_CONFIGS_BATCH),
+                "--prompt-len", str(LM_CONFIGS_PROMPT),
+                "--gen", str(LM_CONFIGS_GEN), "--device", "cuda"]
+
+
+def lm_mesh_train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    cfg = dataclasses.replace(get_config("qwen2_7b"), num_layers=TRAIN_LAYERS,
+                              imc_linear=True)
+    # the bfloat16 view of the float32 master weights: the (data) FSDP
+    # gathers move half the bytes through gloo's host staging
+    return cfg, TrainConfig(optimizer=AdamWConfig(total_steps=10),
+                            remat="full", cast_params_bf16=True)
+
+
+def gloo_delta(SH, before: dict) -> tuple[int, float]:
+    """(gloo collectives, their host ms) since the ``before`` snapshot."""
+    n = sum(SH.GLOO_COLLECTIVES.values()) - before["n"]
+    ms = 1e3 * (sum(SH.GLOO_COLLECTIVE_S.values()) - before["s"])
+    return n, ms
+
+
+def gloo_snapshot(SH) -> dict:
+    return {"n": sum(SH.GLOO_COLLECTIVES.values()),
+            "s": sum(SH.GLOO_COLLECTIVE_S.values())}
+
+
+def lm_mesh_serve(torch, dist, mesh, ref: dict) -> dict:
+    """One rank's Qwen2-7B serving on ``mesh``: the prompt, then the
+    one-process run's tokens forced into the decode steps; each step's
+    whole logits against the one-process run's, timings, launches and
+    collectives, and ``decode_attention`` at this rank's cache shape
+    against its plain version."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("qwen2_7b"), kv_quant_int8=True)
+    B, P, G = LM_CONFIGS_BATCH, LM_CONFIGS_PROMPT, LM_CONFIGS_GEN
+    model = build_model(cfg, "cuda", mesh)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = TokenPipeline(B, P, cfg.vocab_size).get_for(cfg, 0, "cuda", mesh)
+    cache = model.init_cache(B, P + G)
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    tokens = ref["tokens"].cuda()
+    decode_attention.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = SH.full_value(logits).argmax(-1).to(torch.int32)
+    prefill_agree = int((first == tokens[:, :1]).sum())
+    step_ms, coll_n, coll_ms, share = [], 0, 0.0, []
+    for i in range(G - 1):
+        snap = gloo_snapshot(SH)
+        t0 = time.perf_counter()
+        lp, cache = decode(params, tokens[:, i:i + 1], cache, P + i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        n, ms = gloo_delta(SH, snap)
+        coll_n, coll_ms = coll_n + n, coll_ms + ms
+        want = ref["logits"][i].cuda()
+        got = SH.full_value(lp)
+        share.append(float((got - want).abs().max())
+                     / float(want.abs().max()))
+    launches = decode_attention.launches
+    h0, hl = SH.local_range(L.Q_AXES, (B, 1, cfg.num_heads,
+                                       cfg.resolved_head_dim), 2)
+    g = min(hl, cfg.num_heads // cfg.num_kv_heads)
+    kernel = decode_attention_served(torch, cache[0], g, P + G - 1)
+    steps = len(step_ms)
+    ms = torch.tensor(step_ms, dtype=torch.float64)
+    return {"init_s": init_s, "prefill_s": prefill_s,
+            "prefill_agree": prefill_agree,
+            "decode_p50_ms": float(torch.quantile(ms, 0.5)),
+            "decode_p95_ms": float(torch.quantile(ms, 0.95)),
+            "tokens_per_s": B * steps / (sum(step_ms) / 1e3),
+            "max_share": max(share), "share": share,
+            "launches": launches,
+            "gloo_collectives_a_step": coll_n / steps,
+            "gloo_ms_a_step": coll_ms / steps,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "cache_shape": tuple(cache[0].k.shape),
+            "query_heads": [h0, hl], "kernel": kernel}
+
+
+def lm_mesh_train(torch, dist, mesh, ref: dict, ckpt_dir=None) -> tuple:
+    """One rank's LM_MESH_STEPS Qwen2-7B training steps on ``mesh``
+    (imc_linear): losses against the one-process run's, step times,
+    ``imc_mvm`` launches a step and the first launch's operands on this
+    rank's ff shard against the plain version; with ``ckpt_dir`` the
+    state is saved there and each rank's blocks are read back from the
+    files. Returns (the numbers, the state)."""
+    import gc
+
+    from repro_torch.core.imc.array import ArrayConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tcfg = lm_mesh_train_cfg()
+    model = build_model(cfg, "cuda", mesh)
+    state = init_train_state(model, seed=0, tcfg=tcfg)
+    step_fn = make_train_step(model, tcfg)
+    pipe = TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    rec, patch = imc_recorder(L)
+    imc_mvm.launches = 0
+    losses, step_ms, coll_n, coll_ms = [], [], 0, 0.0
+    with patch:
+        for s in range(LM_MESH_STEPS):
+            batch = pipe.get_for(cfg, s, "cuda", mesh)
+            dist.barrier()
+            snap = gloo_snapshot(SH)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            n, ms = gloo_delta(SH, snap)
+            coll_n, coll_ms = coll_n + n, coll_ms + ms
+    launches = imc_mvm.launches
+    q, w, kw, got = rec.pop("call")
+    Q = q.shape[0]
+    mism = 0
+    for r in (slice(0, TRAIN_CHECK_Q), slice(Q - TRAIN_CHECK_Q, Q)):
+        mism += int((got[r] != imc_mvm_plain(q[r], w, **kw)).sum())
+    shard = (Q, w.shape[0], q.shape[1])
+    del rec, q, w, got
+    out = {"losses": losses,
+           "loss_rel_err": max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, ref["losses"])),
+           "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (
+               sum(step_ms[1:] or step_ms) / len(step_ms[1:] or step_ms)
+               / 1e3),
+           "imc_launches_a_step": launches / LM_MESH_STEPS,
+           "imc_shard_shape": shard, "imc_whole_tiles":
+               shard[2] % ArrayConfig().cols == 0,
+           "imc_mismatches": mism,
+           "gloo_collectives_a_step": coll_n / LM_MESH_STEPS,
+           "gloo_ms_a_step": coll_ms / LM_MESH_STEPS,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if ckpt_dir is not None:
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        out["save_s"] = time.perf_counter() - t0
+        out["saved_blocks_differ"] = blocks_differ(torch, SH, mgr, state)
+    return out, state
+
+
+def blocks_differ(torch, SH, mgr, state) -> int:
+    """The leaves of ``state`` whose local block differs from the same
+    block read from the newest checkpoint's files."""
+    from repro_torch.dist.checkpoint import _flatten
+
+    step = mgr.list_steps()[-1]
+    leaves = [v for _, v in _flatten(state) if isinstance(v, torch.Tensor)]
+    return sum(not torch.equal(
+        t.to_local().detach().cpu(), mgr.leaf_block(step, i, t.device_mesh,
+                                                    t.placements))
+        for i, t in enumerate(leaves))
+
+
+def lm_mesh_restore(torch, mesh, ckpt_dir) -> dict:
+    """The checkpoint the (2, 2) mesh saved, restored into a state placed
+    on ``mesh``: its step, validation, placements and blocks."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import init_train_state
+    from repro_torch.train.train_step import state_axes
+
+    cfg, tcfg = lm_mesh_train_cfg()
+    target = init_train_state(build_model(cfg, "cuda", mesh), seed=1,
+                              tcfg=tcfg)
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    sh = SH.tree_shardings(state_axes(T.param_axes(target.params, cfg),
+                                      tcfg), target, mesh)
+    # the blocks are compared below, so the files' CRC-32s are not read
+    step = mgr.list_steps()[-1]
+    t0 = time.perf_counter()
+    state = mgr.restore(step, target, sh)
+    restore_s = time.perf_counter() - t0
+    from repro_torch.dist.checkpoint import _flatten
+
+    placed = all(SH.on_mesh(v) and v.device_mesh == mesh
+                 for _, v in _flatten(state) if isinstance(v, torch.Tensor))
+    return {"step": step, "restore_s": restore_s, "placed": placed,
+            "blocks_differ": blocks_differ(torch, SH, mgr, state)}
+
+
+def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of phase 10, in a process of its own: joins the gloo group
+    through the ``file://`` store, runs LM_MESH_JOBS[world] and writes its
+    results to ``<out>/rank<r>.pkl`` (a failure writes its traceback to
+    ``<out>/rank<r>.err`` first)."""
+    import gc
+    import pickle
+    import traceback
+
+    import os
+
+    out_dir = Path(out)
+    # four processes' caching allocators share the card: segments that
+    # grow in place leave less reserved but unused memory in each
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.dist import sharding as SH
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        ref = torch.load(out_dir / "one_process.pt")
+        res, state = {}, None
+        try:
+            for job, shape in LM_MESH_JOBS[world]:
+                mesh = init_device_mesh("cuda", shape,
+                                        mesh_dim_names=("data", "model"))
+                t0 = time.perf_counter()
+                if job == "serve":
+                    r = lm_mesh_serve(torch, dist, mesh, ref["serve"])
+                elif job == "train":
+                    state = None
+                    gc.collect()
+                    r, state = lm_mesh_train(
+                        torch, dist, mesh, ref["train"],
+                        out_dir / "ckpt" if world == 4 else None)
+                else:
+                    r = lm_mesh_restore(torch, mesh, out_dir / "ckpt")
+                r["wall_s"] = time.perf_counter() - t0
+                res[job, shape] = r
+                SH.set_mesh(None)
+        finally:
+            dist.destroy_process_group()
+        (out_dir / f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    except BaseException:
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def spawn_lm_ranks(world: int, out: Path) -> list:
+    """``world`` processes of ``lm_mesh_rank`` (spawned; the kernels were
+    built in this process); joined within LM_MESH_JOIN_S, else killed and
+    failed. Returns each rank's results."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=lm_mesh_rank,
+                         args=(r, world, str(out / "store"), str(out)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + LM_MESH_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        alive = sum(p.is_alive() for p in procs)
+        errs = [f.read_text() for f in sorted(out.glob("rank*.err"))]
+        check(alive == 0 and not errs and all(
+            p.exitcode == 0 for p in procs),
+            f"{world} ranks: {alive} still running after {LM_MESH_JOIN_S} "
+            f"s, exit codes {[p.exitcode for p in procs]}, errors {errs}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [pickle.loads((out / f"rank{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def lm_mesh_one_process(torch) -> dict:
+    """This process's runs phase 10 holds the meshes against: the serving
+    launcher (its generated tokens and every decode step's logits) and
+    LM_MESH_STEPS training steps."""
+    import gc
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import serve
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = serve.main(LM_MESH_ARGV, keep_logits=True)
+    serve_s = time.perf_counter() - t0
+    ref = {"serve": {"tokens": run.tokens.cpu(),
+                     "logits": [x.cpu() for x in run.logits]}}
+    line = {"prefill_s": run.prefill_s,
+            "decode_p50_ms": run.step_percentile_ms(0.5),
+            "decode_p95_ms": run.step_percentile_ms(0.95),
+            "tokens_per_s": run.decode_tokens_per_s,
+            "peak_gib": run.peak_bytes / 2**30, "launches": run.launches,
+            "wall_s": serve_s}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, tcfg = lm_mesh_train_cfg()
+    model = build_model(cfg, "cuda")
+    state = init_train_state(model, seed=0, tcfg=tcfg)
+    step_fn = make_train_step(model, tcfg)
+    pipe = TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    losses, step_ms = [], []
+    for s in range(LM_MESH_STEPS):
+        batch = pipe.get_for(cfg, s, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    ref["train"] = {"losses": losses}
+    del state, step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, line, {"losses": losses, "step_ms": step_ms}
+
+
+def nccl_local_lm(torch) -> dict:
+    """``launch.train`` and ``launch.serve`` (the reduced Qwen2-7B, the
+    kernels on) on a 1-rank NCCL group (a ``file://`` store):
+    ``make_debug_mesh`` gives the (1, 1) ``DeviceMesh``, the parameters
+    are DTensors on it."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.imc_mvm import imc_mvm
+    from repro_torch.launch import serve, train
+
+    text = io.StringIO()
+    decode_attention.launches = imc_mvm.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            with contextlib.redirect_stdout(text):
+                st = train.main(["--arch", "qwen2_7b", "--reduced",
+                                 "--steps", "2", "--imc-linear", "--batch",
+                                 "4", "--seq", "64", "--log-every", "1"])
+                run = serve.main(["--arch", "qwen2_7b", "--reduced",
+                                  "--kv-quant", "--batch", "4",
+                                  "--prompt-len", "64", "--gen", "8"])
+            on_mesh = all(SH.on_mesh(p) for p in st.params.parameters())
+        finally:
+            SH.set_mesh(None)
+            dist.destroy_process_group()
+    lines = text.getvalue().splitlines()
+    return {"mesh_lines": [ln for ln in lines if ln.startswith("mesh:")],
+            "params_on_mesh": on_mesh,
+            "imc_launches": imc_mvm.launches,
+            "decode_attention_launches": decode_attention.launches,
+            "tokens_shape": list(run.tokens.shape),
+            "train_lines": [ln for ln in lines if ln.startswith("step ")]}
+
+
+def phase_lm_mesh(torch, np) -> dict:
+    """Phase 10 (see LM_MESH_JOBS): the one-process runs, the 2- and
+    4-rank gloo groups on the card, each mesh's line and checks, then the
+    1-rank NCCL launchers. Returns the kernels' launches a rank."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    limit = nvidia_smi("name,power.limit")
+    ref, one_serve, one_train = lm_mesh_one_process(torch)
+    print(json.dumps({"path": "lm mesh: one process", "serve": one_serve,
+                      "train": one_train, "card, power limit": limit}))
+    launches = {"decode_attention": {}, "imc_mvm": {}}
+    for world in sorted(LM_MESH_JOBS):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save(ref, Path(tmp) / "one_process.pt")
+            ranks = spawn_lm_ranks(world, Path(tmp))
+        spawn_s = time.perf_counter() - t0
+        for job, shape in LM_MESH_JOBS[world]:
+            got = [r[job, shape] for r in ranks]
+            mesh = f"{shape[0]}x{shape[1]}"
+            line = {"path": f"lm mesh {job}", "mesh": mesh, "ranks": world,
+                    "processes_on_one_card": True, "backend": "gloo",
+                    "per_rank": got, "card, power limit": limit}
+            print(json.dumps(line, default=str))
+            if job == "serve":
+                want = LM_CONFIGS_GEN - 1
+                want *= 28
+                check(all(g["launches"] == want for g in got),
+                      f"decode_attention launches a rank on {mesh}: "
+                      f"{[g['launches'] for g in got]}, want {want}")
+                check(all(g["max_share"] <= LM_REPLAY_SHARE for g in got),
+                      f"serving on {mesh}: logits off the one-process run "
+                      f"by {[g['max_share'] for g in got]} of the step's "
+                      f"largest")
+                launches["decode_attention"][mesh] = got[0]["launches"]
+                print(f"lm mesh serve {mesh}: prefill "
+                      f"{max(g['prefill_s'] for g in got):.3f} s, decode "
+                      f"p50 {got[0]['decode_p50_ms']:.2f} / p95 "
+                      f"{got[0]['decode_p95_ms']:.2f} ms, "
+                      f"{got[0]['tokens_per_s']:.1f} tokens/s, peak "
+                      f"{[round(g['peak_gib'], 2) for g in got]} GiB, gloo "
+                      f"{got[0]['gloo_ms_a_step']:.2f} ms a step "
+                      f"({got[0]['gloo_collectives_a_step']:.0f} "
+                      f"collectives), decode_attention "
+                      f"{got[0]['launches']} launches a rank at "
+                      f"{got[0]['kernel']['shape']} "
+                      f"({got[0]['kernel']['ms']:.4f} ms, plain "
+                      f"{got[0]['kernel']['plain_ms']:.4f} ms); logits within "
+                      f"{max(g['max_share'] for g in got):.2e} of the "
+                      f"largest (one process: "
+                      f"{one_serve['decode_p50_ms']:.2f} ms p50)")
+            elif job == "train":
+                check(all(g["loss_rel_err"] <= LM_MESH_LOSS_RTOL
+                          and g["imc_mismatches"] == 0
+                          and g["imc_launches_a_step"] == TRAIN_LAYERS
+                          for g in got),
+                      f"training on {mesh}: {[(g['losses'], g['imc_mismatches'], g['imc_launches_a_step']) for g in got]} vs one process {ref['train']['losses']}")
+                if "saved_blocks_differ" in got[0]:
+                    check(all(g["saved_blocks_differ"] == 0 for g in got),
+                          f"the checkpoint saved on {mesh} differs from the "
+                          f"state")
+                launches["imc_mvm"][mesh] = got[0]["imc_launches_a_step"]
+                print(f"lm mesh train {mesh}: step "
+                      f"{[round(x, 1) for x in got[0]['step_ms']]} ms, "
+                      f"{got[0]['tokens_per_s']:.1f} tokens/s, peak "
+                      f"{[round(g['peak_gib'], 2) for g in got]} GiB, loss "
+                      f"{got[0]['losses']} (one process "
+                      f"{ref['train']['losses']}), imc_mvm "
+                      f"{got[0]['imc_launches_a_step']:.0f} launches a rank "
+                      f"a step on the shard {got[0]['imc_shard_shape']}, "
+                      f"{sum(g['imc_mismatches'] for g in got)} mismatches, "
+                      f"gloo {got[0]['gloo_ms_a_step']:.0f} ms a step")
+            else:
+                check(all(g["step"] == LM_MESH_STEPS and g["placed"]
+                          and g["blocks_differ"] == 0 for g in got),
+                      f"the (2, 2) checkpoint restored on {mesh}: {got}")
+                print(f"lm mesh: the checkpoint saved on 2x2 restored on "
+                      f"{mesh} in {max(g['restore_s'] for g in got):.1f} s "
+                      f"(saved in {ranks[0]['train', (2, 2)]['save_s']:.1f}"
+                      f" s), every block as the files hold it")
+        print(f"lm mesh: {world} ranks in {spawn_s:.1f} s")
+    nccl = nccl_local_lm(torch)
+    print(json.dumps({"path": "lm launchers on a 1-rank NCCL group",
+                      **nccl}))
+    check(nccl["mesh_lines"] == ["mesh: {'data': 1, 'model': 1} devices=1"]
+          * 2 and nccl["params_on_mesh"] and nccl["imc_launches"] > 0
+          and nccl["decode_attention_launches"] > 0
+          and nccl["tokens_shape"] == [4, 8],
+          f"the LM launchers on a 1-rank NCCL group: {nccl}")
+    print(f"lm mesh: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # phases that run alone after the build with ``--only NAME[,NAME]``
 STANDALONE = {"7c": lambda torch, np: phase_serve_recurrent(torch, np),
               "8c": lambda torch, np: phase_train_recurrent(torch, np),
               "7d": lambda torch, np: phase_serve_encdec_vlm(torch, np),
               "8d": lambda torch, np: phase_train_encdec_vlm(torch, np),
               "8e": lambda torch, np: phase_train_dcn(torch, np),
-              "9": lambda torch, np: phase_mesh(torch, np)}
+              "9": lambda torch, np: phase_mesh(torch, np),
+              "10": lambda torch, np: phase_lm_mesh(torch, np)}
 
 
 def main(argv=None) -> int:
@@ -5229,7 +5760,8 @@ def main(argv=None) -> int:
     imc.update(phase_train_lm(torch, np))
     imc.update(phase_train_configs(torch, np))
     print(f"recurrent: hymba_1_5b and xlstm_125m at published width and "
-          f"full depth (not cut); serving batch {LM_CONFIGS_BATCH} x "
+          f"full depth (serving; training hymba_1_5b with 8 of its 32 "
+          f"layers, for the time limit); serving batch {LM_CONFIGS_BATCH} x "
           f"({LM_CONFIGS_PROMPT} + {LM_CONFIGS_GEN}) as phase 7b, the ring "
           f"run {RING_BATCH} x ({RING_PROMPT} + {RING_GEN}); training batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}; parameters are the port's seeded "
@@ -5259,6 +5791,16 @@ def main(argv=None) -> int:
     for entry in kernels[:4]:
         entry["mesh"] = {f"{world} ranks": by_world for world, by_world in
                          mesh[SERVED_PATHS[entry["name"]]].items()}
+    print(f"lm mesh: Qwen2-7B served at full width and depth, batch "
+          f"{LM_CONFIGS_BATCH} x ({LM_CONFIGS_PROMPT} + {LM_CONFIGS_GEN}), "
+          f"and trained at full width with {TRAIN_LAYERS} of 28 layers, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {LM_MESH_STEPS} steps, by 2 "
+          f"and 4 processes sharing the card in a gloo group (not a "
+          f"multi-card deployment); parameters are the port's seeded "
+          f"random draw")
+    lm_mesh = phase_lm_mesh(torch, np)
+    dec["mesh_launches_a_rank"] = lm_mesh["decode_attention"]
+    imc["mesh_launches_a_rank_a_step"] = lm_mesh["imc_mvm"]
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -110,7 +110,7 @@ def _stays_float32(kind: str, group: str, name: str) -> bool:
 
 def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
                          dtype: torch.dtype | None = None,
-                         trainable: bool = False):
+                         trainable: bool = False, mesh=None):
     """The JAX package's LM parameter tree (numpy leaves, as
     ``repro.models.transformer.init_lm`` makes it: ``layers`` stacked on
     a leading ``layer`` axis, or for the ``ssm`` family a list
@@ -131,8 +131,12 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
     float32 stay float32: norm scales and biases, the MoE router,
     ``alpha``, and the recurrent leaves of ``_stays_float32``. With
     ``trainable`` every leaf is the reference's float32 master value
-    (``cfg.param_dtype``) and carries gradients, as training needs."""
+    (``cfg.param_dtype``) and carries gradients, as training needs. On a
+    ``DeviceMesh`` (``mesh``) each leaf is placed by ``param_axes``, a
+    DTensor holding this rank's block."""
     from torch import nn
+
+    from repro_torch.dist.sharding import distribute_tree
 
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import _dtype, _leaf_dtype, _param
@@ -183,9 +187,10 @@ def lm_params_from_numpy(params, cfg, device: str | torch.device = "cuda",
                for i in range(cfg.num_encoder_layers)]
         enc_norm = norm(params["enc_norm"])
     head = params.get("lm_head")
-    return T.LM(tensor(params["embed"]), blocks, norm(params["final_norm"]),
-                None if head is None else tensor(head), trainable, stack,
-                enc, enc_norm)
+    lm = T.LM(tensor(params["embed"]), blocks, norm(params["final_norm"]),
+              None if head is None else tensor(head), trainable, stack, enc,
+              enc_norm)
+    return distribute_tree(lm, T.param_axes(lm, cfg), mesh)
 
 
 def _pod_slice(tree, p: int):
@@ -199,15 +204,18 @@ def _pod_slice(tree, p: int):
 
 
 def train_state_from_numpy(params, mu, nu, step, cfg,
-                           device: str | torch.device = "cuda", ef=None):
+                           device: str | torch.device = "cuda", ef=None,
+                           mesh=None):
     """The reference's ``TrainState`` (its ``params``, ``opt["mu"]``,
     ``opt["nu"]`` as numpy trees of the same layout, ``step`` and, for
     ``topk_ef``, its ``ef`` tree of ``(P, *shape)`` leaves) as the port's
     :class:`~repro_torch.train.train_step.TrainState`: float32 trainable
     parameters, and float32 moments and ``(P, *shape)`` residuals in the
     order of ``params.parameters()`` (each pod's slice mapped as the
-    parameters are)."""
-    from repro_torch.train.train_step import TrainState
+    parameters are); on a ``DeviceMesh`` placed by ``state_axes``."""
+    from repro_torch.dist.sharding import distribute_tree
+    from repro_torch.models.transformer import param_axes
+    from repro_torch.train.train_step import TrainState, state_axes
 
     lm = lm_params_from_numpy(params, cfg, device, trainable=True)
     dev = resolve_device(device)
@@ -222,5 +230,6 @@ def train_state_from_numpy(params, mu, nu, step, cfg,
         rows = [leaves(_pod_slice(ef, p)) for p in range(pods)]
         state_ef = [torch.stack(per_leaf) for per_leaf in zip(*rows)]
     step = int(step)
-    return TrainState(params=lm, opt={"mu": leaves(mu), "nu": leaves(nu),
-                                      "step": step}, step=step, ef=state_ef)
+    state = TrainState(params=lm, opt={"mu": leaves(mu), "nu": leaves(nu),
+                                       "step": step}, step=step, ef=state_ef)
+    return distribute_tree(state, state_axes(param_axes(lm, cfg)), mesh)

@@ -27,6 +27,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as SH
 
 _MASK32 = 0xFFFFFFFF
 
@@ -82,6 +83,17 @@ def _stub_embeddings(step_salt: int, batch: int, n: int, d_model: int,
     return (x * scale).reshape(batch, n, d_model)
 
 
+def place_batch(batch: dict, mesh) -> dict:
+    """The batch with each tensor placed by its leading ``batch`` dim on a
+    ``DeviceMesh`` (every rank drew the same global batch; each keeps its
+    block): the reference's batch sharding. As it is with no
+    ``DeviceMesh``, or when already placed."""
+    if not SH.is_device_mesh(mesh):
+        return batch
+    return {k: SH.place(v, ("batch",) + (None,) * (v.ndim - 1), mesh)
+            for k, v in batch.items()}
+
+
 @dataclasses.dataclass
 class TokenPipeline:
     """Stateless data pipeline facade: ``get(step)`` -> batch dict."""
@@ -119,14 +131,18 @@ class TokenPipeline:
                                   dtype, dev)
         return {"frames": frames, "tokens": t["tokens"]}
 
-    def get_for(self, cfg, step: int, device: str | torch.device = "cuda"
-                ) -> dict:
+    def get_for(self, cfg, step: int, device: str | torch.device = "cuda",
+                mesh=None) -> dict:
         """Family-aware batch: patches and tokens (vlm), frames and tokens
-        (encoder-decoder), or tokens, the embeddings in ``cfg.dtype``."""
+        (encoder-decoder), or tokens, the embeddings in ``cfg.dtype``; on
+        a ``DeviceMesh`` the step's global batch, placed by its ``batch``
+        dim (``place_batch``)."""
         dtype = getattr(torch, cfg.dtype)
         if cfg.family == "vlm":
-            return self.vlm_get(step, cfg.d_model, cfg.vision_fraction,
-                                dtype, device)
-        if cfg.is_encoder_decoder:
-            return self.encdec_get(step, cfg.d_model, dtype, device)
-        return self.get(step, device)
+            batch = self.vlm_get(step, cfg.d_model, cfg.vision_fraction,
+                                 dtype, device)
+        elif cfg.is_encoder_decoder:
+            batch = self.encdec_get(step, cfg.d_model, dtype, device)
+        else:
+            batch = self.get(step, device)
+        return place_batch(batch, mesh)

@@ -14,12 +14,14 @@ monitor and host heartbeats).
     process group, and the wire accounting behind ``dcn_bytes``;
   * ``sharding`` — ``ShardingRules``, ``logical_to_spec``, the global
     mesh and the ``pod`` axis size; ``logical_to_sharding``,
-    ``tree_shardings`` and ``constrain`` on DTensor placements;
-    ``baseline_mode``;
+    ``tree_shardings``, ``distribute_tree``, ``constrain`` and
+    ``local_map_axes`` on DTensor placements; the gloo route of
+    DTensor's collectives; ``baseline_mode``;
   * ``straggler`` — ``StragglerMonitor`` and ``HeartbeatRegistry``.
 
-The models do not run on DTensors yet: the reference's ``constrain``
-call sites in the LM wait for ROADMAP.md Queue 1 item 5.6c."""
+The dense LM runs on DTensors over a ``DeviceMesh`` (its ``constrain``
+sites are the reference's); the other families wait for ROADMAP.md
+Queue 1 item 5.6c-2."""
 
 from repro_torch.dist import (
     checkpoint,

@@ -22,10 +22,46 @@ every route takes as "one device".
 
 from __future__ import annotations
 
+import os
+
+import torch
 import torch.distributed as dist
 
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def join_group(dev: torch.device) -> bool:
+    """Joins the process group ``torchrun`` describes (``WORLD_SIZE`` > 1)
+    unless one is initialized already; returns whether it started one.
+    On CUDA each rank takes the card ``LOCAL_RANK`` modulo the cards
+    present, and the backend is NCCL unless the node runs more ranks
+    than it has cards (NCCL refuses two ranks on one card): then, as on
+    the CPU, gloo. The launchers' shared entry to a mesh."""
+    if (int(os.environ.get("WORLD_SIZE", "1")) <= 1
+            or dist.is_initialized()):
+        return False
+    backend = "gloo"
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % cards)
+        if int(os.environ.get("LOCAL_WORLD_SIZE", "1")) <= cards:
+            backend = "nccl"
+    dist.init_process_group(backend, init_method="env://")
+    return True
+
+
+def mesh_line(mesh) -> str:
+    """The reference's ``mesh: {...} devices=N`` line of a mesh (a
+    ``DeviceMesh`` or the one-device mapping)."""
+    from repro_torch.dist.sharding import mesh_shape
+
+    shape = mesh_shape(mesh)
+    n = 1
+    for size in shape.values():
+        n *= size
+    return f"mesh: {shape} devices={n}"
 
 
 def _world_size() -> int | None:

@@ -1,5 +1,5 @@
 """Batched LM serving launcher (``repro.launch.serve``): prefill + decode
-loop with a KV cache, on one device.
+loop with a KV cache, on one device or over a device mesh.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_7b \
@@ -20,21 +20,36 @@ decode loop reads nothing back from the card: the greedy (or
 Gumbel-sampled) token stays on the device and the position is a Python
 int. On the card, prefill and every decode step are timed with
 CUDA events; on the CPU with the host clock.
+
+Over a mesh (``torchrun``, as the training launcher joins it) the run
+serves on ``make_debug_mesh()``, as the reference does: the parameters
+placed by ``param_axes``, the prompt by its batch dim, each rank's KV
+cache holding its block; rank 0 alone prints, every rank returns the
+same generated ids, and only the dense family runs over more than one
+rank. It prints the reference's ``mesh: {...} devices=N`` line.
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch qwen2_7b --reduced --device cpu --kv-quant
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.launch.mesh import join_group, make_debug_mesh, mesh_line
 from repro_torch.models.model_zoo import Model, build_model
 from repro_torch.train.serve_step import make_decode_step, make_prefill
 
@@ -49,7 +64,7 @@ class ServeRun:
     batch: dict                 # the prompt, as get_for makes it
     start: int                  # position of the first decoded token
     cache_len: int              # positions the KV cache holds
-    tokens: torch.Tensor        # (B, gen) generated ids
+    tokens: torch.Tensor        # (B, gen) generated ids (whole, each rank)
     prefill_s: float
     step_ms: list[float]        # one per decode step
     decode_s: float
@@ -57,6 +72,7 @@ class ServeRun:
     peak_bytes: int | None      # CUDA max_memory_allocated, None on the CPU
     launches: int               # decode_attention launches in the run
     logits: list | None = None  # per decode step (B, 1, V), when kept
+    #                             (whole values on a mesh)
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -105,12 +121,15 @@ def prompt_positions(cfg, batch: dict) -> tuple[int, int]:
     return n, n
 
 
+@SH.in_mesh_context
 def generate(model: Model, params, batch: dict, gen: int,
              temperature: float = 0.0, keep_logits: bool = False
              ) -> ServeRun:
     """Prefill ``batch`` then decode ``gen - 1`` tokens, as the reference's
     launcher does (a cache of the prompt's length + ``gen`` positions);
-    returns the tokens and the timings."""
+    returns the tokens and the timings. On a mesh the tokens stay
+    DTensors through the loop (the sampler's draws, the same on every
+    rank, are taken as replicated)."""
     dev = model.device
     B = batch["tokens"].shape[0]
     start, prompt = prompt_positions(model.cfg, batch)
@@ -139,13 +158,14 @@ def generate(model: Model, params, batch: dict, gen: int,
         tok = pick(logits)
         out_tokens.append(tok)
         if keep_logits:
-            kept.append(logits)
+            kept.append(SH.full_value(logits))
         steps.mark()
     step_s = steps.intervals_s()
     prefill_s = pre.intervals_s()[0]
     return ServeRun(
         model=model, params=params, batch=batch, start=start,
-        cache_len=prompt + gen, tokens=torch.cat(out_tokens, dim=1),
+        cache_len=prompt + gen,
+        tokens=SH.full_value(torch.cat(out_tokens, dim=1)),
         prefill_s=prefill_s,
         step_ms=[1e3 * s for s in step_s], decode_s=sum(step_s),
         clock="cuda events" if dev.type == "cuda" else "host",
@@ -170,6 +190,21 @@ def main(argv=None, keep_logits: bool = False) -> ServeRun:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    own_group = join_group(device)
+    try:
+        # rank 0 alone reports
+        quiet = dist.is_initialized() and dist.get_rank() > 0
+        with (contextlib.redirect_stdout(io.StringIO()) if quiet
+              else contextlib.nullcontext()):
+            return _serve(args, device, keep_logits)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, keep_logits: bool) -> ServeRun:
+    """The launcher's run on this rank."""
+    mesh = make_debug_mesh(device_type=device.type)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -179,11 +214,12 @@ def main(argv=None, keep_logits: bool = False) -> ServeRun:
         torch.cuda.reset_peak_memory_stats(device)
         if cfg.kv_quant_int8:   # set-up: the kernel builds before timing
             _build.load("decode_attention")
-    model = build_model(cfg, device)
+    print(mesh_line(mesh))
+    model = build_model(cfg, device, mesh)
     params = model.init(seed=0)
     pipe = TokenPipeline(batch=args.batch, seq=args.prompt_len,
                          vocab=cfg.vocab_size)
-    batch = pipe.get_for(cfg, 0, device)
+    batch = pipe.get_for(cfg, 0, device, mesh)
     run = generate(model, params, batch, args.gen, args.temperature,
                    keep_logits)
 

@@ -65,7 +65,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
-import os
 import time
 
 import numpy as np
@@ -81,7 +80,7 @@ from repro_torch.kernels.encode_search import (
     encode_search_banded,
 )
 from repro_torch.kernels.topk_hamming import topk_hamming, topk_hamming_banded
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import join_group, make_debug_mesh
 from repro_torch.serve import (
     BankRegistry,
     DBSearchServer,
@@ -195,7 +194,7 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     if not 0.0 <= args.append < 1.0:
         raise SystemExit("--append must be in [0, 1)")
     dev = resolve_device(args.device)
-    own_group = _join_group(dev)
+    own_group = join_group(dev)
     try:
         # rank 0 alone reports
         quiet = dist.is_initialized() and dist.get_rank() > 0
@@ -205,27 +204,6 @@ def main(argv=None, *, executor_cls: type[SearchExecutor] = SearchExecutor):
     finally:
         if own_group:
             dist.destroy_process_group()
-
-
-def _join_group(dev: torch.device) -> bool:
-    """Joins the process group ``torchrun`` describes (``WORLD_SIZE`` > 1)
-    unless one is initialized already; returns whether it started one.
-    On CUDA each rank takes the card ``LOCAL_RANK`` modulo the cards
-    present, and the backend is NCCL unless the node runs more ranks
-    than it has cards (NCCL refuses two ranks on one card): then, as on
-    the CPU, gloo."""
-    if (int(os.environ.get("WORLD_SIZE", "1")) <= 1
-            or dist.is_initialized()):
-        return False
-    backend = "gloo"
-    if dev.type == "cuda":
-        cards = torch.cuda.device_count()
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
-                              % cards)
-        if int(os.environ.get("LOCAL_WORLD_SIZE", "1")) <= cards:
-            backend = "nccl"
-    dist.init_process_group(backend, init_method="env://")
-    return True
 
 
 def _serve(args, dev: torch.device, executor_cls):

@@ -1,4 +1,5 @@
-"""Training launcher (``repro.launch.train``) on one device.
+"""Training launcher (``repro.launch.train``) on one device or over a
+device mesh.
 
 Wires together: config -> model -> train step -> synthetic token
 pipeline -> checkpointing (auto-resume, async, keep-N) -> straggler
@@ -19,32 +20,58 @@ Usage:
       --reduced --steps 3 --device cpu [--imc-linear] \
       [--dcn-pods 2 --dcn-compression topk_ef]
 
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch qwen2_7b --reduced --steps 3 --device cpu
+
 The flags are the reference's plus ``--device`` (default ``cuda``; asking
-for it without a card raises). ``--mesh`` takes only ``debug``, here one
-device (``single`` and ``multi`` raise, naming ROADMAP.md Queue 1 item
-5.6c). Parameters are the port's own draw from seed 0. Each logged step
-prints its loss, grad_norm and the mean wall seconds a step (the log line
-reads the loss back, which waits for the device).
+for it without a card raises). ``--mesh debug`` is ``make_debug_mesh``:
+over the process group ``torchrun`` describes (``WORLD_SIZE`` > 1; NCCL
+when each rank has a card of its own, else gloo, as ``serve_db`` picks
+it), or the one-device mapping without one; ``single`` and ``multi`` are
+``make_production_mesh``, which raises unless the group has 256 (512)
+ranks. The run prints the reference's ``mesh: {...} devices=N`` line and
+places the train state by its logical axes (``state_axes``); over more
+than one rank the model must be of the dense family (any other raises,
+ROADMAP.md item 5.6c-2), every rank draws the same global batch and keeps
+its block, rank 0 alone prints and writes the checkpoints (each leaf
+gathered whole: a checkpoint restores on another mesh), and a straggler
+eviction only reports (the ranks' clocks differ, and a save is
+collective). Parameters are the port's own draw from seed 0. Each logged
+step prints its loss, grad_norm and the mean wall seconds a step (the
+log line reads the loss back, which waits for the device).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import time
+
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.dist.checkpoint import CheckpointManager
+from repro_torch.dist.sharding import is_device_mesh, tree_shardings
 from repro_torch.dist.straggler import Action, StragglerMonitor
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import (
+    join_group,
+    make_debug_mesh,
+    make_production_mesh,
+    mesh_line,
+)
+from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import (
     TrainConfig,
     init_train_state,
     make_train_step,
+    state_axes,
 )
 
 
@@ -80,25 +107,41 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", default="debug",
                     choices=["debug", "single", "multi"],
-                    help="debug: this one device (single and multi span "
-                         "many devices and are not ported)")
+                    help="debug: make_debug_mesh over the process group "
+                         "(one device without one); single / multi: the "
+                         "production meshes of 256 / 512 ranks")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    if args.mesh != "debug":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} spans many devices; the port trains on one "
-            f"(ROADMAP.md, Queue 1 item 5.6c)")
+    own_group = join_group(device)
+    try:
+        # rank 0 alone reports
+        quiet = dist.is_initialized() and dist.get_rank() > 0
+        with (contextlib.redirect_stdout(io.StringIO()) if quiet
+              else contextlib.nullcontext()):
+            return _train(args, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device):
+    """The launcher's run on this rank."""
+    if args.mesh == "debug":
+        mesh = make_debug_mesh(device_type=device.type)
+    else:
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device_type=device.type)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.imc_linear:
         cfg = dataclasses.replace(cfg, imc_linear=True)
-    print(f"mesh: one device ({device})")
+    print(mesh_line(mesh))
 
-    model = build_model(cfg, device)
+    model = build_model(cfg, device, mesh)
     tcfg = TrainConfig(
         optimizer=AdamWConfig(lr=args.lr, total_steps=args.steps),
         remat=args.remat, microbatches=args.microbatches,
@@ -106,7 +149,7 @@ def main(argv=None):
         dcn_compression=args.dcn_compression, dcn_pods=args.dcn_pods,
         dcn_topk_frac=args.dcn_topk_frac, seed=args.seed,
     )
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, mesh)
     if step_fn.dcn_route != "global":
         print(f"grad sync: {step_fn.dcn_route} hierarchy over "
               f"{step_fn.dcn_pods} pod(s), "
@@ -114,13 +157,17 @@ def main(argv=None):
     if device.type == "cuda" and cfg.imc_linear:
         _build.load("imc_mvm")   # set-up: the kernel builds before step 1
     state = init_train_state(model, seed=0, tcfg=tcfg)
+    state_sh = None
+    if is_device_mesh(mesh):
+        state_sh = tree_shardings(state_axes(T.param_axes(
+            state.params, cfg), tcfg), state, mesh)
     pipe = TokenPipeline(batch=args.batch, seq=args.seq, vocab=cfg.vocab_size)
 
     start_step = 0
     ckpt = None
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir, keep=3)
-        restored = ckpt.restore_latest(state)
+        restored = ckpt.restore_latest(state, state_sh)
         if restored is not None:
             start_step, state = restored
             print(f"resumed from checkpoint step {start_step}")
@@ -134,10 +181,10 @@ def main(argv=None):
     t_start = time.time()
     for step in range(start_step, args.steps):
         monitor.step_start()
-        batch = pipe.get_for(cfg, step, device)
+        batch = pipe.get_for(cfg, step, device, mesh)
         state, metrics = step_fn(state, batch)
         action = monitor.step_end()
-        if action == Action.EVICT and ckpt is not None:
+        if action == Action.EVICT and ckpt is not None and state_sh is None:
             ckpt.save_async(step + 1, state)
         if (step + 1) % args.log_every == 0 or step == start_step:
             loss = float(metrics["loss"])

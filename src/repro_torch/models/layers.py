@@ -10,12 +10,17 @@ reads ``p["wq"]`` as the reference does. Matrices and biases are stored in
 parameters and casts each to the activation dtype before use, which is the
 same value.
 
-On one device the reference's ``dist.sharding.constrain`` is the identity
-(no mesh is set), so it has no counterpart here. The int8 branch of
-:func:`attention_decode` calls the hand-written ``decode_attention``
-kernel; the bfloat16 ``KVCache`` branch stays plain PyTorch, as the
-reference computes it in XLA. Caches are updated in place: a decode step
-writes one slot of each layer's cache instead of returning a new cache.
+The reference's ``dist.sharding.constrain`` calls are kept where it has
+them (``_qkv``, the attention outputs, ``apply_ffn``'s hidden): the
+identity with no mesh, a redistribution of the ``DTensor`` activations on
+a ``DeviceMesh``. The int8 branch of :func:`attention_decode` calls the
+hand-written ``decode_attention`` kernel; the bfloat16 ``KVCache`` branch
+stays plain PyTorch, as the reference computes it in XLA. Caches are
+updated in place: a decode step writes one slot of each layer's cache
+instead of returning a new cache. On a mesh a cache is this rank's own
+plain tensors: its ``batch`` block and the kv heads its query-head block
+reads (``kv_block``); the cache writes and the attention over it run in
+one local region (``sharding.local_map_axes``) on the rank's blocks.
 
 With ``trainable=True`` the init functions store every leaf in
 ``cfg.param_dtype`` (float32) with ``requires_grad``: the training path's
@@ -43,6 +48,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.imc.array import ArrayConfig, default_full_scale
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.imc_mvm import imc_mvm
 
@@ -154,27 +160,107 @@ def init_attention(cfg: ArchConfig, device="cpu",
     return nn.ParameterDict(p)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one (B*S, D) x (D, H*hd) product."""
+# the logical axes of the dense layers' weights (the reference's
+# ``init_attention`` / ``init_ffn``)
+WQ_AXES = ("fsdp", "heads", None)
+WKV_AXES = ("fsdp", "kv_heads", None)
+WO_AXES = ("heads", None, "fsdp")
+W_IN_AXES = ("fsdp", "ff")
+W_OUT_AXES = ("ff", "fsdp")
+# the logical axes of the (B, S, D) activations between blocks
+SEQ_AXES = ("batch", "seq_shard", None)
+
+
+def gather_fsdp(w: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """A weight with its FSDP-sharded dim gathered (its other dims as
+    ``axes`` place them): FSDP gathers a weight before it is used and
+    reduce-scatters its gradient, so the contraction over d_model runs
+    whole on each rank. The identity with no mesh."""
+    return SH.constrain(w, *(None if a == "fsdp" else a for a in axes))
+
+
+def project(x: torch.Tensor, w: torch.Tensor, axes: tuple | None = None,
+            dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w`` in ``dtype`` (default x's), w rounded to it. On a mesh
+    the product is placed by ``axes``; under autograd (training) it is
+    taken in float32 and rounded once: where the ranks each hold a block
+    of the contraction (heads, d_ff) its partial sums are reduced in
+    float32 first, as one device's GEMM accumulates in float32 and rounds
+    once (bfloat16 partial sums round each rank's share, then their sum,
+    and an analog chain's quantization turns that into a loss apart).
+    Serving keeps the activation dtype: half the bytes through the
+    collectives, and its logits came no closer to one process's
+    (PERF.md §6)."""
+    dtype = dtype or x.dtype
+    w = w.to(dtype)
+    if not SH.on_mesh(x):
+        return x @ w
+    y = x.float() @ w.float() if torch.is_grad_enabled() else x @ w
+    if axes is not None:
+        y = SH.constrain(y, *axes)
+    return y.to(dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, w_axes: tuple | None = None,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (B*S, D) x (D, H*hd) product in
+    ``dtype`` (default x's); on a mesh the weight's FSDP dim gathered
+    first (``w_axes``)."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    dtype = dtype or x.dtype
+    w = w.to(dtype)
+    if w_axes is not None:
+        w = gather_fsdp(w, w_axes)
+    return project(x, w.reshape(d, h * k), dtype=dtype).unflatten(-1,
+                                                                  (h, k))
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bqhk,hkd->bqd")."""
-    return out.flatten(-2) @ wo.to(out.dtype).flatten(0, 1)
+    """einsum("bqhk,hkd->bqd"), the heads' partial sums reduced onto the
+    sequence-sharded layout on a mesh."""
+    wo = gather_fsdp(wo.to(out.dtype), WO_AXES)
+    return project(out.flatten(-2), wo.flatten(0, 1), SEQ_AXES)
+
+
+# the logical axes of the (B, S, H, hd) queries and (B, S, KV, hd) keys and
+# values, as the reference constrains them
+Q_AXES = ("batch", None, "heads", None)
+KV_AXES = ("batch", None, "kv_heads", None)
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """A (B, S, D) activation with its whole sequence on each rank
+    (("batch", None, None)) before it enters a projection: the all-gather
+    GSPMD's partitioner inserts for the reference where a sequence-sharded
+    activation meets a column-sharded weight (DTensor does not split a
+    sharded sequence out of a matmul's flattened rows). On a mesh under
+    autograd it is widened to float32 first, so that backward reduces the
+    projections' partial input gradients in float32 and rounds them once
+    (``project`` then rounds its output to the activation dtype). The
+    identity with no mesh."""
+    if not SH.on_mesh(x):
+        return x
+    if torch.is_grad_enabled():
+        x = x.float()
+    return SH.constrain(x, "batch", None, None)
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ArchConfig,
          positions: torch.Tensor, use_rope: bool = True):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    dt = x.dtype
+    x = gather_seq(x)
+    q = _proj(x, p["wq"], WQ_AXES, dt)
+    k, v = _proj(x, p["wk"], WKV_AXES, dt), _proj(x, p["wv"], WKV_AXES, dt)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = SH.constrain(q, *Q_AXES)
+    k = SH.constrain(k, *KV_AXES)
+    v = SH.constrain(v, *KV_AXES)
     return q, k, v
 
 
@@ -223,7 +309,7 @@ def attention_chunked(q, k, v, cfg: ArchConfig, chunk: int = 1024,
     """Online-softmax attention over KV chunks (the reference's jnp-level
     FlashAttention), the prefill route past 8,192 positions: memory is
     O(Sq * chunk) instead of O(Sq * S)."""
-    h = cfg.num_heads
+    h = q.shape[2]
     hd = q.shape[-1]
     b, sq = q.shape[0], q.shape[1]
     kv = k.shape[2]
@@ -260,6 +346,7 @@ def attention_chunked(q, k, v, cfg: ArchConfig, chunk: int = 1024,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
+@SH.in_mesh_context
 def attention_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
                     causal: bool = True, chunk_threshold: int = 8192
                     ) -> torch.Tensor:
@@ -268,11 +355,10 @@ def attention_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
-    if s <= chunk_threshold:
-        out = attention_full(q, k, v, cfg, causal=causal)
-    else:
-        out = attention_chunked(q, k, v, cfg, causal=causal)
-    return _out_proj(out, p["wo"])
+    route = attention_full if s <= chunk_threshold else attention_chunked
+    out = _on_kv_block(lambda q, k, v: route(q, k, v, cfg, causal=causal),
+                       q, k, v, cfg)
+    return _out_proj(SH.constrain(out, *Q_AXES), p["wo"])
 
 
 @dataclasses.dataclass
@@ -300,24 +386,67 @@ def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def kv_block(cfg: ArchConfig, batch: int, mesh=None) -> tuple[int, int, int]:
+    """(rows, first kv head, kv heads) of this rank's cache block on
+    ``mesh`` (default: the installed one): its block of the ``batch`` dim
+    and the kv heads its block of query heads reads (the rules may leave
+    the kv heads replicated while the query heads are sharded); the whole
+    cache with no ``DeviceMesh``. A query-head block that is neither whole
+    kv groups nor inside one group raises ``ValueError``."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, 1, h, hd)
+    _, rows = SH.local_range(Q_AXES, shape, 0, mesh)
+    h0, hl = SH.local_range(Q_AXES, shape, 2, mesh)
+    g = h // kv
+    if hl % g and g % hl:
+        raise ValueError(f"a block of {hl} query heads straddles the kv "
+                         f"groups of {g} heads")
+    return rows, h0 // g, max(hl // g, 1)
+
+
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-                  device="cpu"):
+                  device="cpu", mesh=None):
     """For sliding-window layers the cache is bounded by the window. K, V
-    and their scales are separate buffers (they are written in place)."""
+    and their scales are separate buffers (they are written in place). On
+    a ``DeviceMesh`` the buffers hold this rank's block (``kv_block``)."""
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    shape = (batch, size, kv, hd)
+    rows, _, kv = kv_block(cfg, batch, mesh)
+    hd = cfg.resolved_head_dim
+    shape = (rows, size, kv, hd)
     if cfg.kv_quant_int8:
         return QuantKVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
-            k_scale=torch.ones((batch, size, kv), device=device),
-            v_scale=torch.ones((batch, size, kv), device=device))
+            k_scale=torch.ones((rows, size, kv), device=device),
+            v_scale=torch.ones((rows, size, kv), device=device))
     dt = dtype or _dtype(cfg)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device))
 
 
+def _on_kv_block(fn: Callable, q: torch.Tensor | None, k: torch.Tensor,
+                 v: torch.Tensor, cfg: ArchConfig):
+    """``fn(q, k, v)`` with k and v cut to the kv heads this rank's block
+    of query heads reads (``kv_block``): the tensors themselves with no
+    mesh; on a mesh each rank's local blocks in one local region, the
+    output (if any) placed as q. Attention is independent across batch
+    rows and kv groups, so each rank attends its own block."""
+    if not SH.on_mesh(k):
+        return fn(q, k, v)
+    _, first, n = kv_block(cfg, k.shape[0])
+    lo = first - SH.local_range(KV_AXES, k.shape, 2)[0]
+
+    def local(*t):
+        ql, kl, vl = (None, *t) if q is None else t
+        return fn(ql, kl[:, :, lo:lo + n], vl[:, :, lo:lo + n])
+
+    if q is None:
+        return SH.local_map_axes(local, (KV_AXES, KV_AXES), ())(k, v)
+    return SH.local_map_axes(local, (Q_AXES, KV_AXES, KV_AXES),
+                             (Q_AXES,))(q, k, v)
+
+
+@SH.in_mesh_context
 def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
     """Full-sequence causal attention that also fills the KV cache in
     place: position ``p`` of the last ``min(S, size)`` lands in slot
@@ -327,10 +456,8 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
-    if s <= 8192:
-        out = attention_full(q, k, v, cfg)
-    else:
-        out = attention_chunked(q, k, v, cfg)
+    route = attention_full if s <= 8192 else attention_chunked
+    out = _on_kv_block(lambda q, k, v: route(q, k, v, cfg), q, k, v, cfg)
     size = cache.k.shape[1]
     n = min(s, size)
     shift = s % size if s > size else 0
@@ -338,22 +465,26 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
     def ring(t):
         return torch.roll(t, shift, dims=1) if shift else t
 
-    if isinstance(cache, QuantKVCache):
-        k8, ks = _kv_quant(k[:, -size:])
-        v8, vs = _kv_quant(v[:, -size:])
-        cache.k[:, :n] = ring(k8)
-        cache.v[:, :n] = ring(v8)
-        cache.k_scale[:, :n] = ring(ks)
-        cache.v_scale[:, :n] = ring(vs)
-    else:
-        cache.k[:, :n] = ring(k[:, -size:])
-        cache.v[:, :n] = ring(v[:, -size:])
-    return _out_proj(out, p["wo"]), cache
+    def fill(_, k, v):
+        if isinstance(cache, QuantKVCache):
+            k8, ks = _kv_quant(k[:, -size:])
+            v8, vs = _kv_quant(v[:, -size:])
+            cache.k[:, :n] = ring(k8)
+            cache.v[:, :n] = ring(v8)
+            cache.k_scale[:, :n] = ring(ks)
+            cache.v_scale[:, :n] = ring(vs)
+        else:
+            cache.k[:, :n] = ring(k[:, -size:])
+            cache.v[:, :n] = ring(v[:, -size:])
+
+    _on_kv_block(fill, None, k, v, cfg)
+    return _out_proj(SH.constrain(out, *Q_AXES), p["wo"]), cache
 
 
 Attend = Callable[..., torch.Tensor]
 
 
+@SH.in_mesh_context
 def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache,
                      pos: int, attend: Attend | None = None):
     """One-token decode against the KV cache, written in place.
@@ -368,10 +499,10 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache,
     ``pos``, exactly the reference's mask. ``attend`` lets a caller swap
     in the plain version on the same device. Without a window, a ``pos``
     past the cache raises a ``ValueError`` (the reference's clamped write
-    would overwrite the last slot)."""
+    would overwrite the last slot). On a mesh the slot's write and the
+    attention run in one local region on the rank's (batch, kv-head)
+    block of the cache, the kernel on the rank's local shapes."""
     b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
-    kv = cfg.num_kv_heads
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
     size = cache.k.shape[1]
@@ -380,28 +511,35 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache,
                          f"{size} positions (no sliding window)")
     slot = pos % size if cfg.sliding_window else pos
     valid_len = min(pos + 1, size)
-    if isinstance(cache, QuantKVCache):
-        k8, ks = _kv_quant(k)
-        v8, vs = _kv_quant(v)
-        cache.k[:, slot] = k8[:, 0]
-        cache.v[:, slot] = v8[:, 0]
-        cache.k_scale[:, slot] = ks[:, 0]
-        cache.v_scale[:, slot] = vs[:, 0]
-        qg = _group_q(q, kv)[:, 0].float() * hd ** -0.5     # (b, kv, g, hd)
-        out = (attend or decode_attention)(
-            qg.contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
-            valid_len)
-    else:
-        cache.k[:, slot] = k[:, 0]
-        cache.v[:, slot] = v[:, 0]
-        qg = _group_q(q, kv)[:, 0].float()                  # (b, kv, g, hd)
-        logits = torch.einsum("bngk,bsnk->bngs", qg,
-                              cache.k.float()) / (hd ** 0.5)
-        valid = torch.arange(size, device=x.device) < valid_len
-        logits = torch.where(valid, logits, -1e30)
-        w = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bngs,bsnk->bngk", w, cache.v.float())
-    out = out.reshape(b, 1, h, hd).to(x.dtype)
+
+    def attend_cached(q, k, v):
+        """The cache's slot written and attended, on this rank's block."""
+        b, _, h, hd = q.shape
+        kv = cache.k.shape[2]
+        if isinstance(cache, QuantKVCache):
+            k8, ks = _kv_quant(k)
+            v8, vs = _kv_quant(v)
+            cache.k[:, slot] = k8[:, 0]
+            cache.v[:, slot] = v8[:, 0]
+            cache.k_scale[:, slot] = ks[:, 0]
+            cache.v_scale[:, slot] = vs[:, 0]
+            qg = _group_q(q, kv)[:, 0].float() * hd ** -0.5  # (b, kv, g, hd)
+            out = (attend or decode_attention)(
+                qg.contiguous(), cache.k, cache.v, cache.k_scale,
+                cache.v_scale, valid_len)
+        else:
+            cache.k[:, slot] = k[:, 0]
+            cache.v[:, slot] = v[:, 0]
+            qg = _group_q(q, kv)[:, 0].float()              # (b, kv, g, hd)
+            logits = torch.einsum("bngk,bsnk->bngs", qg,
+                                  cache.k.float()) / (hd ** 0.5)
+            valid = torch.arange(size, device=q.device) < valid_len
+            logits = torch.where(valid, logits, -1e30)
+            w = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bngs,bsnk->bngk", w, cache.v.float())
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+
+    out = _on_kv_block(attend_cached, q, k, v, cfg)
     return _out_proj(out, p["wo"]), cache
 
 
@@ -435,6 +573,51 @@ def init_ffn(cfg: ArchConfig, d_ff: int | None = None, device="cpu",
     return nn.ParameterDict(p)
 
 
+def _imc_parts(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig,
+               amax=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(``x @ w`` exact, the SpecPCM chain's ``x @ w``) in float32 over
+    the ff columns of ``x`` and rows of ``w`` at hand, the analog value
+    without autograd; ``amax(t)`` completes the scales' maxima over the
+    blocks of ff that other ranks hold (None: ff is whole here)."""
+    acfg = ArrayConfig(adc_bits=cfg.imc_adc_bits,
+                       bits_per_cell=cfg.imc_mlc_bits)
+    dac = acfg.dac_levels
+    xf, wf = x.float(), w.float()
+    # the exact product first: it holds the last tensors autograd saves
+    # in a block, so a remat's recompute stops before the analog chain,
+    # whose value backward never reads (as XLA drops it from the
+    # reference's rematerialized forward)
+    y_exact = xf @ wf
+    with torch.no_grad():
+        mx = xf.abs().amax(-1, keepdim=True)
+        mw = wf.abs().amax(0, keepdim=True)
+        if amax is not None:
+            mx, mw = amax(mx), amax(mw)
+        # divisors as tensors: a Python-scalar divisor may become a
+        # multiply by its reciprocal on the card
+        mx = torch.clamp(mx, min=1e-6)
+        sx = mx / torch.full_like(mx, dac)
+        mw = torch.clamp(mw, min=1e-6)
+        sw = mw / torch.full_like(mw, cfg.imc_mlc_bits)
+        xq = torch.round(xf / sx)
+        wq = torch.round(wf / sw)
+        f = wq.shape[0]
+        pad = (-f) % acfg.cols
+        q = F.pad(xq.reshape(-1, f), (0, pad)).contiguous()
+        wt = F.pad(wq.t(), (0, pad)).contiguous()        # (d_out, f + pad)
+        y_imc = imc_mvm(q, wt, full_scale=default_full_scale(acfg),
+                        tile_cols=acfg.cols, dac_limit=dac,
+                        adc_levels=acfg.adc_levels)
+        y_imc = y_imc.reshape(*x.shape[:-1], -1) * sx * sw
+    return y_exact, y_imc
+
+
+# the logical axes of _imc_linear's (B, S, F) input and (F, D) weight
+IMC_X_AXES = ("batch", None, "ff")
+IMC_W_AXES = ("ff", None)
+IMC_Y_AXES = ("batch", None, None)
+
+
 def _imc_linear(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig
                 ) -> torch.Tensor:
     """``x @ w`` through the SpecPCM analog chain, with a straight-through
@@ -447,49 +630,68 @@ def _imc_linear(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig
     whole 128-column tiles, and is scaled back by ``sx * sw``. The tiles'
     partials are integers below 128 * 9, exact in float32 in any order,
     so the ADC codes equal the reference's; ``y_imc`` differs from it only
-    in the order the codes times lsb are summed."""
-    acfg = ArrayConfig(adc_bits=cfg.imc_adc_bits,
-                       bits_per_cell=cfg.imc_mlc_bits)
-    dac = acfg.dac_levels
-    xf, wf = x.float(), w.float()
-    # the exact product first: it holds the last tensors autograd saves
-    # in a block, so a remat's recompute stops before the analog chain,
-    # whose value backward never reads (as XLA drops it from the
-    # reference's rematerialized forward)
-    y_exact = xf @ wf
-    with torch.no_grad():
-        # divisors as tensors: a Python-scalar divisor may become a
-        # multiply by its reciprocal on the card
-        mx = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-6)
-        sx = mx / torch.full_like(mx, dac)
-        mw = torch.clamp(wf.abs().amax(0, keepdim=True), min=1e-6)
-        sw = mw / torch.full_like(mw, cfg.imc_mlc_bits)
-        xq = torch.round(xf / sx)
-        wq = torch.round(wf / sw)
-        f = wq.shape[0]
-        pad = (-f) % acfg.cols
-        q = F.pad(xq.reshape(-1, f), (0, pad)).contiguous()
-        wt = F.pad(wq.t(), (0, pad)).contiguous()        # (d_out, f + pad)
-        y_imc = imc_mvm(q, wt, full_scale=default_full_scale(acfg),
-                        tile_cols=acfg.cols, dac_limit=dac,
-                        adc_levels=acfg.adc_levels)
-        y_imc = y_imc.reshape(*x.shape[:-1], -1) * sx * sw
-    # straight-through: value = imc, gradient = exact
-    y = y_exact + (y_imc - y_exact).detach()
-    return y.to(x.dtype)
+    in the order the codes times lsb are summed.
+
+    On a mesh ``x`` is ``ff``-sharded (``IMC_X_AXES``). When each rank's
+    block of ff is whole 128-column tiles the chain runs on the rank's
+    block (``imc_mvm`` on its local shape), the scales' maxima all-reduced
+    over the ranks that share a row (``sx`` and ``sw`` are the whole
+    ff's, as the reference's), and the ranks' scaled outputs are summed in
+    float32 (a partial sum: an order other than the reference's); else
+    ``x`` and ``w`` are gathered over ff first and every rank runs the
+    whole chain."""
+    if not (SH.on_mesh(x) or SH.on_mesh(w)):
+        y_exact, y_imc = _imc_parts(x, w, cfg)
+        # straight-through: value = imc, gradient = exact
+        y = y_exact + (y_imc - y_exact).detach()
+        return y.to(x.dtype)
+    cols = ArrayConfig().cols
+    _, fl = SH.local_range(IMC_X_AXES, x.shape, 2)
+    tiled = fl < x.shape[-1] and fl % cols == 0
+    axes = SH.dim_axes(IMC_X_AXES, x.shape, 2) if tiled else ()
+    mesh = SH.get_mesh()
+
+    def amax(t):
+        for a in axes:
+            torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MAX,
+                                         group=mesh.get_group(a))
+        return t
+
+    def local(xl, wl):
+        y_exact, y_imc = _imc_parts(xl, wl, cfg, amax if axes else None)
+        return y_exact + (y_imc - y_exact).detach()
+
+    if tiled:
+        run = SH.local_map_axes(local, (IMC_X_AXES, IMC_W_AXES),
+                                (IMC_Y_AXES,), reduced=("ff",))
+    else:
+        run = SH.local_map_axes(local, (IMC_Y_AXES, (None, None)),
+                                (IMC_Y_AXES,))
+    # the ranks' float32 partial sums reduced, then one cast, as the
+    # reference casts its float32 sum
+    return SH.constrain(run(x, w), *IMC_Y_AXES).to(x.dtype)
 
 
 def apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Without autograd the gate's activation and product are taken in
     place (each elementwise step rounds as its out-of-place form), which
     keeps the (tokens, d_ff) buffers of a full-width prefill to two; under
-    autograd they are out of place, since backward reads their inputs.
+    autograd, and on a mesh, they are out of place, since backward reads
+    their inputs (and a DTensor's in-place op keeps its placement).
     With ``cfg.imc_linear`` the down-projection is :func:`_imc_linear`."""
     dt = x.dtype
-    inplace = not torch.is_grad_enabled()
+    # (not on a mesh: an in-place op cannot change a DTensor's placement)
+    inplace = not torch.is_grad_enabled() and not SH.on_mesh(x)
+    x = gather_seq(x)
+    hidden = ("batch", None, "ff")
+
+    def up(name):
+        return project(x, gather_fsdp(p[name].to(dt), W_IN_AXES), hidden,
+                       dt)
+
     if cfg.activation in ("swiglu", "geglu"):
-        h = x @ p["w_gate"].to(dt)
-        u = x @ p["w_up"].to(dt)
+        h = up("w_gate")
+        u = up("w_up")
         if cfg.activation == "swiglu":
             h = F.silu(h, inplace=inplace)
         else:
@@ -497,12 +699,13 @@ def apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         h = h.mul_(u) if inplace else h * u
         del u
     else:
-        h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt),
-                   approximate="tanh")
+        h = F.gelu(up("w_up") + p["b_up"].to(dt), approximate="tanh")
+    h = SH.constrain(h, *IMC_X_AXES)
     if cfg.imc_linear:
         y = _imc_linear(h, p["w_down"], cfg)
     else:
-        y = h @ p["w_down"].to(dt)
+        y = project(h, gather_fsdp(p["w_down"].to(dt), W_OUT_AXES),
+                    SEQ_AXES)
     if "b_down" in p:
         y = y + p["b_down"].to(dt)
     return y

@@ -15,6 +15,13 @@ caller asks for the CPU; asking for CUDA without a card raises) with
 
 A recurrent layer's cache entry is its state (``models.recurrent``); a
 ``dec_cross`` layer's holds its cross K/V (``transformer.CrossKV``).
+
+``build_model(cfg, device, mesh=)`` with a ``DeviceMesh`` installs it as
+the global mesh (``sharding.set_mesh``): the parameters are DTensors
+placed by ``param_axes``, a batch is placed by its ``batch`` dim, and the
+forwards run on DTensors. Only the dense family runs over a mesh of more
+than one rank; any other raises ``NotImplementedError`` (ROADMAP.md item
+5.6c-2) rather than run unsharded.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.data.tokens import place_batch
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import Attend
 
@@ -33,7 +42,10 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor
           ) -> torch.Tensor:
     """Masked mean cross-entropy; logits float32 (B, S, V)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    gold = torch.gather(logits, -1, targets[..., None].long())
+    # on a mesh a vocab-sharded gather is a masked partial sum: reduced
+    # before the view (DTensor's mask does not follow the view)
+    gold = SH.constrain(gold, "batch", None, None)[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -42,6 +54,7 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor
 class Model:
     cfg: ArchConfig
     device: torch.device
+    mesh: object = None   # None, a {name: size} mapping or a DeviceMesh
 
     # ---- init -------------------------------------------------------------
     def init(self, seed: int = 0, trainable: bool = False) -> T.LM:
@@ -49,7 +62,7 @@ class Model:
         on the model's device; ``trainable``: float32 leaves with
         gradients (``cfg.param_dtype``), as training needs."""
         g = torch.Generator(device=self.device).manual_seed(seed)
-        return T.init_lm(self.cfg, self.device, g, trainable)
+        return T.init_lm(self.cfg, self.device, g, trainable, self.mesh)
 
     # ---- train ------------------------------------------------------------
     def loss(self, params, batch: dict, remat: str = "full"
@@ -58,13 +71,14 @@ class Model:
         only (positions P-1 .. P+St-2 predict the St tokens), for the
         encoder-decoder of the decoder over the encoded frames."""
         cfg = self.cfg
+        batch = place_batch(batch, self.mesh)
         tokens = batch["tokens"]
         if cfg.family == "vlm":
             logits = T.forward_train(params, _vlm_inputs(params, batch, cfg),
                                      cfg, remat=remat, is_embedded=True)
             text_logits = logits[:, batch["patches"].shape[1] - 1:-1]
             return _xent(text_logits, tokens,
-                         torch.ones(tokens.shape, device=logits.device))
+                         torch.ones_like(tokens, dtype=torch.float32))
         memory = None
         if cfg.is_encoder_decoder:
             memory = T.encode(params, batch["frames"], cfg, remat=remat)
@@ -72,11 +86,11 @@ class Model:
                                  memory=memory)
         targets = tokens[:, 1:]
         return _xent(logits[:, :-1], targets,
-                     torch.ones(targets.shape, device=logits.device))
+                     torch.ones_like(targets, dtype=torch.float32))
 
     # ---- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list:
-        return T.init_cache(self.cfg, batch, max_len, self.device)
+        return T.init_cache(self.cfg, batch, max_len, self.device, self.mesh)
 
     @torch.no_grad()
     def prefill(self, params: T.LM, batch: dict, cache,
@@ -85,6 +99,7 @@ class Model:
         tokens as one embedded sequence; the encoder-decoder's frames
         encoded into the memory its decoder attends to."""
         cfg = self.cfg
+        batch = place_batch(batch, self.mesh)
         if cfg.family == "vlm":
             return T.forward_prefill(params, _vlm_inputs(params, batch, cfg),
                                      cfg, cache, last_only=last_only,
@@ -99,6 +114,7 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params: T.LM, token: torch.Tensor, cache,
                     pos: int, attend: Attend | None = None):
+        token = place_batch({"tokens": token}, self.mesh)["tokens"]
         return T.forward_decode(params, token, self.cfg, cache, pos, attend)
 
 
@@ -109,6 +125,18 @@ def _vlm_inputs(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return torch.cat([batch["patches"].to(tok_x.dtype), tok_x], dim=1)
 
 
-def build_model(cfg: ArchConfig, device: str | torch.device = "cuda"
-                ) -> Model:
-    return Model(cfg=cfg, device=resolve_device(device))
+def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
+                mesh=None) -> Model:
+    """The model on ``device``; over ``mesh`` (installed as the global
+    mesh when it is a ``DeviceMesh``; see the module docstring)."""
+    size = 1
+    for n in SH.mesh_shape(mesh).values():
+        size *= n
+    if size > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family ({cfg.name}) over a mesh of {size} "
+            f"ranks is not ported (ROADMAP.md, Queue 1 item 5.6c-2); only "
+            f"the dense family runs sharded")
+    if SH.is_device_mesh(mesh):
+        SH.set_mesh(mesh)
+    return Model(cfg=cfg, device=resolve_device(device), mesh=mesh)

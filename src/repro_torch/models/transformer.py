@@ -45,6 +45,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
@@ -171,7 +172,7 @@ def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
                       ) -> torch.Tensor:
     """One block over a full sequence (training; ``enc``: the encoder,
     non-causal; ``dec_cross``: also attending to ``memory``). The
-    reference's ``constrain`` calls are the identity on one device."""
+    reference's ``constrain`` calls are the identity with no mesh."""
     if kind not in KINDS:
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
@@ -188,15 +189,32 @@ def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
     if kind == "hybrid":
         attn = _hybrid_mix(p, attn, R.mamba_train(p["mamba"], h, cfg),
                            x.dtype)
-    x = x + attn.to(x.dtype)
+    # the reference constrains the attention and MLP outputs to the
+    # sequence-sharded layout before each residual add (after it with
+    # baseline_mode); its dec_cross block has no constrain
+    seq = kind != "dec_cross"
+    x = _residual(x, attn, seq)
     h = L.apply_norm(p["norm2"], x, cfg)
-    return x + _mlp(p, h, cfg, kind).to(x.dtype)
+    return _residual(x, _mlp(p, h, cfg, kind), seq)
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor, constrain: bool
+              ) -> torch.Tensor:
+    """``x + y`` in x's dtype, with the reference's ``constrain`` to
+    ("batch", "seq_shard", None) on y before the add, or on the sum with
+    ``baseline_mode()``."""
+    y = y.to(x.dtype)
+    if not constrain:
+        return x + y
+    if SH.baseline_mode():
+        return SH.constrain(x + y, *L.SEQ_AXES)
+    return x + SH.constrain(y, *L.SEQ_AXES)
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                     device="cpu"):
+                     device="cpu", mesh=None):
     if kind in ("attn_ffn", "attn_moe"):
-        return L.init_kv_cache(cfg, batch, max_len, device=device)
+        return L.init_kv_cache(cfg, batch, max_len, device=device, mesh=mesh)
     if kind == "hybrid":
         return (L.init_kv_cache(cfg, batch, max_len, device=device),
                 R.init_mamba_state(cfg, batch, device))
@@ -393,7 +411,7 @@ class LM(nn.Module):
 
 def init_lm(cfg: ArchConfig, device="cpu",
             generator: torch.Generator | None = None,
-            trainable: bool = False) -> LM:
+            trainable: bool = False, mesh=None) -> LM:
     """The port's own initialisation, drawn from ``generator`` on
     ``device``. It cannot reproduce ``jax.random``; it meets the
     reference's distributions: embed and lm_head normal x ``D**-0.5``,
@@ -405,32 +423,46 @@ def init_lm(cfg: ArchConfig, device="cpu",
     gates and sLSTM), which stay float32; ``trainable``: every leaf in
     ``cfg.param_dtype``, with gradients. An encoder-decoder's decoder
     blocks are ``dec_cross``, its ``num_encoder_layers`` encoder blocks
-    ``enc``, drawn after the head."""
+    ``enc``, drawn after the head.
+
+    On a ``DeviceMesh`` (``mesh``) every rank draws the same values, and
+    each leaf is placed by ``param_axes`` as soon as its block (or the
+    embedding, the head) is drawn: a rank keeps its blocks, so the full
+    model never lives on a rank at once (the peak is the largest leaf)."""
     V, D = cfg.padded_vocab, cfg.d_model
     t = trainable
-    embed = L._normal((V, D), D ** -0.5, cfg, device, generator, t)
-    layers = [init_block(cfg, decoder_kind(cfg, i), device, generator, t)
-              for i in range(cfg.num_layers)]
+
+    def block(kind: str) -> Block:
+        b = init_block(cfg, kind, device, generator, t)
+        axes = [_leaf_axes(kind, name.split(".")) for name, _ in
+                b.named_parameters()]
+        return SH.distribute_tree(b, axes, mesh)
+
+    embed = SH.place(L._normal((V, D), D ** -0.5, cfg, device, generator, t),
+                     EMBED_AXES, mesh)
+    layers = [block(decoder_kind(cfg, i)) for i in range(cfg.num_layers)]
     lm_head = None
     if not cfg.tie_embeddings:
-        lm_head = L._normal((D, V), D ** -0.5, cfg, device, generator, t)
+        lm_head = SH.place(L._normal((D, V), D ** -0.5, cfg, device,
+                                     generator, t), HEAD_AXES, mesh)
     enc_layers = enc_norm = None
     if cfg.is_encoder_decoder:
-        enc_layers = [init_block(cfg, "enc", device, generator, t)
-                      for _ in range(cfg.num_encoder_layers)]
+        enc_layers = [block("enc") for _ in range(cfg.num_encoder_layers)]
         enc_norm = L.init_norm(cfg, device=device, trainable=t)
-    return LM(embed, layers, L.init_norm(cfg, device=device, trainable=t),
-              lm_head, t, stack_name(cfg), enc_layers, enc_norm)
+    lm = LM(embed, layers, L.init_norm(cfg, device=device, trainable=t),
+            lm_head, t, stack_name(cfg), enc_layers, enc_norm)
+    # the norms (replicated); the placed leaves are kept as they are
+    return SH.distribute_tree(lm, param_axes(lm, cfg), mesh)
 
 
 # the logical axes the reference's init functions give each leaf (a
 # stacked layer's without its leading "layer"), by parameter group
-_ATTN_AXES = {"wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None),
-              "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp"),
+_ATTN_AXES = {"wq": L.WQ_AXES, "wk": L.WKV_AXES, "wv": L.WKV_AXES,
+              "wo": L.WO_AXES,
               "bq": ("heads", None), "bk": ("kv_heads", None),
               "bv": ("kv_heads", None)}
-_FFN_AXES = {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
-             "w_down": ("ff", "fsdp"), "b_up": ("ff",), "b_down": (None,)}
+_FFN_AXES = {"w_gate": L.W_IN_AXES, "w_up": L.W_IN_AXES,
+             "w_down": L.W_OUT_AXES, "b_up": ("ff",), "b_down": (None,)}
 _MOE_AXES = {"router": (None, None), "w_gate": ("experts", "fsdp", None),
              "w_up": ("experts", "fsdp", None),
              "w_down": ("experts", None, "fsdp"),
@@ -451,6 +483,23 @@ _GROUP_AXES = {"attn": _ATTN_AXES, "xattn": _ATTN_AXES, "ffn": _FFN_AXES,
                "moe": _MOE_AXES, "mamba": _MAMBA_AXES}
 
 
+EMBED_AXES = ("vocab", "fsdp")
+HEAD_AXES = ("fsdp", "vocab")
+
+
+def _leaf_axes(kind: str, parts: list[str]) -> tuple:
+    """The logical axes of a block's leaf by its name within the block
+    (``group.leaf``, or ``alpha``)."""
+    if parts[-1] == "alpha":
+        return (None,)
+    group, leaf = parts
+    if group.startswith("norm"):
+        return (None,)
+    if group == "mix":
+        return (_MLSTM_AXES if kind == "mlstm" else _SLSTM_AXES)[leaf]
+    return _GROUP_AXES[group][leaf]
+
+
 def param_axes(p: LM, cfg: ArchConfig) -> list[tuple]:
     """The logical axes (``repro_torch.dist.sharding``'s names) of each
     leaf of ``p``, in ``p.parameters()`` order: the reference's
@@ -460,22 +509,15 @@ def param_axes(p: LM, cfg: ArchConfig) -> list[tuple]:
     for name, _ in p.named_parameters():
         parts = name.split(".")
         if parts[0] == "embed":
-            out.append(("vocab", "fsdp"))
+            out.append(EMBED_AXES)
         elif parts[0] == "lm_head":
-            out.append(("fsdp", "vocab"))
-        elif parts[0] in ("final_norm", "enc_norm") or parts[-1] == "alpha":
+            out.append(HEAD_AXES)
+        elif parts[0] in ("final_norm", "enc_norm"):
             out.append((None,))
         else:
-            stack, i, group, leaf = parts
-            kind = "enc" if stack == "enc_layers" else decoder_kind(cfg,
-                                                                    int(i))
-            if group.startswith("norm"):
-                out.append((None,))
-            elif group == "mix":
-                table = _MLSTM_AXES if kind == "mlstm" else _SLSTM_AXES
-                out.append(table[leaf])
-            else:
-                out.append(_GROUP_AXES[group][leaf])
+            kind = "enc" if parts[0] == "enc_layers" else decoder_kind(
+                cfg, int(parts[1]))
+            out.append(_leaf_axes(kind, parts[2:]))
     return out
 
 
@@ -507,22 +549,47 @@ def _blocks(p, cfg: ArchConfig) -> list:
             for i, bp in enumerate(p[stack_name(cfg)])]
 
 
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor
+                   ) -> torch.Tensor:
+    """The rows of a vocab-sharded table: each rank looks up the tokens
+    that fall in its block of rows (zeros elsewhere), a partial sum over
+    the vocab's mesh axes that adds one row and zeros, so its sum is the
+    row itself. (DTensor's own strategy for it, a masked partial, loses
+    its mask when the batch is sharded too.)"""
+    v0, vl = SH.local_range(EMBED_AXES, table.shape, 0)
+
+    def lookup(tok, rows):
+        local = tok.long() - v0
+        inside = (local >= 0) & (local < vl)
+        x = rows[local.clamp(0, vl - 1)]
+        return torch.where(inside[..., None], x, torch.zeros_like(x))
+
+    return SH.local_map_axes(lookup, (("batch", None), ("vocab", None)),
+                             (("batch", None, None),),
+                             reduced=("vocab",))(tokens, table)
+
+
 def embed_tokens(p: LM, tokens: torch.Tensor, cfg: ArchConfig
                  ) -> torch.Tensor:
-    x = p["embed"][tokens].to(L._dtype(cfg))
+    if SH.on_mesh(p["embed"]):
+        x = _embed_sharded(p["embed"], tokens).to(L._dtype(cfg))
+    else:
+        x = p["embed"][tokens].to(L._dtype(cfg))
     if cfg.name.startswith("gemma"):
         # the reference scales by sqrt(d_model) rounded to the activation
         # dtype; a Python float, so nothing is copied to the card
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
-    return x
+    return SH.constrain(x, *L.SEQ_AXES)
 
 
 def unembed(p: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dt = x.dtype
+    x = L.gather_seq(x)
     if cfg.tie_embeddings:
-        logits = x @ p["embed"].to(x.dtype).t()
+        head = L.gather_fsdp(p["embed"].to(dt), EMBED_AXES).t()
     else:
-        logits = x @ p["lm_head"].to(x.dtype)
-    return logits.float()
+        head = L.gather_fsdp(p["lm_head"].to(dt), HEAD_AXES)
+    return L.project(x, head, ("batch", None, "vocab"), dt).float()
 
 
 def _run_stack(blocks, x: torch.Tensor, cfg: ArchConfig, remat: str,
@@ -571,11 +638,12 @@ def encode(p, frames: torch.Tensor, cfg: ArchConfig, remat: str = "full"
     return L.apply_norm(p["enc_norm"], x, cfg)
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cpu"
-               ) -> list:
-    """One cache entry per layer (``init_block_cache``)."""
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cpu",
+               mesh=None) -> list:
+    """One cache entry per layer (``init_block_cache``); on a
+    ``DeviceMesh`` each attention cache holds this rank's block."""
     return [init_block_cache(cfg, decoder_kind(cfg, i), batch, max_len,
-                             device) for i in range(cfg.num_layers)]
+                             device, mesh) for i in range(cfg.num_layers)]
 
 
 def forward_prefill(p: LM, tokens_or_x: torch.Tensor, cfg: ArchConfig,

@@ -11,6 +11,12 @@ The step counter is a Python int: the schedule and the bias corrections
 are float32 values computed on the host (numpy float32, the reference's
 dtype), so an update reads nothing back from the device. Parameters and
 moments are updated in place.
+
+On a mesh the leaves, gradients and moments are DTensors: each gradient
+is first placed as its leaf (autograd may leave one in another layout),
+the update is then elementwise on each rank's blocks, and the global
+norm sums every leaf's squares over all its blocks (one all-reduce of
+the partial sums), the whole model's norm on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.dist import sharding as SH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +82,9 @@ def adamw_update(cfg: AdamWConfig, params: list[torch.Tensor],
     Returns ``(params, new_state, metrics)`` with ``metrics`` holding
     ``grad_norm`` (a 0-dim device tensor) and ``lr`` (a float)."""
     step = state["step"] + 1
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if SH.on_mesh(g) and g.placements != p.placements else g
+             for p, g in zip(params, grads)]
     gnorm = global_norm(grads)
     clip = torch.full_like(gnorm, cfg.clip_norm)
     # a tensor numerator: ``scalar / tensor`` multiplies by the reciprocal
@@ -93,6 +104,6 @@ def adamw_update(cfg: AdamWConfig, params: list[torch.Tensor],
         delta = (mhat / (torch.sqrt(nhat) + cfg.eps)
                  + cfg.weight_decay * p.float())
         p.copy_(p.float() - lr * delta)
-    metrics = {"grad_norm": gnorm, "lr": lr}
+    metrics = {"grad_norm": SH.full_value(gnorm), "lr": lr}
     return params, {"mu": state["mu"], "nu": state["nu"], "step": step}, \
         metrics

@@ -1,6 +1,8 @@
 """Serving step factories (``repro.train.serve_step``): prefill (prompt ->
 last position's logits + cache) and decode (one token against the
-cache)."""
+cache). Over a mesh they run as the model does: a plain batch or token
+is placed by its batch dim, the logits are DTensors, and each rank's
+cache holds its own block."""
 
 from __future__ import annotations
 

@@ -26,7 +26,15 @@ share that math:
   its gradients and sums them with ``all_reduce`` over the ``pod`` dim's
   process group (``dcn_allreduce_tree``), and the loss likewise. Ranks
   along the mesh's other dims repeat their pod's work: in-pod sharding is
-  ROADMAP.md Queue 1 item 5.6c.
+  ROADMAP.md Queue 1 item 5.6c-2, and a hierarchy route over a model
+  whose parameters are sharded over a mesh of more than one rank raises.
+
+On a ``DeviceMesh`` (the dense family) the global route runs on DTensors:
+the parameters, moments, batch, loss and gradients are placed by the
+reference's logical axes, the loss and gradients are computed inside
+``sharding.mesh_context`` (a remat's recompute and the backward formulas
+take their plain position and mask tensors as replicated), and the loss
+and grad norm in the metrics are whole values on every rank.
 
 The compressors see the reference's tree (``transformer.tree_leaf_groups``):
 a stacked layer leaf is compressed as one leaf (one int8 scale, one top-k
@@ -67,7 +75,8 @@ from repro_torch.dist.compression import (
     leaf_wire_bytes,
     per_step_key,
 )
-from repro_torch.dist.sharding import get_mesh, pod_axis_size
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.sharding import get_mesh, mesh_shape, pod_axis_size
 from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import LM
@@ -149,11 +158,15 @@ def init_train_state(model: Model, seed: int = 0,
                      tcfg: TrainConfig | None = None,
                      mesh=None) -> TrainState:
     """Trainable parameters drawn from ``seed``, zero AdamW moments and,
-    for ``topk_ef``, zero residuals (``init_ef_state``)."""
+    for ``topk_ef``, zero residuals (``init_ef_state``); on the model's
+    ``DeviceMesh`` the state is placed by ``state_axes`` (the parameters
+    as ``init_lm`` placed them, each moment as its leaf)."""
     params = model.init(seed, trainable=True)
     leaves = list(params.parameters())
-    return TrainState(params=params, opt=adamw_init(leaves), step=0,
-                      ef=init_ef_state(leaves, tcfg, mesh))
+    state = TrainState(params=params, opt=adamw_init(leaves), step=0,
+                       ef=init_ef_state(leaves, tcfg, mesh))
+    return SH.distribute_tree(state, state_axes(
+        T.param_axes(params, model.cfg), tcfg), model.mesh)
 
 
 def abstract_train_state(model: Model, tcfg: TrainConfig | None = None,
@@ -267,6 +280,14 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             f"unknown grad_compression: {tcfg.grad_compression}")
     mesh = mesh if mesh is not None else get_mesh()
     route, pods = _route(tcfg, mesh)
+    ranks = 1
+    for n in mesh_shape(model.mesh).values():
+        ranks *= n
+    if route != "global" and ranks > 1:
+        raise NotImplementedError(
+            f"the {route} DCN route over a model sharded on a mesh of "
+            f"{ranks} ranks (in-pod sharding) is not ported (ROADMAP.md, "
+            f"Queue 1 item 5.6c-2)")
     mb = tcfg.microbatches
     method, frac = tcfg.dcn_compression, tcfg.dcn_topk_frac
 
@@ -276,9 +297,10 @@ def make_train_step(model: Model, tcfg: TrainConfig,
 
     def value_and_grad(params: LM, batch):
         leaves = list(params.parameters())
-        loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        return loss.detach(), list(grads)
+        with SH.mesh_context():
+            loss = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        return SH.full_value(loss.detach()), list(grads)
 
     def compute_grads(params: LM, batch):
         """Pod-local (or global-route) grads: one backward pass, or the

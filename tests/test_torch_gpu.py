@@ -1805,3 +1805,91 @@ def test_two_rank_fused_routes_on_the_card_equal_one_process(cuda, tmp_path):
         for name, (wi, wv) in want.items():
             np.testing.assert_array_equal(res[name][0], wi.cpu().numpy())
             np.testing.assert_array_equal(res[name][1], wv.cpu().numpy())
+
+
+# --------------------------------------------------------------------------
+# the dense LM over a mesh: the kernels at a rank's local shapes, and the
+# launchers on a 1-rank NCCL group
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_imc_mvm_on_a_ranks_ff_shard_matches_plain(cuda, model):
+    """``imc_mvm`` at the shape one rank of a ``model``-sharded Qwen2-7B
+    FFN down-projection launches it (its ff shard: 18,944 / model columns,
+    whole 128-column tiles), bit for bit against the plain version."""
+    from repro_torch.core.imc.array import ArrayConfig, default_full_scale
+
+    acfg = ArrayConfig(adc_bits=6, bits_per_cell=3)
+    g = torch.Generator(device=cuda).manual_seed(model)
+    Q, R, Dp = 256, 3584, 18944 // model
+    assert Dp % acfg.cols == 0
+    q = torch.randint(-3, 4, (Q, Dp), generator=g, device=cuda).float()
+    w = torch.randint(-3, 4, (R, Dp), generator=g, device=cuda).float()
+    kw = dict(full_scale=default_full_scale(acfg), tile_cols=acfg.cols,
+              dac_limit=acfg.dac_levels, adc_levels=acfg.adc_levels)
+    launches = imc_mvm.launches
+    got = imc_mvm(q, w, **kw)
+    assert imc_mvm.launches == launches + 1
+    assert torch.equal(got, imc_mvm_plain(q, w, **kw))
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_decode_attention_on_a_ranks_cache_block_matches_plain(cuda, model):
+    """``decode_attention`` on the cache block one rank of a (1, model)
+    mesh holds for Qwen2-7B at 32 x (512 + 16): 28 / model query heads
+    over 4 / model kv heads (G = 7), within 2e-4 of the plain version."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(model)
+    B, S, KV, G, hd = 32, 528, 4 // model, 7, 128
+    q = torch.randn((B, KV, G, hd), generator=g, device=cuda) * hd ** -0.5
+    k = torch.randint(-127, 128, (B, S, KV, hd), generator=g, device=cuda,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, S, KV, hd), generator=g, device=cuda,
+                      dtype=torch.int8)
+    ks = torch.rand((B, S, KV), generator=g, device=cuda) / 127
+    vs = torch.rand((B, S, KV), generator=g, device=cuda) / 127
+    launches = decode_attention.launches
+    got = decode_attention(q, k, v, ks, vs, S - 1)
+    assert decode_attention.launches == launches + 1
+    want = decode_attention_plain(q, k, v, ks, vs, S - 1)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_lm_launchers_on_a_1_rank_nccl_group(cuda, tmp_path, capsys):
+    """``launch.train`` and ``launch.serve`` (reduced Qwen2-7B, the
+    kernels on) on a 1-rank NCCL group: the (1, 1) ``DeviceMesh`` of
+    ``make_debug_mesh``, DTensor parameters, both kernels launched, the
+    greedy tokens of the run without a group and the same losses."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.launch import serve, train
+
+    train_argv = ["--arch", "qwen2_7b", "--reduced", "--steps", "2",
+                  "--imc-linear", "--batch", "4", "--seq", "64",
+                  "--log-every", "1"]
+    serve_argv = ["--arch", "qwen2_7b", "--reduced", "--kv-quant",
+                  "--batch", "4", "--prompt-len", "64", "--gen", "8"]
+    alone = serve.main(serve_argv)
+    train.main(train_argv)
+    capsys.readouterr()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        imc, dec = imc_mvm.launches, decode_attention.launches
+        st = train.main(train_argv)
+        run = serve.main(serve_argv)
+        assert imc_mvm.launches == imc + 4      # 2 layers x 2 steps
+        assert decode_attention.launches == dec + 2 * 7
+        assert all(SH.on_mesh(p) for p in st.params.parameters())
+    finally:
+        SH.set_mesh(None)
+        dist.destroy_process_group()
+    printed = capsys.readouterr().out
+    assert printed.count("mesh: {'data': 1, 'model': 1} devices=1") == 2
+    assert torch.equal(run.tokens.cpu(), alone.tokens.cpu())

@@ -107,6 +107,26 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_importing_the_mesh_lm_modules_loads_no_jax():
+    """The modules the dense LM over a mesh runs, and its tests' rank
+    worker, load no JAX."""
+    code = ("import sys, repro_torch.dist.sharding, "
+            "repro_torch.dist.checkpoint, repro_torch.models.layers, "
+            "repro_torch.models.transformer, repro_torch.models.model_zoo, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.train.serve_step, repro_torch.data.tokens, "
+            "repro_torch.convert, repro_torch.launch.mesh, "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.launch.serve_db, _torch_lm_mesh_ranks; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             [str(ROOT / "src"), str(ROOT / "tests")])})
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
                                    "launcher", "cluster_launcher",
                                    "clusterer", "cluster_server",

@@ -1302,6 +1302,9 @@ def test_launcher_resumes_the_dcn_residuals(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--mesh", "single"],
                                   ["--mesh", "multi"]])
 def test_launcher_multi_device_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="item 5.6c"):
+    """The production meshes need 256 / 512 ranks
+    (``make_production_mesh``); one process has none."""
+    ranks = 512 if argv[1] == "multi" else 256
+    with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
         train_cli.main(["--arch", "qwen2_7b", "--reduced", "--steps", "1",
                         "--device", "cpu"] + argv)
