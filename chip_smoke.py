@@ -18,7 +18,9 @@ exits non-zero and prints no result line:
    dim < 32 W and random padding bits, k = R over several splits, and
    ``encode_search``'s encode kernel alone; for the banded kernels also
    empty bands, bands narrower than k, bands crossing blocks and running
-   past num_valid, two bands, no tile budget and the plan's tight one,
+   past num_valid, two bands (also overlapping, nested or out of order,
+   whose overflow slots canonicalize on the bands' union), no tile
+   budget and the plan's tight one,
    bands far apart, Q = 1, 7, 33 and 70 (one to three query groups), every
    band empty, one band covering the whole bank, bands meeting a 32-row
    tile in one row, num_valid inside bands, int8 banks, and k = 1 and the
@@ -250,8 +252,8 @@ exits non-zero and prints no result line:
    ``forward_train`` of the prompt and the generated tokens at that
    position within 2^-4 (the served bfloat16 run's share is printed, not
    held, for the same reason; CARRY_BATCH's comment). Then Hymba's ring
-   run, batch 4 x (2,048
-   + 64): the decode wraps the 2,048-slot window at position 2,048, a
+   run, 8 of its 32 layers (cut for the time limit since phase 10b
+   joined it), batch 4 x (2,048 + 64): the decode wraps the 2,048-slot window at position 2,048, a
    replay runs the kernel and its plain version on the same inputs at
    every layer of every wrapped step (``valid_len`` 2,048), within rtol /
    atol 2e-4, and a float32 copy of the run is held against
@@ -260,8 +262,8 @@ exits non-zero and prints no result line:
    and states' bytes and the weight-read bound.
 8c. Training the recurrent families at published width, batch 8 x 512,
    remat "full", AdamW, three timed steps and one profiled:
-   ``xlstm_125m`` exact at full depth, then ``hymba_1_5b`` (8 of its 32
-   layers) exact and, on the same state, with ``imc_linear``:
+   ``xlstm_125m`` exact at full depth, then ``hymba_1_5b`` (4 of its 32
+   layers since phase 10b joined the time limit, 8 before) exact and, on the same state, with ``imc_linear``:
    ``imc_mvm`` must launch once a layer a step, never for xLSTM, the
    plain version never, and
    one launch at Hymba's training shape (Q 4,096, R 1,600, Dp 5,504)
@@ -341,13 +343,14 @@ exits non-zero and prints no result line:
    ranks, bit for bit against their ring-order replays and within 1e-5 of
    one ``x @ w`` (relative to its largest entry). These are processes
    sharing one card, not a multi-card deployment.
-10. The dense LM over a device mesh: Qwen2-7B served (full width and
-   depth, the int8 KV store, 32 x (512 + 16)) and trained (full width, 2
+10. The dense LM over a device mesh: Qwen2-7B served (full width, 4 of
+   its 28 layers since phase 10b joined the time limit, the int8 KV
+   store, 32 x (512 + 16)) and trained (full width, 2
    layers, 8 x 512, remat "full", ``imc_linear``, 2 steps) in this
    process, then by 2 and 4 processes sharing the card in a gloo group:
    serving on (1, 2) and (1, 4) with the one-process tokens forced into
    the decode steps, every step's whole logits within 2^-4 of its largest
-   against the one-process run's, ``decode_attention`` launched 28 x 15
+   against the one-process run's, ``decode_attention`` launched 4 x 15
    times on every rank and held against its plain version at the rank's
    cache shape; training on (2, 1), (1, 2) and (2, 2), each loss within
    rtol 1e-3 of the one-process run's, ``imc_mvm`` launched once a layer
@@ -358,6 +361,24 @@ exits non-zero and prints no result line:
    collectives' count and host ms a step. Then ``launch.train`` and
    ``launch.serve`` on a 1-rank NCCL group ((1, 1) ``DeviceMesh``, the
    parameters DTensors, both kernels launched).
+10b. The MoE (expert-parallel), encoder-decoder and VLM families over the
+   same rank processes, each beside the same run in this process:
+   ``deepseek_moe_16b`` served at full width and depth on (1, 2) (32
+   experts and 8 kv heads a rank; this process's routes forced, so the
+   logits answer for the kernel and the sharding, and the decisions the
+   mesh made itself are counted), decoded with 2 layers on (2, 1) (a
+   step's 32 tokens are one MoE group, routed whole by every rank) and
+   trained with 2 layers on (2, 2); ``whisper_medium`` served at full
+   width and depth and trained with 2 encoder and 2 decoder layers
+   (``imc_linear`` on whole 128-column ``ff`` tiles a rank) on (1, 2);
+   ``internvl2_76b`` served at full width with 4 of its 80 layers on
+   (1, 4). Serving: every decode step's whole logits within 2^-4 of its
+   largest, ``decode_attention`` launched layers x steps times on every
+   rank and held against its plain version at the rank's cache block;
+   training: each loss within rtol 2e-3 of this process's, ``imc_mvm``
+   launched once an FFN a step on every rank and bit for bit against its
+   plain version on the rank's shard. Prints the same quantities as
+   phase 10 and the share of MoE routing decisions that differ.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -366,7 +387,8 @@ missing beside it.
 
     python3 chip_smoke.py --only 7c,8c
 
-runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e, 9, 10;
+runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e, 9, 10
+with 10b;
 9 alone first serves phase 4's four routes in one process), printing
 their lines and no kernels or ``ok`` line: a quick check of one slice on
 the card.
@@ -515,6 +537,10 @@ BANDED_EDGE_CASES = [
                                                               # in one row
     (3, 4000, 256, True, "max", None, False, "wide", None),   # the largest k
                                                               # that fits
+    (24, 3000, 256, True, 6, None, False, "overlap", None),   # two bands
+    (40, 2000, 1000, False, 5, 1800, False, "overlap", None),  # overlapping
+                                                               # or nested,
+                                                               # either order
 ]
 
 
@@ -547,6 +573,15 @@ def banded_case(np, rng, Q, R, kind, num_tiles):
         starts = np.where(np.arange(Q) % 2 == 0, t - 1, t + 31)
         lens = np.where(np.arange(Q) % 3 == 0, 1, 2)
         starts[0], lens[0] = 0, 1                 # the window starts there
+    elif kind == "overlap":     # overlapping, nested or out of order; a
+        # later band starting at row 0 (ROADMAP.md Queue 3, F5)
+        s0 = rng.integers(0, R // 2, Q)
+        s1 = np.clip(s0 + rng.integers(-R // 8, R // 4, Q), 0, R - 1)
+        starts = np.stack([s0, s1])
+        lens = rng.integers(0, R // 3, (2, Q))
+        swap = rng.random(Q) < 0.5
+        starts[:, swap], lens[:, swap] = starts[::-1, swap], lens[::-1, swap]
+        starts[1, rng.random(Q) < 0.2] = 0
     elif kind == "two":
         s0, s1 = rng.integers(0, R // 3, Q), rng.integers(R // 2, R - 10, Q)
         starts = np.stack([s0, s1])
@@ -2991,12 +3026,14 @@ LM_CONFIGS_BATCH, LM_CONFIGS_PROMPT, LM_CONFIGS_GEN = 32, 512, 16
 MOE_ROUTING_EXPECTED = 0.01
 
 
-def moe_route_recorder(layers_mod, sink: list, forced=None):
+def moe_route_recorder(layers_mod, sink: list, forced=None,
+                       data_rank: int = 0):
     """A patch of ``models.layers.moe_route`` that calls the real routing
     and appends each call's route to ``sink`` (on the device, no
     read-back). With ``forced`` (the routes of another run, in call
     order) each call returns that run's experts, positions and kept mask
-    instead, weighted by this run's own gates at those experts."""
+    instead, weighted by this run's own gates at those experts; on a mesh
+    rank that holds a block of the groups, the block of ``data_rank``."""
     real = layers_mod.moe_route
     order = iter(forced or ())
 
@@ -3006,11 +3043,15 @@ def moe_route_recorder(layers_mod, sink: list, forced=None):
         if forced is None:
             return r
         f = next(order)
+        g = xt.shape[0]
+        expert, pos, keep = (
+            (t if t.shape[0] == g else t[data_rank * g:(data_rank + 1) * g]
+             ).to(xt.device) for t in (f.expert, f.pos, f.keep))
         gates = (xt.float() @ router.float()).softmax(dim=-1)
-        topv = gates.gather(-1, f.expert)
+        topv = gates.gather(-1, expert)
         weight = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
-        return layers_mod.MoERoute(weight=weight, expert=f.expert,
-                                   pos=f.pos, keep=f.keep)
+        return layers_mod.MoERoute(weight=weight, expert=expert, pos=pos,
+                                   keep=keep)
 
     return mock.patch.object(layers_mod, "moe_route", recording)
 
@@ -3632,6 +3673,9 @@ def imc_training_shape(torch, np, model, state, pipe, cfg,
 # RING_BATCH x (RING_PROMPT + RING_GEN), whose decode wraps the window
 RECURRENT_CONFIGS = ("hymba_1_5b", "xlstm_125m")
 RING_BATCH, RING_PROMPT, RING_GEN = 4, 2048, 64
+# the ring run's depth (the wrap is the same in every layer): 8 of Hymba's
+# 32 layers since phase 10b joined the time limit
+RING_LAYERS = 8
 # The state carry is held in float32: the served bfloat16 run's decode
 # logits differ from its own forward_train by more than 2^-4 of the max
 # logit, bfloat16 rounding amplified through the random-weight layers (a
@@ -3719,15 +3763,19 @@ def forward_train_shares(torch, run, gen: int) -> list[float]:
     return (diff / top).tolist()
 
 
-def float32_carry(torch, arch: str, argv: list) -> tuple[list, object]:
+def float32_carry(torch, arch: str, argv: list, layers: int | None = None
+                  ) -> tuple[list, object]:
     """``serve.main`` on a float32 copy of ``arch`` (the same seeded
-    draw), and its decode logits against ``forward_train`` per step."""
+    draw; ``layers`` of them, default all), and its decode logits against
+    ``forward_train`` per step."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     with mock.patch.object(serve, "get_config", lambda a, c=cfg: c):
         run = serve.main(["--arch", arch] + argv, keep_logits=True)
     return forward_train_shares(torch, run, run.tokens.shape[1]), run
@@ -3929,9 +3977,11 @@ def kernel_vs_plain_replay(torch, run, gen: int) -> tuple[dict, dict]:
 
 
 def ring_run(torch, np) -> dict:
-    """Hymba at batch RING_BATCH x (RING_PROMPT + RING_GEN): the decode
-    wraps the sliding window; a replay runs the kernel and its plain
-    version on the same inputs at every layer of every step."""
+    """Hymba (RING_LAYERS layers) at batch RING_BATCH x (RING_PROMPT +
+    RING_GEN): the decode wraps the sliding window; a replay runs the
+    kernel and its plain version on the same inputs at every layer of
+    every step."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import get_config
@@ -3951,10 +4001,12 @@ def ring_run(torch, np) -> dict:
     decode_attention.launches = 0
     decode_attention_plain.calls = 0
     t0 = time.perf_counter()
-    run = serve.main(["--arch", arch, "--kv-quant", "--batch",
-                      str(RING_BATCH), "--prompt-len", str(RING_PROMPT),
-                      "--gen", str(RING_GEN), "--device", "cuda"],
-                     keep_logits=True)
+    cut = dataclasses.replace(full, num_layers=RING_LAYERS)
+    with mock.patch.object(serve, "get_config", lambda a: cut):
+        run = serve.main(["--arch", arch, "--kv-quant", "--batch",
+                          str(RING_BATCH), "--prompt-len", str(RING_PROMPT),
+                          "--gen", str(RING_GEN), "--device", "cuda"],
+                         keep_logits=True)
     wall = time.perf_counter() - t0
     launches, plain_calls = (decode_attention.launches,
                              decode_attention_plain.calls)
@@ -3977,7 +4029,8 @@ def ring_run(torch, np) -> dict:
     del run
     f32, crun = float32_carry(torch, arch, [
         "--kv-quant", "--batch", str(RING_BATCH), "--prompt-len",
-        str(RING_PROMPT), "--gen", str(RING_GEN), "--device", "cuda"])
+        str(RING_PROMPT), "--gen", str(RING_GEN), "--device", "cuda"],
+        RING_LAYERS)
     check(max(f32) <= LM_REPLAY_SHARE,
           f"ring run: float32 decode logits differ from forward_train past "
           f"the stated tolerance ({max(f32)})")
@@ -4000,11 +4053,11 @@ def ring_run(torch, np) -> dict:
 # phase 8c: training the recurrent families at published width, batch
 # TRAIN_BATCH x TRAIN_SEQ, remat "full": xlstm_125m exact at full depth
 # (~0.18 G float32 parameters), then hymba_1_5b exact and with
-# imc_linear at 8 of its 32 layers (~3.9 s a step at 32: its depth is cut
-# for the script's time limit, the layers being alike); (arch, layers or
-# None for all, imc_linear runs)
+# imc_linear at 4 of its 32 layers (~3.9 s a step at 32: its depth is cut
+# for the script's time limit, the layers being alike; 8 in PR 28); (arch,
+# layers or None for all, imc_linear runs)
 RECURRENT_TRAIN = (("xlstm_125m", None, (False,)),
-                   ("hymba_1_5b", 8, (False, True)))
+                   ("hymba_1_5b", 4, (False, True)))
 
 
 def phase_train_recurrent(torch, np) -> dict:
@@ -5158,10 +5211,16 @@ def phase_mesh(torch, np) -> dict:
 # deployment: what the sharding layer and its collectives cost, and no
 # multi-card speed-up. Then the LM launchers on a 1-rank NCCL group.
 LM_MESH_JOBS = {2: (("serve", (1, 2)), ("train", (2, 1)),
-                    ("train", (1, 2))),
+                    ("train", (1, 2)), ("moe serve", (1, 2)),
+                    ("moe decode", (2, 1)), ("whisper serve", (1, 2)),
+                    ("whisper train", (1, 2))),
                 4: (("serve", (1, 4)), ("train", (2, 2)),
-                    ("restore", (1, 4)))}
+                    ("restore", (1, 4)), ("moe train", (2, 2)),
+                    ("vlm serve", (1, 4)))}
 LM_MESH_STEPS = 2
+# the dense serving cell's depth: 4 of Qwen2-7B's 28 layers since phase
+# 10b joined the time limit (28 until PR 28)
+LM_MESH_SERVE_LAYERS = 4
 LM_MESH_JOIN_S = 600
 LM_MESH_LOSS_RTOL = 1e-3
 LM_MESH_ARGV = ["--arch", "qwen2_7b", "--kv-quant",
@@ -5182,6 +5241,17 @@ def lm_mesh_train_cfg():
     # gathers move half the bytes through gloo's host staging
     return cfg, TrainConfig(optimizer=AdamWConfig(total_steps=10),
                             remat="full", cast_params_bf16=True)
+
+
+def lm_mesh_serve_cfg():
+    """Qwen2-7B at published width, LM_MESH_SERVE_LAYERS layers, the int8
+    KV store."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2_7b"), kv_quant_int8=True,
+                               num_layers=LM_MESH_SERVE_LAYERS)
 
 
 def gloo_delta(SH, before: dict) -> tuple[int, float]:
@@ -5216,7 +5286,7 @@ def lm_mesh_serve(torch, dist, mesh, ref: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(get_config("qwen2_7b"), kv_quant_int8=True)
+    cfg = lm_mesh_serve_cfg()
     B, P, G = LM_CONFIGS_BATCH, LM_CONFIGS_PROMPT, LM_CONFIGS_GEN
     model = build_model(cfg, "cuda", mesh)
     t0 = time.perf_counter()
@@ -5383,6 +5453,375 @@ def lm_mesh_restore(torch, mesh, ckpt_dir) -> dict:
             "blocks_differ": blocks_differ(torch, SH, mgr, state)}
 
 
+# phase 10b: the MoE (expert-parallel), encoder-decoder and VLM families
+# over the same gloo groups, in phase 10's rank processes: deepseek_moe_16b
+# served at full width and depth on (1, 2) (32 experts and 8 kv heads a
+# rank) and, cut to FAMILY_SHORT_LAYERS layers, decoded briefly on (2, 1)
+# (a decode step's 32 tokens are one MoE group, which does not divide
+# ``data``, so every rank routes it whole) and trained with 2 of its 28
+# layers on (2, 2); whisper_medium served at full width and depth and
+# trained (2 encoder and 2 decoder layers, imc_linear, whole 128-column
+# ``ff`` tiles a rank) on (1, 2); internvl2_76b served at full width with
+# FAMILY_VLM_LAYERS of its 80 layers on (1, 4). Each beside the same run in
+# this process. The MoE serving runs take this process's routing (the
+# forced replay of phase 7b), so that their logits answer for the kernel
+# and the sharding and not for bfloat16's routing flips; the decisions
+# the mesh itself made are counted against this process's (descriptive).
+FAMILY_SHORT_LAYERS, FAMILY_SHORT_GEN = 2, 4
+FAMILY_VLM_LAYERS = 4
+FAMILY_SERVE = {"moe serve": ("deepseek_moe_16b", None, LM_CONFIGS_GEN),
+                "moe decode": ("deepseek_moe_16b", FAMILY_SHORT_LAYERS,
+                               FAMILY_SHORT_GEN),
+                "whisper serve": ("whisper_medium", None, LM_CONFIGS_GEN),
+                "vlm serve": ("internvl2_76b", FAMILY_VLM_LAYERS,
+                              LM_CONFIGS_GEN)}
+# job -> (arch, layers, encoder layers, imc_linear)
+FAMILY_TRAIN = {"moe train": ("deepseek_moe_16b", 2, 0, False),
+                "whisper train": ("whisper_medium", 2, 2, True)}
+FAMILY_LOSS_RTOL = 2e-3
+
+
+def family_cfg(job: str):
+    """The config of a phase 10b job: published widths, its depth cut,
+    the int8 KV store for serving, imc_linear where the job trains it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    if job in FAMILY_SERVE:
+        arch, layers, _ = FAMILY_SERVE[job]
+        cfg = dataclasses.replace(get_config(arch), kv_quant_int8=True)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        return cfg
+    arch, layers, enc, imc = FAMILY_TRAIN[job]
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers,
+                               num_encoder_layers=enc or
+                               cfg.num_encoder_layers, imc_linear=imc)
+
+
+def family_train_cfg():
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    return TrainConfig(optimizer=AdamWConfig(total_steps=10), remat="full",
+                       cast_params_bf16=True)
+
+
+def routes_share(mine: list, theirs: list, skip: int,
+                 data_rank: int = 0) -> float:
+    """The share of tokens, after the first ``skip`` calls, whose experts
+    or kept mask differ between this rank's routes and another run's
+    (cut to this rank's block of groups)."""
+    bad = total = 0
+    for r, f in zip(mine[skip:], theirs[skip:], strict=True):
+        g = r.expert.shape[0]
+        e2, k2 = f.expert, f.keep
+        if e2.shape[0] != g:
+            e2, k2 = (t[data_rank * g:(data_rank + 1) * g] for t in (e2, k2))
+        bad += int(((r.expert.cpu() != e2) | (r.keep.cpu() != k2))
+                   .any(-1).sum())
+        total += g * r.expert.shape[1]
+    return bad / max(total, 1)
+
+
+def host_routes(layers_mod, routes: list) -> list:
+    """Recorded routes as host copies, without autograd."""
+    return [layers_mod.MoERoute(*(t.detach().cpu() for t in (
+        r.weight, r.expert, r.pos, r.keep))) for r in routes]
+
+
+def family_one_process(torch) -> tuple[dict, dict]:
+    """This process's runs phase 10b holds the meshes against: each
+    serving job's launcher run (tokens, every decode step's logits, the
+    MoE's routes) and each training job's steps (losses, routes)."""
+    import gc
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    refs, lines = {}, {}
+    for job, (arch, _, gen) in FAMILY_SERVE.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = family_cfg(job)
+        sink = []
+        argv = ["--arch", arch, "--kv-quant", "--batch",
+                str(LM_CONFIGS_BATCH), "--prompt-len",
+                str(LM_CONFIGS_PROMPT), "--gen", str(gen), "--device",
+                "cuda"]
+        with mock.patch.object(serve, "get_config", lambda a, c=cfg: c), \
+                moe_route_recorder(L, sink):
+            run = serve.main(argv, keep_logits=True)
+        refs[job] = {"tokens": run.tokens.cpu(), "start": run.start,
+                     "cache_len": run.cache_len,
+                     "logits": [x.cpu() for x in run.logits],
+                     "routes": host_routes(L, sink)}
+        lines[job] = {"prefill_s": run.prefill_s,
+                      "decode_p50_ms": run.step_percentile_ms(0.5),
+                      "decode_p95_ms": run.step_percentile_ms(0.95),
+                      "tokens_per_s": run.decode_tokens_per_s,
+                      "peak_gib": run.peak_bytes / 2**30,
+                      "launches": run.launches}
+        del run, sink
+    tcfg = family_train_cfg()
+    for job in FAMILY_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = family_cfg(job)
+        model = build_model(cfg, "cuda")
+        state = init_train_state(model, seed=0, tcfg=tcfg)
+        step_fn = make_train_step(model, tcfg)
+        pipe = TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+        sink, losses, step_ms = [], [], []
+        with moe_route_recorder(L, sink):
+            for s in range(LM_MESH_STEPS):
+                batch = pipe.get_for(cfg, s, "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        refs[job] = {"losses": losses, "routes": host_routes(L, sink)}
+        lines[job] = {"losses": losses, "step_ms": step_ms}
+        del state, step_fn, model, sink
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs, lines
+
+
+def family_mesh_serve(torch, dist, mesh, job: str, ref: dict) -> dict:
+    """One rank's serving run of a phase 10b job on ``mesh``: the prompt,
+    then this process's tokens forced into the decode steps (and, for the
+    MoE, its routes); each step's whole logits against this process's,
+    timings, launches, collectives, the routing decisions that differ,
+    and ``decode_attention`` at this rank's cache block against its plain
+    version."""
+    import contextlib
+    import gc
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = family_cfg(job)
+    B, P = LM_CONFIGS_BATCH, LM_CONFIGS_PROMPT
+    model = build_model(cfg, "cuda", mesh)
+    params = model.init(seed=0)
+    batch = TokenPipeline(B, P, cfg.vocab_size).get_for(cfg, 0, "cuda", mesh)
+    start, steps = ref["start"], len(ref["logits"])
+    cache = model.init_cache(B, ref["cache_len"])
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    tokens = ref["tokens"].cuda()
+    data_rank = mesh.get_local_rank("data")
+    sink = []
+    moe = cfg.family == "moe"
+    patch = (moe_route_recorder(L, sink, ref["routes"], data_rank)
+             if moe else contextlib.nullcontext())
+    decode_attention.launches = 0
+    dist.barrier()
+    with patch:
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step_ms, coll_n, coll_ms, share = [], 0, 0.0, []
+        for i in range(steps):
+            snap = gloo_snapshot(SH)
+            t0 = time.perf_counter()
+            lp, cache = decode(params, tokens[:, i:i + 1], cache, start + i)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            n, ms = gloo_delta(SH, snap)
+            coll_n, coll_ms = coll_n + n, coll_ms + ms
+            want = ref["logits"][i].cuda()
+            got = SH.full_value(lp)
+            share.append(float((got - want).abs().max())
+                         / float(want.abs().max()))
+    launches = decode_attention.launches
+    kvc = cache[0][0] if cfg.is_encoder_decoder else cache[0]
+    _, hl = SH.local_range(L.Q_AXES, (B, 1, cfg.num_heads,
+                                      cfg.resolved_head_dim), 2)
+    g = min(hl, cfg.num_heads // cfg.num_kv_heads)
+    kernel = decode_attention_served(torch, kvc, g, start + steps)
+    ms = torch.tensor(step_ms, dtype=torch.float64)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "prefill_s": prefill_s,
+           "decode_p50_ms": float(torch.quantile(ms, 0.5)),
+           "decode_p95_ms": float(torch.quantile(ms, 0.95)),
+           "tokens_per_s": B * steps / (sum(step_ms) / 1e3),
+           "max_share": max(share), "share": share, "launches": launches,
+           "want_launches": cfg.num_layers * steps,
+           "gloo_collectives_a_step": coll_n / steps,
+           "gloo_ms_a_step": coll_ms / steps,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "cache_shape": tuple(kvc.k.shape), "kernel": kernel}
+    if cfg.is_encoder_decoder:
+        out["cross_shape"] = tuple(cache[0][1].k.shape)
+    if moe:
+        # the decode steps' decisions (the prefill's calls come first)
+        out["routing_differs"] = routes_share(sink, ref["routes"],
+                                              cfg.num_layers, data_rank)
+        out["prefill_routing_differs"] = routes_share(
+            sink[:cfg.num_layers], ref["routes"][:cfg.num_layers], 0,
+            data_rank)
+        local = SH.local_range(("experts", None, None),
+                               (cfg.num_experts, 1, 1), 0)[1]
+        out["experts_a_rank"] = local
+    return out
+
+
+def family_mesh_train(torch, dist, mesh, job: str, ref: dict) -> dict:
+    """One rank's LM_MESH_STEPS training steps of a phase 10b job on
+    ``mesh``: losses against this process's, step times, collectives, the
+    routing decisions that differ (MoE), and for imc_linear the launches
+    a step and the first launch's operands on this rank's ff shard against
+    the plain version."""
+    import contextlib
+    import gc
+
+    from repro_torch.core.imc.array import ArrayConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.imc_mvm import imc_mvm, imc_mvm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tcfg = family_cfg(job), family_train_cfg()
+    model = build_model(cfg, "cuda", mesh)
+    state = init_train_state(model, seed=0, tcfg=tcfg)
+    step_fn = make_train_step(model, tcfg)
+    pipe = TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    rec, patch = imc_recorder(L)
+    sink = []
+    routes = (moe_route_recorder(L, sink) if cfg.family == "moe"
+              else contextlib.nullcontext())
+    imc_mvm.launches = 0
+    losses, step_ms, coll_n, coll_ms = [], [], 0, 0.0
+    with patch, routes:
+        for s in range(LM_MESH_STEPS):
+            batch = pipe.get_for(cfg, s, "cuda", mesh)
+            dist.barrier()
+            snap = gloo_snapshot(SH)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            n, ms = gloo_delta(SH, snap)
+            coll_n, coll_ms = coll_n + n, coll_ms + ms
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers, "losses": losses,
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                               zip(losses, ref["losses"])),
+           "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (
+               sum(step_ms[1:] or step_ms) / len(step_ms[1:] or step_ms)
+               / 1e3),
+           "imc_launches_a_step": imc_mvm.launches / LM_MESH_STEPS,
+           "gloo_collectives_a_step": coll_n / LM_MESH_STEPS,
+           "gloo_ms_a_step": coll_ms / LM_MESH_STEPS,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if cfg.imc_linear:
+        q, w, kw, got = rec.pop("call")
+        Q = q.shape[0]
+        mism = 0
+        for r in (slice(0, TRAIN_CHECK_Q), slice(Q - TRAIN_CHECK_Q, Q)):
+            mism += int((got[r] != imc_mvm_plain(q[r], w, **kw)).sum())
+        shard = (Q, w.shape[0], q.shape[1])
+        out.update(imc_shard_shape=shard, imc_mismatches=mism,
+                   imc_whole_tiles=shard[2] % ArrayConfig().cols == 0)
+        del q, w, got
+    if cfg.family == "moe":
+        out["routing_differs"] = routes_share(
+            sink, ref["routes"], 0, mesh.get_local_rank("data"))
+    return out
+
+
+def family_report(job: str, mesh: str, world: int, got: list, one: dict,
+                  limit: str, launches: dict) -> None:
+    """Phase 10b's line and checks for one job's ranks (``got``) beside
+    this process's run (``one``); the kernels' launches a rank go into
+    ``launches``."""
+    line = {"path": f"family mesh {job}", "mesh": mesh, "ranks": world,
+            "processes_on_one_card": True, "backend": "gloo",
+            "one_process": one, "per_rank": got,
+            "card, power limit": limit}
+    print(json.dumps(line, default=str))
+    g0 = got[0]
+    cell = f"{g0['arch']} {mesh}"
+    peaks = [round(g["peak_gib"], 2) for g in got]
+    gloo = (f"gloo {g0['gloo_ms_a_step']:.1f} ms a step "
+            f"({g0['gloo_collectives_a_step']:.0f} collectives)")
+    if job in FAMILY_SERVE:
+        check(all(g["launches"] == g["want_launches"] for g in got),
+              f"{cell}: decode_attention launches a rank "
+              f"{[g['launches'] for g in got]}, want {g0['want_launches']}")
+        check(all(g["max_share"] <= LM_REPLAY_SHARE for g in got),
+              f"{cell}: logits off the one-process run by "
+              f"{[g['max_share'] for g in got]} of the step's largest")
+        launches["decode_attention"][cell] = g0["launches"]
+        moe = ""
+        if "routing_differs" in g0:
+            moe = (f"; {g0['experts_a_rank']} experts a rank, routing "
+                   f"decisions differing from one process's: decode "
+                   f"{max(g['routing_differs'] for g in got):.4f}, prefill "
+                   f"{max(g['prefill_routing_differs'] for g in got):.4f} "
+                   f"(this process's routes forced)")
+        print(f"family mesh {job} {cell}: {g0['layers']} layers, prefill "
+              f"{max(g['prefill_s'] for g in got):.3f} s (one process "
+              f"{one['prefill_s']:.3f}), decode p50 "
+              f"{g0['decode_p50_ms']:.2f} / p95 {g0['decode_p95_ms']:.2f} ms "
+              f"(one process {one['decode_p50_ms']:.2f} / "
+              f"{one['decode_p95_ms']:.2f}), {g0['tokens_per_s']:.1f} "
+              f"tokens/s, peak {peaks} GiB, {gloo}; decode_attention "
+              f"{g0['launches']} launches a rank at "
+              f"{g0['kernel']['shape']} ({g0['kernel']['ms']:.4f} ms, plain "
+              f"{g0['kernel']['plain_ms']:.4f} ms, max err "
+              f"{g0['kernel']['max_abs_err']:.2e}); logits within "
+              f"{max(g['max_share'] for g in got):.2e} of the largest{moe}")
+        return
+    want_imc = (g0["layers"] + g0["encoder_layers"]
+                if "imc_shard_shape" in g0 else 0)
+    check(all(g["loss_rel_err"] <= FAMILY_LOSS_RTOL
+              and g["imc_launches_a_step"] == want_imc
+              and g.get("imc_mismatches", 0) == 0 for g in got),
+          f"{cell} training: "
+          f"{[(g['losses'], g['imc_launches_a_step'], g.get('imc_mismatches')) for g in got]}"
+          f" vs one process {one['losses']}")
+    if want_imc:
+        launches["imc_mvm"][cell] = g0["imc_launches_a_step"]
+    extra = ""
+    if want_imc:
+        extra = (f", imc_mvm {g0['imc_launches_a_step']:.0f} launches a "
+                 f"rank a step on the shard {g0['imc_shard_shape']} (whole "
+                 f"tiles: {g0['imc_whole_tiles']}), "
+                 f"{sum(g['imc_mismatches'] for g in got)} mismatches")
+    if "routing_differs" in g0:
+        extra += (f", routing decisions differing from one process's "
+                  f"{max(g['routing_differs'] for g in got):.4f}")
+    print(f"family mesh {job} {cell}: step "
+          f"{[round(x, 1) for x in g0['step_ms']]} ms (one process "
+          f"{[round(x, 1) for x in one['step_ms']]}), "
+          f"{g0['tokens_per_s']:.1f} tokens/s, peak {peaks} GiB, loss "
+          f"{g0['losses']} (one process {one['losses']}, off by "
+          f"{max(g['loss_rel_err'] for g in got):.2e} relative), {gloo}"
+          f"{extra}")
+
+
 def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
     """One rank of phase 10, in a process of its own: joins the gloo group
     through the ``file://`` store, runs LM_MESH_JOBS[world] and writes its
@@ -5410,7 +5849,8 @@ def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
-        ref = torch.load(out_dir / "one_process.pt")
+        # this script's own file, holding the MoE's recorded routes
+        ref = torch.load(out_dir / "one_process.pt", weights_only=False)
         res, state = {}, None
         try:
             for job, shape in LM_MESH_JOBS[world]:
@@ -5425,8 +5865,14 @@ def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
                     r, state = lm_mesh_train(
                         torch, dist, mesh, ref["train"],
                         out_dir / "ckpt" if world == 4 else None)
-                else:
+                elif job == "restore":
                     r = lm_mesh_restore(torch, mesh, out_dir / "ckpt")
+                else:
+                    state = None
+                    gc.collect()
+                    run = (family_mesh_serve if job in FAMILY_SERVE
+                           else family_mesh_train)
+                    r = run(torch, dist, mesh, job, ref["family"][job])
                 r["wall_s"] = time.perf_counter() - t0
                 res[job, shape] = r
                 SH.set_mesh(None)
@@ -5484,7 +5930,9 @@ def lm_mesh_one_process(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    run = serve.main(LM_MESH_ARGV, keep_logits=True)
+    with mock.patch.object(serve, "get_config",
+                           lambda arch: lm_mesh_serve_cfg()):
+        run = serve.main(LM_MESH_ARGV, keep_logits=True)
     serve_s = time.perf_counter() - t0
     ref = {"serve": {"tokens": run.tokens.cpu(),
                      "logits": [x.cpu() for x in run.logits]}}
@@ -5570,6 +6018,11 @@ def phase_lm_mesh(torch, np) -> dict:
     ref, one_serve, one_train = lm_mesh_one_process(torch)
     print(json.dumps({"path": "lm mesh: one process", "serve": one_serve,
                       "train": one_train, "card, power limit": limit}))
+    t0 = time.perf_counter()
+    ref["family"], one_family = family_one_process(torch)
+    print(json.dumps({"path": "family mesh: one process", **one_family,
+                      "seconds": time.perf_counter() - t0,
+                      "card, power limit": limit}))
     launches = {"decode_attention": {}, "imc_mvm": {}}
     for world in sorted(LM_MESH_JOBS):
         t0 = time.perf_counter()
@@ -5580,13 +6033,17 @@ def phase_lm_mesh(torch, np) -> dict:
         for job, shape in LM_MESH_JOBS[world]:
             got = [r[job, shape] for r in ranks]
             mesh = f"{shape[0]}x{shape[1]}"
+            if job in FAMILY_SERVE or job in FAMILY_TRAIN:
+                family_report(job, mesh, world, got, one_family[job],
+                              limit, launches)
+                continue
             line = {"path": f"lm mesh {job}", "mesh": mesh, "ranks": world,
                     "processes_on_one_card": True, "backend": "gloo",
                     "per_rank": got, "card, power limit": limit}
             print(json.dumps(line, default=str))
             if job == "serve":
                 want = LM_CONFIGS_GEN - 1
-                want *= 28
+                want *= LM_MESH_SERVE_LAYERS
                 check(all(g["launches"] == want for g in got),
                       f"decode_attention launches a rank on {mesh}: "
                       f"{[g['launches'] for g in got]}, want {want}")
@@ -5760,7 +6217,7 @@ def main(argv=None) -> int:
     imc.update(phase_train_lm(torch, np))
     imc.update(phase_train_configs(torch, np))
     print(f"recurrent: hymba_1_5b and xlstm_125m at published width and "
-          f"full depth (serving; training hymba_1_5b with 8 of its 32 "
+          f"full depth (serving; training hymba_1_5b with 4 of its 32 "
           f"layers, for the time limit); serving batch {LM_CONFIGS_BATCH} x "
           f"({LM_CONFIGS_PROMPT} + {LM_CONFIGS_GEN}) as phase 7b, the ring "
           f"run {RING_BATCH} x ({RING_PROMPT} + {RING_GEN}); training batch "
@@ -5791,13 +6248,22 @@ def main(argv=None) -> int:
     for entry in kernels[:4]:
         entry["mesh"] = {f"{world} ranks": by_world for world, by_world in
                          mesh[SERVED_PATHS[entry["name"]]].items()}
-    print(f"lm mesh: Qwen2-7B served at full width and depth, batch "
-          f"{LM_CONFIGS_BATCH} x ({LM_CONFIGS_PROMPT} + {LM_CONFIGS_GEN}), "
-          f"and trained at full width with {TRAIN_LAYERS} of 28 layers, "
-          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {LM_MESH_STEPS} steps, by 2 "
-          f"and 4 processes sharing the card in a gloo group (not a "
-          f"multi-card deployment); parameters are the port's seeded "
-          f"random draw")
+    print(f"reduced: lm mesh: Qwen2-7B served at full width with "
+          f"{LM_MESH_SERVE_LAYERS} of its 28 layers (the time limit, since "
+          f"phase 10b), batch {LM_CONFIGS_BATCH} x ({LM_CONFIGS_PROMPT} + "
+          f"{LM_CONFIGS_GEN}), and trained at full width with "
+          f"{TRAIN_LAYERS} of 28 layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{LM_MESH_STEPS} steps, by 2 and 4 processes sharing the card in "
+          f"a gloo group (not a multi-card deployment); parameters are the "
+          f"port's seeded random draw")
+    print(f"reduced: family mesh: deepseek_moe_16b served at full width "
+          f"and depth and decoded with {FAMILY_SHORT_LAYERS} layers, "
+          f"trained with 2 of 28; whisper_medium served at full depth, "
+          f"trained with 2 + 2 of 24 + 24 layers; internvl2_76b served "
+          f"with {FAMILY_VLM_LAYERS} of 80 layers (the time limit, and "
+          f"four processes' share of the card's 80 GB); "
+          f"llama4_scout_17b_a16e over a mesh on CPU ranks only (the "
+          f"tests)")
     lm_mesh = phase_lm_mesh(torch, np)
     dec["mesh_launches_a_rank"] = lm_mesh["decode_attention"]
     imc["mesh_launches_a_rank_a_step"] = lm_mesh["imc_mvm"]

@@ -19,9 +19,10 @@ monitor and host heartbeats).
     DTensor's collectives; ``baseline_mode``;
   * ``straggler`` — ``StragglerMonitor`` and ``HeartbeatRegistry``.
 
-The dense LM runs on DTensors over a ``DeviceMesh`` (its ``constrain``
-sites are the reference's); the other families wait for ROADMAP.md
-Queue 1 item 5.6c-2."""
+The dense, MoE (expert-parallel), VLM and encoder-decoder LMs run on
+DTensors over a ``DeviceMesh`` (their ``constrain`` sites are the
+reference's); the recurrent and hybrid families wait for ROADMAP.md
+Queue 1 item 5.6c-3."""
 
 from repro_torch.dist import (
     checkpoint,

@@ -330,13 +330,20 @@ def canonicalize_overflow_slots(idx: torch.Tensor, vals: torch.Tensor,
     outside the bands into the m-th such slot, so the result is
     bit-identical to the masked matrix's.
 
-    starts/ends: (B, Q) (or (Q,)) ascending disjoint bands per query,
-    clipped to ``num_rows``. Returns idx with the sentinel slots
-    rewritten."""
+    starts/ends: (B, Q) (or (Q,)) bands per query, clipped to
+    ``num_rows`` (``e >= s``), in any order and possibly overlapping: the
+    masked rows are those outside their union, so the bands are sorted by
+    start and each start is raised to the largest end before it, which
+    leaves ascending disjoint bands over the same rows. Returns idx with
+    the sentinel slots rewritten."""
     if starts.ndim == 1:
         starts, ends = starts[None], ends[None]
-    starts = starts.to(torch.int64)
-    ends = ends.to(torch.int64)
+    starts, order = torch.sort(starts.to(torch.int64), dim=0, stable=True)
+    ends = torch.cummax(torch.gather(ends.to(torch.int64), 0, order),
+                        dim=0).values
+    # the largest end before each band (0 before the first)
+    prev = torch.cat([torch.zeros_like(ends[:1]), ends[:-1]])
+    starts = torch.maximum(starts, prev)
     sentinel = vals == INT32_MIN
     k = idx.shape[1]
     n_real = (~sentinel).sum(dim=1, keepdim=True)

@@ -31,8 +31,9 @@ it), or the one-device mapping without one; ``single`` and ``multi`` are
 ``make_production_mesh``, which raises unless the group has 256 (512)
 ranks. The run prints the reference's ``mesh: {...} devices=N`` line and
 places the train state by its logical axes (``state_axes``); over more
-than one rank the model must be of the dense family (any other raises,
-ROADMAP.md item 5.6c-2), every rank draws the same global batch and keeps
+than one rank the model must be of the dense, MoE, VLM or
+encoder-decoder family (the recurrent and hybrid ones raise, ROADMAP.md
+item 5.6c-3), every rank draws the same global batch and keeps
 its block, rank 0 alone prints and writes the checkpoints (each leaf
 gathered whole: a checkpoint restores on another mesh), and a straggler
 eviction only reports (the ranks' clocks differ, and a save is

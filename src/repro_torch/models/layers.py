@@ -791,6 +791,54 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: ArchConfig,
     return MoERoute(weight=weight, expert=expert, pos=pos, keep=pos < cap)
 
 
+# the logical axes of the MoE's expert leaves (the reference's
+# ``init_moe``), its (G, g_sz, D) token groups (``xt``) and its output
+MOE_IN_AXES = ("experts", "fsdp", None)
+MOE_OUT_AXES = ("experts", None, "fsdp")
+MOE_W_AXES = ("experts", None, None)
+MOE_X_AXES = ("batch", None, None)
+
+
+def _routed(tokens: torch.Tensor, router: torch.Tensor,
+            w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+            cfg: ArchConfig, g_sz: int, cap: int, first: int = 0,
+            dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The routed experts' weighted sum over ``tokens`` (n, D), grouped
+    ``g_sz`` a group with capacity ``cap``, from the experts ``first ..
+    first + El`` whose (El, ...) weights are given (all E by default). The
+    whole routing is computed; the pairs routed to experts held elsewhere
+    land in the overflow row and are weighted 0, so the ranks that each
+    hold a block of the experts sum to the whole output. The combine is
+    taken in ``dtype`` (default the tokens')."""
+    dt = tokens.dtype
+    n, d = tokens.shape
+    k = cfg.top_k
+    el = w_gate.shape[0]
+    g = n // g_sz
+    r = moe_route(router, tokens.view(g, g_sz, d), cfg, cap)
+
+    slots = el * g * cap
+    dev = tokens.device
+    group = torch.arange(g, device=dev)[:, None, None]
+    local = r.expert - first
+    held = r.keep & (local >= 0) & (local < el)
+    dest = torch.where(held, (local * g + group) * cap + r.pos,
+                       slots).reshape(n * k)
+    token = torch.arange(n, device=dev)[:, None].expand(n, k).reshape(n * k)
+    src = torch.full((slots + 1,), n, dtype=torch.int64,
+                     device=dev).scatter(0, dest, token)
+    padded = torch.cat([tokens, tokens.new_zeros(1, d)])    # row n: zeros
+    expert_in = padded[src[:slots]].view(el, g * cap, d)
+    h = F.silu(torch.bmm(expert_in, w_gate))
+    h = h * torch.bmm(expert_in, w_up)
+    expert_out = torch.bmm(h, w_down).view(slots, d)
+
+    picked = expert_out[torch.where(dest < slots, dest, 0)].view(n, k, d)
+    w = (r.weight * held).to(dt).view(n, 1, k)
+    cd = dtype or dt
+    return torch.bmm(w.to(cd), picked.to(cd)).view(n, d)
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Top-k capacity-factor MoE over ``x`` (B, S, D) in token groups of
     ``moe_group_size``, dispatched by index into an (E, G, cap, D) buffer:
@@ -799,35 +847,60 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     each token then sums its kept pairs' expert outputs times their
     gates (a dropped pair reads row 0 with weight 0, as the reference's
     combine multiplies it by 0). Plus the shared experts' SwiGLU over
-    ``expert_d_ff * num_shared_experts``."""
+    ``expert_d_ff * num_shared_experts``.
+
+    On a mesh the experts are split over ``model`` (expert parallelism,
+    ``MOE_W_AXES``, their FSDP dim gathered) and the token groups over
+    the ``batch`` axes as the reference places ``xt``: each rank takes its
+    data block's whole groups (the sequence gathered; every rank when the
+    groups do not divide, as one group at decode), routes them all, as
+    every rank of the block does alike, runs the experts it holds on an
+    (E / model, G_local, cap, D) buffer and returns its partial combine in
+    float32; the partial sums are reduced over the experts' ranks in
+    float32 and rounded once. The shared experts take the dense FFN's
+    route (``ff``-sharded products)."""
     dt = x.dtype
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
-    n = b * s
-    g_sz, g, cap = moe_groups(n, cfg)
-    tokens = x.reshape(n, d)
-    xt = tokens.view(g, g_sz, d)
-    r = moe_route(p["router"], xt, cfg, cap)
+    g_sz, g, cap = moe_groups(b * s, cfg)
+    if not SH.on_mesh(x):
+        y = _routed(x.reshape(b * s, d), p["router"], p["w_gate"].to(dt),
+                    p["w_up"].to(dt), p["w_down"].to(dt), cfg, g_sz,
+                    cap).view(b, s, d)
+        if cfg.num_shared_experts:
+            sg = F.silu(x @ p["shared_gate"].to(dt))
+            su = x @ p["shared_up"].to(dt)
+            y = y + (sg * su) @ p["shared_down"].to(dt)
+        return y
+    xs = gather_seq(x)
+    # the rank's batch rows are its token groups when both split over the
+    # same mesh axes; otherwise each rank routes the whole batch
+    x_axes = MOE_X_AXES
+    if SH.dim_axes(MOE_X_AXES, (g, g_sz, d), 0) != SH.dim_axes(
+            MOE_X_AXES, (b, s, d), 0):
+        x_axes = (None, None, None)
+    first, _ = SH.local_range(MOE_W_AXES, p["w_gate"].shape, 0)
+    weights = [gather_fsdp(p[name].to(dt), axes) for name, axes in (
+        ("w_gate", MOE_IN_AXES), ("w_up", MOE_IN_AXES),
+        ("w_down", MOE_OUT_AXES))]
 
-    slots = e * g * cap
-    dev = x.device
-    group = torch.arange(g, device=dev)[:, None, None]
-    dest = torch.where(r.keep, (r.expert * g + group) * cap + r.pos,
-                       slots).reshape(n * k)
-    token = torch.arange(n, device=dev)[:, None].expand(n, k).reshape(n * k)
-    src = torch.full((slots + 1,), n, dtype=torch.int64,
-                     device=dev).scatter(0, dest, token)
-    padded = torch.cat([tokens, tokens.new_zeros(1, d)])    # row n: zeros
-    expert_in = padded[src[:slots]].view(e, g * cap, d)
-    h = F.silu(torch.bmm(expert_in, p["w_gate"].to(dt)))
-    h = h * torch.bmm(expert_in, p["w_up"].to(dt))
-    expert_out = torch.bmm(h, p["w_down"].to(dt)).view(slots, d)
+    def local(xl, router, wg, wu, wd):
+        rows = xl.shape[0]
+        y = _routed(xl.reshape(rows * s, d).to(dt), router, wg, wu, wd, cfg,
+                    g_sz, cap, first, torch.float32)
+        return y.view(rows, s, d)
 
-    picked = expert_out[torch.where(dest < slots, dest, 0)].view(n, k, d)
-    w = (r.weight * r.keep).to(dt).view(n, 1, k)
-    y = torch.bmm(w, picked).view(g, g_sz, d)
+    y = SH.local_map_axes(
+        local, (x_axes, (None, None)) + (MOE_W_AXES,) * 3,
+        (MOE_X_AXES,), reduced=("experts",))(xs, p["router"], *weights)
+    # the float32 partial sums reduced onto the residual's layout, then
+    # one rounding
+    y = SH.constrain(y, *SEQ_AXES).to(dt)
     if cfg.num_shared_experts:
-        sg = F.silu(xt @ p["shared_gate"].to(dt))
-        su = xt @ p["shared_up"].to(dt)
-        y = y + (sg * su) @ p["shared_down"].to(dt)
-    return y.reshape(b, s, d)
+        def up(name):
+            return project(xs, gather_fsdp(p[name].to(dt), W_IN_AXES),
+                           ("batch", None, "ff"), dt)
+
+        h = F.silu(up("shared_gate")) * up("shared_up")
+        y = y + project(h, gather_fsdp(p["shared_down"].to(dt),
+                                       W_OUT_AXES), SEQ_AXES)
+    return y

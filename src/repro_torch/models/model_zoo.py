@@ -19,9 +19,10 @@ A recurrent layer's cache entry is its state (``models.recurrent``); a
 ``build_model(cfg, device, mesh=)`` with a ``DeviceMesh`` installs it as
 the global mesh (``sharding.set_mesh``): the parameters are DTensors
 placed by ``param_axes``, a batch is placed by its ``batch`` dim, and the
-forwards run on DTensors. Only the dense family runs over a mesh of more
-than one rank; any other raises ``NotImplementedError`` (ROADMAP.md item
-5.6c-2) rather than run unsharded.
+forwards run on DTensors. The dense, MoE (expert-parallel), VLM and
+encoder-decoder families run over a mesh of more than one rank; the
+recurrent (``ssm``) and ``hybrid`` families raise ``NotImplementedError``
+(ROADMAP.md item 5.6c-3) rather than run unsharded.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.tokens import place_batch
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as SH
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import Attend
 
@@ -118,11 +120,21 @@ class Model:
         return T.forward_decode(params, token, self.cfg, cache, pos, attend)
 
 
+# the families that run over a mesh of more than one rank
+MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
 def _vlm_inputs(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """The VLM's embedded sequence: the patches (cast to the activation
-    dtype) before the embedded tokens."""
-    tok_x = T.embed_tokens(params, batch["tokens"], cfg)
-    return torch.cat([batch["patches"].to(tok_x.dtype), tok_x], dim=1)
+    dtype) before the embedded tokens. On a mesh both are gathered over
+    the sequence first (the batch stays placed) and the sequence is
+    placed as the residual's after the concatenation (``seq_shard``
+    where P + S_text divides)."""
+    tok_x = SH.constrain(T.embed_tokens(params, batch["tokens"], cfg),
+                         "batch", None, None)
+    patches = SH.constrain(batch["patches"].to(tok_x.dtype), "batch", None,
+                           None)
+    return SH.constrain(torch.cat([patches, tok_x], dim=1), *L.SEQ_AXES)
 
 
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
@@ -132,11 +144,11 @@ def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
     size = 1
     for n in SH.mesh_shape(mesh).values():
         size *= n
-    if size > 1 and cfg.family != "dense":
+    if size > 1 and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) over a mesh of {size} "
-            f"ranks is not ported (ROADMAP.md, Queue 1 item 5.6c-2); only "
-            f"the dense family runs sharded")
+            f"ranks is not ported (ROADMAP.md, Queue 1 item 5.6c-3); the "
+            f"{', '.join(MESH_FAMILIES)} families run sharded")
     if SH.is_device_mesh(mesh):
         SH.set_mesh(mesh)
     return Model(cfg=cfg, device=resolve_device(device), mesh=mesh)

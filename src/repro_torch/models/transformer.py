@@ -154,17 +154,51 @@ class CrossKV:
 
 def cross_kv(p: nn.ParameterDict, memory: torch.Tensor, cfg: ArchConfig
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The memory's keys and values (no RoPE, no bias), in its dtype."""
-    return L._proj(memory, p["wk"]), L._proj(memory, p["wv"])
+    """The memory's keys and values (no RoPE, no bias), in its dtype; on a
+    mesh the memory's sequence and the weights' FSDP dim gathered first,
+    the K/V placed by ``layers.KV_AXES``."""
+    dt = memory.dtype
+    memory = L.gather_seq(memory)
+    k, v = (SH.constrain(L._proj(memory, p[w], L.WKV_AXES, dt), *L.KV_AXES)
+            for w in ("wk", "wv"))
+    return k, v
 
 
+@SH.in_mesh_context
 def _cross_attention(p: nn.ParameterDict, x: torch.Tensor, memory_kv,
                      cfg: ArchConfig) -> torch.Tensor:
-    """Non-causal attention of ``x`` over the memory's K/V (no RoPE)."""
+    """Non-causal attention of ``x`` over the memory's K/V (no RoPE). On a
+    mesh each rank attends its (batch, kv-head) block: of the K/V
+    ``DTensor``s ``cross_kv`` gives, or of a decode cache's ``CrossKV``,
+    which holds that block as plain tensors."""
     k, v = memory_kv
-    q = L._proj(x, p["wq"])
-    return L._out_proj(L.attention_full(q, k, v, cfg, causal=False),
-                       p["wo"])
+    q = SH.constrain(L._proj(L.gather_seq(x), p["wq"], L.WQ_AXES, x.dtype),
+                     *L.Q_AXES)
+
+    def attend(q, k, v):
+        return L.attention_full(q, k, v, cfg, causal=False)
+
+    if SH.on_mesh(q) and not SH.on_mesh(k):
+        out = SH.local_map_axes(lambda ql: attend(ql, k, v), (L.Q_AXES,),
+                                (L.Q_AXES,))(q)
+    else:
+        out = L._on_kv_block(attend, q, k, v, cfg)
+    return L._out_proj(SH.constrain(out, *L.Q_AXES), p["wo"])
+
+
+def _cross_cache(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig
+                 ) -> CrossKV:
+    """The cross K/V a prefill stores, in ``cfg.dtype``: on a mesh this
+    rank's (batch, kv-head) block as plain tensors, as the self-attention
+    cache holds its own."""
+    dt = L._dtype(cfg)
+    kept = []
+
+    def keep(_, kl, vl):
+        kept.extend(t.to(dt).contiguous() for t in (kl, vl))
+
+    L._on_kv_block(keep, None, k, v, cfg)
+    return CrossKV(k=kept[0], v=kept[1])
 
 
 def apply_block_train(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
@@ -223,10 +257,11 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     if kind == "slstm":
         return R.init_slstm_state(cfg, batch, device)
     if kind == "dec_cross":
-        empty = torch.zeros((batch, 0, cfg.num_kv_heads,
-                             cfg.resolved_head_dim), dtype=L._dtype(cfg),
-                            device=device)
-        return (L.init_kv_cache(cfg, batch, max_len, device=device),
+        rows, _, kv = L.kv_block(cfg, batch, mesh)
+        empty = torch.zeros((rows, 0, kv, cfg.resolved_head_dim),
+                            dtype=L._dtype(cfg), device=device)
+        return (L.init_kv_cache(cfg, batch, max_len, device=device,
+                                mesh=mesh),
                 CrossKV(k=empty, v=empty.clone()))
     raise ValueError(kind)
 
@@ -260,8 +295,7 @@ def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
         h = L.apply_norm(p["norm_x"], x, cfg)
         attn = _cross_attention(p["xattn"], h, (xk, xv), cfg)
         # stored at the memory's length, in cfg.dtype
-        dt = L._dtype(cfg)
-        cache = (kvc, CrossKV(k=xk.to(dt), v=xv.to(dt)))
+        cache = (kvc, _cross_cache(xk, xv, cfg))
     else:
         attn, cache = L.attention_prefill(p["attn"], h, cfg, cache)
     x = x + attn
@@ -620,12 +654,14 @@ def forward_train(p, tokens_or_x: torch.Tensor, cfg: ArchConfig,
     return unembed(p, x, cfg)
 
 
+@SH.in_mesh_context
 def encode(p, frames: torch.Tensor, cfg: ArchConfig, remat: str = "full"
            ) -> torch.Tensor:
     """The encoder over precomputed frame embeddings (B, S, D): plus
     sinusoids (``freq = exp(-(arange(D / 2) / (D / 2)) * 9)`` in float32,
     sin then cos, cast to the frames' dtype), the ``enc`` blocks, then
-    ``enc_norm``."""
+    ``enc_norm``. On a mesh the sum is placed as the reference constrains
+    it, by ``layers.SEQ_AXES``."""
     _, s, d = frames.shape
     pos = torch.arange(s, dtype=torch.float32, device=frames.device)
     half = d // 2
@@ -634,6 +670,7 @@ def encode(p, frames: torch.Tensor, cfg: ArchConfig, remat: str = "full"
     ang = pos[:, None] * freq[None, :]
     x = frames + torch.cat([torch.sin(ang), torch.cos(ang)],
                            -1).to(frames.dtype)[None]
+    x = SH.constrain(x, *L.SEQ_AXES)
     x = _run_stack([(lp, "enc") for lp in p["enc_layers"]], x, cfg, remat)
     return L.apply_norm(p["enc_norm"], x, cfg)
 

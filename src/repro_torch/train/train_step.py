@@ -26,12 +26,13 @@ share that math:
   its gradients and sums them with ``all_reduce`` over the ``pod`` dim's
   process group (``dcn_allreduce_tree``), and the loss likewise. Ranks
   along the mesh's other dims repeat their pod's work: in-pod sharding is
-  ROADMAP.md Queue 1 item 5.6c-2, and a hierarchy route over a model
+  ROADMAP.md Queue 1 item 5.6c-3, and a hierarchy route over a model
   whose parameters are sharded over a mesh of more than one rank raises.
 
-On a ``DeviceMesh`` (the dense family) the global route runs on DTensors:
-the parameters, moments, batch, loss and gradients are placed by the
-reference's logical axes, the loss and gradients are computed inside
+On a ``DeviceMesh`` (the dense, MoE, VLM and encoder-decoder families)
+the global route runs on DTensors: the parameters, moments, batch, loss
+and gradients are placed by the reference's logical axes, the loss and
+gradients are computed inside
 ``sharding.mesh_context`` (a remat's recompute and the backward formulas
 take their plain position and mask tensors as replicated), and the loss
 and grad norm in the metrics are whole values on every rank.
@@ -287,7 +288,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         raise NotImplementedError(
             f"the {route} DCN route over a model sharded on a mesh of "
             f"{ranks} ranks (in-pod sharding) is not ported (ROADMAP.md, "
-            f"Queue 1 item 5.6c-2)")
+            f"Queue 1 item 5.6c-3)")
     mb = tcfg.microbatches
     method, frac = tcfg.dcn_compression, tcfg.dcn_topk_frac
 

@@ -233,7 +233,7 @@ def checkpoint(mesh, other, state, inputs, out: Path) -> dict:
 
 def launchers(argv_train: list, argv_serve: list) -> dict:
     """Both LM launchers on this rank's process group, their failures on
-    the production mesh and a non-dense family."""
+    the production mesh and the recurrent and hybrid families."""
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as train_launcher
 
@@ -241,17 +241,19 @@ def launchers(argv_train: list, argv_serve: list) -> dict:
     with contextlib.redirect_stdout(text):
         st = train_launcher.main(argv_train)
         run = serve_launcher.main(argv_serve)
-    moe = ["--arch", "deepseek_moe_16b", "--reduced", "--device", "cpu"]
+    def other(arch):
+        return ["--arch", arch, "--reduced", "--device", "cpu"]
+
     return {
         "printed": text.getvalue(),
         "params": [_np(p) for p in st.params.parameters()],
         "tokens": run.tokens.numpy().copy(),
         "train_single": _raises(lambda: train_launcher.main(
             argv_train + ["--mesh", "single"])),
-        "train_moe": _raises(lambda: train_launcher.main(
-            moe + ["--steps", "1"])),
-        "serve_moe": _raises(lambda: serve_launcher.main(
-            moe + ["--gen", "2"])),
+        "train_recurrent": _raises(lambda: train_launcher.main(
+            other("xlstm_125m") + ["--steps", "1"])),
+        "serve_recurrent": _raises(lambda: serve_launcher.main(
+            other("hymba_1_5b") + ["--gen", "2"])),
         "train_dcn": _raises(lambda: train_launcher.main(
             argv_train + ["--dcn-pods", "2"])),
     }
@@ -320,10 +322,11 @@ def worker(rank: int, world: int, store: str, out: str, inputs: dict
         raise
 
 
-def start(world: int, out: Path, inputs: dict) -> list:
-    """``world`` ranks of ``worker``, spawned and left running."""
+def start(world: int, out: Path, inputs: dict, target=None) -> list:
+    """``world`` ranks of ``target`` (default ``worker``), spawned and left
+    running."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=worker,
+    procs = [ctx.Process(target=target or worker,
                          args=(r, world, str(out / "store"), str(out),
                                inputs))
              for r in range(world)]

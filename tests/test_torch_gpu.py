@@ -1893,3 +1893,70 @@ def test_lm_launchers_on_a_1_rank_nccl_group(cuda, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert printed.count("mesh: {'data': 1, 'model': 1} devices=1") == 2
     assert torch.equal(run.tokens.cpu(), alone.tokens.cpu())
+
+
+# a rank's block of each mesh family's int8 cache at 32 x (512 + 16):
+# (name, KV a rank, G, hd, S, valid_len at the last step); Whisper's cache
+# is sized as the launcher sizes it (frames, tokens and 16 more) and its
+# decode starts after its 256 tokens
+FAMILY_BLOCKS = [("deepseek_moe_16b model 2", 8, 1, 128, 528, 527),
+                 ("whisper_medium model 2", 8, 1, 64, 528, 271),
+                 ("internvl2_76b model 2", 4, 8, 128, 528, 527),
+                 ("internvl2_76b model 4", 2, 8, 128, 528, 527)]
+
+
+@pytest.mark.parametrize("name,KV,G,hd,S,valid", FAMILY_BLOCKS,
+                         ids=[b[0].replace(" ", "-") for b in FAMILY_BLOCKS])
+def test_decode_attention_on_a_family_ranks_block_matches_plain(
+        cuda, name, KV, G, hd, S, valid):
+    """``decode_attention`` on the cache block one rank of a (1, model)
+    mesh holds for the MoE, encoder-decoder and VLM cells, within 2e-4 of
+    the plain version."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(KV * G + hd)
+    B = 32
+    q = torch.randn((B, KV, G, hd), generator=g, device=cuda) * hd ** -0.5
+    k = torch.randint(-127, 128, (B, S, KV, hd), generator=g, device=cuda,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, S, KV, hd), generator=g, device=cuda,
+                      dtype=torch.int8)
+    ks = torch.rand((B, S, KV), generator=g, device=cuda) / 127
+    vs = torch.rand((B, S, KV), generator=g, device=cuda) / 127
+    launches = decode_attention.launches
+    got = decode_attention(q, k, v, ks, vs, valid)
+    assert decode_attention.launches == launches + 1
+    want = decode_attention_plain(q, k, v, ks, vs, valid)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_moe_serve_launcher_on_a_1_rank_nccl_group(cuda, tmp_path, capsys):
+    """``launch.serve --arch deepseek_moe_16b`` (reduced, the int8 cache)
+    on a 1-rank NCCL group: the (1, 1) ``DeviceMesh``, the kernel launched
+    on every decode step of both layers, the greedy tokens of the run
+    without a group."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "deepseek_moe_16b", "--reduced", "--kv-quant",
+            "--batch", "4", "--prompt-len", "64", "--gen", "8"]
+    alone = serve.main(argv)
+    capsys.readouterr()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        dec = decode_attention.launches
+        run = serve.main(argv)
+        assert decode_attention.launches == dec + 2 * 7
+    finally:
+        SH.set_mesh(None)
+        dist.destroy_process_group()
+    printed = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 1} devices=1" in printed
+    assert torch.equal(run.tokens.cpu(), alone.tokens.cpu())

@@ -127,6 +127,25 @@ def test_importing_the_mesh_lm_modules_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_importing_the_mesh_family_modules_loads_no_jax():
+    """The modules the MoE, encoder-decoder and VLM families over a mesh
+    run (the banded top-k's overflow canonicalization too), and their
+    tests' rank worker, load no JAX."""
+    code = ("import sys, repro_torch.models.layers, "
+            "repro_torch.models.transformer, repro_torch.models.model_zoo, "
+            "repro_torch.dist, repro_torch.train.train_step, "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.kernels.topk_hamming.ops, "
+            "_torch_family_mesh_ranks; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             [str(ROOT / "src"), str(ROOT / "tests")])})
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
                                    "launcher", "cluster_launcher",
                                    "clusterer", "cluster_server",

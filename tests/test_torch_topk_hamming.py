@@ -520,6 +520,60 @@ def test_banded_plan_emulation_matches_plain_and_reference(Q, R, nbands, kind,
         np.testing.assert_array_equal(got_v.numpy(), np.asarray(oracle[1]))
 
 
+def test_f5_overlapping_bands_canonicalize_on_their_union():
+    """The smallest input found: query 7's bands [0, 2) and [0, 4) overlap
+    (the generator zeroes a later band's start), so the masked rows are
+    those outside [0, 4) and the overflow slot holds row 4. Canonicalizing
+    on the bands as two disjoint runs read [2, 0) as a run of -2 rows and
+    wrote row 6; the reference's ``canonicalize_overflow_slots`` still
+    does (ROADMAP.md, Queue 3, F5)."""
+    Q, R, k, d = 8, 8, 5, 64
+    rng = np.random.default_rng(1)
+    q, rows = _operands(rng, Q, R, d, True)
+    s, e = _plan_bands(rng, Q, R, 2, "random")
+    assert (s[:, 7].tolist(), e[:, 7].tolist()) == ([0, 0], [2, 4])
+    st_, ln = torch.from_numpy(s.astype(np.int32)), torch.from_numpy(
+        (e - s).astype(np.int32))
+    cs, ce = clip_bands(st_, ln, R, Q, torch.device("cpu"))
+    plan = plan_banded(Q, R, d // 32, k, 2, None, 3, 1, 232448)
+    got_i, got_v = _emulate_banded(q, rows, cs.numpy(), ce.numpy(), d, k,
+                                   plan)
+    got_i = canonicalize_overflow_slots(got_i, got_v, cs, ce, R)
+    want = topk_hamming_banded_plain(_port(q), _port(rows), st_, ln, dim=d,
+                                     k=k)
+    assert torch.equal(got_i, want[0]) and torch.equal(got_v, want[1])
+    assert got_i[7].tolist() == [1, 3, 2, 0, 4]
+    ref = np.asarray(jcanon(jnp.asarray(got_i.numpy()),
+                            jnp.asarray(got_v.numpy()), jnp.asarray(cs),
+                            jnp.asarray(ce), R))
+    assert ref[7].tolist() == [1, 3, 2, 0, 6]
+    np.testing.assert_array_equal(ref[:7], got_i[:7].numpy())
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 12), st.integers(1, 80), st.integers(1, 4),
+       st.integers(1, 12), st.booleans(), st.integers(0, 2**31 - 1))
+def test_canonicalize_overlapping_and_unordered_bands_matches_plain(
+        Q, R, nbands, k, packed, seed):
+    """Bands drawn anywhere (overlapping, nested, out of order, empty, past
+    the bank before clipping): the plain route's top-k with its overflow
+    slots overwritten by filler, canonicalized, equals the plain route."""
+    rng = np.random.default_rng(seed)
+    k = min(k, R)
+    d = 64 if packed else 40
+    q, rows = _operands(rng, Q, R, d, packed)
+    s = rng.integers(-2, R + 3, (nbands, Q))
+    ln = rng.integers(0, R // 2 + 3, (nbands, Q))
+    st_, ln_ = (torch.from_numpy(a.astype(np.int32)) for a in (s, ln))
+    want_i, want_v = topk_hamming_banded_plain(_port(q), _port(rows), st_,
+                                               ln_, dim=d, k=k)
+    sentinel = want_v == INT32_MIN
+    filler = torch.where(sentinel, torch.full_like(want_i, R + 7), want_i)
+    cs, ce = clip_bands(st_, ln_, R, Q, torch.device("cpu"))
+    got = canonicalize_overflow_slots(filler, want_v, cs, ce, R)
+    assert torch.equal(got, want_i)
+
+
 @pytest.mark.parametrize("wpr,k,group", [
     (256, 4, 32),       # the served bank: one group of 32
     (256, 2591, 4),     # large k: the lists shrink the group
