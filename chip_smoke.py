@@ -363,22 +363,52 @@ exits non-zero and prints no result line:
    parameters DTensors, both kernels launched).
 10b. The MoE (expert-parallel), encoder-decoder and VLM families over the
    same rank processes, each beside the same run in this process:
-   ``deepseek_moe_16b`` served at full width and depth on (1, 2) (32
+   ``deepseek_moe_16b`` served at full width with 8 of its 28 layers
+   (full depth until phase 10c joined the time limit) on (1, 2) (32
    experts and 8 kv heads a rank; this process's routes forced, so the
    logits answer for the kernel and the sharding, and the decisions the
-   mesh made itself are counted), decoded with 2 layers on (2, 1) (a
-   step's 32 tokens are one MoE group, routed whole by every rank) and
-   trained with 2 layers on (2, 2); ``whisper_medium`` served at full
-   width and depth and trained with 2 encoder and 2 decoder layers
-   (``imc_linear`` on whole 128-column ``ff`` tiles a rank) on (1, 2);
-   ``internvl2_76b`` served at full width with 4 of its 80 layers on
-   (1, 4). Serving: every decode step's whole logits within 2^-4 of its
+   mesh made itself are counted), decoded one step with 2 layers on (2, 1)
+   (a step's 32 tokens are one MoE group, routed whole by every rank) and
+   trained with 1 layer on (2, 2); ``whisper_medium`` served at full
+   width with 12 of its 24 decoder layers (and all 24 encoder layers) and
+   trained with 2 encoder and 2 decoder layers (``imc_linear`` on whole
+   128-column ``ff`` tiles a rank) on (1, 2); ``internvl2_76b`` served
+   at full width with 2 of its 80 layers on (1, 4) (these cuts since
+   phase 10c joined the time limit). Serving: every decode step's whole logits within 2^-4 of its
    largest, ``decode_attention`` launched layers x steps times on every
    rank and held against its plain version at the rank's cache block;
    training: each loss within rtol 2e-3 of this process's, ``imc_mvm``
    launched once an FFN a step on every rank and bit for bit against its
    plain version on the rank's shard. Prints the same quantities as
    phase 10 and the share of MoE routing decisions that differ.
+10c. The recurrent (xLSTM) and hybrid (Hymba) families over the same rank
+   processes (or, with ``--only 10c``, spawns of its own), each beside the
+   same run in this process: ``xlstm_125m`` served at full width and
+   depth on (1, 2), (2, 1) and (1, 4) (its 4 mLSTM heads split over
+   ``model``), ``hymba_1_5b`` served at full width and depth on (1, 2)
+   (25 heads over 5 kv heads: replicated over ``model``), both as float32
+   copies at 32 x (512 + 16): every decode step's whole logits within
+   2^-4 of its largest, and every ``decode_attention`` launch of Hymba on
+   every rank held against its plain version (rtol / atol 2e-4);
+   ``hymba_1_5b`` trained at full width with 4 of its 32 layers and
+   ``imc_linear`` on (2, 2) (each loss within rtol 2e-3, ``imc_mvm``
+   launched once a layer a step on every rank, on ``ff`` gathered, and bit
+   for bit against its plain version on the first and last 256 rows of a
+   launch); then the DCN process-group route over a model sharded within
+   each pod: ``xlstm_125m`` (float32) on a (pod 2, data 1, model 2) mesh
+   of 4 processes, two steps with ``dcn_compression`` ``none`` and two
+   with ``topk_ef``, beside the emulated route in this process (the
+   first loss within rtol 1e-5, the DCN bytes equal; for ``none`` the
+   later losses within DCN_MESH_LOSS_RTOL and the parameters within 2
+   applied learning rates a step and a mean of DCN_MESH_MEAN_LR of them,
+   limits that a control, the same run with one pod's sends dropped,
+   must exceed) and, for ``none``, beside the emulated route run by each
+   pod's own (data, model) ranks (losses and every parameter equal);
+   ``topk_ef``'s ``sent + new residual == grads + old residual`` on every
+   leaf of every rank and step, the second with a non-zero old residual,
+   and its residual rows (1, ...). Prints prefill s, decode p50 / p95,
+   tokens/s, step ms, each rank's peak memory and the gloo collectives,
+   and the phase's seconds.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one
 ``{"ok": true, "device": {...}}`` line. It exits non-zero where
@@ -388,7 +418,7 @@ missing beside it.
     python3 chip_smoke.py --only 7c,8c
 
 runs the build and the named phases alone (7c, 8c, 7d, 8d, 8e, 9, 10
-with 10b;
+with 10b, 10c;
 9 alone first serves phase 4's four routes in one process), printing
 their lines and no kernels or ``ok`` line: a quick check of one slice on
 the card.
@@ -3939,19 +3969,16 @@ def phase_serve_recurrent(torch, np) -> dict:
     return out
 
 
-def kernel_vs_plain_replay(torch, run, gen: int) -> tuple[dict, dict]:
-    """A teacher-forced replay of a served run in which every attention
-    call runs the kernel and its plain version on the same inputs: the
-    replay must reproduce the served logits exactly, and each call's
-    outputs agree within rtol / atol DECODE_RTOL. Returns the replay and
-    a summary (calls, valid_len and cache slots seen, max |difference|,
-    elements past the tolerance)."""
+def launch_checker(torch, seen: list):
+    """An ``attend`` that launches ``decode_attention`` (its result drives
+    the decode) and holds each launch against the plain version on the
+    same inputs, appending to ``seen`` (valid_len, cache slots, max
+    |difference|, elements past rtol / atol DECODE_RTOL or not finite;
+    the last two 0-dim device tensors, so that no launch waits)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         decode_attention_plain,
     )
-
-    seen = []
 
     def both(q, k8, v8, ks, vs, valid_len):
         got = decode_attention(q, k8, v8, ks, vs, valid_len)
@@ -3961,7 +3988,18 @@ def kernel_vs_plain_replay(torch, run, gen: int) -> tuple[dict, dict]:
                      (bad | ~torch.isfinite(got)).sum()))
         return got
 
-    rep = replay_decode(torch, run, gen, both)
+    return both
+
+
+def kernel_vs_plain_replay(torch, run, gen: int) -> tuple[dict, dict]:
+    """A teacher-forced replay of a served run in which every attention
+    call runs the kernel and its plain version on the same inputs: the
+    replay must reproduce the served logits exactly, and each call's
+    outputs agree within rtol / atol DECODE_RTOL. Returns the replay and
+    a summary (calls, valid_len and cache slots seen, max |difference|,
+    elements past the tolerance)."""
+    seen = []
+    rep = replay_decode(torch, run, gen, launch_checker(torch, seen))
     summary = {
         "calls": len(seen),
         "valid_len": sorted({v for v, _, _, _ in seen}),
@@ -4925,11 +4963,17 @@ def mesh_matmuls(torch, world: int) -> dict:
 def memoize_library(serve_db) -> None:
     """Patches ``serve_db``'s library generation in this rank so that a
     route reuses the library the route before it drew from the same
-    configuration (the two exact routes share one, the two OMS routes
-    another; the draws are deterministic, so only set-up time is saved).
-    The encoded references and decoys are kept on the host, as a sharded
-    ``serve_db`` keeps them; a new configuration drops the old library
-    first."""
+    configuration (the draws are deterministic, so only set-up time is
+    saved). The OMS routes' configuration differs from the exact routes'
+    only in its modification masses, which move precursors and not
+    spectra (``spectra.synthetic.generate_dataset`` draws the spectra
+    first): their dataset is drawn anew, and the encoded references and
+    decoys of the exact routes are kept (since phase 10c joined the time
+    limit: the ranks encode in turn, 24.8 s a library on 4 ranks). The
+    encodings are kept on the host, as a sharded ``serve_db`` keeps them;
+    another library drops the old one first."""
+    import dataclasses
+
     held: dict = {}
     generate, encode, decoys = (serve_db.generate_dataset,
                                 serve_db.encode_and_pack,
@@ -4937,9 +4981,11 @@ def memoize_library(serve_db) -> None:
 
     def generate_dataset(ms, device):
         if held.get("ms") != ms:
-            held.clear()
-            held.update(ms=ms, ds=generate(ms, device=device),
-                        decoy_key=object())
+            lib = dataclasses.replace(ms, modification_mass_range=(0.0, 0.0))
+            if held.get("lib") != lib:
+                held.clear()
+                held.update(lib=lib, decoy_key=object())
+            held.update(ms=ms, ds=generate(ms, device=device))
         return held["ds"]
 
     def make_decoys(spectra):
@@ -5467,17 +5513,44 @@ def lm_mesh_restore(torch, mesh, ckpt_dir) -> dict:
 # forced replay of phase 7b), so that their logits answer for the kernel
 # and the sharding and not for bfloat16's routing flips; the decisions
 # the mesh itself made are counted against this process's (descriptive).
-FAMILY_SHORT_LAYERS, FAMILY_SHORT_GEN = 2, 4
-FAMILY_VLM_LAYERS = 4
-FAMILY_SERVE = {"moe serve": ("deepseek_moe_16b", None, LM_CONFIGS_GEN),
+FAMILY_SHORT_LAYERS, FAMILY_SHORT_GEN = 2, 2
+FAMILY_VLM_LAYERS = 2
+# Whisper's serving decoder: 12 of its 24 layers (its 24 encoder layers
+# whole) since phase 10c joined the time limit
+FAMILY_WHISPER_SERVE_LAYERS = 12
+# the MoE's serving depth on (1, 2): 8 of deepseek's 28 layers since phase
+# 10c joined the time limit (its prefill took 22.2 s at 28, PERF.md)
+FAMILY_MOE_SERVE_LAYERS = 8
+# phase 10c: xlstm_125m served at full width and depth on (1, 2), (2, 1)
+# and (1, 4), hymba_1_5b served at full width and depth on (1, 2) (both as
+# float32 copies, as phase 7c checks them: random-weight recurrent stacks
+# amplify bfloat16 rounding past LM_REPLAY_SHARE, PERF.md) with every
+# decode_attention launch held against its plain version, hymba_1_5b
+# trained with REC_TRAIN_LAYERS of its 32 layers and imc_linear on (2, 2)
+# (its ff of 5,504 is 2,752 columns a rank: not whole 128-column tiles,
+# so _imc_linear gathers ff), and the DCN process-group route over a model
+# sharded within each pod ("dcn", below)
+REC_TRAIN_LAYERS = 4
+REC_SERVE = ("xlstm serve", "hymba serve")
+REC_MESH_JOBS = {2: (("xlstm serve", (1, 2)), ("xlstm serve", (2, 1)),
+                     ("hymba serve", (1, 2))),
+                 4: (("xlstm serve", (1, 4)), ("hymba train", (2, 2)),
+                     ("dcn", (2, 1, 2)))}
+FAMILY_SERVE = {"moe serve": ("deepseek_moe_16b", FAMILY_MOE_SERVE_LAYERS,
+                              LM_CONFIGS_GEN),
                 "moe decode": ("deepseek_moe_16b", FAMILY_SHORT_LAYERS,
                                FAMILY_SHORT_GEN),
-                "whisper serve": ("whisper_medium", None, LM_CONFIGS_GEN),
+                "whisper serve": ("whisper_medium",
+                                  FAMILY_WHISPER_SERVE_LAYERS,
+                                  LM_CONFIGS_GEN),
                 "vlm serve": ("internvl2_76b", FAMILY_VLM_LAYERS,
-                              LM_CONFIGS_GEN)}
+                              LM_CONFIGS_GEN),
+                "xlstm serve": ("xlstm_125m", None, LM_CONFIGS_GEN),
+                "hymba serve": ("hymba_1_5b", None, LM_CONFIGS_GEN)}
 # job -> (arch, layers, encoder layers, imc_linear)
-FAMILY_TRAIN = {"moe train": ("deepseek_moe_16b", 2, 0, False),
-                "whisper train": ("whisper_medium", 2, 2, True)}
+FAMILY_TRAIN = {"moe train": ("deepseek_moe_16b", 1, 0, False),
+                "whisper train": ("whisper_medium", 2, 2, True),
+                "hymba train": ("hymba_1_5b", REC_TRAIN_LAYERS, 0, True)}
 FAMILY_LOSS_RTOL = 2e-3
 
 
@@ -5493,6 +5566,8 @@ def family_cfg(job: str):
         cfg = dataclasses.replace(get_config(arch), kv_quant_int8=True)
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
+        if job in REC_SERVE:
+            cfg = dataclasses.replace(cfg, dtype="float32")
         return cfg
     arch, layers, enc, imc = FAMILY_TRAIN[job]
     cfg = get_config(arch)
@@ -5531,10 +5606,11 @@ def host_routes(layers_mod, routes: list) -> list:
         r.weight, r.expert, r.pos, r.keep))) for r in routes]
 
 
-def family_one_process(torch) -> tuple[dict, dict]:
-    """This process's runs phase 10b holds the meshes against: each
-    serving job's launcher run (tokens, every decode step's logits, the
-    MoE's routes) and each training job's steps (losses, routes)."""
+def family_one_process(torch, jobs) -> tuple[dict, dict]:
+    """This process's runs phases 10b and 10c hold the meshes against, for
+    the serving and training ``jobs`` named: each serving job's launcher
+    run (tokens, every decode step's logits, the MoE's routes) and each
+    training job's steps (losses, routes)."""
     import gc
 
     from repro_torch.data.tokens import TokenPipeline
@@ -5545,6 +5621,8 @@ def family_one_process(torch) -> tuple[dict, dict]:
 
     refs, lines = {}, {}
     for job, (arch, _, gen) in FAMILY_SERVE.items():
+        if job not in jobs:
+            continue
         gc.collect()
         torch.cuda.empty_cache()
         cfg = family_cfg(job)
@@ -5569,6 +5647,8 @@ def family_one_process(torch) -> tuple[dict, dict]:
         del run, sink
     tcfg = family_train_cfg()
     for job in FAMILY_TRAIN:
+        if job not in jobs:
+            continue
         gc.collect()
         torch.cuda.empty_cache()
         cfg = family_cfg(job)
@@ -5627,6 +5707,10 @@ def family_mesh_serve(torch, dist, mesh, job: str, ref: dict) -> dict:
     moe = cfg.family == "moe"
     patch = (moe_route_recorder(L, sink, ref["routes"], data_rank)
              if moe else contextlib.nullcontext())
+    # phase 10c holds every launch against the plain version (inside the
+    # timed steps)
+    calls = []
+    attend = launch_checker(torch, calls) if job in REC_SERVE else None
     decode_attention.launches = 0
     dist.barrier()
     with patch:
@@ -5638,7 +5722,8 @@ def family_mesh_serve(torch, dist, mesh, job: str, ref: dict) -> dict:
         for i in range(steps):
             snap = gloo_snapshot(SH)
             t0 = time.perf_counter()
-            lp, cache = decode(params, tokens[:, i:i + 1], cache, start + i)
+            lp, cache = decode(params, tokens[:, i:i + 1], cache, start + i,
+                               attend)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
             n, ms = gloo_delta(SH, snap)
@@ -5648,23 +5733,39 @@ def family_mesh_serve(torch, dist, mesh, job: str, ref: dict) -> dict:
             share.append(float((got - want).abs().max())
                          / float(want.abs().max()))
     launches = decode_attention.launches
-    kvc = cache[0][0] if cfg.is_encoder_decoder else cache[0]
-    _, hl = SH.local_range(L.Q_AXES, (B, 1, cfg.num_heads,
-                                      cfg.resolved_head_dim), 2)
-    g = min(hl, cfg.num_heads // cfg.num_kv_heads)
-    kernel = decode_attention_served(torch, kvc, g, start + steps)
+    # the first layer's KV cache (a hybrid's or dec_cross layer's first
+    # entry); the ssm family has none
+    kvc = cache[0][0] if isinstance(cache[0], tuple) else cache[0]
+    # and its recurrent state (a hybrid's second entry, an ssm layer's)
+    rec = cache[0][1] if isinstance(cache[0], tuple) else cache[0]
+    attention = hasattr(kvc, "k")
+    kernel = None
+    if attention:
+        _, hl = SH.local_range(L.Q_AXES, (B, 1, cfg.num_heads,
+                                          cfg.resolved_head_dim), 2)
+        g = min(hl, cfg.num_heads // cfg.num_kv_heads)
+        kernel = decode_attention_served(torch, kvc, g, start + steps)
     ms = torch.tensor(step_ms, dtype=torch.float64)
-    out = {"arch": cfg.name, "layers": cfg.num_layers,
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "prefill_s": prefill_s,
            "decode_p50_ms": float(torch.quantile(ms, 0.5)),
            "decode_p95_ms": float(torch.quantile(ms, 0.95)),
            "tokens_per_s": B * steps / (sum(step_ms) / 1e3),
            "max_share": max(share), "share": share, "launches": launches,
-           "want_launches": cfg.num_layers * steps,
+           "want_launches": cfg.num_layers * steps if attention else 0,
            "gloo_collectives_a_step": coll_n / steps,
            "gloo_ms_a_step": coll_ms / steps,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "cache_shape": tuple(kvc.k.shape), "kernel": kernel}
+           "cache_shape": tuple(kvc.k.shape) if attention else None,
+           "state_shapes": None if hasattr(rec, "k") else [
+               tuple(t.shape) for t in vars(rec).values()],
+           "kernel": kernel}
+    if calls:
+        out["checked_launches"] = len(calls)
+        out["checked_max_abs"] = float(torch.stack([d for _, _, d, _ in
+                                                    calls]).max())
+        out["checked_mismatches"] = int(torch.stack([b for _, _, _, b in
+                                                     calls]).sum())
     if cfg.is_encoder_decoder:
         out["cross_shape"] = tuple(cache[0][1].k.shape)
     if moe:
@@ -5739,11 +5840,23 @@ def family_mesh_train(torch, dist, mesh, job: str, ref: dict) -> dict:
         q, w, kw, got = rec.pop("call")
         Q = q.shape[0]
         mism = 0
-        for r in (slice(0, TRAIN_CHECK_Q), slice(Q - TRAIN_CHECK_Q, Q)):
+        rows = (slice(0, TRAIN_CHECK_Q), slice(Q - TRAIN_CHECK_Q, Q))
+        t0 = time.perf_counter()
+        for r in rows:
             mism += int((got[r] != imc_mvm_plain(q[r], w, **kw)).sum())
+        plain_ms = 1e3 * (time.perf_counter() - t0)
         shard = (Q, w.shape[0], q.shape[1])
+        # this rank's launch timed while the others wait (the ranks share
+        # the card): the ranks take turns
+        for turn in range(dist.get_world_size()):
+            dist.barrier()
+            if turn == dist.get_rank():
+                ms = time_ms(torch, lambda: imc_mvm(q, w, **kw), iters=5,
+                             warmup=1)
+        dist.barrier()
         out.update(imc_shard_shape=shard, imc_mismatches=mism,
-                   imc_whole_tiles=shard[2] % ArrayConfig().cols == 0)
+                   imc_whole_tiles=shard[2] % ArrayConfig().cols == 0,
+                   imc_ms=ms, imc_plain_ms_checked_rows=plain_ms)
         del q, w, got
     if cfg.family == "moe":
         out["routing_differs"] = routes_share(
@@ -5753,10 +5866,11 @@ def family_mesh_train(torch, dist, mesh, job: str, ref: dict) -> dict:
 
 def family_report(job: str, mesh: str, world: int, got: list, one: dict,
                   limit: str, launches: dict) -> None:
-    """Phase 10b's line and checks for one job's ranks (``got``) beside
-    this process's run (``one``); the kernels' launches a rank go into
-    ``launches``."""
-    line = {"path": f"family mesh {job}", "mesh": mesh, "ranks": world,
+    """Phase 10b's (and 10c's) line and checks for one job's ranks
+    (``got``) beside this process's run (``one``); the kernels' launches
+    a rank go into ``launches``."""
+    phase = "recurrent" if job in REC_MESH_NAMES else "family"
+    line = {"path": f"{phase} mesh {job}", "mesh": mesh, "ranks": world,
             "processes_on_one_card": True, "backend": "gloo",
             "one_process": one, "per_rank": got,
             "card, power limit": limit}
@@ -5773,26 +5887,43 @@ def family_report(job: str, mesh: str, world: int, got: list, one: dict,
         check(all(g["max_share"] <= LM_REPLAY_SHARE for g in got),
               f"{cell}: logits off the one-process run by "
               f"{[g['max_share'] for g in got]} of the step's largest")
-        launches["decode_attention"][cell] = g0["launches"]
+        if g0["want_launches"]:
+            launches["decode_attention"][cell] = g0["launches"]
         moe = ""
+        if "checked_launches" in g0:
+            check(all(g["checked_launches"] == g["want_launches"]
+                      and g["checked_mismatches"] == 0 for g in got),
+                  f"{cell}: decode_attention launches held against the "
+                  f"plain version: "
+                  f"{[(g['checked_launches'], g['checked_mismatches']) for g in got]}")
+            moe = (f"; every launch on every rank against the plain "
+                   f"version ({sum(g['checked_launches'] for g in got)} "
+                   f"launches, max |err| "
+                   f"{max(g['checked_max_abs'] for g in got):.2e}, 0 past "
+                   f"rtol / atol {DECODE_RTOL}; the timed steps include the "
+                   f"plain calls)")
         if "routing_differs" in g0:
             moe = (f"; {g0['experts_a_rank']} experts a rank, routing "
                    f"decisions differing from one process's: decode "
                    f"{max(g['routing_differs'] for g in got):.4f}, prefill "
                    f"{max(g['prefill_routing_differs'] for g in got):.4f} "
                    f"(this process's routes forced)")
-        print(f"family mesh {job} {cell}: {g0['layers']} layers, prefill "
+        k = g0["kernel"]
+        kernel = ("no attention" if k is None else
+                  f"decode_attention {g0['launches']} launches a rank at "
+                  f"{k['shape']} ({k['ms']:.4f} ms, plain "
+                  f"{k['plain_ms']:.4f} ms, max err "
+                  f"{k['max_abs_err']:.2e})")
+        print(f"{phase} mesh {job} {cell}: {g0['layers']} layers, "
+              f"{g0['dtype']}, prefill "
               f"{max(g['prefill_s'] for g in got):.3f} s (one process "
               f"{one['prefill_s']:.3f}), decode p50 "
               f"{g0['decode_p50_ms']:.2f} / p95 {g0['decode_p95_ms']:.2f} ms "
               f"(one process {one['decode_p50_ms']:.2f} / "
               f"{one['decode_p95_ms']:.2f}), {g0['tokens_per_s']:.1f} "
-              f"tokens/s, peak {peaks} GiB, {gloo}; decode_attention "
-              f"{g0['launches']} launches a rank at "
-              f"{g0['kernel']['shape']} ({g0['kernel']['ms']:.4f} ms, plain "
-              f"{g0['kernel']['plain_ms']:.4f} ms, max err "
-              f"{g0['kernel']['max_abs_err']:.2e}); logits within "
-              f"{max(g['max_share'] for g in got):.2e} of the largest{moe}")
+              f"tokens/s, peak {peaks} GiB, {gloo}; {kernel}; logits "
+              f"within {max(g['max_share'] for g in got):.2e} of the "
+              f"largest{moe}")
         return
     want_imc = (g0["layers"] + g0["encoder_layers"]
                 if "imc_shard_shape" in g0 else 0)
@@ -5808,12 +5939,15 @@ def family_report(job: str, mesh: str, world: int, got: list, one: dict,
     if want_imc:
         extra = (f", imc_mvm {g0['imc_launches_a_step']:.0f} launches a "
                  f"rank a step on the shard {g0['imc_shard_shape']} (whole "
-                 f"tiles: {g0['imc_whole_tiles']}), "
+                 f"tiles: {g0['imc_whole_tiles']}; "
+                 f"{g0['imc_ms']:.4f} ms a launch with the other ranks "
+                 f"idle, plain {g0['imc_plain_ms_checked_rows']:.1f} ms on "
+                 f"the {2 * TRAIN_CHECK_Q} checked rows), "
                  f"{sum(g['imc_mismatches'] for g in got)} mismatches")
     if "routing_differs" in g0:
         extra += (f", routing decisions differing from one process's "
                   f"{max(g['routing_differs'] for g in got):.4f}")
-    print(f"family mesh {job} {cell}: step "
+    print(f"{phase} mesh {job} {cell}: step "
           f"{[round(x, 1) for x in g0['step_ms']]} ms (one process "
           f"{[round(x, 1) for x in one['step_ms']]}), "
           f"{g0['tokens_per_s']:.1f} tokens/s, peak {peaks} GiB, loss "
@@ -5822,11 +5956,328 @@ def family_report(job: str, mesh: str, world: int, got: list, one: dict,
           f"{extra}")
 
 
-def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
-    """One rank of phase 10, in a process of its own: joins the gloo group
-    through the ``file://`` store, runs LM_MESH_JOBS[world] and writes its
-    results to ``<out>/rank<r>.pkl`` (a failure writes its traceback to
-    ``<out>/rank<r>.err`` first)."""
+# the DCN job of phase 10c: xlstm_125m at full width and depth, float32
+# (so that a loss and a parameter can be held within DCN_MESH_RTOL),
+# TRAIN_BATCH x TRAIN_SEQ in 2 pod slices, DCN_MESH_STEPS steps with each of
+# DCN_MESH_METHODS on a (pod 2, data 1, model 2) mesh of 4 processes (the
+# process-group route, each pod's two ranks computing its slice on the
+# model sharded over ``model``), beside the emulated route in this process
+# and, for ``none``, beside the emulated route run by each pod's own
+# (data, model) ranks (the same sharded arithmetic, folded in pod order)
+DCN_MESH_METHODS = ("none", "topk_ef")
+DCN_MESH_STEPS = 2
+DCN_MESH_RTOL = 1e-5
+# after the first update the routes' rounding, amplified by xLSTM's random
+# weights, moves a loss and the parameters: ``none`` is held against one
+# process by these limits, checked in every run to lie below the
+# control's gaps (one pod's sends dropped in one process): the losses
+# after the first update relatively, the mean |parameter difference| in
+# units of the learning rates the steps applied. Each is the geometric
+# mean of a sound run's gap and the control's on the H100 (PERF.md):
+# loss 1.19e-4 and 1.11e-3, mean 0.233 and 0.338
+DCN_MESH_LOSS_RTOL = 3.6e-4
+DCN_MESH_MEAN_LR = 0.28
+REC_MESH_NAMES = REC_SERVE + ("hymba train", "dcn")
+
+
+def dcn_mesh_setup(method: str):
+    """(config, TrainConfig) of the DCN job for one method."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    cfg = dataclasses.replace(get_config("xlstm_125m"), dtype="float32")
+    return cfg, TrainConfig(optimizer=AdamWConfig(total_steps=10),
+                            remat="full", dcn_pods=2,
+                            dcn_compression=method)
+
+
+def dcn_applied_lr() -> float:
+    """The sum of the learning rates the DCN job's steps apply (its
+    warmup's first steps)."""
+    from repro_torch.train.optimizer import schedule
+
+    opt = dcn_mesh_setup("none")[1].optimizer
+    return sum(schedule(opt, s + 1) for s in range(DCN_MESH_STEPS))
+
+
+def dcn_steps(torch, mesh, method: str, sends=None, send=None) -> tuple:
+    """DCN_MESH_STEPS steps of the DCN job from seed 0 over ``mesh``
+    (None: this process): (route, losses, step ms, the metrics' DCN
+    bytes, the state). ``sends``: a list that gets, for every step's
+    ``dcn_send_leaf`` calls of the process-group route with a residual,
+    (step, the elements where ``sent + new residual != grads + old
+    residual``, the old residual's non-zero elements). ``send``: a
+    stand-in for the train step's ``dcn_send_leaf`` (the control)."""
+    import contextlib
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist import compression as C
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import train_step as TS
+
+    cfg, tcfg = dcn_mesh_setup(method)
+    model = build_model(cfg, "cuda", mesh)
+    state = init_train_state(model, seed=0, tcfg=tcfg)
+    step_fn = make_train_step(model, tcfg)
+    pipe = TokenPipeline(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    real = C.dcn_send_leaf
+    step = [0]
+
+    def checked(g, e, i, method, frac, key, u=None):
+        sent, ne = real(g, e, i, method, frac, key, u)
+        if e is not None:
+            sends.append((step[0], int(((sent + ne) != (g.float() + e))
+                                       .sum()), int((e != 0).sum())))
+        return sent, ne
+
+    patch = (mock.patch.object(C, "dcn_send_leaf", checked)
+             if sends is not None else
+             mock.patch.object(TS, "dcn_send_leaf", send)
+             if send is not None else contextlib.nullcontext())
+    losses, step_ms, sent_bytes = [], [], []
+    for s in range(DCN_MESH_STEPS):
+        step[0] = s
+        batch = pipe.get_for(cfg, s, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patch:
+            state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        sent_bytes.append((m["dcn_bytes"], m["dcn_raw_bytes"]))
+    return step_fn.dcn_route, losses, step_ms, sent_bytes, state
+
+
+def dropped_pod_send(torch):
+    """The control's ``dcn_send_leaf`` for the emulated route: pod 1's
+    sends are zeros (the route sends pod 0's leaves from leaf 0 on, then
+    pod 1's, every step)."""
+    from repro_torch.dist import compression as C
+
+    starts = [0]
+
+    def send(g, e, i, *args):
+        sent, ne = C.dcn_send_leaf(g, e, i, *args)
+        starts[0] += i == 0
+        return (torch.zeros_like(sent) if starts[0] % 2 == 0 else sent), ne
+    return send
+
+
+def loss_gap(losses: list, want: list) -> list:
+    """Each step's |loss - wanted| relative to the wanted loss."""
+    return [abs(a - b) / abs(b) for a, b in zip(losses, want, strict=True)]
+
+
+def dcn_one_process(torch) -> tuple[dict, dict]:
+    """The DCN job's emulated route in this process: each method's losses
+    and DCN bytes, ``none``'s parameters after (host copies), and the
+    control (``none`` with one pod's sends dropped): its losses' and
+    parameters' gaps from ``none``'s."""
+    import gc
+
+    from repro_torch.dist import sharding as SH
+
+    refs, lines = {}, {}
+    for method in DCN_MESH_METHODS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        route, losses, step_ms, sent, state = dcn_steps(torch, None, method)
+        check(route == "emulated", f"the DCN job in one process: {route}")
+        refs[method] = {"losses": losses, "bytes": sent}
+        if method == "none":
+            refs[method]["params"] = [p.detach().cpu() for p in
+                                      state.params.parameters()]
+        lines[method] = {"losses": losses, "step_ms": step_ms,
+                         "bytes": sent}
+        del state
+    _, losses, _, _, state = dcn_steps(torch, None, "none",
+                                       send=dropped_pod_send(torch))
+    lines["control"] = {
+        "losses": losses,
+        "loss_rel_err": loss_gap(losses, refs["none"]["losses"]),
+        "vs_one_process": param_gap(torch, SH, state.params,
+                                    refs["none"]["params"],
+                                    dcn_applied_lr())}
+    del state
+    return refs, lines
+
+
+def param_gap(torch, SH, params, ref: list, lr: float) -> dict:
+    """This state's whole parameters against ``ref`` (host tensors):
+    elements outside rtol DCN_MESH_RTOL (atol 0), the largest and the mean
+    |difference| in units of ``lr`` (the learning rates the steps
+    applied) and as they are."""
+    outside = total = 0
+    worst = mean = 0.0
+    for p, want in zip(params.parameters(), ref, strict=True):
+        got = SH.full_value(p).detach().cpu()
+        d = (got - want).abs()
+        outside += int((d > DCN_MESH_RTOL * want.abs()).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+        mean += float(d.sum())
+    return {"outside_rtol": outside, "elements": total,
+            "max_lr": worst / lr, "mean_lr": mean / total / lr,
+            "max": worst, "mean": mean / total}
+
+
+def dcn_mesh_train(torch, dist, mesh, ref: dict) -> dict:
+    """One rank's DCN job on the (pod, data, model) ``mesh``: each method's
+    losses and DCN bytes against this process's emulated route, the step
+    times, the error-feedback invariant's mismatches on every step, the
+    old residual's non-zero elements on the last, the residual rows'
+    shape; for ``none`` the parameters against this process's and
+    against the emulated route run by the pod's own (data, model)
+    ranks."""
+    import gc
+
+    from repro_torch.dist import sharding as SH
+
+    out = {"pod": mesh.get_local_rank("pod")}
+    lr = dcn_applied_lr()
+    for method in DCN_MESH_METHODS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sends = []
+        dist.barrier()
+        snap = gloo_snapshot(SH)
+        route, losses, step_ms, sent, state = dcn_steps(torch, mesh, method,
+                                                        sends)
+        n, ms = gloo_delta(SH, snap)
+        last = DCN_MESH_STEPS - 1
+        r = {"route": route, "losses": losses, "step_ms": step_ms,
+             "bytes": sent,
+             "loss_rel_err": loss_gap(losses, ref[method]["losses"]),
+             "invariant_mismatches": sum(x[1] for x in sends),
+             "leaves_sent": [sum(x[0] == s for x in sends)
+                             for s in range(DCN_MESH_STEPS)],
+             "old_residual_nonzero_last_step": sum(
+                 x[2] for x in sends if x[0] == last),
+             "ef_rows": sorted({tuple(e.shape[:1]) for e in state.ef})
+             if state.ef else [],
+             "gloo_collectives": n, "gloo_ms": ms,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "whole_tree_gib": 4 * sum(p.numel() for p in
+                                       state.params.parameters()) / 2**30}
+        if method == "none":
+            r["vs_one_process"] = param_gap(torch, SH, state.params,
+                                            ref[method]["params"], lr)
+            mine = [SH.full_value(p).detach().cpu()
+                    for p in state.params.parameters()]
+            del state
+            _, sub_losses, _, _, sub = dcn_steps(torch, mesh["data", "model"],
+                                                 method)
+            r["vs_pod_emulated"] = param_gap(torch, SH, sub.params, mine, lr)
+            r["pod_emulated_losses"] = sub_losses
+            del sub, mine
+        else:
+            del state
+        out[method] = r
+    return out
+
+
+def dcn_report(world: int, got: list, one: dict, limit: str) -> None:
+    """Phase 10c's DCN line and checks."""
+    print(json.dumps({"path": "recurrent mesh dcn", "mesh": "2x1x2",
+                      "ranks": world, "processes_on_one_card": True,
+                      "backend": "gloo", "one_process": one,
+                      "per_rank": got, "card, power limit": limit},
+                     default=str))
+    check(all(g[m]["route"] == "shard_map" for g in got
+              for m in DCN_MESH_METHODS),
+          "the DCN job did not take the process-group route")
+    none = [g["none"] for g in got]
+    ctl = one["control"]
+    # the first step's loss is taken from the same parameters by both
+    # routes: rtol 1e-5. After an update xLSTM's random-weight stack
+    # amplifies the routes' rounding (a 1e-7 perturbation moves its logits
+    # by 0.009 of the largest, phase 7c): the later losses and the
+    # parameters are held against one process by limits the control must
+    # exceed, and bit for bit against the emulated route run by the pod's
+    # own ranks, which sums in the same order
+    check(all(g["loss_rel_err"][0] <= DCN_MESH_RTOL for g in none),
+          f"DCN none: first loss {[g['losses'][0] for g in none]} against "
+          f"one process's {one['none']['losses'][0]} past rtol "
+          f"{DCN_MESH_RTOL}")
+    check(min(ctl["loss_rel_err"][1:]) > DCN_MESH_LOSS_RTOL
+          and ctl["vs_one_process"]["mean_lr"] > DCN_MESH_MEAN_LR,
+          f"DCN none: the control (one pod's sends dropped) is within the "
+          f"limits (losses {ctl['loss_rel_err']} against rtol "
+          f"{DCN_MESH_LOSS_RTOL}, mean {ctl['vs_one_process']['mean_lr']} "
+          f"lr against {DCN_MESH_MEAN_LR}): the check could not see it")
+    check(all(max(g["loss_rel_err"][1:]) <= DCN_MESH_LOSS_RTOL
+              for g in none),
+          f"DCN none: losses after the first update "
+          f"{[g['losses'] for g in none]} against one process's "
+          f"{one['none']['losses']} past rtol {DCN_MESH_LOSS_RTOL}")
+    # AdamW moves an element by at most its step's lr (|m| <= sqrt(v)
+    # after bias correction), and each route rounds it to float32 once a
+    # step: 1e-6 covers the ulps of parameters under 4 in magnitude
+    lr = dcn_applied_lr()
+    check(all(g["vs_one_process"]["max"] <= 2 * lr + 1e-6
+              and g["vs_one_process"]["mean_lr"] <= DCN_MESH_MEAN_LR
+              for g in none),
+          f"DCN none: parameters off one process's past 2 lr a step or a "
+          f"mean of {DCN_MESH_MEAN_LR} lr: "
+          f"{[g['vs_one_process'] for g in none]}")
+    check(all(g["vs_pod_emulated"]["outside_rtol"] == 0
+              and g["pod_emulated_losses"] == g["losses"] for g in none),
+          f"DCN none: losses or parameters off the pod's emulated route: "
+          f"{[(g['losses'], g['pod_emulated_losses'], g['vs_pod_emulated']) for g in none]}")
+    ef = [g["topk_ef"] for g in got]
+    check(all(g["invariant_mismatches"] == 0 and min(g["leaves_sent"]) > 0
+              and g["old_residual_nonzero_last_step"] > 0
+              and g["ef_rows"] == [(1,)] for g in ef),
+          f"DCN topk_ef: sent + new residual != grads + old residual, no "
+          f"old residual on the last step, or residual rows other than "
+          f"(1, ...): {[(g['invariant_mismatches'], g['leaves_sent'], g['old_residual_nonzero_last_step'], g['ef_rows']) for g in ef]}")
+    for m in DCN_MESH_METHODS:
+        check(all(g[m]["bytes"] == one[m]["bytes"] for g in got),
+              f"DCN {m}: dcn_bytes {[g[m]['bytes'] for g in got]} against "
+              f"one process's {one[m]['bytes']}")
+    g = none[0]
+    print(f"recurrent mesh dcn 2x1x2: xlstm_125m (12 layers, float32) on "
+          f"the process-group route over 2 pods of (data 1, model 2), "
+          f"{DCN_MESH_STEPS} steps: none step "
+          f"{[round(x, 1) for x in g['step_ms']]} ms (one process "
+          f"{[round(x, 1) for x in one['none']['step_ms']]}), losses off "
+          f"one process's by {[max(x['loss_rel_err'][s] for x in none) for s in range(DCN_MESH_STEPS)]} "
+          f"relative (the control, one pod's sends dropped: "
+          f"{ctl['loss_rel_err']}), losses and parameters equal to the "
+          f"pod's emulated route "
+          f"({max(x['vs_pod_emulated']['max_lr'] for x in none):.2e} lr) and "
+          f"within {max(x['vs_one_process']['max_lr'] for x in none):.3f} "
+          f"lr (mean {max(x['vs_one_process']['mean_lr'] for x in none):.4f}"
+          f" lr; the control {ctl['vs_one_process']['mean_lr']:.4f}) of one "
+          f"process's, in units of the learning rates the steps applied "
+          f"({lr:.3g} in all) "
+          f"({g['vs_one_process']['outside_rtol']} of "
+          f"{g['vs_one_process']['elements']} outside rtol {DCN_MESH_RTOL}); "
+          f"topk_ef step {[round(x, 1) for x in ef[0]['step_ms']]} ms (one "
+          f"process {[round(x, 1) for x in one['topk_ef']['step_ms']]}), "
+          f"sent + new residual == grads + old residual on all "
+          f"{sum(sum(x['leaves_sent']) for x in ef)} sends of every rank and "
+          f"step ({min(x['old_residual_nonzero_last_step'] for x in ef)} "
+          f"non-zero old residual elements or more a rank on the last), "
+          f"residual rows (1, ...), dcn {ef[0]['bytes'][0][0] / 2**20:.2f} "
+          f"MiB a pod ({ef[0]['bytes'][0][1] / ef[0]['bytes'][0][0]:.1f}x "
+          f"smaller), as one process's; peak none "
+          f"{[round(x['peak_gib'], 2) for x in none]}, topk_ef "
+          f"{[round(x['peak_gib'], 2) for x in ef]} GiB a rank (the whole "
+          f"float32 tree {g['whole_tree_gib']:.2f} GiB)")
+
+
+def lm_mesh_rank(rank: int, world: int, store: str, out: str,
+                 jobs: tuple) -> None:
+    """One rank of phases 10-10c, in a process of its own: joins the gloo
+    group through the ``file://`` store, runs ``jobs`` ((job, mesh shape)
+    pairs: a (data, model) mesh, or (pod, data, model) for three dims) and
+    writes its results to ``<out>/rank<r>.pkl`` (a failure writes its
+    traceback to ``<out>/rank<r>.err`` first)."""
     import gc
     import pickle
     import traceback
@@ -5853,9 +6304,9 @@ def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
         ref = torch.load(out_dir / "one_process.pt", weights_only=False)
         res, state = {}, None
         try:
-            for job, shape in LM_MESH_JOBS[world]:
-                mesh = init_device_mesh("cuda", shape,
-                                        mesh_dim_names=("data", "model"))
+            for job, shape in jobs:
+                names = ("pod", "data", "model")[-len(shape):]
+                mesh = init_device_mesh("cuda", shape, mesh_dim_names=names)
                 t0 = time.perf_counter()
                 if job == "serve":
                     r = lm_mesh_serve(torch, dist, mesh, ref["serve"])
@@ -5867,6 +6318,10 @@ def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
                         out_dir / "ckpt" if world == 4 else None)
                 elif job == "restore":
                     r = lm_mesh_restore(torch, mesh, out_dir / "ckpt")
+                elif job == "dcn":
+                    state = None
+                    gc.collect()
+                    r = dcn_mesh_train(torch, dist, mesh, ref["dcn"])
                 else:
                     state = None
                     gc.collect()
@@ -5884,16 +6339,17 @@ def lm_mesh_rank(rank: int, world: int, store: str, out: str) -> None:
         raise
 
 
-def spawn_lm_ranks(world: int, out: Path) -> list:
-    """``world`` processes of ``lm_mesh_rank`` (spawned; the kernels were
-    built in this process); joined within LM_MESH_JOIN_S, else killed and
-    failed. Returns each rank's results."""
+def spawn_lm_ranks(world: int, out: Path, jobs: tuple) -> list:
+    """``world`` processes of ``lm_mesh_rank`` running ``jobs`` (spawned;
+    the kernels were built in this process); joined within
+    LM_MESH_JOIN_S, else killed and failed. Returns each rank's
+    results."""
     import multiprocessing
     import pickle
 
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=lm_mesh_rank,
-                         args=(r, world, str(out / "store"), str(out)))
+                         args=(r, world, str(out / "store"), str(out), jobs))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -6007,32 +6463,60 @@ def nccl_local_lm(torch) -> dict:
             "train_lines": [ln for ln in lines if ln.startswith("step ")]}
 
 
-def phase_lm_mesh(torch, np) -> dict:
-    """Phase 10 (see LM_MESH_JOBS): the one-process runs, the 2- and
-    4-rank gloo groups on the card, each mesh's line and checks, then the
-    1-rank NCCL launchers. Returns the kernels' launches a rank."""
+def phase_lm_mesh(torch, np, jobs: dict = LM_MESH_JOBS) -> dict:
+    """Phases 10 and 10b (LM_MESH_JOBS), 10c (REC_MESH_JOBS), or both in
+    one spawn of each world (``jobs``: world -> (job, mesh shape)
+    pairs): the one-process runs the jobs need, the 2- and 4-rank gloo
+    groups on the card, each mesh's line and checks, then (with phase
+    10's jobs) the 1-rank NCCL launchers. Returns the kernels' launches
+    a rank."""
     import tempfile
 
     t_phase = time.perf_counter()
     limit = nvidia_smi("name,power.limit")
-    ref, one_serve, one_train = lm_mesh_one_process(torch)
-    print(json.dumps({"path": "lm mesh: one process", "serve": one_serve,
-                      "train": one_train, "card, power limit": limit}))
-    t0 = time.perf_counter()
-    ref["family"], one_family = family_one_process(torch)
-    print(json.dumps({"path": "family mesh: one process", **one_family,
-                      "seconds": time.perf_counter() - t0,
-                      "card, power limit": limit}))
+    names = {job for pairs in jobs.values() for job, _ in pairs}
+    dense = "serve" in names
+    ref, rec_s = {}, 0.0
+    if dense:
+        ref, one_serve, one_train = lm_mesh_one_process(torch)
+        print(json.dumps({"path": "lm mesh: one process",
+                          "serve": one_serve, "train": one_train,
+                          "card, power limit": limit}))
+    for phase, members in (("family", names - set(REC_MESH_NAMES)),
+                           ("recurrent", names & set(REC_MESH_NAMES))):
+        t0 = time.perf_counter()
+        refs, lines = family_one_process(torch, members)
+        if phase == "recurrent" and "dcn" in members:
+            ref["dcn"], lines["dcn"] = dcn_one_process(torch)
+        ref.setdefault("family", {}).update(refs)
+        ref.setdefault("lines", {}).update(lines)
+        if members:
+            print(json.dumps({"path": f"{phase} mesh: one process",
+                              **lines, "seconds": time.perf_counter() - t0,
+                              "card, power limit": limit}, default=str))
+        if phase == "recurrent":
+            rec_s += time.perf_counter() - t0
+    one_family = ref.pop("lines")
     launches = {"decode_attention": {}, "imc_mvm": {}}
-    for world in sorted(LM_MESH_JOBS):
+    for world in sorted(jobs):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             torch.save(ref, Path(tmp) / "one_process.pt")
-            ranks = spawn_lm_ranks(world, Path(tmp))
+            ranks = spawn_lm_ranks(world, Path(tmp), jobs[world])
         spawn_s = time.perf_counter() - t0
-        for job, shape in LM_MESH_JOBS[world]:
+        rec_jobs = [j for j in jobs[world] if j[0] in REC_MESH_NAMES]
+        # 10c's share of this spawn: its jobs' time on the slowest rank and
+        # its share of the start-up
+        rec_s += max(sum(r[j]["wall_s"] for j in rec_jobs) for r in ranks)
+        rec_s += (spawn_s - max(sum(v["wall_s"] for v in r.values())
+                                for r in ranks)) * len(rec_jobs) / len(
+                                    jobs[world])
+        for job, shape in jobs[world]:
             got = [r[job, shape] for r in ranks]
-            mesh = f"{shape[0]}x{shape[1]}"
+            mesh = "x".join(map(str, shape))
+            if job == "dcn":
+                dcn_report(world, got, one_family["dcn"], limit)
+                continue
             if job in FAMILY_SERVE or job in FAMILY_TRAIN:
                 family_report(job, mesh, world, got, one_family[job],
                               limit, launches)
@@ -6098,14 +6582,20 @@ def phase_lm_mesh(torch, np) -> dict:
                       f"(saved in {ranks[0]['train', (2, 2)]['save_s']:.1f}"
                       f" s), every block as the files hold it")
         print(f"lm mesh: {world} ranks in {spawn_s:.1f} s")
-    nccl = nccl_local_lm(torch)
-    print(json.dumps({"path": "lm launchers on a 1-rank NCCL group",
-                      **nccl}))
-    check(nccl["mesh_lines"] == ["mesh: {'data': 1, 'model': 1} devices=1"]
-          * 2 and nccl["params_on_mesh"] and nccl["imc_launches"] > 0
-          and nccl["decode_attention_launches"] > 0
-          and nccl["tokens_shape"] == [4, 8],
-          f"the LM launchers on a 1-rank NCCL group: {nccl}")
+    if dense:
+        nccl = nccl_local_lm(torch)
+        print(json.dumps({"path": "lm launchers on a 1-rank NCCL group",
+                          **nccl}))
+        check(nccl["mesh_lines"] == [
+            "mesh: {'data': 1, 'model': 1} devices=1"] * 2
+            and nccl["params_on_mesh"] and nccl["imc_launches"] > 0
+            and nccl["decode_attention_launches"] > 0
+            and nccl["tokens_shape"] == [4, 8],
+            f"the LM launchers on a 1-rank NCCL group: {nccl}")
+    if names & set(REC_MESH_NAMES):
+        print(f"recurrent mesh: phase 10c {rec_s:.1f} s (its one-process "
+              f"runs, its jobs on the slowest rank and its share of each "
+              f"spawn's start-up)")
     print(f"lm mesh: phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -6117,7 +6607,9 @@ STANDALONE = {"7c": lambda torch, np: phase_serve_recurrent(torch, np),
               "8d": lambda torch, np: phase_train_encdec_vlm(torch, np),
               "8e": lambda torch, np: phase_train_dcn(torch, np),
               "9": lambda torch, np: phase_mesh(torch, np),
-              "10": lambda torch, np: phase_lm_mesh(torch, np)}
+              "10": lambda torch, np: phase_lm_mesh(torch, np),
+              "10c": lambda torch, np: phase_lm_mesh(torch, np,
+                                                     REC_MESH_JOBS)}
 
 
 def main(argv=None) -> int:
@@ -6257,14 +6749,31 @@ def main(argv=None) -> int:
           f"a gloo group (not a multi-card deployment); parameters are the "
           f"port's seeded random draw")
     print(f"reduced: family mesh: deepseek_moe_16b served at full width "
-          f"and depth and decoded with {FAMILY_SHORT_LAYERS} layers, "
-          f"trained with 2 of 28; whisper_medium served at full depth, "
-          f"trained with 2 + 2 of 24 + 24 layers; internvl2_76b served "
-          f"with {FAMILY_VLM_LAYERS} of 80 layers (the time limit, and "
-          f"four processes' share of the card's 80 GB); "
+          f"with {FAMILY_MOE_SERVE_LAYERS} of its 28 layers (the time "
+          f"limit, since phase 10c) and decoded {FAMILY_SHORT_GEN - 1} "
+          f"step(s) with {FAMILY_SHORT_LAYERS} layers, trained with 1 of "
+          f"28 (2 until phase 10c); whisper_medium served with "
+          f"{FAMILY_WHISPER_SERVE_LAYERS} of its 24 decoder layers and all "
+          f"24 encoder layers (full depth until phase 10c), trained with 2 "
+          f"+ 2 of 24 + 24 layers; internvl2_76b served with "
+          f"{FAMILY_VLM_LAYERS} of 80 layers (the time limit, 4 until phase "
+          f"10c, and four processes' share of the card's 80 GB); "
           f"llama4_scout_17b_a16e over a mesh on CPU ranks only (the "
           f"tests)")
-    lm_mesh = phase_lm_mesh(torch, np)
+    print(f"recurrent mesh: xlstm_125m served at full width and depth on "
+          f"(1, 2), (2, 1) and (1, 4) and hymba_1_5b on (1, 2), batch "
+          f"{LM_CONFIGS_BATCH} x ({LM_CONFIGS_PROMPT} + {LM_CONFIGS_GEN}), "
+          f"as float32 copies (phase 7c's check: bfloat16 random-weight "
+          f"recurrent stacks amplify rounding past {LM_REPLAY_SHARE}); "
+          f"xlstm_125m float32 trained on a (pod 2, data 1, model 2) mesh, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {DCN_MESH_STEPS} steps a "
+          f"method; run in phase 10's rank processes")
+    print(f"reduced: recurrent mesh: hymba_1_5b trained at full width with "
+          f"{REC_TRAIN_LAYERS} of its 32 layers on (2, 2), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {LM_MESH_STEPS} steps (the time "
+          f"limit, as phase 8c)")
+    lm_mesh = phase_lm_mesh(torch, np, {w: LM_MESH_JOBS[w] + REC_MESH_JOBS[w]
+                                        for w in LM_MESH_JOBS})
     dec["mesh_launches_a_rank"] = lm_mesh["decode_attention"]
     imc["mesh_launches_a_rank_a_step"] = lm_mesh["imc_mvm"]
     print(f"total: {time.perf_counter() - t0:.1f} s")

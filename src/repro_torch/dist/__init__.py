@@ -19,10 +19,11 @@ monitor and host heartbeats).
     DTensor's collectives; ``baseline_mode``;
   * ``straggler`` — ``StragglerMonitor`` and ``HeartbeatRegistry``.
 
-The dense, MoE (expert-parallel), VLM and encoder-decoder LMs run on
-DTensors over a ``DeviceMesh`` (their ``constrain`` sites are the
-reference's); the recurrent and hybrid families wait for ROADMAP.md
-Queue 1 item 5.6c-3."""
+Every LM family runs on DTensors over a ``DeviceMesh`` (the dense, MoE
+(expert-parallel), VLM and encoder-decoder ones at the reference's
+``constrain`` sites; the recurrent and hybrid ones in local regions on
+each rank's blocks), and the DCN routes over a model sharded within each
+pod."""
 
 from repro_torch.dist import (
     checkpoint,

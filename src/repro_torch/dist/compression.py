@@ -47,8 +47,9 @@ collective for a local sum.
 
 from __future__ import annotations
 
+import itertools
 import math
-from collections.abc import Mapping
+from collections.abc import Callable, Mapping
 
 import torch
 import torch.distributed as dist
@@ -268,36 +269,51 @@ def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
 def dcn_allreduce_tree(grads_stacked: list, error, mesh, axis: str = "pod",
                        method: str = "int8", topk_frac: float = 0.01,
                        key: int | None = None,
-                       uniforms: list | None = None):
+                       uniforms: list | None = None,
+                       out: Callable | None = None):
     """Compressed all-reduce of this rank's gradient blocks over one mesh
     axis: the train step's DCN hop.
 
-    ``grads_stacked`` leaves are this rank's ``(1, *shape)`` blocks of the
+    ``grads_stacked`` leaves (any iterable: the train step gathers each
+    leaf as it is reached) are this rank's ``(1, *shape)`` blocks of the
     per-pod stacked tree; ``error`` is ``{}`` or the matching ``(1,
-    *shape)`` residual blocks. The rank compresses its block (rounding key
+    *shape)`` residual blocks (a list, or an iterable read in step with
+    the leaves). The rank compresses its block (rounding key
     ``fold_in(key, pod)``, pod = its coordinate on ``axis``, as the
     emulated route's) and only then sums the payload over ``axis``.
     Returns ``(summed leaves without the leading dim, new (1, *shape)
     residuals or {})``; scaling by 1/P is the caller's job. The caller's
-    blocks are not written. ``method='none'`` is a plain sum."""
+    blocks are not written. ``method='none'`` is a plain sum.
+
+    ``out(i, summed leaf, new (1, *shape) residual or None)``, where
+    given, takes each leaf as soon as it is summed, and the function
+    returns ``(out's results, {})``: a caller that places each sum and
+    keeps its residual there holds one whole leaf at a time."""
     if method not in DCN_METHODS:
         raise ValueError(f"unknown compression method: {method}")
     group, pod = _axis_group(mesh, axis)
     pod_key = fold_in(_key(key), pod)
-    us = uniforms if uniforms is not None else [None] * len(grads_stacked)
+    us = uniforms if uniforms is not None else itertools.repeat(None)
+    errs = error if error else itertools.repeat(None)
     red, new_err = [], []
-    for i, (gP, u) in enumerate(zip(grads_stacked, us)):
+    for i, (gP, eP, u) in enumerate(zip(grads_stacked, errs, us)):
         if gP.shape[0] != 1:
             raise ValueError(f"leaf {i}: expected this rank's (1, ...) "
                              f"block, got {tuple(gP.shape)}")
-        e = error[i][0] if error else None
-        sent, ne = dcn_send_leaf(gP[0], e, i, method, topk_frac, pod_key, u)
+        sent, ne = dcn_send_leaf(gP[0], None if eP is None else eP[0], i,
+                                 method, topk_frac, pod_key, u)
         if method == "none":
             sent = sent.clone()
-        red.append(_all_reduce(sent, group))
-        if error:
-            new_err.append(ne[None])
-    return red, (new_err if error else {})
+        summed = _all_reduce(sent, group)
+        ne = ne[None] if error else None
+        if out is not None:
+            red.append(out(i, summed, ne))
+        else:
+            red.append(summed)
+            new_err.append(ne)
+        # the next leaf is gathered with none of this leaf's tensors held
+        del gP, eP, sent, summed, ne
+    return red, (new_err if error and out is None else {})
 
 
 def cross_pod_allreduce(x: torch.Tensor, mesh, axis: str = "pod",

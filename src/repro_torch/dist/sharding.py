@@ -353,6 +353,35 @@ def full_value(x):
     return x.full_tensor() if on_mesh(x) else x
 
 
+def local_value(x):
+    """A ``DTensor``'s local block (a view: writing it writes the DTensor);
+    any other tensor as it is."""
+    return x.to_local() if on_mesh(x) else x
+
+
+def place_like(t, ref):
+    """``t`` (the whole value, the same on every rank) placed as the
+    ``DTensor`` ``ref`` is (its mesh and placements), cut to this rank's
+    block with nothing sent; ``t`` itself when ``ref`` is no DTensor."""
+    if not on_mesh(ref):
+        return t
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(t.shape), ref.device_mesh, ref.placements)
+    local = t
+    if tuple(shape) != tuple(t.shape):
+        # a copy of the block: a view would keep the whole value alive
+        local = t[tuple(slice(o, o + n) for o, n in
+                        zip(offset, shape))].clone()
+    return DTensor.from_local(local, ref.device_mesh,
+                              ref.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
 def place(t, axes: tuple, mesh):
     """``t`` (this rank's full value, the same on every rank) as a DTensor
     placed by ``axes``, cut to this rank's block with nothing sent; an

@@ -25,8 +25,9 @@ Over a mesh (``torchrun``, as the training launcher joins it) the run
 serves on ``make_debug_mesh()``, as the reference does: the parameters
 placed by ``param_axes``, the prompt by its batch dim, each rank's KV
 cache holding its block; rank 0 alone prints, every rank returns the
-same generated ids; the dense, MoE, VLM and encoder-decoder families run
-over more than one rank (the recurrent and hybrid ones raise). It prints the reference's ``mesh: {...} devices=N`` line.
+same generated ids; every family runs over more than one rank (the
+recurrent states, as the KV cache, hold the rank's block). It prints the
+reference's ``mesh: {...} devices=N`` line.
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch qwen2_7b --reduced --device cpu --kv-quant

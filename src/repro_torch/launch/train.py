@@ -31,10 +31,9 @@ it), or the one-device mapping without one; ``single`` and ``multi`` are
 ``make_production_mesh``, which raises unless the group has 256 (512)
 ranks. The run prints the reference's ``mesh: {...} devices=N`` line and
 places the train state by its logical axes (``state_axes``); over more
-than one rank the model must be of the dense, MoE, VLM or
-encoder-decoder family (the recurrent and hybrid ones raise, ROADMAP.md
-item 5.6c-3), every rank draws the same global batch and keeps
-its block, rank 0 alone prints and writes the checkpoints (each leaf
+than one rank every family runs (and ``--dcn-pods`` takes the emulated
+route over the sharded model), every rank draws the same global batch
+and keeps its block, rank 0 alone prints and writes the checkpoints (each leaf
 gathered whole: a checkpoint restores on another mesh), and a straggler
 eviction only reports (the ranks' clocks differ, and a save is
 collective). Parameters are the port's own draw from seed 0. Each logged

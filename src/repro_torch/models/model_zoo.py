@@ -19,10 +19,12 @@ A recurrent layer's cache entry is its state (``models.recurrent``); a
 ``build_model(cfg, device, mesh=)`` with a ``DeviceMesh`` installs it as
 the global mesh (``sharding.set_mesh``): the parameters are DTensors
 placed by ``param_axes``, a batch is placed by its ``batch`` dim, and the
-forwards run on DTensors. The dense, MoE (expert-parallel), VLM and
-encoder-decoder families run over a mesh of more than one rank; the
-recurrent (``ssm``) and ``hybrid`` families raise ``NotImplementedError``
-(ROADMAP.md item 5.6c-3) rather than run unsharded.
+forwards run on DTensors. Every family runs over a mesh of more than one
+rank: the dense, MoE (expert-parallel), VLM and encoder-decoder ones, the
+recurrent (``ssm``: xLSTM's mLSTM heads split over ``model``, sLSTM on
+each rank's batch block) and the ``hybrid`` (Hymba: the attention as the
+dense family's, its Mamba heads on each rank's batch block;
+``models.recurrent``).
 """
 
 from __future__ import annotations
@@ -120,10 +122,6 @@ class Model:
         return T.forward_decode(params, token, self.cfg, cache, pos, attend)
 
 
-# the families that run over a mesh of more than one rank
-MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
-
-
 def _vlm_inputs(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """The VLM's embedded sequence: the patches (cast to the activation
     dtype) before the embedded tokens. On a mesh both are gathered over
@@ -141,14 +139,6 @@ def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
                 mesh=None) -> Model:
     """The model on ``device``; over ``mesh`` (installed as the global
     mesh when it is a ``DeviceMesh``; see the module docstring)."""
-    size = 1
-    for n in SH.mesh_shape(mesh).values():
-        size *= n
-    if size > 1 and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) over a mesh of {size} "
-            f"ranks is not ported (ROADMAP.md, Queue 1 item 5.6c-3); the "
-            f"{', '.join(MESH_FAMILIES)} families run sharded")
     if SH.is_device_mesh(mesh):
         SH.set_mesh(mesh)
     return Model(cfg=cfg, device=resolve_device(device), mesh=mesh)

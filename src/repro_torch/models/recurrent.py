@@ -13,6 +13,35 @@ Each layer has:
 States are dataclasses of float32 tensors, of bounded size (O(d * state)
 a layer); a decode step returns the new state, as the reference does.
 
+On a device mesh (``DeviceMesh`` DTensors) each layer's forward runs in
+one local region (``sharding.local_map_axes``) on each rank's ``batch``
+block with the whole sequence (the input's sequence gathered first,
+``layers.gather_seq``), and its output is placed as the residual
+(``layers.SEQ_AXES``). The reference has no ``constrain`` here and places
+the states ``("batch", None, None)`` (Mamba), ``("batch", "heads", None,
+None)`` / ``("batch", "heads", None)`` (mLSTM's C / n) and ``("batch",
+None)`` (sLSTM; ``launch/dryrun.cache_axes_for``), so:
+
+* Mamba and sLSTM take every leaf whole (the FSDP and ``ff`` dims
+  gathered) and scan with ``d`` whole; the ranks of one batch block do
+  the same work. Mamba's fused ``w_in`` product is split after the
+  gather, inside the region: split over ``model`` first, its halves would
+  land on different ranks (all of ``xi`` on rank 0 of ``model`` = 2), and
+  DTensor refuses views of a sharded dim (torch 2.11). A decode step
+  gathers the fused product instead of the weight, where it is the
+  smaller (:func:`on_mesh`'s ``up``; mLSTM's ``w_up`` likewise).
+* mLSTM splits its heads over ``model`` (``MLSTM_HEAD_AXES``): ``w_up``
+  is gathered whole, so that ``xi`` is whole over ``d_inner`` before the
+  per-head projections, and a rank takes only the ``z`` columns and the
+  ``w_down`` rows of its own heads; its output is a partial sum over the
+  heads' ranks, reduced onto the residual's layout (in float32 under
+  autograd, rounded once, as ``layers.project`` reduces). Heads that do
+  not divide ``model`` stay whole on every rank.
+
+A decode step or a prefill's state holds this rank's block as plain
+tensors (``*_STATE_AXES``), as a KV cache does, and is read and written
+inside the region.
+
 ``lax.associative_scan`` has no PyTorch counterpart: :func:`associative_scan`
 follows JAX's odd/even recursion, so the port sums and multiplies in the
 reference's order. Its combine here is always :func:`_affine`, elementwise
@@ -41,6 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 
 Params = nn.ParameterDict
@@ -49,6 +79,22 @@ Pair = tuple[torch.Tensor, torch.Tensor]
 # the leaves the serving store keeps in float32 (with every sLSTM leaf)
 MAMBA_FLOAT32 = ("a_log", "d_skip", "dt_bias")
 MLSTM_FLOAT32 = ("w_q", "w_k", "w_v", "w_i", "w_f", "f_bias")
+
+# the logical axes of the states (the reference's ``cache_axes_for``)
+MAMBA_STATE_AXES = ("batch", None, None)
+MLSTM_C_AXES = ("batch", "heads", None, None)
+MLSTM_N_AXES = ("batch", "heads", None)
+SLSTM_STATE_AXES = ("batch", None)
+# the mLSTM leaves a rank takes by its block of heads on a mesh (the others
+# whole)
+MLSTM_HEAD_AXES = {"w_q": (None, "heads", None), "w_k": (None, "heads", None),
+                   "w_v": (None, "heads", None), "w_i": (None, "heads"),
+                   "w_f": (None, "heads"), "f_bias": ("heads",)}
+# a (B, S, D) input inside the region: the rank's batch block, every
+# position
+X_AXES = ("batch", None, None)
+# the fused up-projections' axes (Mamba's ``w_in``, mLSTM's ``w_up``)
+W_UP_AXES = ("fsdp", "ff")
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +154,89 @@ def _chunk(s: int, chunk: int, what: str) -> int:
     return c
 
 
+def _whole(name: str, t: torch.Tensor) -> tuple:
+    return (None,) * t.ndim
+
+
+def _by_heads(name: str, t: torch.Tensor) -> tuple:
+    return MLSTM_HEAD_AXES.get(name, _whole(name, t))
+
+
+def on_mesh(fn: Callable, p, x: torch.Tensor, leaf_axes: Callable = _whole,
+            reduced: tuple = (), out: bool = True, up: str | None = None):
+    """``fn(leaves, x)`` on each rank's blocks, in one local region: ``x``
+    (B, S, D) with its sequence gathered (``X_AXES``), each leaf of ``p``
+    placed by ``leaf_axes(name, leaf)`` and handed over as a dict of this
+    rank's blocks. ``fn`` returns this rank's (B_local, S, D) output, a
+    partial sum over the mesh axes the names in ``reduced`` took, which
+    is placed as the residual (``layers.SEQ_AXES``) in ``x``'s dtype; with
+    ``out=False`` it returns nothing (a state kept by ``fn``).
+
+    ``up`` names a fused up-projection (placed ``W_UP_AXES``) that ``fn``
+    only multiplies ``x`` by. Without autograd, where ``x`` has fewer rows
+    than it (a decode step), the product is taken on its column blocks
+    and gathered in place of the weight (a decode step's 32 rows of Mamba's
+    ``x @ w_in`` are 1/50 of ``w_in``'s elements), and ``fn`` finds it as
+    ``leaves["up"]``, the weight left out."""
+    leaves = dict(p.items())
+    axes = {n: leaf_axes(n, t) for n, t in leaves.items()}
+    dt = x.dtype
+    xs = L.gather_seq(x)
+    if up is not None and not torch.is_grad_enabled() and (
+            x.shape[0] * x.shape[1] < p[up].shape[0]):
+        w = L.gather_fsdp(leaves.pop(up).to(dt), W_UP_AXES)
+        del axes[up]
+        leaves["up"] = SH.constrain(L.project(xs, w, ("batch", None, "ff")),
+                                    *X_AXES)
+        axes["up"] = X_AXES
+    names = list(leaves)
+
+    def local(xl, *blocks):
+        # gather_seq widens to float32 under autograd: back to the
+        # activation dtype (the cast's backward reduces in float32)
+        return fn(dict(zip(names, blocks)), xl.to(dt))
+
+    run = SH.local_map_axes(
+        local, (X_AXES,) + tuple(axes[n] for n in names),
+        (X_AXES,) if out else (), reduced)
+    y = run(xs, *(leaves[n] for n in names))
+    return SH.constrain(y, *L.SEQ_AXES).to(dt) if out else None
+
+
+def state_on_mesh(fn: Callable, p, x: torch.Tensor, cfg: ArchConfig,
+                  leaf_axes: Callable = _whole):
+    """``fn(p, x, cfg)``, a function of the whole prompt that returns a
+    state, run on each rank's blocks (:func:`on_mesh`): the state of this
+    rank's block, plain tensors."""
+    kept = []
+    on_mesh(lambda pl, xl: kept.append(fn(pl, xl, cfg)), p, x, leaf_axes,
+            out=False)
+    return kept[0]
+
+
+def _decode_on_mesh(decode: Callable, p, x: torch.Tensor, cfg: ArchConfig,
+                    state, up: str | None = None):
+    """``decode(p, x, cfg, state)`` with every leaf whole on each rank's
+    batch block (:func:`on_mesh`; ``up`` its fused up-projection),
+    ``state`` this rank's block: the output, and the new state of the
+    block."""
+    new = []
+
+    def local(pl, xl):
+        y, st = decode(pl, xl, cfg, state)
+        new.append(st)
+        return y
+
+    return on_mesh(local, p, x, up=up), new[0]
+
+
+def _block_shape(axes: tuple, shape: tuple, mesh) -> tuple:
+    """This rank's block of a tensor of global ``shape`` placed by
+    ``axes`` on ``mesh`` (default: the installed one)."""
+    return tuple(SH.local_range(axes, shape, i, mesh)[1]
+                 for i in range(len(shape)))
+
+
 # ---------------------------------------------------------------------------
 # Mamba-style selective SSM (diagonal A), Hymba's SSM heads
 # ---------------------------------------------------------------------------
@@ -159,7 +288,8 @@ def _mamba_inputs(p: Params, x: torch.Tensor):
     """x, z, B, C and dt of the selective SSM over ``x`` (B, S, D), and
     ``a = -exp(a_log)``, at the reference's dtypes."""
     dt_ = x.dtype
-    xz = x @ p["w_in"].to(dt_)
+    # on a mesh's decode step the product may come gathered (on_mesh)
+    xz = p["up"] if "up" in p else x @ p["w_in"].to(dt_)
     xi, z = xz.chunk(2, dim=-1)
     Bt = (x @ p["w_b"].to(dt_)).float()
     Ct = (x @ p["w_c"].to(dt_)).float()
@@ -169,6 +299,9 @@ def _mamba_inputs(p: Params, x: torch.Tensor):
 
 def mamba_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
                 chunk: int = 64) -> torch.Tensor:
+    if SH.on_mesh(x):
+        return on_mesh(lambda pl, xl: mamba_train(pl, xl, cfg, chunk), p, x,
+                       up="w_in")
     b, s, d = x.shape
     xi_f, z, Bt, Ct, dt, a = _mamba_inputs(p, x)
     c = _chunk(s, chunk, "Mamba")
@@ -189,15 +322,20 @@ class MambaState:
     h: torch.Tensor  # (B, d, n) float32
 
 
-def init_mamba_state(cfg: ArchConfig, batch: int, device="cpu"
+def init_mamba_state(cfg: ArchConfig, batch: int, device="cpu", mesh=None
                      ) -> MambaState:
-    return MambaState(h=torch.zeros((batch, cfg.d_model, cfg.ssm_state),
-                                    device=device))
+    """Zeros; on a ``DeviceMesh`` (``mesh``, default: the installed one)
+    this rank's block (``MAMBA_STATE_AXES``)."""
+    shape = _block_shape(MAMBA_STATE_AXES,
+                         (batch, cfg.d_model, cfg.ssm_state), mesh)
+    return MambaState(h=torch.zeros(shape, device=device))
 
 
 def mamba_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
                  state: MambaState) -> tuple[torch.Tensor, MambaState]:
     """x: (B, 1, D)."""
+    if SH.on_mesh(x):
+        return _decode_on_mesh(mamba_decode, p, x, cfg, state, up="w_in")
     xi_f, z, Bt, Ct, dt, a = _mamba_inputs(p, x)
     xi_f, Bt, Ct, dt = xi_f[:, 0], Bt[:, 0], Ct[:, 0], dt[:, 0]
     decay = torch.exp(dt[..., None] * a)                    # (B, d, n)
@@ -252,16 +390,13 @@ def _mlstm_gates(p: Params, xf: torch.Tensor):
     return ig, fg
 
 
-def mlstm_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                chunk: int = 256) -> torch.Tensor:
-    """Chunkwise-parallel mLSTM with sigmoid forget gates: decay-weighted
-    attention-like scores within a chunk, the (dh, dh) matrix and (dh,)
-    normaliser state carried across chunks."""
-    dt_ = x.dtype
-    b, s, _ = x.shape
-    _, h, dh = _mlstm_dims(cfg)
-    up = x @ p["w_up"].to(dt_)
-    xi, z = up.chunk(2, dim=-1)
+def _mlstm_heads(p, xi: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The chunkwise scan of the heads whose projections ``p`` holds
+    (``w_q`` (d_inner, H, dh), ...) over ``xi`` (B, S, d_inner): (B, S, H
+    * dh) in ``xi``'s dtype."""
+    dt_ = xi.dtype
+    b, s, _ = xi.shape
+    _, h, dh = p["w_q"].shape
     q = L._proj(xi, p["w_q"]).float()
     k = L._proj(xi, p["w_k"]).float()
     v = L._proj(xi, p["w_v"]).float()
@@ -269,10 +404,10 @@ def mlstm_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
     q = q * dh ** -0.5
 
     c = _chunk(s, chunk, "mLSTM")
-    mask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    mask = torch.ones((c, c), dtype=torch.bool, device=xi.device).tril()
     mask = mask[None, :, :, None]
-    C = torch.zeros((b, h, dh, dh), device=x.device)
-    n = torch.zeros((b, h, dh), device=x.device)
+    C = torch.zeros((b, h, dh, dh), device=xi.device)
+    n = torch.zeros((b, h, dh), device=xi.device)
     outs = []
     for j in range(0, s, c):
         sl = slice(j, j + c)
@@ -300,8 +435,56 @@ def mlstm_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
         C = C * eT[..., None, None] + torch.einsum(
             "buhk,buhl->bhkl", kb * wk[..., None], vb)
         n = n * eT[..., None] + torch.einsum("buhk,buh->bhk", kb, wk)
-    out = torch.cat(outs, dim=1).reshape(b, s, h * dh).to(dt_)
-    out = out * F.silu(z)
+    return torch.cat(outs, dim=1).reshape(b, s, h * dh).to(dt_)
+
+
+def _mlstm_on_mesh(p, x: torch.Tensor, cfg: ArchConfig,
+                   heads: Callable) -> torch.Tensor:
+    """The mLSTM block on a mesh (see the module docstring): each rank
+    takes ``xi`` whole, ``heads(leaves, xi)`` of its block of heads, the
+    ``z`` columns and ``w_down`` rows of those heads; a partial sum over
+    the heads' ranks, reduced onto the residual's layout."""
+    d_inner, _, dh = _mlstm_dims(cfg)
+    h0, hl = SH.local_range(MLSTM_HEAD_AXES["w_q"], p["w_q"].shape, 1)
+    cols = slice(h0 * dh, (h0 + hl) * dh)
+    # where ``ff`` splits w_down's rows as the heads split, a rank's own
+    # block is its heads' rows; else w_down is taken whole
+    own = SH.local_range(("ff", None), tuple(p["w_down"].shape), 0) == (
+        cols.start, cols.stop - cols.start)
+
+    def axes(name, t):
+        return ("ff", None) if name == "w_down" and own else _by_heads(name,
+                                                                       t)
+
+    def local(pl, xl):
+        if "up" in pl:
+            up = pl["up"]
+            xi, zh = up[..., :d_inner], up[..., d_inner:][..., cols]
+        else:
+            w = pl["w_up"].to(xl.dtype)
+            xi, zh = xl @ w[:, :d_inner], xl @ w[:, d_inner:][:, cols]
+        out = heads(pl, xi) * F.silu(zh)
+        w_down = pl["w_down"] if own else pl["w_down"][cols]
+        if torch.is_grad_enabled():
+            # the partial sums reduced in float32 and rounded once
+            return out.float() @ w_down.float()
+        return out @ w_down.to(out.dtype)
+
+    return on_mesh(local, p, x, axes, reduced=("heads",), up="w_up")
+
+
+def mlstm_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                chunk: int = 256) -> torch.Tensor:
+    """Chunkwise-parallel mLSTM with sigmoid forget gates: decay-weighted
+    attention-like scores within a chunk, the (dh, dh) matrix and (dh,)
+    normaliser state carried across chunks."""
+    if SH.on_mesh(x):
+        return _mlstm_on_mesh(p, x, cfg,
+                              lambda pl, xi: _mlstm_heads(pl, xi, chunk))
+    dt_ = x.dtype
+    up = x @ p["w_up"].to(dt_)
+    xi, z = up.chunk(2, dim=-1)
+    out = _mlstm_heads(p, xi, chunk) * F.silu(z)
     return out @ p["w_down"].to(dt_)
 
 
@@ -311,20 +494,25 @@ class MLSTMState:
     n: torch.Tensor  # (B, H, dh) float32
 
 
-def init_mlstm_state(cfg: ArchConfig, batch: int, device="cpu"
+def init_mlstm_state(cfg: ArchConfig, batch: int, device="cpu", mesh=None
                      ) -> MLSTMState:
+    """Zeros; on a ``DeviceMesh`` (``mesh``, default: the installed one)
+    this rank's (batch, heads) block (``MLSTM_C_AXES``, ``MLSTM_N_AXES``)."""
     _, h, dh = _mlstm_dims(cfg)
-    return MLSTMState(C=torch.zeros((batch, h, dh, dh), device=device),
-                      n=torch.zeros((batch, h, dh), device=device))
+    return MLSTMState(
+        C=torch.zeros(_block_shape(MLSTM_C_AXES, (batch, h, dh, dh), mesh),
+                      device=device),
+        n=torch.zeros(_block_shape(MLSTM_N_AXES, (batch, h, dh), mesh),
+                      device=device))
 
 
-def mlstm_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                 state: MLSTMState) -> tuple[torch.Tensor, MLSTMState]:
-    dt_ = x.dtype
-    b = x.shape[0]
-    _, h, dh = _mlstm_dims(cfg)
-    up = x @ p["w_up"].to(dt_)
-    xi, z = up.chunk(2, dim=-1)
+def _mlstm_step(p, xi: torch.Tensor, state: MLSTMState
+                ) -> tuple[torch.Tensor, MLSTMState]:
+    """One token of the heads whose projections ``p`` holds: (B, 1, H *
+    dh) in ``xi``'s dtype and their new state."""
+    dt_ = xi.dtype
+    b = xi.shape[0]
+    _, h, dh = p["w_q"].shape
     xf = xi[:, 0].float()
     # q, k and v in float32 (the reference casts the leaves to float32)
     q = L._proj(xf, p["w_q"]) * dh ** -0.5                  # (b, h, dh)
@@ -337,8 +525,25 @@ def mlstm_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
     num = torch.einsum("bhk,bhkl->bhl", q, C)
     den = torch.clamp(torch.einsum("bhk,bhk->bh", q, n).abs(), min=1.0)
     out = (num / den[..., None]).reshape(b, 1, h * dh).to(dt_)
-    out = out * F.silu(z)
-    return out @ p["w_down"].to(dt_), MLSTMState(C=C, n=n)
+    return out, MLSTMState(C=C, n=n)
+
+
+def mlstm_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                 state: MLSTMState) -> tuple[torch.Tensor, MLSTMState]:
+    if SH.on_mesh(x):
+        new = []
+
+        def heads(pl, xi):
+            out, st = _mlstm_step(pl, xi, state)
+            new.append(st)
+            return out
+
+        return _mlstm_on_mesh(p, x, cfg, heads), new[0]
+    dt_ = x.dtype
+    up = x @ p["w_up"].to(dt_)
+    xi, z = up.chunk(2, dim=-1)
+    out, st = _mlstm_step(p, xi, state)
+    return (out * F.silu(z)) @ p["w_down"].to(dt_), st
 
 
 # ---------------------------------------------------------------------------
@@ -370,6 +575,8 @@ def _slstm_gates(p: Params, xf: torch.Tensor):
 
 def slstm_train(p: Params, x: torch.Tensor, cfg: ArchConfig
                 ) -> torch.Tensor:
+    if SH.on_mesh(x):
+        return on_mesh(lambda pl, xl: slstm_train(pl, xl, cfg), p, x)
     xf = x.float()
     z, i, f = _slstm_gates(p, xf)
     o = torch.sigmoid(xf @ p["w_o"].float())
@@ -386,14 +593,19 @@ class SLSTMState:
     n: torch.Tensor  # (B, D) float32
 
 
-def init_slstm_state(cfg: ArchConfig, batch: int, device="cpu"
+def init_slstm_state(cfg: ArchConfig, batch: int, device="cpu", mesh=None
                      ) -> SLSTMState:
-    return SLSTMState(c=torch.zeros((batch, cfg.d_model), device=device),
-                      n=torch.zeros((batch, cfg.d_model), device=device))
+    """Zeros; on a ``DeviceMesh`` (``mesh``, default: the installed one)
+    this rank's block (``SLSTM_STATE_AXES``)."""
+    shape = _block_shape(SLSTM_STATE_AXES, (batch, cfg.d_model), mesh)
+    return SLSTMState(c=torch.zeros(shape, device=device),
+                      n=torch.zeros(shape, device=device))
 
 
 def slstm_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
                  state: SLSTMState) -> tuple[torch.Tensor, SLSTMState]:
+    if SH.on_mesh(x):
+        return _decode_on_mesh(slstm_decode, p, x, cfg, state)
     xf = x[:, 0].float()
     z, i, f = _slstm_gates(p, xf)
     o = torch.sigmoid(xf @ p["w_o"].float())

@@ -15,7 +15,9 @@ port's :class:`LM` has a ``blocks`` list for that family in place of
 ``QuantKVCache`` (attention, updated in place), ``(KV cache,
 MambaState)`` for a hybrid layer, ``(KV cache, CrossKV)`` for a
 ``dec_cross`` layer, an ``MLSTMState`` or an ``SLSTMState`` (replaced by
-each step's new state). The training forward wraps each block in the
+each step's new state); on a ``DeviceMesh`` each holds this rank's block
+(the recurrent states as the reference's ``cache_axes_for`` places them,
+``recurrent.*_STATE_AXES``). The training forward wraps each block in the
 remat policy (``_remat``), as the reference wraps its scan body or each
 unrolled block.
 
@@ -250,12 +252,13 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     if kind in ("attn_ffn", "attn_moe"):
         return L.init_kv_cache(cfg, batch, max_len, device=device, mesh=mesh)
     if kind == "hybrid":
-        return (L.init_kv_cache(cfg, batch, max_len, device=device),
-                R.init_mamba_state(cfg, batch, device))
+        return (L.init_kv_cache(cfg, batch, max_len, device=device,
+                                mesh=mesh),
+                R.init_mamba_state(cfg, batch, device, mesh))
     if kind == "mlstm":
-        return R.init_mlstm_state(cfg, batch, device)
+        return R.init_mlstm_state(cfg, batch, device, mesh)
     if kind == "slstm":
-        return R.init_slstm_state(cfg, batch, device)
+        return R.init_slstm_state(cfg, batch, device, mesh)
     if kind == "dec_cross":
         rows, _, kv = L.kv_block(cfg, batch, mesh)
         empty = torch.zeros((rows, 0, kv, cfg.resolved_head_dim),
@@ -274,6 +277,10 @@ def apply_block_prefill(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
     if kind not in KINDS or kind == "enc":
         raise ValueError(kind)
     h = L.apply_norm(p["norm1"], x, cfg)
+    if kind in ("mlstm", "slstm", "hybrid"):
+        # read two or three times (the layer, its state after the prompt,
+        # a hybrid's attention): on a mesh its sequence is gathered once
+        h = L.gather_seq(h)
     if kind == "mlstm":
         return (x + R.mlstm_train(p["mix"], h, cfg),
                 _mlstm_state_after(p["mix"], h, cfg))
@@ -348,7 +355,10 @@ def apply_block_decode(p: nn.ModuleDict, x: torch.Tensor, cfg: ArchConfig,
 def _mamba_state_after(p, h: torch.Tensor, cfg: ArchConfig
                        ) -> R.MambaState:
     """The recurrence run again over the whole prompt (one associative
-    scan), keeping only the final state."""
+    scan), keeping only the final state; on a mesh each rank's batch
+    block, every leaf whole (``recurrent.state_on_mesh``)."""
+    if SH.on_mesh(h):
+        return R.state_on_mesh(_mamba_state_after, p, h, cfg)
     xi_f, _, Bt, _, dt, a = R._mamba_inputs(p, h)
     decay = torch.exp(dt[..., None] * a)
     inp = (dt * xi_f)[..., None] * Bt[:, :, None, :]
@@ -360,7 +370,11 @@ def _mamba_state_after(p, h: torch.Tensor, cfg: ArchConfig
 def _mlstm_state_after(p, h: torch.Tensor, cfg: ArchConfig
                        ) -> R.MLSTMState:
     """The closed form ``C = sum_s exp(F_T - F_s) i_s k_s v_s^T`` (and
-    ``n`` alike) over the whole prompt, k and v in float32."""
+    ``n`` alike) over the whole prompt, k and v in float32; on a mesh
+    each rank's (batch, heads) block, ``w_up`` whole (its first half is
+    ``xi`` whole over ``d_inner``)."""
+    if SH.on_mesh(h):
+        return R.state_on_mesh(_mlstm_state_after, p, h, cfg, R._by_heads)
     up = h @ p["w_up"].to(h.dtype)
     xf = up.chunk(2, dim=-1)[0].float()
     k = L._proj(xf, p["w_k"])
@@ -375,6 +389,8 @@ def _mlstm_state_after(p, h: torch.Tensor, cfg: ArchConfig
 
 def _slstm_state_after(p, h: torch.Tensor, cfg: ArchConfig
                        ) -> R.SLSTMState:
+    if SH.on_mesh(h):
+        return R.state_on_mesh(_slstm_state_after, p, h, cfg)
     z, i, f = R._slstm_gates(p, h.float())
     _, c = R.associative_scan(R._affine, (f, i * z), dim=1)
     _, n = R.associative_scan(R._affine, (f, i), dim=1)

@@ -24,18 +24,30 @@ share that math:
   the reference's; in the port it is the process-group route. Each rank
   takes the batch slice at its coordinate on the ``pod`` dim, compresses
   its gradients and sums them with ``all_reduce`` over the ``pod`` dim's
-  process group (``dcn_allreduce_tree``), and the loss likewise. Ranks
-  along the mesh's other dims repeat their pod's work: in-pod sharding is
-  ROADMAP.md Queue 1 item 5.6c-3, and a hierarchy route over a model
-  whose parameters are sharded over a mesh of more than one rank raises.
+  process group (``dcn_allreduce_tree``), and the loss likewise.
 
-On a ``DeviceMesh`` (the dense, MoE, VLM and encoder-decoder families)
-the global route runs on DTensors: the parameters, moments, batch, loss
-and gradients are placed by the reference's logical axes, the loss and
-gradients are computed inside
+On a ``DeviceMesh`` the global route runs on DTensors: the parameters,
+moments, batch, loss and gradients are placed by the reference's logical
+axes, the loss and gradients are computed inside
 ``sharding.mesh_context`` (a remat's recompute and the backward formulas
 take their plain position and mask tensors as replicated), and the loss
 and grad norm in the metrics are whole values on every rank.
+
+Both hierarchy routes also run over a model sharded on a ``DeviceMesh``
+(in-pod sharding). On a ``(pod, data, model)`` mesh the process-group
+route computes each pod's gradients on DTensors over the pod's ``(data,
+model)`` ranks, with ``batch`` resolved without ``pod`` (the reference's
+``rules_override``): the parameters are replicated over ``pod`` and no
+collective of the pod's forward or backward runs over it, so each pod's
+ranks compute their own slice. The emulated route runs each pod slice on
+the sharded model in turn. Either way each leaf's gradient is gathered
+whole, each of the reference's leaves is compressed whole (the
+reference's ``dcn_allreduce_tree`` gathers the pod's tree too), the
+payload is summed over the ``pod`` group (or folded, emulated, into a
+zero tree placed as the parameters), and each reduced leaf is placed
+back as its parameter as soon as it is summed, so a rank holds one whole
+leaf at a time beside its blocks. ``TrainState.ef`` holds whole rows,
+replicated within the pod (``state_axes``).
 
 The compressors see the reference's tree (``transformer.tree_leaf_groups``):
 a stacked layer leaf is compressed as one leaf (one int8 scale, one top-k
@@ -77,7 +89,7 @@ from repro_torch.dist.compression import (
     per_step_key,
 )
 from repro_torch.dist import sharding as SH
-from repro_torch.dist.sharding import get_mesh, mesh_shape, pod_axis_size
+from repro_torch.dist.sharding import get_mesh, pod_axis_size
 from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import LM
@@ -187,10 +199,11 @@ def abstract_train_state(model: Model, tcfg: TrainConfig | None = None,
 
 def state_axes(axes: list, tcfg: TrainConfig | None = None) -> TrainState:
     """Logical axes matching TrainState (mu / nu mirror the params; the
-    residuals mirror them behind a leading per-pod ``dcn_pod`` dim)."""
+    residuals are whole rows behind a leading per-pod ``dcn_pod`` dim:
+    compression takes each leaf whole)."""
     ef_axes: Any = {}
     if tcfg is not None and tcfg.dcn_compression == "topk_ef":
-        ef_axes = [("dcn_pod", *a) for a in axes]
+        ef_axes = [("dcn_pod",) + (None,) * len(a) for a in axes]
     return TrainState(params=axes, opt={"mu": axes, "nu": axes, "step": ()},
                       step=(), ef=ef_axes)
 
@@ -281,14 +294,6 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             f"unknown grad_compression: {tcfg.grad_compression}")
     mesh = mesh if mesh is not None else get_mesh()
     route, pods = _route(tcfg, mesh)
-    ranks = 1
-    for n in mesh_shape(model.mesh).values():
-        ranks *= n
-    if route != "global" and ranks > 1:
-        raise NotImplementedError(
-            f"the {route} DCN route over a model sharded on a mesh of "
-            f"{ranks} ranks (in-pod sharding) is not ported (ROADMAP.md, "
-            f"Queue 1 item 5.6c-3)")
     mb = tcfg.microbatches
     method, frac = tcfg.dcn_compression, tcfg.dcn_topk_frac
 
@@ -333,60 +338,88 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             return [[j] for idx in groups for j in idx]
         return groups
 
+    def pod_slices(batch) -> list[dict]:
+        """The pod slices of the step's global batch (whole values: a
+        batch placed on the mesh is gathered first)."""
+        return _split({k: SH.full_value(v) for k, v in batch.items()}, pods,
+                      "dcn_pods")
+
     def hier_grads_emulated(params: LM, batch, ef, key: int, groups):
         """Each pod slice's grads, sent and folded in pod order, leaf by
         leaf (one pod's grads and one leaf's send live at a time); the
         residual rows are updated in place."""
         check_ef(ef, pods)
+        ef = [SH.local_value(e) for e in ef]
+        leaves = list(params.parameters())
         loss = torch.zeros((), device=model.device)
-        acc = [torch.zeros_like(p, dtype=torch.float32)
-               for p in params.parameters()]
-        for p, part in enumerate(_split(batch, pods, "dcn_pods")):
+        # the fold, placed as the parameters (one whole send at a time)
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        for p, part in enumerate(pod_slices(batch)):
             l, g = compute_grads(params, part)
             pod_key = fold_in(key, p)
             for i, idx in enumerate(send_groups(groups)):
                 e = _group([ef[j][p] for j in idx]) if ef else None
-                sent, new_e = dcn_send_leaf(_group([g[j] for j in idx]), e,
-                                            i, method, frac, pod_key)
+                sent, new_e = dcn_send_leaf(
+                    _group([SH.full_value(g[j]) for j in idx]), e, i, method,
+                    frac, pod_key)
                 sents = _ungroup(sent, len(idx))
                 kept = _ungroup(new_e, len(idx)) if ef else [None] * len(idx)
                 for j, s, ne in zip(idx, sents, kept):
                     g[j] = None
-                    acc[j].add_(s)
+                    SH.local_value(acc[j]).add_(
+                        SH.local_value(SH.place_like(s, leaves[j])))
                     if ef:
                         ef[j][p].copy_(ne)
                 del sent, new_e, e, sents, kept
             loss = loss + l
         inv = 1.0 / pods
-        return loss * inv, [a.mul_(inv) for a in acc]
+        for a in acc:
+            SH.local_value(a).mul_(inv)
+        return loss * inv, acc
 
     def hier_grads_process_group(params: LM, batch, ef, key: int, groups):
-        """This rank's pod slice, its compressed grads summed over the
-        ``pod`` group; the rank's residual row updated in place."""
+        """This rank's pod slice (on a sharded model, computed by the pod's
+        ranks), its compressed grads summed over the ``pod`` group; the
+        rank's residual row updated in place."""
         if isinstance(mesh, Mapping):
             raise ValueError(
                 f"the process-group route over {pods} pods needs a "
                 f"DeviceMesh; the mapping {dict(mesh)} carries no process "
                 f"group")
         check_ef(ef, 1)
-        part = _split(batch, pods, "dcn_pods")[mesh.get_local_rank("pod")]
-        l, g = compute_grads(params, part)
+        ef = [SH.local_value(e) for e in ef]
+        leaves = list(params.parameters())
+        part = pod_slices(batch)[mesh.get_local_rank("pod")]
+        with SH.rules_override(batch=SH.without_axis(SH.get_rules().batch,
+                                                     "pod")):
+            l, g = compute_grads(params, part)
         groups = send_groups(groups)
-        red, new_ef = dcn_allreduce_tree(
-            [_group([g[j] for j in idx])[None] for idx in groups],
-            [_group([ef[j][0] for j in idx])[None] for idx in groups]
-            if ef else {}, mesh, "pod", method, frac, key)
-        del g
-        grads = [None] * sum(map(len, groups))
-        for i, idx in enumerate(groups):
-            for j, r in zip(idx, _ungroup(red[i], len(idx))):
-                grads[j] = r
-            if ef:
-                for j, ne in zip(idx, _ungroup(new_ef[i][0], len(idx))):
-                    ef[j][0].copy_(ne)
-        loss = cross_pod_allreduce(l, mesh, "pod", "none")
         inv = 1.0 / pods
-        return loss * inv, [r.mul_(inv) for r in grads]
+        grads = [None] * len(leaves)
+
+        def whole(idx):
+            t = _group([SH.full_value(g[j]) for j in idx])[None]
+            for j in idx:
+                g[j] = None
+            return t
+
+        def take(i, red, new_e):
+            """Group ``i``'s sum scaled and placed as its parameters, and
+            its residual rows kept, as soon as it is summed (one whole
+            leaf at a time)."""
+            idx = groups[i]
+            for j, r in zip(idx, _ungroup(red, len(idx))):
+                grads[j] = SH.place_like(r.mul_(inv), leaves[j])
+            if new_e is not None:
+                for j, ne in zip(idx, _ungroup(new_e[0], len(idx))):
+                    ef[j][0].copy_(ne)
+
+        dcn_allreduce_tree(
+            (whole(idx) for idx in groups),
+            (_group([ef[j][0] for j in idx])[None] for idx in groups)
+            if ef else {}, mesh, "pod", method, frac, key, out=take)
+        loss = cross_pod_allreduce(l, mesh, "pod", "none")
+        return loss * inv, grads
 
     hier_grads = (hier_grads_process_group if route == "shard_map"
                   else hier_grads_emulated)

@@ -233,8 +233,8 @@ def checkpoint(mesh, other, state, inputs, out: Path) -> dict:
 
 
 def launchers(argv_train: list, argv_serve: list) -> dict:
-    """Both LM launchers on this rank's process group, and their failures
-    on the recurrent and hybrid families."""
+    """Both LM launchers on this rank's process group, and the recurrent
+    and hybrid families and a DCN route on it."""
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as train_launcher
 

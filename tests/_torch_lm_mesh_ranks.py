@@ -232,8 +232,9 @@ def checkpoint(mesh, other, state, inputs, out: Path) -> dict:
 
 
 def launchers(argv_train: list, argv_serve: list) -> dict:
-    """Both LM launchers on this rank's process group, their failures on
-    the production mesh and the recurrent and hybrid families."""
+    """Both LM launchers on this rank's process group, their failure on
+    the production mesh, and the recurrent and hybrid families and a DCN
+    route on this group."""
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as train_launcher
 

@@ -352,6 +352,40 @@ def test_dcn_allreduce_tree_matches_the_reference_on_one_pod(
         np.testing.assert_array_equal(a[0].numpy(), b)
 
 
+@pytest.mark.parametrize("method", METHODS)
+def test_dcn_allreduce_tree_hands_each_sum_to_out_before_the_next_leaf(
+        method):
+    """With ``out`` each leaf's sum and new residual reach ``out`` before
+    the next leaf (and residual) is read, equal to the sums and residuals
+    returned without it."""
+    shapes, g, e = _collective_case(method)
+    want, want_e = C.dcn_allreduce_tree(
+        [_t(a)[None] for a in g], [_t(a)[None] for a in e] or {}, None,
+        "pod", method, 0.2, 5)
+    events = []
+
+    def reads(arrays, what):
+        for i, a in enumerate(arrays):
+            events.append((what, i))
+            yield _t(a)[None]
+
+    def out(i, red, new_e):
+        events.append(("out", i))
+        return red, new_e
+
+    got, got_e = C.dcn_allreduce_tree(
+        reads(g, "leaf"), reads(e, "residual") if e else {}, None, "pod",
+        method, 0.2, 5, out=out)
+    assert got_e == {}
+    steps = ("leaf", "residual", "out") if e else ("leaf", "out")
+    assert events == [(what, i) for i in range(len(g)) for what in steps]
+    for i, (red, new_e) in enumerate(got):
+        assert torch.equal(red, want[i])
+        assert (new_e is None) == (not e)
+        if e:
+            assert new_e.shape[0] == 1 and torch.equal(new_e, want_e[i])
+
+
 @pytest.mark.parametrize("group", [False, True], ids=["no_mesh", "1_rank"])
 @pytest.mark.parametrize("method", ["none", "int8", "topk"])
 def test_cross_pod_allreduce_matches_the_reference_on_one_pod(

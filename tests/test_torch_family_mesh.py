@@ -470,9 +470,10 @@ def test_launchers_on_two_ranks(run):
         np.testing.assert_array_equal(got["tokens"], run["one"]["tokens"])
         for a, b in zip(got["params"], run["one"]["params"], strict=True):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=2 * 3e-4 * 2)
-        assert got["serve_xlstm"] == got["train_hymba"] == \
-            "NotImplementedError"
-        assert got["train_dcn"] == "NotImplementedError"
+        # the recurrent and hybrid families and a DCN route over the
+        # sharded model run there since item 5.6c-3
+        assert got["serve_xlstm"] == got["train_hymba"] == "none"
+        assert got["train_dcn"] == "none"
         printed = got["printed"]
         if rank == 0:
             assert "mesh: {'data': 1, 'model': 2} devices=2" in printed
@@ -500,8 +501,10 @@ def test_a_mesh_family_builds_over_ranks(name):
 
 @pytest.mark.parametrize("arch", ["xlstm_125m", "hymba_1_5b"])
 def test_the_recurrent_families_over_ranks_raise(arch):
+    """They raised over more than one rank until item 5.6c-3; they build
+    now (``tests/test_torch_recurrent_mesh.py`` runs them)."""
     from repro_torch.configs import get_config
 
-    with pytest.raises(NotImplementedError, match="5.6c-3"):
-        build_model(get_config(arch).reduced(), "cpu",
-                    {"data": 1, "model": 2})
+    model = build_model(get_config(arch).reduced(), "cpu",
+                        {"data": 1, "model": 2})
+    assert model.mesh == {"data": 1, "model": 2}

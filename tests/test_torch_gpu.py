@@ -1960,3 +1960,78 @@ def test_moe_serve_launcher_on_a_1_rank_nccl_group(cuda, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "mesh: {'data': 1, 'model': 1} devices=1" in printed
     assert torch.equal(run.tokens.cpu(), alone.tokens.cpu())
+
+
+@pytest.mark.parametrize("arch,kv_quant", [("xlstm_125m", False),
+                                           ("hymba_1_5b", True)])
+def test_recurrent_serve_launcher_on_a_1_rank_nccl_group(cuda, tmp_path,
+                                                         capsys, arch,
+                                                         kv_quant):
+    """``launch.serve`` of the recurrent (xLSTM) and hybrid (Hymba)
+    families (reduced; Hymba with the int8 cache) on a 1-rank NCCL group:
+    the (1, 1) ``DeviceMesh``, the recurrent states and the KV cache held
+    as the rank's blocks, Hymba's kernel launched on every decode step of
+    both layers, the greedy tokens of the run without a group."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--reduced", "--batch", "4", "--prompt-len",
+            "32", "--gen", "8"] + (["--kv-quant"] if kv_quant else [])
+    alone = serve.main(argv)
+    capsys.readouterr()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        dec = decode_attention.launches
+        run = serve.main(argv)
+        assert decode_attention.launches == dec + (2 * 7 if kv_quant else 0)
+    finally:
+        SH.set_mesh(None)
+        dist.destroy_process_group()
+    printed = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 1} devices=1" in printed
+    assert torch.equal(run.tokens.cpu(), alone.tokens.cpu())
+
+
+@pytest.mark.parametrize("arch,imc", [("xlstm_125m", False),
+                                      ("hymba_1_5b", True)])
+def test_recurrent_train_launcher_on_a_1_rank_nccl_group(cuda, tmp_path,
+                                                         capsys, arch, imc):
+    """``launch.train`` of xLSTM and of Hymba with ``--imc-linear``
+    (reduced) on a 1-rank NCCL group, 2 steps: the parameters DTensors on
+    the (1, 1) mesh, Hymba's ``imc_mvm`` launched once a layer a step, and
+    every parameter within 2 lr a step of the run without a group (the
+    mesh path's products may round otherwise, and AdamW's normalised
+    update carries a last-bit difference up to a whole lr)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.imc_mvm import imc_mvm
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--reduced", "--steps", "2", "--batch", "4",
+            "--seq", "32", "--log-every", "1"] + (
+                ["--imc-linear"] if imc else [])
+    alone = train.main(argv)
+    capsys.readouterr()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        launches = imc_mvm.launches
+        st = train.main(argv)
+        assert imc_mvm.launches == launches + (2 * 2 if imc else 0)
+        assert all(SH.on_mesh(p) for p in st.params.parameters())
+        got = [SH.full_value(p).detach().cpu() for p in
+               st.params.parameters()]
+    finally:
+        SH.set_mesh(None)
+        dist.destroy_process_group()
+    printed = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 1} devices=1" in printed
+    for a, b in zip(got, alone.params.parameters(), strict=True):
+        assert torch.isfinite(a).all()
+        assert float((a - b.detach().cpu()).abs().max()) <= 2 * 3e-4 * 2 \
+            + 1e-6

@@ -146,6 +146,22 @@ def test_importing_the_mesh_family_modules_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_importing_the_recurrent_mesh_and_dcn_modules_loads_no_jax():
+    """The modules xLSTM and Hymba over a mesh and the in-pod DCN routes
+    run, and their tests' rank workers, load no JAX."""
+    code = ("import sys, repro_torch.models.recurrent, "
+            "repro_torch.models.transformer, repro_torch.dist.compression, "
+            "repro_torch.dist.sharding, repro_torch.train.train_step, "
+            "_torch_recurrent_mesh_ranks, _torch_dcn_mesh_ranks; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             [str(ROOT / "src"), str(ROOT / "tests")])})
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
                                    "launcher", "cluster_launcher",
                                    "clusterer", "cluster_server",

@@ -332,9 +332,10 @@ def test_launchers_on_two_ranks(run):
         for a, b in zip(got["params"], run["one"]["params"], strict=True):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=2 * 3e-4 * 2)
         assert got["train_single"] == "ValueError"
-        assert got["train_recurrent"] == got["serve_recurrent"] == \
-            "NotImplementedError"
-        assert got["train_dcn"] == "NotImplementedError"
+        # the recurrent and hybrid families and a DCN route over the
+        # sharded model run there since item 5.6c-3
+        assert got["train_recurrent"] == got["serve_recurrent"] == "none"
+        assert got["train_dcn"] == "none"
         # rank 0 alone prints
         printed = got["printed"]
         if rank == 0:
@@ -370,17 +371,15 @@ def test_no_mesh_keeps_every_helper_the_identity():
 
 
 def test_a_non_dense_family_over_ranks_raises_before_running():
-    """The recurrent and hybrid families still raise over more than one
-    rank (ROADMAP.md item 5.6c-3); the MoE, encoder-decoder and VLM
-    families build there since the slice that sharded them."""
+    """Every family builds over more than one rank: the MoE,
+    encoder-decoder and VLM families since the slice that sharded them,
+    the recurrent and hybrid ones since item 5.6c-3 (they raised before
+    running until then)."""
     from repro_torch.models.model_zoo import build_model
 
-    for arch in ("xlstm_125m", "hymba_1_5b"):
-        with pytest.raises(NotImplementedError, match="5.6c-3"):
-            build_model(get_config(arch).reduced(), "cpu",
-                        {"data": 1, "model": 2})
-    for arch in ("deepseek_moe_16b", "llama4_scout_17b_a16e",
-                 "whisper_medium", "internvl2_76b"):
+    for arch in ("xlstm_125m", "hymba_1_5b", "deepseek_moe_16b",
+                 "llama4_scout_17b_a16e", "whisper_medium",
+                 "internvl2_76b"):
         build_model(get_config(arch).reduced(), "cpu",
                     {"data": 1, "model": 2})
     # the dense family, and any family on one device, builds
@@ -391,12 +390,24 @@ def test_a_non_dense_family_over_ranks_raises_before_running():
 
 
 def test_dcn_route_over_a_sharded_model_raises():
+    """The DCN routes over a sharded model raised until item 5.6c-3; they
+    build now (the emulated route on a mesh without a ``pod`` axis, the
+    process-group route on one with it), and the process-group route on
+    a mapping, which carries no process group, raises when it steps."""
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import init_train_state
 
     model = build_model(R.cfg_of("ff128"), "cpu", {"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="5.6c-3"):
-        make_train_step(model, TrainConfig(dcn_pods=2))
-    make_train_step(model, TrainConfig())
+    assert make_train_step(model, TrainConfig(dcn_pods=2)).dcn_route == \
+        "emulated"
+    assert make_train_step(model, TrainConfig()).dcn_route == "global"
+    mesh = {"pod": 2, "data": 1, "model": 2}
+    model = build_model(R.cfg_of("ff128"), "cpu", mesh)
+    step = make_train_step(model, TrainConfig(dcn_pods=2), mesh)
+    assert step.dcn_route == "shard_map"
+    batch = {"tokens": torch.zeros((4, 8), dtype=torch.int32)}
+    with pytest.raises(ValueError, match="needs a DeviceMesh"):
+        step(init_train_state(model, 0), batch)
 
 
 def test_tree_shardings_maps_a_train_state_with_scalars():

@@ -736,12 +736,16 @@ def test_abstract_train_state_and_axes_match_the_reference(arch):
         assert a == _ref_axes(jaxes, name), name
         assert tuple(p.shape) == tuple(mu.shape) == _ref_axes(jshape, name)
         assert tuple(e.shape) == (2, *p.shape)
+        # the reference's residual axes are ("dcn_pod", ["layer",] *the
+        # parameter's); the port keeps each row whole within a pod
+        # (compression takes a leaf whole), so "dcn_pod" alone places it
+        ref = _ref_axes(jst_axes.ef, name)
         if name.startswith(("layers", "enc_layers")):
-            # the reference's ("dcn_pod", "layer", ...) less its "layer"
-            rest = _ref_axes(jst_axes.ef, name)
-            assert rest[0] == "layer" and ea == ("dcn_pod", *rest[1:])
+            # a stacked leaf's, less its leading "dcn_pod"
+            assert ref == ("layer", *a)
         else:
-            assert ea == _ref_axes(jst_axes.ef, name)
+            assert ref == ("dcn_pod", *a)
+        assert ea == ("dcn_pod",) + (None,) * len(a)
     # the reference's leaves, in its order, as groups of the parameters
     groups = T.tree_leaf_groups(state.params)
     jleaves = jax.tree.leaves(jstate.params)
