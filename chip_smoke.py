@@ -341,8 +341,20 @@ exits non-zero and prints no result line:
    peak memory, and the kernels' launches; then ``ring_matmul_reduce``
    and ``ag_matmul_pipelined`` at 2,048 x 4,096 x 4,096 float32 on the
    ranks, bit for bit against their ring-order replays and within 1e-5 of
-   one ``x @ w`` (relative to its largest entry). These are processes
-   sharing one card, not a multi-card deployment.
+   one ``x @ w`` (relative to its largest entry). Inside the same rank
+   processes, ``--fused`` and ``--oms --fused --fused-e2e`` again with
+   ``--continuous --num-slots 2 --append 0.05`` (rank 0 plans each step:
+   ``serve.scheduler.CoordinatedScheduler``): every rank's batches and
+   results rank 0's; every request equal, bit for bit, to rank 0's replay
+   of the recorded batches (the append before the same batch) through a
+   one-process continuous server on the card; the requests of the merged
+   batches equal to phase 4's one-process run (indices, scores,
+   has_candidate) and their FDR masks and matches to a replay of those
+   batches on the one-process scores; each rank must launch the route's
+   kernel. Prints q/s, p50 / p95, the batches, the plan exchanges and the
+   admissions that found another batch in flight (counted by this
+   script's recorder). These are processes sharing one card, not a
+   multi-card deployment.
 10. The dense LM over a device mesh: Qwen2-7B served (full width, 4 of
    its 28 layers since phase 10b joined the time limit, the int8 KV
    store, 32 x (512 + 16)) and trained (full width, 2
@@ -4815,6 +4827,17 @@ def phase_train_dcn(torch, np) -> dict:
 # one-process runs of the same stream
 MESH_WORLDS = (2, 4)
 MESH_ROUTES = ((False, False), (True, False), (False, True), (True, True))
+# the continuous runs over the mesh: (path, flags), each with
+# --continuous --num-slots NUM_SLOTS --append APPEND, after the routes
+# whose library they reuse (mesh_rank). The OMS run adds --fused, as
+# phase 5b does: without it a merged batch's base takes the unfused
+# banded route (45.7 q/s on 2 ranks and a 79.6 s replay on an H100,
+# PERF.md)
+MESH_CONTINUOUS = (("fused", ["--fused"]),
+                   ("oms fused-e2e", ["--oms", "--fused", "--fused-e2e"]))
+# the timing loops of each flush-sync route (20 and 10 until the
+# continuous runs joined phase 9)
+MESH_KERNEL_ITERS, MESH_WALL_ITERS = 5, 3
 MESH_JOIN_S = 600
 MESH_MATMUL = (2048, 4096, 4096)  # collective matmuls' M, K, N, float32
 NCCL_LOCAL_IDENTITIES = 4096
@@ -4892,7 +4915,8 @@ def mesh_route(torch, dist, rank: int, world: int, fused_e2e: bool,
     kernel_ms = None
     for turn in range(world):
         if turn == rank:
-            kernel_ms = time_ms(torch, local, iters=20, warmup=2)
+            kernel_ms = time_ms(torch, local, iters=MESH_KERNEL_ITERS,
+                                warmup=2)
         dist.barrier()
     vals, gidx = local()
 
@@ -4908,8 +4932,9 @@ def mesh_route(torch, dist, rank: int, world: int, fused_e2e: bool,
         "launches": launches, "peak_gib": peak,
         "block_rows": int(db.data.shape[0]), "on_card": db.data.is_cuda,
         "num_shards": db.num_shards, "kernel_ms": kernel_ms,
-        "gather_merge_ms": wall_ms(torch, gather_merge, iters=10),
-        "route_ms": wall_ms(torch, route, iters=10)}
+        "gather_merge_ms": wall_ms(torch, gather_merge,
+                                   iters=MESH_WALL_ITERS),
+        "route_ms": wall_ms(torch, route, iters=MESH_WALL_ITERS)}
     del recorder.got, db, enc, batch, vals, gidx
     return out
 
@@ -4971,7 +4996,8 @@ def memoize_library(serve_db) -> None:
     decoys of the exact routes are kept (since phase 10c joined the time
     limit: the ranks encode in turn, 24.8 s a library on 4 ranks). The
     encodings are kept on the host, as a sharded ``serve_db`` keeps them;
-    another library drops the old one first."""
+    another library drops the old one first. Returns what it holds (the
+    dataset ``ds``, the encoded ``refs`` and ``decoys``)."""
     import dataclasses
 
     held: dict = {}
@@ -5009,6 +5035,153 @@ def memoize_library(serve_db) -> None:
     serve_db.generate_dataset = generate_dataset
     serve_db.make_decoys = make_decoys
     serve_db.encode_and_pack = encode_and_pack
+    return held
+
+
+def mesh_continuous_recorder():
+    """A ``SearchExecutor`` subclass for the continuous mesh runs: every
+    dispatched batch as (request ids, the registry's appends and
+    compactions at dispatch), every request's query, precursor and result
+    (request id -> (indices, scores, accept, match, has_candidate)), and
+    the admissions that found another batch still in flight on the card
+    (its ``ready`` event not yet fired)."""
+    from repro_torch.serve import SearchExecutor
+
+    class Recording(SearchExecutor):
+        batches: list = []
+        queries: dict = {}
+        results: dict = {}
+        dispatches = overlapped = 0
+
+        def __init__(self, server):
+            super().__init__(server)
+            self.outstanding = []
+
+        def dispatch(self, reqs):
+            busy = any(not h.ready.query() for h in self.outstanding
+                       if h.ready is not None)
+            banks = self.server.banks
+            Recording.batches.append(([r.rid for r in reqs], banks.appends,
+                                      banks.compactions))
+            for r in reqs:
+                Recording.queries[r.rid] = (r.query, r.precursor)
+            h = super().dispatch(reqs)
+            Recording.dispatches += 1
+            Recording.overlapped += busy
+            self.outstanding.append(h)
+            return h
+
+        def finalize(self, handle):
+            self.outstanding.remove(handle)
+            live = super().finalize(handle)
+            for r in live:
+                res = r.result
+                Recording.results[r.rid] = (
+                    res.indices.copy(), res.scores.copy(), bool(res.accept),
+                    int(res.match), bool(res.has_candidate))
+            return live
+
+    return Recording
+
+
+def continuous_argv(flags: list) -> list:
+    return serve_route(False, False)[2][:-1] + flags + [
+        "--continuous", "--num-slots", str(NUM_SLOTS), "--append",
+        str(APPEND)]
+
+
+def replay_one_process(torch, flags: list, held: dict, rec,
+                       device: str = "cuda", num_features: int = 1024
+                       ) -> dict:
+    """The continuous mesh run's recorded batches replayed, in their
+    order and two in flight, through a one-process continuous server on
+    ``device`` over the same library (its suffix held out and appended
+    before the first batch that saw the append, as ``serve_db`` holds it
+    out; ``num_features`` bins a spectrum); request id -> result as the
+    recorder keeps it."""
+    from repro_torch.serve import (
+        BankRegistry,
+        DBSearchServer,
+        OMSConfig,
+        QueryEncoder,
+    )
+    from repro_torch.serve.queue import Request
+
+    e2e, oms = "--fused-e2e" in flags, "--oms" in flags
+    refs, decoys = held["refs"], held["decoys"]
+    keep = refs.shape[0] - int(APPEND * refs.shape[0])
+    prec = held["ds"].precursor.cpu().numpy() if oms else None
+    reg = BankRegistry(fused="--fused" in flags)
+    reg.register("tenant0", refs[:keep].to(device),
+                 decoys=decoys[:keep].to(device), pin=True,
+                 precursor=None if prec is None else prec[:keep])
+    enc = (QueryEncoder.from_config(dim=refs.shape[1],
+                                    num_features=num_features, num_levels=16,
+                                    seed=0, device=device) if e2e else None)
+    srv = DBSearchServer(reg, k=K, fdr=0.01, max_batch_size=MAX_BATCH,
+                         buckets=4, oms=OMSConfig(tol=20.0, open_tol=200.0)
+                         if oms else None, encoder=enc, fused_e2e=e2e,
+                         continuous=True, num_slots=NUM_SLOTS)
+    out, appended, flight = {}, 0, []
+
+    def finalize(h):
+        for r in srv.executor.finalize(h):
+            res = r.result
+            out[r.rid] = (res.indices.copy(), res.scores.copy(),
+                          bool(res.accept), int(res.match),
+                          bool(res.has_candidate))
+
+    for rids, appends, _ in rec.batches:
+        if appends > appended:
+            srv.append("tenant0", refs[keep:].to(device),
+                       decoys[keep:].to(device),
+                       precursor=None if prec is None else prec[keep:])
+            appended = appends
+        flight.append(srv.executor.dispatch([
+            Request(rid=r, query=rec.queries[r][0], t_submit=0.0,
+                    tenant="tenant0", precursor=rec.queries[r][1])
+            for r in rids]))
+        if len(flight) == NUM_SLOTS:
+            finalize(flight.pop(0))
+    for h in flight:
+        finalize(h)
+    del srv, reg, enc
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_continuous(torch, dist, rank: int, path: str, flags: list,
+                    held: dict) -> dict:
+    """One rank's ``serve_db --continuous --append`` run of one route over
+    the debug mesh (the kernels' counts set to 0 just before and read
+    just after); then rank 0 replays its batches in one process."""
+    import gc
+
+    from repro_torch.launch import serve_db
+
+    rec = mesh_continuous_recorder()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in serve_db.KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    s = serve_db.main(continuous_argv(flags), executor_cls=rec)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in serve_db.KERNELS.items()}
+    replay, replay_s = None, None
+    if rank == 0:
+        t0 = time.perf_counter()
+        replay = replay_one_process(torch, flags, held, rec)
+        replay_s = time.perf_counter() - t0
+    dist.barrier()
+    return {"path": path, "wall_s": wall, "launches": launches,
+            "summary": {key: s[key] for key in (
+                "count", "qps", "p50_ms", "p95_ms", "identified",
+                "batches", "scheduler", "append_rows")},
+            "batches": rec.batches, "results": rec.results,
+            "dispatches": rec.dispatches, "overlapped": rec.overlapped,
+            "replay": replay, "replay_s": replay_s}
 
 
 def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
@@ -5028,12 +5201,20 @@ def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
         from repro_torch.launch import serve_db
 
         torch.cuda.set_device(0)
-        memoize_library(serve_db)
+        held = memoize_library(serve_db)
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
         try:
-            res = {"routes": [mesh_route(torch, dist, rank, world, e2e, oms)
-                              for e2e, oms in MESH_ROUTES],
+            # each continuous run after the routes whose library it reuses
+            routes = [mesh_route(torch, dist, rank, world, e2e, oms)
+                      for e2e, oms in MESH_ROUTES[:2]]
+            cont = [mesh_continuous(torch, dist, rank, *MESH_CONTINUOUS[0],
+                                    held)]
+            routes += [mesh_route(torch, dist, rank, world, e2e, oms)
+                       for e2e, oms in MESH_ROUTES[2:]]
+            cont.append(mesh_continuous(torch, dist, rank,
+                                        *MESH_CONTINUOUS[1], held))
+            res = {"routes": routes, "continuous": cont,
                    "matmuls": mesh_matmuls(torch, world)}
         finally:
             dist.destroy_process_group()
@@ -5077,8 +5258,8 @@ def spawn_ranks(world: int, out: Path) -> list:
 
 def fdr_replay(torch, np, one: dict, batches: list, oms: bool) -> dict:
     """The FDR accept mask and match of every request when the mesh run's
-    batches are filtered with the one-process run's scores: request id ->
-    (accept, match)."""
+    batches (request id lists, searched on the whole bank) are filtered
+    with the one-process run's scores: request id -> (accept, match)."""
     import types
 
     from repro_torch.serve import fdr_route
@@ -5128,14 +5309,89 @@ def nccl_local_serve(torch) -> dict:
             "launches": serve_db.topk_hamming.launches}
 
 
+def mesh_continuous_report(torch, np, world: int, path: str, flags: list,
+                           got: list, limit: str) -> list:
+    """Checks and prints one continuous mesh run (its ranks' results
+    ``got``): every rank's batches and results rank 0's, every request
+    rank 0's one-process replay's, the merged batches' requests the
+    one-process run's (phase 4) and their FDR masks a replay on its
+    scores, the route's kernels launched on every rank. Returns each
+    rank's launches of those kernels."""
+    kernels = [name + ("_banded" if "--oms" in flags else "") for name in (
+        ["encode_search"] if "--fused-e2e" in flags else []) + (
+        ["topk_hamming"] if "--fused" in flags else [])]
+    head, replay = got[0], got[0]["replay"]
+    res = head["results"]
+    check(sorted(res) == sorted(replay) == list(range(QUERIES)),
+          f"continuous mesh {path} on {world} ranks: served "
+          f"{len(res)} of {QUERIES} requests")
+
+    def differ(a, b) -> int:
+        return int((a[0] != b[0]).any() or (a[1] != b[1]).any()
+                   or a[2:] != b[2:])
+
+    ranks_diff = sum(int(g["batches"] != head["batches"]) + sum(
+        differ(g["results"][r], res[r]) for r in res) for g in got[1:])
+    replay_diff = sum(differ(res[r], replay[r]) for r in res)
+    # the merged batches searched the whole bank: phase 4's run of the
+    # same stream, and its scores' FDR over those batches
+    one, _ = ONE_PROCESS[path]
+    merged = [rids for rids, appends, _ in head["batches"] if appends]
+    merged_rids = [r for rids in merged for r in rids]
+    one_diff = sum(int((res[r][0] != one[r][0]).any()
+                       or (res[r][1] != one[r][1]).any()
+                       or res[r][4] != one[r][4]) for r in merged_rids)
+    fdr = fdr_replay(torch, np, one, merged, "--oms" in flags)
+    fdr_diff = sum(fdr[r] != (res[r][2], res[r][3]) for r in merged_rids)
+    s = head["summary"]
+    line = {
+        "path": f"mesh continuous {path} --append {APPEND}", "ranks": world,
+        "processes_on_one_card": True, "backend": "gloo",
+        "num_slots": NUM_SLOTS, "queries": s["count"], "qps": s["qps"],
+        "p50_ms": s["p50_ms"], "p95_ms": s["p95_ms"],
+        "batches": s["batches"], "merged_batches": len(merged),
+        "plan_exchanges": s["scheduler"]["exchanges"],
+        "dispatches": head["dispatches"],
+        "admissions_with_another_batch_in_flight": head["overlapped"],
+        "identified_at_fdr": s["identified"],
+        "identified_replay": sum(m >= 0 for _, _, _, m, _ in replay.values()),
+        "mismatches_vs_one_process_replay": replay_diff,
+        "merged_mismatches_vs_one_process": one_diff,
+        "merged_fdr_mismatches_vs_replay": fdr_diff,
+        "ranks_differing_from_rank0": ranks_diff,
+        "launches": [g["launches"] for g in got],
+        "run_s": [g["wall_s"] for g in got], "replay_s": head["replay_s"],
+        "card, power limit": limit}
+    print(json.dumps(line))
+    print(f"mesh continuous {path}: {world} ranks on one card, "
+          f"{line['qps']:.1f} q/s, p50 {line['p50_ms']:.2f} ms, p95 "
+          f"{line['p95_ms']:.2f} ms, {line['batches']} batches "
+          f"({line['merged_batches']} merged), "
+          f"{line['admissions_with_another_batch_in_flight']} of "
+          f"{line['dispatches']} admissions with another batch in flight, "
+          f"{line['plan_exchanges']} plan exchanges; {replay_diff} "
+          f"mismatches vs the one-process replay, {one_diff} merged vs one "
+          f"process, {fdr_diff} FDR, {ranks_diff} ranks vs rank 0")
+    check(all(g["launches"][k] > 0 for g in got for k in kernels),
+          f"mesh continuous {path}: {kernels} not all launched on every "
+          f"rank: {line['launches']}")
+    check(replay_diff == 0 and one_diff == 0 and fdr_diff == 0
+          and ranks_diff == 0 and merged
+          and line["identified_at_fdr"] == line["identified_replay"],
+          f"mesh continuous {path} on {world} ranks differs from one "
+          f"process")
+    return [{k: g["launches"][k] for k in kernels} for g in got]
+
+
 def phase_mesh(torch, np) -> dict:
     """Phase 9 (see the module docstring): per world size and route the
     served requests against the one-process run's (phase 4's, or run here
     when phase 4 did not run), the FDR accept masks against a replay of
     the mesh run's batches on the one-process scores, every rank's results
     against rank 0's, the kernels' launches, each rank's block and peak
-    memory; the collective matmuls; a 1-rank NCCL ``serve_db``. Returns
-    each route's launches and times by world size."""
+    memory; the continuous runs (``mesh_continuous_report``); the
+    collective matmuls; a 1-rank NCCL ``serve_db``. Returns each route's
+    launches and times by world size."""
     import gc
     import tempfile
 
@@ -5233,6 +5489,11 @@ def phase_mesh(torch, np) -> dict:
                 "kernel_ms_a_shard": line["kernel_ms_a_shard"],
                 "gather_merge_ms": line["gather_merge_ms"],
                 "route_ms": line["route_ms"], "qps": line["qps"]}
+        for i, (path, flags) in enumerate(MESH_CONTINUOUS):
+            got = [r["continuous"][i] for r in ranks]
+            launches = mesh_continuous_report(torch, np, world, path, flags,
+                                              got, limit)
+            results[path][world]["continuous_launches"] = launches
         mm = [r["matmuls"] for r in ranks]
         print(json.dumps({"path": "mesh collective matmuls", "ranks": world,
                           "shape": MESH_MATMUL, "per_rank": mm,

@@ -21,8 +21,9 @@ decode loop passes it without reading anything back from the card. With
 ``valid_len = 0`` every position is masked and both versions return the
 uniform average over all S positions, as the reference does.
 
-Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise. Nothing falls back.
+Dispatch: CPU tensors (and ``meta`` tensors, which the dry run traces)
+take the plain version; CUDA tensors launch the kernel or raise. Nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -151,12 +152,13 @@ def decode_attention(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     float32; positions ``< valid_len`` attend. Returns (B, KV, G, hd)
     float32.
 
-    CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch
+    CPU and meta tensors run :func:`decode_attention_plain`; CUDA tensors
+    launch
     ``csrc/decode_attention.cu`` on the current stream at
     :func:`decode_splits`' split count (one launch per call, counted in
     ``decode_attention.launches``) or raise. The kernel takes any S and
     G, and hd a multiple of 16 up to 256."""
-    if not q.is_cuda and q.device.type == "cpu":
+    if not q.is_cuda and q.device.type in ("cpu", "meta"):
         return decode_attention_plain(q, k8, v8, k_scale, v_scale, valid_len)
     return _launch(q, k8, v8, k_scale, v_scale, valid_len, None)
 

@@ -30,8 +30,9 @@ launch knob: another value computes another function. The launch knobs
 ``block_q`` / ``block_r`` (the output tile) resolve through
 ``kernels.block_utils``.
 
-Dispatch: CPU tensors take the plain version (explicit knobs are checked,
-then ignored); CUDA tensors launch the kernel or raise. Nothing falls back.
+Dispatch: CPU tensors (and ``meta`` tensors, which the dry run traces)
+take the plain version (explicit knobs are checked, then ignored); CUDA
+tensors launch the kernel or raise. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -162,11 +163,11 @@ def imc_mvm(queries: torch.Tensor, weights: torch.Tensor, *,
     (Q, R) float32 scores through the modeled analog chain, bit-identical
     to :func:`imc_mvm_plain`.
 
-    block_q / block_r: launch knobs (``kernels.block_utils``). CPU tensors
-    run the plain version; CUDA tensors launch ``csrc/imc_mvm.cu`` on the
+    block_q / block_r: launch knobs (``kernels.block_utils``). CPU and
+    meta tensors run the plain version; CUDA tensors launch ``csrc/imc_mvm.cu`` on the
     current stream (counted in ``imc_mvm.launches``) or raise."""
     knobs = {"block_q": block_q, "block_r": block_r}
-    if not queries.is_cuda and queries.device.type == "cpu":
+    if not queries.is_cuda and queries.device.type in ("cpu", "meta"):
         check_overrides("imc_mvm", knobs)
         return imc_mvm_plain(queries, weights, full_scale=full_scale,
                              tile_cols=tile_cols, dac_limit=dac_limit,

@@ -40,12 +40,13 @@ scanned fractions. Runs on CUDA unless ``--device cpu``.
 (``WORLD_SIZE`` > 1) it joins the process group from the environment
 (NCCL on CUDA; gloo on the CPU, and where a node runs more ranks than it
 has cards, which NCCL refuses) and
-serves flush-sync over the debug mesh: every bank is row-sharded over
-``model`` (each rank keeps its own block on its device; the library's
-rows wait on the host), queries split over ``data``, every rank draws
-the same traffic from ``--seed`` and the ranks agree on each flush, and
-rank 0 alone prints. ``--continuous`` over more than one rank raises
-``NotImplementedError``.
+serves over the debug mesh: every bank is row-sharded over ``model``
+(each rank keeps its own block on its device; the library's rows wait on
+the host), queries split over ``data``, every rank draws the same
+traffic from ``--seed``, and rank 0 alone prints. Flush-sync, the ranks
+agree on each flush; ``--continuous`` (with ``--append`` and
+``--compact-threshold`` as in one process), rank 0 plans each step and
+the ranks agree on it (``serve.scheduler.CoordinatedScheduler``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_db --reduced --fused
@@ -58,6 +59,9 @@ Usage:
       --compact-threshold 0.1
   PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
       repro_torch.launch.serve_db --reduced --device cpu --fused
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
+      repro_torch.launch.serve_db --reduced --device cpu --fused \\
+      --continuous --append 0.25
 """
 
 from __future__ import annotations
@@ -212,12 +216,6 @@ def _serve(args, dev: torch.device, executor_cls):
     mesh = make_debug_mesh(device_type=dev.type)
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    if args.continuous and world > 1:
-        raise NotImplementedError(
-            "--continuous over more than one rank is not ported: each "
-            "rank's scheduler forms batches from its own timing, and batches "
-            "that differ across ranks break the collectives (ROADMAP.md "
-            "Queue 1 item 5.6d)")
     # banks row-shard over 'model': the library's rows wait on the host
     sharded = mesh_shape(mesh)["model"] > 1
 

@@ -64,7 +64,11 @@ from repro_torch.serve.oms import (
     plan_candidates,
 )
 from repro_torch.serve.queue import LatencyStats, MicroBatchQueue, Request
-from repro_torch.serve.scheduler import ContinuousScheduler, Slot
+from repro_torch.serve.scheduler import (
+    ContinuousScheduler,
+    CoordinatedScheduler,
+    Slot,
+)
 
 __all__ = [
     "BankRegistry",
@@ -72,6 +76,7 @@ __all__ = [
     "ClusterBatchHandle",
     "ClusteringConfig",
     "ContinuousScheduler",
+    "CoordinatedScheduler",
     "DBSearchServer",
     "DeltaBank",
     "FDRSearchResult",

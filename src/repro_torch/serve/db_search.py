@@ -106,7 +106,10 @@ from repro_torch.serve.oms import (
     plan_candidates,
 )
 from repro_torch.serve.queue import LatencyStats, MicroBatchQueue, Request
-from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.scheduler import (
+    ContinuousScheduler,
+    CoordinatedScheduler,
+)
 from repro_torch.serve.staging import PinnedArena, StagingPool
 from repro_torch.spectra.fdr import fdr_filter
 
@@ -1220,18 +1223,40 @@ def _ranks(mesh) -> int:
     return int(mesh.mesh.numel())
 
 
-def _any_rank(mesh, flag: bool) -> bool:
-    """True on every rank when ``flag`` is True on any rank of ``mesh``
-    (one all-reduce over the default group, which the mesh must span)."""
+def _spans_group(mesh) -> None:
+    """Raises unless ``mesh`` spans the whole default group (the serving
+    loop's collectives run over it)."""
     import torch.distributed as dist
     if _ranks(mesh) != dist.get_world_size():
         raise ValueError(f"the mesh spans {_ranks(mesh)} of "
                          f"{dist.get_world_size()} ranks; serving over it "
                          f"needs all of them")
+
+
+def _any_rank(mesh, flag: bool) -> bool:
+    """True on every rank when ``flag`` is True on any rank of ``mesh``
+    (one all-reduce over the default group, which the mesh must span)."""
+    import torch.distributed as dist
+    _spans_group(mesh)
     t = torch.tensor([int(flag)], dtype=torch.int32,
                      device=_mesh_device(mesh))
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+def _gather_rows(mesh, row: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``row`` stacked in rank order, on the host: one
+    all-gather over the default group, which the mesh must span (on the
+    host under gloo, on the mesh's device otherwise). The continuous
+    scheduler's plan exchange."""
+    import torch.distributed as dist
+    _spans_group(mesh)
+    dev = (torch.device("cpu") if dist.get_backend() == "gloo"
+           else _mesh_device(mesh))
+    row = row.to(dev)
+    rows = [torch.empty_like(row) for _ in range(dist.get_world_size())]
+    dist.all_gather(rows, row)
+    return torch.stack(rows).cpu()
 
 
 class DBSearchServer:
@@ -1280,10 +1305,17 @@ class DBSearchServer:
 
     **Over a mesh.** With banks sharded over a multi-rank mesh
     (``BankRegistry(mesh=)``), every rank runs the same server on the same
-    submissions; ``step`` agrees each flush across the ranks, so they
-    dispatch the same batches and meet in the routes' collectives.
-    Continuous mode raises there (``NotImplementedError``): each rank's
-    scheduler would admit by its own timing.
+    submissions (and cancels); the ranks dispatch the same batches and
+    meet in the routes' collectives. Flush-sync ``step`` agrees each flush
+    across the ranks (one all-reduce); continuous mode runs a
+    :class:`~repro_torch.serve.scheduler.CoordinatedScheduler`: rank 0
+    decides which slots retire, and that plan and every rank's next
+    batches are agreed in one all-gather a step. A rank whose queue
+    differs (a request submitted or cancelled there alone) raises
+    ``RuntimeError`` on every rank before anything is dispatched.
+    Compaction is decided alike on every rank (by the delta fraction,
+    which the same appends make equal). Clustering batches ride the same
+    plan (their state is each rank's own; nothing of theirs is sharded).
 
     ``executor_cls`` is the :class:`SearchExecutor` subclass built on this
     server (to observe or replace batches).
@@ -1353,19 +1385,20 @@ class DBSearchServer:
         self.clusterers: dict[str, StreamingClusterer] = {}
         self._cluster_requests = 0
         # the mesh the banks are sharded over: its ranks must take the
-        # same batches, so flush decisions are agreed across them
+        # same batches, so flushes (or continuous steps) are agreed
+        # across them
         self.mesh = self.banks.mesh if self.db is None else self.db.mesh
-        if continuous and _ranks(self.mesh) > 1:
-            raise NotImplementedError(
-                "continuous serving over a multi-rank mesh is not ported: "
-                "each rank's scheduler would form batches from its own "
-                "timing, and batches that differ across ranks break the "
-                "collectives (ROADMAP.md Queue 1 item 5.6d)")
         self.executor = executor_cls(self)
-        self.scheduler = (ContinuousScheduler(self.queue, self.executor,
-                                              num_slots=num_slots,
-                                              clock=clock)
-                          if continuous else None)
+        self.scheduler = None
+        if continuous and _ranks(self.mesh) > 1:
+            import torch.distributed as dist
+            self.scheduler = CoordinatedScheduler(
+                self.queue, self.executor, num_slots=num_slots, clock=clock,
+                exchange=functools.partial(_gather_rows, self.mesh),
+                rank=dist.get_rank())
+        elif continuous:
+            self.scheduler = ContinuousScheduler(
+                self.queue, self.executor, num_slots=num_slots, clock=clock)
         # seconds the device spent on served batches' searches and
         # clustering distances (None until a batch ran on a CUDA device)
         self.device_busy_s: float | None = None
@@ -1553,9 +1586,15 @@ class DBSearchServer:
         results are bit-identical anyway).
 
         Over a multi-rank mesh every rank must call ``step`` alike, with
-        the same requests submitted in the same order: whether to flush is
-        agreed across the ranks (any rank's flush policy firing flushes
-        all), so they take the same batch."""
+        the same requests submitted (and cancelled) in the same order.
+        Flush-sync agrees whether to flush across the ranks (any rank's
+        flush policy firing flushes all), so they take the same batch.
+        Continuous mode agrees each step's plan: the slots rank 0 found
+        done retire on every rank and rank 0's next batches are admitted
+        everywhere, each rank checking them against its own queue rid for
+        rid (a difference raises ``RuntimeError`` on every rank, nothing
+        dispatched). Compactions are alike on every rank: they follow the
+        delta fraction, which the same appends make equal."""
         self._maybe_compact()
         if self.scheduler is not None:
             return self.scheduler.step(block=force)

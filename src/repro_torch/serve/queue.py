@@ -222,6 +222,28 @@ class MicroBatchQueue:
         self._last_served = key
         return batch
 
+    @property
+    def next_rid(self) -> int:
+        """The id the next ``submit`` will return."""
+        return self._next_rid
+
+    def peek_batches(self, n: int) -> list[list[Request]]:
+        """The batches the next ``n`` ``take_batch`` calls would return
+        (fewer when the queue runs dry), leaving the queue as it was."""
+        saved = self._pending, self._last_served
+        self._pending = {key: collections.deque(lane)
+                         for key, lane in saved[0].items()}
+        try:
+            out = []
+            for _ in range(n):
+                batch = self.take_batch()
+                if not batch:
+                    break
+                out.append(batch)
+            return out
+        finally:
+            self._pending, self._last_served = saved
+
 
 class LatencyStats:
     """Streaming per-request latency + batch-size accounting.

@@ -58,13 +58,24 @@ queue outright; an already in-flight request is only *marked* (its slot
 keeps its position and batch shape — device work is not restartable) and
 its result is dropped at retire time. Slot accounting is unaffected
 either way, which is exactly what the tests pin.
+
+**Over a mesh.** Ranks that share sharded banks must dispatch the same
+batches. :class:`CoordinatedScheduler` has rank 0 decide which slots
+retire and agrees that plan, and every rank's next batches, in one
+all-gather a step; a rank whose queue differs raises on every rank.
+With one rank (or no mesh) the server builds the plain
+:class:`ContinuousScheduler`, which issues no collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from typing import Any, Callable
+
+import numpy as np
+import torch
 
 from repro_torch.serve.queue import MicroBatchQueue, Request
 
@@ -144,25 +155,33 @@ class ContinuousScheduler:
             reqs = self.queue.take_batch()
             if not reqs:
                 break
-            handle = self.executor.dispatch(reqs)
-            slot = Slot(sid=self._next_sid, reqs=reqs, handle=handle,
-                        t_dispatch=self._clock())
-            self._next_sid += 1
-            self._slots[slot.sid] = slot
-            self.dispatched_batches += 1
+            self._dispatch(reqs)
             admitted += 1
         return admitted
+
+    def _dispatch(self, reqs: list[Request]) -> None:
+        """Dispatches one batch into a new slot."""
+        handle = self.executor.dispatch(reqs)
+        slot = Slot(sid=self._next_sid, reqs=reqs, handle=handle,
+                    t_dispatch=self._clock())
+        self._next_sid += 1
+        self._slots[slot.sid] = slot
+        self.dispatched_batches += 1
+
+    def _finalize(self, sid: int) -> list[Request]:
+        """Finalizes (blocking on) slot ``sid`` and frees it."""
+        done = self.executor.finalize(self._slots[sid].handle)
+        del self._slots[sid]
+        self.retired_batches += 1
+        return done
 
     def retire(self, block: bool = False) -> list[Request]:
         """Finalize completed slots (all in-flight slots with ``block``);
         returns the finished, non-cancelled requests."""
         done: list[Request] = []
         for sid in list(self._slots):
-            slot = self._slots[sid]
-            if block or self.executor.poll(slot.handle):
-                done.extend(self.executor.finalize(slot.handle))
-                del self._slots[sid]
-                self.retired_batches += 1
+            if block or self.executor.poll(self._slots[sid].handle):
+                done.extend(self._finalize(sid))
         return done
 
     def step(self, block: bool = False) -> list[Request]:
@@ -188,3 +207,158 @@ class ContinuousScheduler:
             "retired_batches": self.retired_batches,
             "cancellations": self.cancellations,
         }
+
+
+class CoordinatedScheduler(ContinuousScheduler):
+    """Continuous batching over a multi-rank mesh: rank 0 plans each step.
+
+    Every rank runs the same server on the same submissions, and the
+    sharded routes' collectives need every rank to dispatch the same
+    batches in the same order. Admission (``take_batch``) is already
+    deterministic given the queue, so the one decision that depends on a
+    rank's own timing is which slots ``poll`` finds done. Here rank 0
+    alone polls, and each step is one ``exchange`` (an all-gather of one
+    fixed-size int64 row a rank):
+
+    * ``[0]`` the rank's pending count, ``[1]`` its slots in flight,
+      ``[2]`` the next request id its queue will give;
+    * ``[3 : 3 + S]`` (rank 0's row) the slot ids rank 0 retires, -1
+      padded (``S`` = ``num_slots``);
+    * then ``S`` blocks of ``max_batch_size`` entries: the batches the
+      rank's next ``S`` ``take_batch`` calls would give, each request as
+      its id times 2^32 plus a CRC-32 of its query, tenant, kind and
+      precursor (-1 padded).
+
+    Every rank checks every row against rank 0's, request for request.
+    Any difference (a request submitted or cancelled on some ranks only)
+    raises ``RuntimeError`` on every rank, naming the first differing
+    rank and request id, before anything is retired or dispatched: the
+    ranks leave the step together and no batch that differs is launched.
+    Otherwise each rank finalizes the slots rank 0 retired (blocking on
+    its own handles) and admits rank 0's first batches into the freed
+    slots. ``drain`` runs at least one such step even when this rank is
+    idle, so a rank holding requests the others lack raises instead of
+    waiting alone in a collective.
+
+    ``cancel`` (a pending request is removed, an in-flight one marked)
+    and ``submit`` must be called alike on every rank.
+
+    ``exchange(row)`` returns the ``(world, L)`` stack of every rank's
+    row in rank order; ``rank`` is this rank's place in it.
+    """
+
+    HEADER = 3
+
+    def __init__(self, queue: MicroBatchQueue, executor, *,
+                 exchange: Callable, rank: int, num_slots: int = 2,
+                 clock: Callable[[], float] = time.monotonic):
+        super().__init__(queue, executor, num_slots=num_slots, clock=clock)
+        self._exchange = exchange
+        self.rank = int(rank)
+        self.exchanges = 0
+        self._digests: dict[int, int] = {}  # rid -> CRC-32, while pending
+
+    def _entry(self, r: Request) -> int:
+        crc = self._digests.get(r.rid)
+        if crc is None:
+            crc = zlib.crc32(np.ascontiguousarray(r.query).tobytes())
+            crc = zlib.crc32(repr((r.tenant, r.kind, r.precursor)).encode(),
+                             crc)
+            self._digests[r.rid] = crc
+        return (r.rid << 32) | crc
+
+    def _row(self, block: bool) -> torch.Tensor:
+        S, B, H = self.num_slots, self.queue.max_batch_size, self.HEADER
+        row = torch.full((H + S + S * B,), -1, dtype=torch.int64)
+        row[0] = len(self.queue)
+        row[1] = len(self._slots)
+        row[2] = self.queue.next_rid
+        if self.rank == 0:
+            sids = [sid for sid, slot in self._slots.items()
+                    if block or self.executor.poll(slot.handle)]
+            row[H:H + len(sids)] = torch.tensor(sids, dtype=torch.int64)
+        for i, reqs in enumerate(self.queue.peek_batches(S)):
+            at = H + S + i * B
+            row[at:at + len(reqs)] = torch.tensor(
+                [self._entry(r) for r in reqs], dtype=torch.int64)
+        return row
+
+    def _check(self, rows: torch.Tensor) -> None:
+        """Raises RuntimeError when a rank's queue or slots differ from
+        rank 0's (the same on every rank: each sees every row)."""
+        S, H = self.num_slots, self.HEADER
+        plan = rows[0]
+        for r in range(1, rows.shape[0]):
+            row = rows[r]
+            if torch.equal(row[:H], plan[:H]) and torch.equal(
+                    row[H + S:], plan[H + S:]):
+                continue
+            at = next((i for i, (a, b) in enumerate(zip(
+                row[H + S:].tolist(), plan[H + S:].tolist())) if a != b),
+                None)
+            if at is not None:
+                a, b = (int(v) >> 32 if v >= 0 else -1 for v in (
+                    row[H + S + at], plan[H + S + at]))
+                rid = min(a, b) if min(a, b) >= 0 else max(a, b)
+                what = (f"first differing request id {rid} (rank {r}'s "
+                        f"batches hold {a if a >= 0 else 'none'} there, "
+                        f"rank 0's {b if b >= 0 else 'none'}")
+                what += ", same id, other query)" if a == b else ")"
+            elif row[2] != plan[2]:
+                # the next batches agree: a later submission differs
+                rid = int(min(row[2], plan[2]))
+                what = (f"first differing request id {rid} (rank {r} "
+                        f"submitted {int(row[2])}, rank 0 {int(plan[2])})")
+            else:
+                what = "a request pending beyond the next batches differs"
+            raise RuntimeError(
+                f"rank {r} differs from rank 0's plan: {what}; pending "
+                f"{int(row[0])} vs {int(plan[0])}, in flight {int(row[1])} "
+                f"vs {int(plan[1])}. submit and cancel must be called "
+                f"alike on every rank; nothing was dispatched")
+
+    def _plan_step(self, block: bool) -> list[Request]:
+        S, B, H = self.num_slots, self.queue.max_batch_size, self.HEADER
+        rows = self._exchange(self._row(block))
+        self.exchanges += 1
+        self._check(rows)
+        plan = rows[0].tolist()
+        done: list[Request] = []
+        for sid in plan[H:H + S]:
+            if sid >= 0:
+                done.extend(self._finalize(sid))
+        for i in range(S - len(self._slots)):
+            at = H + S + i * B
+            rids = [e >> 32 for e in plan[at:at + B] if e >= 0]
+            if not rids:
+                break
+            reqs = self.queue.take_batch()
+            if [r.rid for r in reqs] != rids:
+                raise RuntimeError(
+                    f"rank {self.rank}: the queue gave {[r.rid for r in reqs]}"
+                    f" where the agreed plan has {rids}")
+            for r in reqs:
+                self._digests.pop(r.rid, None)
+            self._dispatch(reqs)
+        return done
+
+    def cancel(self, rid: int) -> bool:
+        self._digests.pop(rid, None)
+        return super().cancel(rid)
+
+    def step(self, block: bool = False) -> list[Request]:
+        """One agreed step: retire the slots rank 0 found done (all of
+        them with ``block``), then refill free slots with rank 0's next
+        batches. Every rank must call it alike."""
+        return self._plan_step(block)
+
+    def drain(self) -> list[Request]:
+        """Agreed blocking steps until every rank's queue and slots are
+        empty (at least one step, even on an idle rank)."""
+        done = self._plan_step(True)
+        while self._slots or len(self.queue):
+            done.extend(self._plan_step(True))
+        return done
+
+    def summary(self) -> dict:
+        return super().summary() | {"exchanges": self.exchanges}

@@ -152,8 +152,11 @@ def routes(mesh, lib: dict) -> dict:
                    if oms else None)
         out[f"server_oms{oms}"] = (before, _drain(srv, queries, qp))
         out[f"delta_device_oms{oms}"] = str(reg.delta("a").device)
-        out[f"continuous_oms{oms}"] = _raises(lambda: DBSearchServer(
-            reg, continuous=True, oms=cfg if oms else None, **SERVER))
+        # continuous over the mesh: the drain takes the flush-sync
+        # drain's batches, so every result (FDR too) is the same
+        out[f"continuous_oms{oms}"] = _drain(DBSearchServer(
+            reg, continuous=True, oms=cfg if oms else None, **SERVER),
+            queries, qp)
     db = shard_database(refs, decoys=decoys, mesh=mesh)
     out["k_over_shard_rows"] = (db.shard_rows, _raises(
         lambda: search_database(db, q_hv, db.shard_rows + 1)))
@@ -234,15 +237,15 @@ class _Recording(SearchExecutor):
 
 def launcher(argv: list) -> dict:
     """``serve_db.main`` on this rank: the identifications and every
-    request's result; ``--continuous`` on top must raise."""
+    request's result, flush-sync and with ``--continuous`` on top."""
     from repro_torch.launch import serve_db
 
-    _Recording.done = []
-    s = serve_db.main(argv, executor_cls=_Recording)
-    out = {"identified": s["identified"], "correct": s["correct"],
-           "count": s["count"], "results": _results(_Recording.done)}
-    out["continuous"] = _raises(lambda: serve_db.main(argv + [
-        "--continuous"]))
+    out = {}
+    for mode, extra in (("flush", []), ("continuous", ["--continuous"])):
+        _Recording.done = []
+        s = serve_db.main(argv + extra, executor_cls=_Recording)
+        out[mode] = {"identified": s["identified"], "correct": s["correct"],
+                     "count": s["count"], "results": _results(_Recording.done)}
     return out
 
 

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone and never hides the device.
 
 * no module of ``src/repro_torch`` (nor ``chip_smoke.py``, nor the tests'
-  rank-worker modules ``tests/_torch_*.py``) imports JAX or the JAX
-  package, and importing the port's serving stack, its mesh modules and
-  the rank workers loads no JAX;
+  rank-worker modules ``tests/_torch_*.py``, nor ``examples/torch_*.py``)
+  imports JAX or the JAX package, and importing the port's serving stack,
+  its mesh modules, the dry run, the examples and the rank workers loads
+  no JAX;
 * entry points default to CUDA and raise on a host without it;
 * a CUDA tensor reaching a kernel wrapper launches the kernel or raises:
   there is no quiet fall back to the plain version.
@@ -60,7 +61,10 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tests").glob("_torch_*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tests").glob("_torch_*.py")) + (
+    sorted((ROOT / "examples").glob("torch_*.py")))
+EXAMPLES = ("torch_quickstart", "torch_db_search_serving",
+            "torch_e2e_ms_pipeline")
 
 
 def _imported_roots(path):
@@ -162,6 +166,25 @@ def test_importing_the_recurrent_mesh_and_dcn_modules_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_importing_the_dryrun_and_the_examples_loads_no_jax():
+    """The dry-run cost model and the port's examples load no JAX (the
+    examples are loaded as modules; their ``main`` does not run)."""
+    loads = "; ".join(
+        f"s = importlib.util.spec_from_file_location({name!r}, "
+        f"{str(ROOT / 'examples' / (name + '.py'))!r}); "
+        f"s.loader.exec_module(importlib.util.module_from_spec(s))"
+        for name in EXAMPLES + ("torch_train_lm_imc",))
+    code = ("import sys, importlib.util, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline, _torch_continuous_mesh_ranks; "
+            + loads + "; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             [str(ROOT / "src"), str(ROOT / "tests")])})
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("entry", ["codebooks", "dataset", "encoder",
                                    "launcher", "cluster_launcher",
                                    "clusterer", "cluster_server",
@@ -173,7 +196,7 @@ def test_importing_the_recurrent_mesh_and_dcn_modules_loads_no_jax():
                                    "delta_bank", "continuous_server",
                                    "run_db_search", "run_clustering",
                                    "isa_executor", "train_launcher",
-                                   "train_example"])
+                                   "train_example", *EXAMPLES])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -217,17 +240,22 @@ def test_default_device_raises_without_cuda(entry):
         "train_launcher": lambda: train_cli.main(
             ["--arch", "qwen2_7b", "--reduced", "--steps", "1"]),
         "train_example": lambda: _train_example().main(["--steps", "1"]),
+        **{name: (lambda n=name: _example(n).main([])) for name in EXAMPLES},
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
 
 
-def _train_example():
+def _example(name: str):
     spec = importlib.util.spec_from_file_location(
-        "torch_train_lm_imc", ROOT / "examples" / "torch_train_lm_imc.py")
+        name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _train_example():
+    return _example("torch_train_lm_imc")
 
 
 class _CudaLooking(torch.Tensor):

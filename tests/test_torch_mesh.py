@@ -33,8 +33,14 @@ killed and the test fails.
   ranks' own partials, ``x @ w`` for indivisible dims.
 * **Launcher**: ``serve_db --reduced --fused --flush-ms 0`` on 2 ranks
   (batches are then the traffic's bursts, as in one process) serves the
-  same results and identifications as one process; ``--continuous``
-  raises there.
+  same results and identifications as one process, flush-sync and with
+  ``--continuous`` (rank 0 plans each step; on the CPU every slot polls
+  done, so the batches are one process's).
+* **Continuous** (``DBSearchServer(continuous=True)`` over the mesh,
+  after the append): its drain takes the flush-sync drain's batches, so
+  it serves the flush-sync server's results and the reference's.
+  ``tests/test_torch_continuous_mesh.py`` covers continuous serving over
+  a mesh in full.
 """
 
 import types
@@ -317,8 +323,8 @@ def test_each_rank_holds_its_own_block(ranks, inputs, world, shape, lib):
 
 @pytest.mark.parametrize("lib", list(LIBS))
 @pytest.mark.parametrize("world,shape", MESHES, ids=MESH_IDS)
-def test_mesh_edge_cases_raise_as_the_reference(ranks, inputs, world, shape,
-                                                lib):
+def test_mesh_edge_cases_raise_as_the_reference(ranks, inputs, reference,
+                                                world, shape, lib):
     L = inputs["libs"][lib]
     n = shape[1]
     jdb = _jdb(L, n)
@@ -331,9 +337,15 @@ def test_mesh_edge_cases_raise_as_the_reference(ranks, inputs, world, shape,
         assert got["emulate_with_mesh"] == ("ValueError" if n > 1
                                             else "none")
         assert got["not_a_mesh"] == "TypeError"
-        # every rank must take the same batches: continuous mode raises
-        assert got["continuous_omsFalse"] == got["continuous_omsTrue"] == (
-            "NotImplementedError")
+        # continuous mode serves over the mesh: its drain takes the
+        # flush-sync drain's batches, so the results (FDR too) are the
+        # flush-sync server's after the append, and the reference's
+        for oms in (False, True):
+            _equal(got[f"continuous_oms{oms}"],
+                   got[f"server_oms{oms}"][1], f"continuous oms={oms}")
+            _equal(got[f"continuous_oms{oms}"],
+                   reference(lib, n)[f"server_oms{oms}"][1],
+                   f"continuous vs the reference oms={oms}")
 
 
 def test_ragged_queries_skip_the_data_split(ranks):
@@ -553,17 +565,23 @@ def test_collective_matmuls_fall_back_without_a_mesh():
 def test_launcher_on_two_ranks_matches_one_process(ranks, capsys):
     want = serve_db.main(LAUNCHER)
     assert "mesh: {'data': 1, 'model': 1}" in capsys.readouterr().out
+    cont = serve_db.main(LAUNCHER + ["--continuous"])
     for res in ranks(2):
-        got = res["launcher"]
+        got = res["launcher"]["flush"]
         assert (got["identified"], got["correct"], got["count"]) == (
             want["identified"], want["correct"], want["count"])
-        assert got["continuous"] == "NotImplementedError"
+        # continuous mode serves over the mesh as in one process
+        got = res["launcher"]["continuous"]
+        assert (got["identified"], got["correct"], got["count"]) == (
+            cont["identified"], cont["correct"], cont["count"])
 
 
 def test_launcher_results_equal_one_process_request_by_request(ranks):
     one = R._Recording
-    one.done = []
-    serve_db.main(LAUNCHER, executor_cls=one)
-    want = R._results(one.done)
-    for res in ranks(2):
-        _equal(res["launcher"]["results"], want, "launcher")
+    for mode, extra in (("flush", []), ("continuous", ["--continuous"])):
+        one.done = []
+        serve_db.main(LAUNCHER + extra, executor_cls=one)
+        want = R._results(one.done)
+        for res in ranks(2):
+            _equal(res["launcher"][mode]["results"], want,
+                   f"launcher {mode}")

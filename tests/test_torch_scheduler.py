@@ -11,6 +11,8 @@ dispatch and retire order and every per-request result must be equal.
 Tolerance: exact.
 """
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from repro.serve import OMSConfig as JOMSConfig
 from repro.serve import shard_database as jshard
 from repro_torch.serve import (
     ContinuousScheduler,
+    CoordinatedScheduler,
     DBSearchServer,
     LatencyStats,
     MicroBatchQueue,
@@ -636,3 +639,296 @@ def test_executor_subclass_observes_every_batch():
     assert len(done) == 11 and sum(seen) == 11
     assert isinstance(server.executor, Observing)
     assert server.executor.staging.arenas <= 2
+
+
+# --------------------------------------------------------------------------
+# over a mesh: rank 0 plans each step (CoordinatedScheduler); one rank
+# issues no collective
+# --------------------------------------------------------------------------
+
+class Exchange:
+    """In-process stand-in for the all-gather: ``world`` threads meet at a
+    barrier and each gets every rank's row; counts the exchanges."""
+
+    def __init__(self, world: int):
+        self.barrier = threading.Barrier(world, timeout=20)
+        self.rows = [None] * world
+        self.calls = 0
+
+    def for_rank(self, rank: int):
+        def exchange(row):
+            self.rows[rank] = row.clone()
+            self.barrier.wait()
+            out = torch.stack(self.rows)
+            self.barrier.wait()
+            if rank == 0:
+                self.calls += 1
+            return out
+        return exchange
+
+
+class PolledExecutor(RecordingExecutor):
+    """A recording executor whose handles are done when ``done(h)`` says
+    so; counts its polls."""
+
+    def __init__(self, clock, done):
+        super().__init__(clock)
+        self.done = done
+        self.polls = 0
+
+    def poll(self, h):
+        self.polls += 1
+        return self.done(h)
+
+
+def _ranks(world, script, *, done=lambda h: True, max_batch=3,
+           num_slots=2, fairness_cap=None):
+    """Runs ``script(rank, queue, sched)`` on ``world`` threads, each with
+    its own queue, executor and CoordinatedScheduler over one Exchange;
+    returns each rank's (error message or None, executor) and the
+    exchange."""
+    ex_all = Exchange(world)
+    out = [None] * world
+
+    def body(rank):
+        clock = Clock()
+        queue = MicroBatchQueue(max_batch_size=max_batch,
+                                flush_timeout_s=0.0, clock=clock,
+                                fairness_cap=fairness_cap)
+        ex = PolledExecutor(clock, done)
+        sched = CoordinatedScheduler(queue, ex, num_slots=num_slots,
+                                     clock=clock, rank=rank,
+                                     exchange=ex_all.for_rank(rank))
+        try:
+            script(rank, queue, sched)
+            out[rank] = (None, ex, sched)
+        except RuntimeError as e:
+            out[rank] = (str(e), ex, sched)
+
+    threads = [threading.Thread(target=body, args=(r,))
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads), "a rank hung"
+    return out, ex_all
+
+
+def _batches(ex):
+    return [[r.rid for r in b] for b in ex.dispatched]
+
+
+def _serve_alike(rank, queue, sched):
+    for i in range(11):
+        queue.submit(np.full(4, i, np.int8), tenant="ab"[i % 3 == 0])
+        sched.step()
+    sched.drain()
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_coordinated_ranks_dispatch_rank_0s_batches(world):
+    out, ex_all = _ranks(world, _serve_alike, done=lambda h: h % 3 != 1,
+                         fairness_cap=2)
+    errs = [e for e, _, _ in out]
+    assert errs == [None] * world
+    want = _batches(out[0][1])
+    assert sorted(r for b in want for r in b) == list(range(11))
+    for _, ex, sched in out:
+        assert _batches(ex) == want
+        assert sched.in_flight == 0 and len(sched.queue) == 0
+        assert sched.exchanges == ex_all.calls
+    # rank 0 alone polls; the others finalize what it retired
+    assert out[0][1].polls > 0
+    assert all(ex.polls == 0 for _, ex, _ in out[1:])
+
+
+def test_rank_0s_polls_decide_every_ranks_retires():
+    """Rank 0's handles 1 and 2 stay busy for the first steps; rank 1's
+    executor would call everything done but is never asked: both retire
+    the same slots at the same steps."""
+    busy = {1, 2}
+
+    def script(rank, queue, sched):
+        for i in range(6):
+            queue.submit(np.full(4, i, np.int8))
+        steps = []
+        for _ in range(3):
+            steps.append(sorted(r.rid for r in sched.step()))
+        if rank == 0:
+            busy.clear()
+        steps.append(sorted(r.rid for r in sched.drain()))
+        sched.retired_steps = steps
+
+    out, _ = _ranks(2, script, done=lambda h: h not in busy, max_batch=2)
+    assert [e for e, _, _ in out] == [None, None]
+    assert out[0][2].retired_steps == out[1][2].retired_steps
+    assert out[0][2].retired_steps[0] == []      # nothing done yet
+
+
+def test_one_exchange_a_step():
+    def script(rank, queue, sched):
+        for i in range(5):
+            queue.submit(np.full(4, i, np.int8))
+            sched.step()
+        assert sched.exchanges == 5
+
+    out, ex_all = _ranks(3, script)
+    assert [e for e, _, _ in out] == [None] * 3 and ex_all.calls == 5
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_an_extra_request_raises_on_every_rank(world):
+    def script(rank, queue, sched):
+        for i in range(4):
+            queue.submit(np.full(4, i, np.int8))
+        sched.step(block=True)
+        sched.step(block=True)
+        if rank == world - 1:
+            queue.submit(np.full(4, 99, np.int8))
+        for i in range(4, 7):
+            queue.submit(np.full(4, i, np.int8))
+        sched.drain()
+
+    out, _ = _ranks(world, script)
+    for err, ex, _ in out:
+        assert err is not None
+        assert f"rank {world - 1} differs from rank 0's plan" in err
+        assert "first differing request id 4 " in err and "other query" in err
+        # nothing dispatched after the disagreement
+        assert _batches(ex) == [[0, 1, 2], [3]]
+
+
+def test_a_pending_cancel_on_rank_0_alone_raises():
+    def script(rank, queue, sched):
+        for i in range(7):
+            queue.submit(np.full(4, i, np.int8))
+        if rank == 0:
+            assert sched.cancel(5)
+        sched.drain()
+
+    out, _ = _ranks(3, script)
+    for err, ex, _ in out:
+        assert "rank 1 differs from rank 0's plan" in err
+        assert "first differing request id 5 " in err
+        assert ex.dispatched == []
+
+
+def test_a_cancel_beyond_the_next_batches_raises_too():
+    """Rank 0 alone cancels a request past the batches each rank peeks:
+    the pending counts differ, and every rank raises before dispatch."""
+    def script(rank, queue, sched):
+        for i in range(10):
+            queue.submit(np.full(4, i, np.int8))
+        if rank == 0:
+            assert sched.cancel(8)
+        sched.step()
+
+    out, _ = _ranks(2, script, max_batch=2)
+    for err, ex, _ in out:
+        assert "rank 1 differs" in err and "beyond the next batches" in err
+        assert "pending 10 vs 9" in err
+        assert ex.dispatched == []
+
+
+def test_cancels_made_alike_serve():
+    def script(rank, queue, sched):
+        for i in range(7):
+            queue.submit(np.full(4, i, np.int8))
+        sched.step(block=False)
+        assert sched.cancel(1)       # in flight: marked
+        assert sched.cancel(6)       # pending: removed
+        done = sched.drain()
+        sched.served = sorted(r.rid for r in done)
+
+    out, _ = _ranks(2, script, done=lambda h: False)
+    for err, _, sched in out:
+        assert err is None
+        assert sched.served == [0, 2, 3, 4, 5]
+        assert sched.cancellations == 2
+
+
+def test_an_idle_rank_drains_with_the_others():
+    """A rank whose queue is empty still takes part in ``drain``: a rank
+    holding requests the others lack raises instead of hanging."""
+    def script(rank, queue, sched):
+        if rank == 1:
+            queue.submit(np.full(4, 0, np.int8))
+        sched.drain()
+
+    out, _ = _ranks(2, script)
+    for err, ex, _ in out:
+        assert "rank 1 differs" in err and "first differing request id 0 " \
+            in err
+        assert ex.dispatched == []
+
+
+def test_idle_ranks_agree_in_one_exchange():
+    out, ex_all = _ranks(3, lambda rank, queue, sched: sched.drain())
+    assert [e for e, _, _ in out] == [None] * 3 and ex_all.calls == 1
+
+
+def test_peek_batches_leaves_the_queue_as_it_was():
+    clock = Clock()
+    queue = MicroBatchQueue(max_batch_size=2, flush_timeout_s=0.0,
+                            clock=clock, fairness_cap=1)
+    for i in range(7):
+        queue.submit(i, tenant="ab"[i % 2])
+    peeked = [[r.rid for r in b] for b in queue.peek_batches(3)]
+    assert len(queue) == 7
+    taken = [[r.rid for r in queue.take_batch()] for _ in range(3)]
+    assert peeked == taken
+    assert queue.next_rid == 7
+    assert queue.peek_batches(10) == queue.peek_batches(10)
+    assert len(queue.peek_batches(10)) == 4
+
+
+COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce",
+               "broadcast", "barrier", "reduce", "gather", "scatter",
+               "reduce_scatter_tensor", "all_to_all_single", "send", "recv")
+
+
+@pytest.mark.parametrize("mesh_kind", ["none", "mapping", "one_rank_group"])
+def test_one_rank_issues_no_collective(monkeypatch, tmp_path, mesh_kind):
+    """With no mesh, the one-device mapping or a 1-rank group's (1, 1)
+    mesh, continuous serving builds the plain ContinuousScheduler and
+    serves without any collective (each is replaced by a counting
+    fake)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.serve import BankRegistry, ContinuousScheduler
+
+    own_group = mesh_kind == "one_rank_group"
+    if own_group:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
+                                rank=0, world_size=1)
+    try:
+        mesh = {"none": None, "mapping": {"data": 1, "model": 1}}.get(
+            mesh_kind)
+        if own_group:
+            mesh = init_device_mesh("cpu", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+        calls = []
+        for name in COLLECTIVES:
+            monkeypatch.setattr(dist, name,
+                                lambda *a, _n=name, **k: calls.append(_n))
+        reg = BankRegistry(mesh=mesh, fused=True)
+        refs, dec = _tiny_hvs(70)
+        reg.register("a", torch.from_numpy(refs),
+                     decoys=torch.from_numpy(dec))
+        server = DBSearchServer(reg, k=2, fdr=0.5, max_batch_size=3,
+                                clock=Clock(), continuous=True, num_slots=2)
+        assert type(server.scheduler) is ContinuousScheduler
+        for i in range(8):
+            server.submit(_tiny_query(300 + i), tenant="a")
+            server.step()
+        server.append("a", refs[:2], dec[:1])
+        server.submit(_tiny_query(400), tenant="a")
+        server.run_until_drained()
+        assert server.stats.summary()["count"] == 9
+        assert calls == []
+    finally:
+        monkeypatch.undo()
+        if own_group:
+            dist.destroy_process_group()
