@@ -41,8 +41,10 @@ exits non-zero and prints no result line:
    0 / 1 / 70 of 128 /
    S, S off every chunk multiple and the served shape, valid_len at a
    split boundary - 1 / + 0 / + 1, valid_len 1 with every later split
-   empty, S under one split, and 1, 2, 7 and 17 forced splits, plus rows
-   past valid_len set to 127, which must leave the output bit-identical).
+   empty, S under one split, and 1, 2, 7 and 17 forced splits, each also
+   in the partial form ``decode_attention_partial`` with its log-sum-exp,
+   where valid_len 0 must give 0 and -inf; plus rows past valid_len set
+   to 127, which must leave the output bit-identical).
    Tolerance: exact (integer indices, scores, similarities and HVs;
    ``imc_mvm`` and its plain version round every float32 fused
    multiply-add alike), and
@@ -370,9 +372,18 @@ exits non-zero and prints no result line:
    the rank's ff shard; the (2, 2) state saved and restored on (1, 4),
    every rank's blocks as the files hold them. Prints prefill s, decode
    p50 / p95 ms, tokens/s, step ms, each rank's peak memory and the gloo
-   collectives' count and host ms a step. Then ``launch.train`` and
-   ``launch.serve`` on a 1-rank NCCL group ((1, 1) ``DeviceMesh``, the
-   parameters DTensors, both kernels launched).
+   collectives' count and host ms a step. In the same rank processes,
+   ``granite_20b`` (full width, 1 kv head, 4 of its 52 layers, the int8
+   KV store, 8 x (2,048 + 16)) served with its caches' slots striped over
+   ``model`` (``kv_seq``) on (1, 2) and (1, 4) (1,032 and 516 slots a
+   rank): the prefill's and every decode step's whole logits within 2^-4
+   of its largest against this process's whole-cache run, whose tokens
+   are forced, ``decode_attention_partial`` launched 4 x 15 times on every
+   rank and held against its plain version on the rank's block (output
+   and log-sum-exp, a mid-block count and an empty block), each rank's
+   cache bytes a 1 / ranks share of the whole cache's. Then
+   ``launch.train`` and ``launch.serve`` on a 1-rank NCCL group ((1, 1)
+   ``DeviceMesh``, the parameters DTensors, both kernels launched).
 10b. The MoE (expert-parallel), encoder-decoder and VLM families over the
    same rank processes, each beside the same run in this process:
    ``deepseek_moe_16b`` served at full width with 8 of its 28 layers
@@ -816,6 +827,7 @@ def phase_kernels_vs_plain(torch, np):
     from repro_torch.core.hd.similarity import INT32_MIN, bitpack_bipolar
     from repro_torch.kernels.decode_attention import (
         decode_attention,
+        decode_attention_partial_plain,
         decode_attention_plain,
     )
     from repro_torch.kernels.decode_attention.ops import _launch as launch_split
@@ -963,6 +975,19 @@ def phase_kernels_vs_plain(torch, np):
         mismatches["decode_attention"] += close_count(
             torch, got, want, DECODE_RTOL, DECODE_ATOL)
         decode_err = max(decode_err, float((got - want).abs().max()))
+        # the partial form (a kv_seq block): the output and its
+        # log-sum-exp; valid_len 0 is an empty block, 0 and -inf
+        out, lse = launch_split(*ops, vl, n, partial=True)
+        want_out, want_lse = decode_attention_partial_plain(*ops, vl)
+        if vl <= 0:
+            mismatches["decode_attention"] += int(
+                (out != 0).sum() + (lse != float("-inf")).sum())
+            continue
+        mismatches["decode_attention"] += close_count(
+            torch, out, want_out, DECODE_RTOL, DECODE_ATOL) + close_count(
+            torch, lse, want_lse, DECODE_RTOL, DECODE_ATOL)
+        decode_err = max(decode_err, float((out - want_out).abs().max()),
+                         float((lse - want_lse).abs().max()))
     # rows at or past valid_len set to 127 must leave the output
     # bit-identical (their weight is exactly 0)
     q, k8, v8, ks, vs = decode_case(torch, np, 2, 200, 2, 7, 128, seed=5)
@@ -975,7 +1000,8 @@ def phase_kernels_vs_plain(torch, np):
           f"{len(BANDED_EDGE_CASES)} banded, {len(HAMMING_EDGE_CASES)} "
           f"hamming_pop, {len(HD_ENCODE_EDGE_CASES)} hd_encode, "
           f"{len(IMC_EDGE_CASES)} imc_mvm and {len(decode_cases)} "
-          f"decode_attention cases, mismatches {json.dumps(mismatches)} "
+          f"decode_attention cases (each also in the partial form), "
+          f"mismatches {json.dumps(mismatches)} "
           f"(decode_attention: elements outside rtol/atol "
           f"{DECODE_RTOL}/{DECODE_ATOL}, max |err| {decode_err:.3g}; "
           f"masked-tail perturbation: {tail_diff} differing elements)")
@@ -5520,10 +5546,10 @@ def phase_mesh(torch, np) -> dict:
 LM_MESH_JOBS = {2: (("serve", (1, 2)), ("train", (2, 1)),
                     ("train", (1, 2)), ("moe serve", (1, 2)),
                     ("moe decode", (2, 1)), ("whisper serve", (1, 2)),
-                    ("whisper train", (1, 2))),
+                    ("whisper train", (1, 2)), ("kv_seq serve", (1, 2))),
                 4: (("serve", (1, 4)), ("train", (2, 2)),
                     ("restore", (1, 4)), ("moe train", (2, 2)),
-                    ("vlm serve", (1, 4)))}
+                    ("vlm serve", (1, 4)), ("kv_seq serve", (1, 4)))}
 LM_MESH_STEPS = 2
 # the dense serving cell's depth: 4 of Qwen2-7B's 28 layers since phase
 # 10b joined the time limit (28 until PR 28)
@@ -5758,6 +5784,264 @@ def lm_mesh_restore(torch, mesh, ckpt_dir) -> dict:
                  for _, v in _flatten(state) if isinstance(v, torch.Tensor))
     return {"step": step, "restore_s": restore_s, "placed": placed,
             "blocks_differ": blocks_differ(torch, SH, mgr, state)}
+
+
+# phase 10's kv_seq job: granite_20b at published width (MQA: its 1 kv
+# head divides no model axis, so without kv_seq every rank holds the whole
+# cache), KV_SEQ_LAYERS of its 52 layers with the int8 KV store, its
+# caches' slots striped over model (rules.replace(kv_seq="model")) on
+# (1, 2) and (1, 4): 1,032 and 516 of the 2,064 slots a rank. Each rank
+# attends every query head over its block on decode_attention_partial and
+# the blocks combine through two gloo all-reduces a layer a step.
+KV_SEQ_LAYERS = 4
+KV_SEQ_BATCH, KV_SEQ_PROMPT, KV_SEQ_GEN = 8, 2048, 16
+
+
+def kv_seq_cfg():
+    """granite_20b at published width, KV_SEQ_LAYERS layers, the int8 KV
+    store."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("granite_20b"), kv_quant_int8=True,
+                               num_layers=KV_SEQ_LAYERS)
+
+
+def kv_seq_one_process(torch) -> tuple[dict, dict]:
+    """The kv_seq job's run in this process (no mesh, the whole cache):
+    the prefill's logits, greedy tokens and every decode step's logits,
+    and its timings."""
+    import gc
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = kv_seq_cfg()
+    B, P, G = KV_SEQ_BATCH, KV_SEQ_PROMPT, KV_SEQ_GEN
+    model = build_model(cfg, "cuda")
+    params = model.init(seed=0)
+    batch = TokenPipeline(B, P, cfg.vocab_size).get_for(cfg, 0, "cuda")
+    cache = model.init_cache(B, P + G)
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ref = {"prefill": logits.float().cpu(), "logits": []}
+    tok = logits.argmax(-1).to(torch.int32)
+    tokens, step_ms = [tok], []
+    for i in range(G - 1):
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tok, cache, P + i)
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        ref["logits"].append(logits.float().cpu())
+        tokens.append(tok)
+    ref["tokens"] = torch.cat(tokens, dim=1).cpu()
+    ms = torch.tensor(step_ms, dtype=torch.float64)
+    line = {"prefill_s": prefill_s,
+            "decode_p50_ms": float(torch.quantile(ms, 0.5)),
+            "decode_p95_ms": float(torch.quantile(ms, 0.95)),
+            "tokens_per_s": B * len(step_ms) / (sum(step_ms) / 1e3),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "cache_shape": tuple(cache[0].k.shape)}
+    # the kernels alone in this process (the ranks time theirs while the
+    # other ranks share the card): decode_attention over the whole cache,
+    # and the partial form over a (1, 2) and a (1, 4) rank's first block
+    heads = cfg.num_heads // cfg.num_kv_heads
+    line["whole_cache_kernel"] = decode_attention_served(torch, cache[0],
+                                                         heads, P + G)
+    c = cache[0]
+    for world in (2, 4):
+        n = (P + G) // world
+        blk = type(c)(*(t[:, :n].contiguous() for t in (
+            c.k, c.v, c.k_scale, c.v_scale)))
+        line[f"block_kernel_{world}"] = partial_on_block(
+            torch, blk, heads, (n, n // 2 + 1, 0))
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, line
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a rank's int8 caches: K, V and their scales."""
+    return sum(t.numel() * t.element_size() for c in cache
+               for t in (c.k, c.v, c.k_scale, c.v_scale))
+
+
+def partial_on_block(torch, cache, G: int, counts: tuple) -> dict:
+    """``decode_attention_partial`` on a rank's block of a striped int8
+    cache with every query head (``G`` a kv head), held against its plain
+    version at each count of ``counts`` (output and log-sum-exp; a count
+    of 0 is an empty block: 0 and -inf), and timed at the first beside
+    its bound."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partial,
+        decode_attention_partial_plain,
+    )
+
+    B, S, KV, hd = cache.k.shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((B, KV, G, hd), generator=g, device="cuda") * hd ** -0.5
+    ops = (q, cache.k, cache.v, cache.k_scale, cache.v_scale)
+    err = 0.0
+    for n in counts:
+        out, lse = decode_attention_partial(*ops, n)
+        want_out, want_lse = decode_attention_partial_plain(*ops, n)
+        if n == 0:
+            check(bool((out == 0).all()) and bool((lse == float("-inf"))
+                                                  .all()),
+                  f"decode_attention_partial on an empty block ({B}, {S}, "
+                  f"{KV}, {G}, {hd}): not 0 and -inf")
+            continue
+        bad = (close_count(torch, out, want_out, DECODE_RTOL, DECODE_ATOL)
+               + close_count(torch, lse, want_lse, DECODE_RTOL, DECODE_ATOL))
+        check(bad == 0, f"decode_attention_partial differs from its plain "
+                        f"version on the rank's block ({B}, {S}, {KV}, {G}, "
+                        f"{hd}) at count {n}")
+        err = max(err, float((out - want_out).abs().max()),
+                  float((lse - want_lse).abs().max()))
+    n = counts[0]
+    nbytes = (2 * B * n * KV * hd + 2 * 4 * B * n * KV
+              + 4 * B * KV * G * (2 * hd + 1))
+    b_ms, b_by = bound_ms(4 * B * KV * G * hd * n, nbytes, FP32_OPS_PER_S)
+    return {"shape": f"B={B}, S={S}, KV={KV}, G={G}, hd={hd}", "count": n,
+            "counts_checked": list(counts),
+            "ms": time_ms(torch, lambda: decode_attention_partial(*ops, n),
+                          iters=200, warmup=10),
+            "plain_ms": time_ms(torch, lambda: decode_attention_partial_plain(
+                *ops, n), iters=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
+def kv_seq_mesh_serve(torch, dist, mesh, ref: dict) -> dict:
+    """One rank's granite_20b serving with its caches' slots striped over
+    ``model``: the prompt, then the one-process run's tokens forced into
+    the decode steps; the prefill's and each step's whole logits against
+    the one-process run's, timings, launches and collectives, the cache
+    bytes a rank beside the whole cache's, and
+    ``decode_attention_partial`` on this rank's block against its plain
+    version (a mid-block count and an empty block)."""
+    import gc
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.serve_step import make_decode_step, make_prefill
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    SH.set_mesh(mesh, SH.DEFAULT_RULES.replace(kv_seq="model"))
+    cfg = kv_seq_cfg()
+    B, P, G = KV_SEQ_BATCH, KV_SEQ_PROMPT, KV_SEQ_GEN
+    model = build_model(cfg, "cuda", mesh)
+    params = model.init(seed=0)
+    batch = TokenPipeline(B, P, cfg.vocab_size).get_for(cfg, 0, "cuda", mesh)
+    cache = model.init_cache(B, P + G)
+    blk = cache[0].seq_block
+    check(blk is not None and all(c.seq_block == blk for c in cache),
+          f"kv_seq on {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}: "
+          f"the caches are not striped ({blk})")
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    tokens = ref["tokens"].cuda()
+
+    def share(got, want) -> float:
+        want = want.cuda()
+        return float((SH.full_value(got).float() - want).abs().max()
+                     / want.abs().max())
+
+    dist.barrier()
+    decode_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = SH.full_value(logits).argmax(-1).to(torch.int32)
+    prefill_agree = int((first == tokens[:, :1]).sum())
+    shares = [share(logits, ref["prefill"])]
+    step_ms, coll_n, coll_ms = [], 0, 0.0
+    for i in range(G - 1):
+        snap = gloo_snapshot(SH)
+        t0 = time.perf_counter()
+        lp, cache = decode(params, tokens[:, i:i + 1], cache, P + i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        n, ms = gloo_delta(SH, snap)
+        coll_n, coll_ms = coll_n + n, coll_ms + ms
+        shares.append(share(lp, ref["logits"][i]))
+    launches = decode_attention.launches
+    rows, kv, hd = cache[0].k.shape[0], cfg.num_kv_heads, cfg.resolved_head_dim
+    whole = cfg.num_layers * rows * (P + G) * kv * (2 * hd + 2 * 4)
+    kernel = partial_on_block(torch, cache[0], cfg.num_heads // kv,
+                              (blk.length, blk.length // 2 + 1, 0))
+    ms = torch.tensor(step_ms, dtype=torch.float64)
+    return {"prefill_s": prefill_s, "prefill_agree": prefill_agree,
+            "decode_p50_ms": float(torch.quantile(ms, 0.5)),
+            "decode_p95_ms": float(torch.quantile(ms, 0.95)),
+            "tokens_per_s": B * len(step_ms) / (sum(step_ms) / 1e3),
+            "max_share": max(shares), "share": shares,
+            "launches": launches,
+            "gloo_collectives_a_step": coll_n / len(step_ms),
+            "gloo_ms_a_step": coll_ms / len(step_ms),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "cache_shape": tuple(cache[0].k.shape), "seq_block": tuple(blk),
+            "cache_bytes": cache_bytes(cache), "whole_cache_bytes": whole,
+            "kernel": kernel}
+
+
+def kv_seq_report(mesh: str, world: int, got: list, one: dict,
+                  launches: dict, limit: str) -> None:
+    """The kv_seq job's line and checks on ``mesh``."""
+    print(json.dumps({"path": "lm mesh kv_seq serve", "mesh": mesh,
+                      "ranks": world, "processes_on_one_card": True,
+                      "backend": "gloo", "per_rank": got,
+                      "one_process": one, "card, power limit": limit},
+                     default=str))
+    want = (KV_SEQ_GEN - 1) * KV_SEQ_LAYERS
+    check(all(g["launches"] == want for g in got),
+          f"decode_attention launches a rank with kv_seq on {mesh}: "
+          f"{[g['launches'] for g in got]}, want {want}")
+    check(all(g["max_share"] <= LM_REPLAY_SHARE for g in got),
+          f"kv_seq serving on {mesh}: logits off the one-process run by "
+          f"{[g['max_share'] for g in got]} of the step's largest")
+    blocks = [g["seq_block"][:2] for g in got]
+    sl = (KV_SEQ_PROMPT + KV_SEQ_GEN) // world
+    check(blocks == [(r * sl, sl) for r in range(world)]
+          and all(g["cache_bytes"] * world == g["whole_cache_bytes"]
+                  for g in got),
+          f"kv_seq on {mesh}: blocks {blocks}, cache bytes "
+          f"{[g['cache_bytes'] for g in got]}")
+    launches["decode_attention"][f"kv_seq {mesh}"] = got[0]["launches"]
+    k = got[0]["kernel"]
+    print(f"lm mesh kv_seq serve {mesh}: granite_20b {KV_SEQ_LAYERS} "
+          f"layers, prefill {max(g['prefill_s'] for g in got):.3f} s "
+          f"({min(g['prefill_agree'] for g in got)} of {KV_SEQ_BATCH} first "
+          f"tokens agree), decode p50 {got[0]['decode_p50_ms']:.2f} / p95 "
+          f"{got[0]['decode_p95_ms']:.2f} ms, {got[0]['tokens_per_s']:.1f} "
+          f"tokens/s, gloo {got[0]['gloo_collectives_a_step']:.0f} "
+          f"collectives a step, {got[0]['gloo_ms_a_step']:.2f} ms, peak "
+          f"{[round(g['peak_gib'], 2) for g in got]} GiB, cache "
+          f"{got[0]['cache_bytes'] / 2**20:.1f} MiB a rank (whole on every "
+          f"rank without kv_seq: {got[0]['whole_cache_bytes'] / 2**20:.1f} "
+          f"MiB), decode_attention_partial {got[0]['launches']} launches a "
+          f"rank at {k['shape']} count {k['count']} ({k['ms']:.4f} ms, plain "
+          f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms); logits "
+          f"within {max(g['max_share'] for g in got):.2e} of the largest "
+          f"(one process: {one['decode_p50_ms']:.2f} ms p50, prefill "
+          f"{one['prefill_s']:.3f} s; there, alone on the card, the partial "
+          f"on this block {one[f'block_kernel_{world}']['ms']:.4f} ms and "
+          f"decode_attention over the whole cache "
+          f"{one['whole_cache_kernel']['ms']:.4f} ms)")
 
 
 # phase 10b: the MoE (expert-parallel), encoder-decoder and VLM families
@@ -6579,6 +6863,10 @@ def lm_mesh_rank(rank: int, world: int, store: str, out: str,
                         out_dir / "ckpt" if world == 4 else None)
                 elif job == "restore":
                     r = lm_mesh_restore(torch, mesh, out_dir / "ckpt")
+                elif job == "kv_seq serve":
+                    state = None
+                    gc.collect()
+                    r = kv_seq_mesh_serve(torch, dist, mesh, ref["kv_seq"])
                 elif job == "dcn":
                     state = None
                     gc.collect()
@@ -6743,6 +7031,8 @@ def phase_lm_mesh(torch, np, jobs: dict = LM_MESH_JOBS) -> dict:
         print(json.dumps({"path": "lm mesh: one process",
                           "serve": one_serve, "train": one_train,
                           "card, power limit": limit}))
+    if "kv_seq serve" in names:
+        ref["kv_seq"], one_kv_seq = kv_seq_one_process(torch)
     for phase, members in (("family", names - set(REC_MESH_NAMES)),
                            ("recurrent", names & set(REC_MESH_NAMES))):
         t0 = time.perf_counter()
@@ -6781,6 +7071,9 @@ def phase_lm_mesh(torch, np, jobs: dict = LM_MESH_JOBS) -> dict:
             if job in FAMILY_SERVE or job in FAMILY_TRAIN:
                 family_report(job, mesh, world, got, one_family[job],
                               limit, launches)
+                continue
+            if job == "kv_seq serve":
+                kv_seq_report(mesh, world, got, one_kv_seq, launches, limit)
                 continue
             line = {"path": f"lm mesh {job}", "mesh": mesh, "ranks": world,
                     "processes_on_one_card": True, "backend": "gloo",
@@ -7007,8 +7300,11 @@ def main(argv=None) -> int:
           f"{LM_CONFIGS_GEN}), and trained at full width with "
           f"{TRAIN_LAYERS} of 28 layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
           f"{LM_MESH_STEPS} steps, by 2 and 4 processes sharing the card in "
-          f"a gloo group (not a multi-card deployment); parameters are the "
-          f"port's seeded random draw")
+          f"a gloo group (not a multi-card deployment); granite_20b served "
+          f"at full width with {KV_SEQ_LAYERS} of its 52 layers, batch "
+          f"{KV_SEQ_BATCH} x ({KV_SEQ_PROMPT} + {KV_SEQ_GEN}), its caches' "
+          f"slots striped over model (kv_seq) on (1, 2) and (1, 4); "
+          f"parameters are the port's seeded random draw")
     print(f"reduced: family mesh: deepseek_moe_16b served at full width "
           f"with {FAMILY_MOE_SERVE_LAYERS} of its 28 layers (the time "
           f"limit, since phase 10c) and decoded {FAMILY_SHORT_GEN - 1} "

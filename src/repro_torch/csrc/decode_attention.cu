@@ -73,6 +73,15 @@
 // which bounds the split count (decode_attention_max_splits). The
 // counters start at 0 and are left at 0 by every launch; launches sharing
 // counters must run in order (one stream).
+//
+// The partial form (lse != nullptr; decode_attention_partial in ops.py)
+// also writes each head's natural-log log-sum-exp lse = m + log(l) of the
+// merged splits, so that a decode whose cache is cut into sequence blocks
+// on several ranks combines the blocks' outputs: out = sum_r exp(lse_r -
+// M) out_r / sum_r exp(lse_r - M). There valid_len = 0 is an empty block:
+// every block walks nothing, the merge's m is -inf, its factors are taken
+// as 0 (not exp(-inf + inf)), and it writes out = 0 and lse = -inf, which
+// weighs exactly 0 in that combine.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -249,7 +258,7 @@ decode_attention_kernel(const float* __restrict__ q,
                         int G, int hd, int valid_len, int per_split,
                         int splits, float* __restrict__ part,
                         unsigned* __restrict__ tickets,
-                        float* __restrict__ out) {
+                        float* __restrict__ out, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int last;
   const int Gp = padded_heads(G);
@@ -282,9 +291,9 @@ decode_attention_kernel(const float* __restrict__ q,
   const float* ksb = k_scale + static_cast<size_t>(b) * S * KV + n;
   const float* vsb = v_scale + static_cast<size_t>(b) * S * KV + n;
   // this split's positions, walked up to valid_len, or all of them when
-  // every position is masked
+  // every position is masked (none in the partial form: an empty block)
   const int begin = split * per_split;
-  const int limit = valid_len > 0 ? min(valid_len, S) : S;
+  const int limit = valid_len > 0 ? min(valid_len, S) : (lse ? 0 : S);
   const int walk_end = min(min(S, begin + per_split), limit);
   const int nchunks = walk_end > begin
                           ? (walk_end - begin + kChunk - 1) / kChunk : 0;
@@ -459,13 +468,18 @@ decode_attention_kernel(const float* __restrict__ q,
   for (int g = tid; g < G; g += kThreads) {
     float m = -INFINITY;
     for (int j = 0; j < splits; ++j) m = fmaxf(m, fm[j * G + g]);
+    // m is -inf only when every split walked nothing (the partial form's
+    // empty block): each factor is then 0
+    const bool empty = m == -INFINITY;
     float l = 0.f;
     for (int j = 0; j < splits; ++j) {
-      const float f = expf(fm[j * G + g] - m);
+      const float f = empty ? 0.f : expf(fm[j * G + g] - m);
       fm[j * G + g] = f;
       l += fl[j * G + g] * f;
     }
     den[g] = fmaxf(l, 1e-30f);
+    if (lse) lse[static_cast<size_t>(bn) * G + g] = empty ? -INFINITY
+                                                          : m + logf(l);
   }
   __syncthreads();
   // outputs in groups of 4 of one head (hd % 4 == 0), the 16-byte loads
@@ -520,7 +534,8 @@ extern "C" int decode_attention_max_splits(int G, int hd) {
 // K/V on 16-byte boundaries, hd a multiple of 16. S is cut into `splits`
 // ranges of per_split positions (splits = ceil(S / per_split)); part:
 // (B * KV * splits, decode_attention_partial_floats(G, hd)) float32
-// scratch; tickets: B * KV uint32 counters, 0 on entry and left 0.
+// scratch; tickets: B * KV uint32 counters, 0 on entry and left 0; lse:
+// null, or (B, KV, G) float32 for the partial form (the header).
 // Launches on stream, does not synchronise; returns the CUDA error of the
 // launch (0 on success).
 extern "C" int decode_attention_launch(const void* q, const void* k8,
@@ -528,7 +543,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k8,
                                        const void* v_scale, int B, int S,
                                        int KV, int G, int hd, int valid_len,
                                        int per_split, int splits, void* part,
-                                       void* tickets, void* out,
+                                       void* tickets, void* out, void* lse,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t bytes = smem_bytes(G, hd);
@@ -542,6 +557,6 @@ extern "C" int decode_attention_launch(const void* q, const void* k8,
       static_cast<const int8_t*>(v8), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), S, KV, G, hd, valid_len, per_split,
       splits, static_cast<float*>(part), static_cast<unsigned*>(tickets),
-      static_cast<float*>(out));
+      static_cast<float*>(out), static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }

@@ -330,6 +330,25 @@ def all_gather_axis(t, mesh, axis: str, dim: int):
     return torch.cat([by_rank[r] for r in ranks], dim=dim)
 
 
+def all_reduce_axes(t, op: str, axes: tuple, mesh=None):
+    """``t`` reduced in place (``op``: "sum" or "max") over the ranks
+    along each mesh axis of ``axes`` in turn (default mesh: the installed
+    one), through blocking ``c10d`` calls; on a gloo group each is counted
+    in ``GLOO_COLLECTIVES``, as DTensor's redistributions are. Returns
+    ``t``."""
+    import torch.distributed as dist
+
+    mesh = mesh if mesh is not None else get_mesh()
+    for a in axes:
+        if mesh_shape(mesh)[a] == 1:
+            continue
+        pg = mesh.get_group(a)
+        with (_counted("all_reduce") if _is_gloo(pg)
+              else contextlib.nullcontext()):
+            dist.all_reduce(t, op=_reduce_op(op), group=pg)
+    return t
+
+
 # --------------------------------------------------------------------------
 # DTensors: placing trees, local regions, the gloo collectives
 # --------------------------------------------------------------------------

@@ -21,6 +21,14 @@ decode loop passes it without reading anything back from the card. With
 ``valid_len = 0`` every position is masked and both versions return the
 uniform average over all S positions, as the reference does.
 
+:func:`decode_attention_partial` is the same launch with one more output,
+each head's natural-log log-sum-exp, for a cache whose sequence is cut
+into blocks on several ranks (``kv_seq``): each rank attends its block
+and the blocks combine as ``sum_r exp(lse_r - M) out_r / sum_r exp(lse_r
+- M)``. There ``valid_len = 0`` is an empty block, which gives ``out =
+0`` and ``lse = -inf`` (weight 0 in the combine), not the uniform
+average.
+
 Dispatch: CPU tensors (and ``meta`` tensors, which the dry run traces)
 take the plain version; CUDA tensors launch the kernel or raise. Nothing
 falls back.
@@ -66,6 +74,22 @@ def _check_operands(q, k8, v8, k_scale, v_scale) -> None:
         raise ValueError(f"operands on several devices: {devs}")
 
 
+def _plain_logits(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
+                  valid_len: int) -> torch.Tensor:
+    """(B, KV, G, S) float32 logits, the positions from ``valid_len`` on
+    masked to -1e30."""
+    logits = torch.einsum("bngk,bsnk->bngs", q, k8.float())
+    logits = logits * k_scale.transpose(1, 2)[:, :, None, :]
+    mask = torch.arange(k8.shape[1], device=q.device) < int(valid_len)
+    return torch.where(mask, logits, -1e30)
+
+
+def _plain_values(w: torch.Tensor, v8: torch.Tensor, v_scale: torch.Tensor
+                  ) -> torch.Tensor:
+    w = w * v_scale.transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bngs,bsnk->bngk", w, v8.float())
+
+
 def decode_attention_plain(q: torch.Tensor, k8: torch.Tensor,
                            v8: torch.Tensor, k_scale: torch.Tensor,
                            v_scale: torch.Tensor, valid_len: int
@@ -76,16 +100,31 @@ def decode_attention_plain(q: torch.Tensor, k8: torch.Tensor,
     ``decode_attention_plain.calls``."""
     _check_operands(q, k8, v8, k_scale, v_scale)
     decode_attention_plain.calls += 1
-    logits = torch.einsum("bngk,bsnk->bngs", q, k8.float())
-    logits = logits * k_scale.transpose(1, 2)[:, :, None, :]
-    mask = torch.arange(k8.shape[1], device=q.device) < int(valid_len)
-    logits = torch.where(mask, logits, -1e30)
-    w = torch.softmax(logits, dim=-1)
-    w = w * v_scale.transpose(1, 2)[:, :, None, :]
-    return torch.einsum("bngs,bsnk->bngk", w, v8.float())
+    w = torch.softmax(_plain_logits(q, k8, k_scale, valid_len), dim=-1)
+    return _plain_values(w, v8, v_scale)
 
 
 decode_attention_plain.calls = 0
+
+
+def decode_attention_partial_plain(q: torch.Tensor, k8: torch.Tensor,
+                                   v8: torch.Tensor, k_scale: torch.Tensor,
+                                   v_scale: torch.Tensor, valid_len: int
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`decode_attention_partial`: the output
+    of :func:`decode_attention_plain` and its (B, KV, G) float32
+    log-sum-exp over the positions ``< valid_len``; ``valid_len <= 0``
+    gives zeros and ``-inf``. Counts its calls in
+    ``decode_attention_plain.calls``."""
+    _check_operands(q, k8, v8, k_scale, v_scale)
+    decode_attention_plain.calls += 1
+    B, KV, G, hd = q.shape
+    if int(valid_len) <= 0:
+        return (q.new_zeros((B, KV, G, hd)),
+                q.new_full((B, KV, G), float("-inf")))
+    logits = _plain_logits(q, k8, k_scale, valid_len)
+    w = torch.softmax(logits, dim=-1)
+    return _plain_values(w, v8, v_scale), torch.logsumexp(logits, dim=-1)
 
 
 def split_plan(S: int, splits: int) -> tuple[int, int]:
@@ -128,7 +167,7 @@ def _launcher():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
     fn.restype = i
     smem = lib.decode_attention_smem_bytes
     smem.argtypes = [i, i]
@@ -163,14 +202,34 @@ def decode_attention(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     return _launch(q, k8, v8, k_scale, v_scale, valid_len, None)
 
 
+def decode_attention_partial(q: torch.Tensor, k8: torch.Tensor,
+                             v8: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, valid_len: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention` over one block of a cache's sequence, and
+    each head's log-sum-exp: returns (out (B, KV, G, hd), lse (B, KV, G))
+    float32, ``lse = log sum_s exp(logit_s)`` over the positions ``<
+    valid_len``. ``valid_len <= 0`` gives ``out = 0`` and ``lse = -inf``.
+
+    CPU and meta tensors run :func:`decode_attention_partial_plain`; CUDA
+    tensors launch ``csrc/decode_attention.cu``'s partial form (one
+    launch, counted in ``decode_attention.launches``) or raise."""
+    if not q.is_cuda and q.device.type in ("cpu", "meta"):
+        return decode_attention_partial_plain(q, k8, v8, k_scale, v_scale,
+                                              valid_len)
+    return _launch(q, k8, v8, k_scale, v_scale, valid_len, None,
+                   partial=True)
+
+
 def _launch(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
             k_scale: torch.Tensor, v_scale: torch.Tensor, valid_len: int,
-            splits: int | None) -> torch.Tensor:
+            splits: int | None, partial: bool = False):
     """Launches the kernel on CUDA operands with ``splits`` splits of S
     (None: :func:`decode_splits`; tests and the chip check force others),
     capped where the merge's table would outgrow the block's shared
     memory (787 splits at the served G and hd). Counted in
-    ``decode_attention.launches``."""
+    ``decode_attention.launches``. Returns the output, or with
+    ``partial`` (out, lse) of the partial form."""
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
     _check_operands(q, k8, v8, k_scale, v_scale)
@@ -195,8 +254,10 @@ def _launch(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         raise ValueError(f"B={B}, KV={KV}: the grid takes at most 65535 of "
                          f"each")
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+           if partial else None)
     if B == 0 or KV == 0 or G == 0:
-        return out
+        return (out, lse) if partial else out
     valid = max(0, min(int(valid_len), S))
     if splits is None:
         splits = decode_splits(B, KV, S, sm_count(q.device))
@@ -209,10 +270,11 @@ def _launch(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         err = launch(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
                      k_scale.data_ptr(), v_scale.data_ptr(), B, S, KV, G, hd,
                      valid, per, n, part.data_ptr(), tickets.data_ptr(),
-                     out.data_ptr(), stream)
+                     out.data_ptr(), lse.data_ptr() if partial else None,
+                     stream)
     check_status(err, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if partial else out
 
 
 decode_attention.launches = 0

@@ -27,8 +27,13 @@ port's :class:`~repro_torch.launch.roofline.HardwareProfile` (link term
 at ``link_bw``; ``profile_source`` is ``default:h100-sxm`` or
 ``measured``). Every time in it is a bound, not a measurement. ``memory``
 holds each rank's argument and output bytes from the local shard shapes
-and lists what the port cannot count. ``--kv-seq-shard`` raises: the
-port's caches hold whole sequences (``layers.kv_block``).
+and lists what the port cannot count; ``cache_size_in_bytes`` is the
+rank's share of the caches among its arguments (0 for a train cell).
+``--kv-seq-shard`` stripes the caches' sequence over ``model``
+(``rules.replace(kv_seq="model")``, as the reference's flag does): each
+rank's cache is its block of slots (``layers.kv_block``), and a decode
+cell counts the query heads' gather and the blocks' combine
+(``layers.attention_decode``) among its collectives.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_7b \\
@@ -90,8 +95,7 @@ def cache_axes_for(cfg, cache):
     layers are not stacked), by entry type, as the reference's
     ``cache_axes_for``: K / V and their scales, the recurrent states
     (``recurrent.*_STATE_AXES``) and a decoder's cross K / V."""
-    kv = ("batch", "kv_seq", "kv_heads", None)
-    scale = ("batch", "kv_seq", "kv_heads")
+    kv, scale = L.CACHE_AXES, L.CACHE_SCALE_AXES
 
     def node_axes(node):
         if isinstance(node, L.QuantKVCache):
@@ -123,8 +127,9 @@ def shardings_of(axes_tree, shapes_tree, mesh):
 def input_specs(model, shape) -> dict:
     """The step's inputs on ``meta`` (the reference's
     ``Model.input_specs``): train / prefill batches by family, a prefill's
-    and decode's cache (this rank's blocks), a decode's token and
-    position (the cache's last)."""
+    and decode's cache (this rank's blocks: its rows, kv heads and, under
+    ``kv_seq``, its block of slots), a decode's token and position (the
+    cache's last)."""
     cfg = model.cfg
     B, S = shape.global_batch, shape.seq_len
     dt = L._dtype(cfg)
@@ -249,6 +254,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
                 args = (params, tok, cache, specs["pos"])
         t_lower = time.time() - t0
         arg_bytes = _local_bytes(args)
+        cache_bytes = _local_bytes(specs.get("cache"))
         prof = active_profile()
         t0 = time.time()
         roof, out = roofline_from_trace(
@@ -259,6 +265,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
         SH.set_mesh(None)
 
     mem = {"argument_size_in_bytes": arg_bytes,
+           "cache_size_in_bytes": cache_bytes,
            "output_size_in_bytes": _local_bytes(out),
            "not_counted": NOT_COUNTED}
     print("memory (per rank):", {k: v for k, v in mem.items()
@@ -296,8 +303,7 @@ def main(argv=None):
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache (perf variant)")
     ap.add_argument("--kv-seq-shard", action="store_true",
-                    help="stripe KV cache seq axis over the model axis "
-                         "(not ported: raises)")
+                    help="stripe KV cache seq axis over the model axis")
     ap.add_argument("--rules", default="default",
                     help="sharding rule preset (default | fsdp_only)")
     ap.add_argument("--tag", default="", help="artifact filename suffix")
@@ -305,8 +311,7 @@ def main(argv=None):
 
     rules = SH.RULE_PRESETS[args.rules]
     if args.kv_seq_shard:
-        raise SystemExit("--kv-seq-shard is not ported: the port's caches "
-                         "hold whole sequences (models.layers.kv_block)")
+        rules = rules.replace(kv_seq="model")
 
     out = Path(args.out)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]

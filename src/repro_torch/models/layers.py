@@ -21,6 +21,11 @@ instead of returning a new cache. On a mesh a cache is this rank's own
 plain tensors: its ``batch`` block and the kv heads its query-head block
 reads (``kv_block``); the cache writes and the attention over it run in
 one local region (``sharding.local_map_axes``) on the rank's blocks.
+When the rules stripe the cache's sequence (``kv_seq``, which then takes
+its mesh axes before the kv heads, as the reference's ``logical_to_spec``
+does) a cache holds the rank's block of slots with every kv head; a
+decode step attends each block on its own rank and combines the blocks'
+outputs by their log-sum-exps (:func:`attention_decode`).
 
 With ``trainable=True`` the init functions store every leaf in
 ``cfg.param_dtype`` (float32) with ``requires_grad``: the training path's
@@ -40,7 +45,7 @@ card. It never goes through ``_imc_linear``, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +54,10 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.imc.array import ArrayConfig, default_full_scale
 from repro_torch.dist import sharding as SH
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_partial,
+)
 from repro_torch.kernels.imc_mvm import imc_mvm
 
 Params = nn.ParameterDict
@@ -361,14 +369,36 @@ def attention_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
     return _out_proj(SH.constrain(out, *Q_AXES), p["wo"])
 
 
+# the logical axes of a cache's (B, S, KV, hd) K / V and (B, S, KV) scales
+# (the reference's ``cache_axes_for``): the sequence striped by ``kv_seq``
+CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
+CACHE_SCALE_AXES = ("batch", "kv_seq", "kv_heads")
+
+
+class SeqBlock(NamedTuple):
+    """A rank's block of a cache's slots under ``kv_seq``."""
+    first: int     # the block's first slot
+    length: int    # its slots
+    size: int      # the whole cache's slots
+    axes: tuple    # the mesh axes that stripe the slots
+
+
+class _Cache:
+    """``seq_block``: the rank's :class:`SeqBlock` when the cache holds a
+    block of the slots, else None. A class attribute, not a dataclass
+    field: the tree helpers (placements, the dry run's byte counts) see
+    the tensors alone."""
+    seq_block: SeqBlock | None = None
+
+
 @dataclasses.dataclass
-class KVCache:
+class KVCache(_Cache):
     k: torch.Tensor  # (B, S_max, KV, hd)
     v: torch.Tensor
 
 
 @dataclasses.dataclass
-class QuantKVCache:
+class QuantKVCache(_Cache):
     """int8 KV store with per-(batch, position, kv-head) scales: half the
     bytes of a bfloat16 cache per decode step, with the scales factoring
     out of the QK dot product per position."""
@@ -386,42 +416,81 @@ def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def kv_block(cfg: ArchConfig, batch: int, mesh=None) -> tuple[int, int, int]:
+def kv_block(cfg: ArchConfig, batch: int, mesh=None, size: int | None = None
+             ) -> tuple:
     """(rows, first kv head, kv heads) of this rank's cache block on
     ``mesh`` (default: the installed one): its block of the ``batch`` dim
     and the kv heads its block of query heads reads (the rules may leave
     the kv heads replicated while the query heads are sharded); the whole
     cache with no ``DeviceMesh``. A query-head block that is neither whole
-    kv groups nor inside one group raises ``ValueError``."""
+    kv groups nor inside one group raises ``ValueError``.
+
+    With ``size`` (the cache's slots) also (first slot, slots) of the
+    rank's block of the sequence. When the rules stripe it
+    (``CACHE_AXES``' ``kv_seq`` takes mesh axes: they divide ``size``)
+    the block holds every kv head, since ``kv_seq`` takes its mesh axes
+    before ``kv_heads``; a rule that splits the kv heads besides raises
+    ``ValueError``. Else the whole sequence and the heads above."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (batch, 1, h, hd)
     _, rows = SH.local_range(Q_AXES, shape, 0, mesh)
+    if size is not None:
+        cache = (batch, size, kv, hd)
+        s0, sl = SH.local_range(CACHE_AXES, cache, 1, mesh)
+        if sl < size:
+            if SH.dim_axes(CACHE_AXES, cache, 2, mesh):
+                raise ValueError("a cache striped by kv_seq whose kv heads "
+                                 "are split too")
+            return rows, 0, kv, s0, sl
     h0, hl = SH.local_range(Q_AXES, shape, 2, mesh)
     g = h // kv
     if hl % g and g % hl:
         raise ValueError(f"a block of {hl} query heads straddles the kv "
                          f"groups of {g} heads")
-    return rows, h0 // g, max(hl // g, 1)
+    heads = (rows, h0 // g, max(hl // g, 1))
+    return heads if size is None else heads + (0, size)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                   device="cpu", mesh=None):
     """For sliding-window layers the cache is bounded by the window. K, V
     and their scales are separate buffers (they are written in place). On
-    a ``DeviceMesh`` the buffers hold this rank's block (``kv_block``)."""
+    a ``DeviceMesh`` the buffers hold this rank's block (``kv_block``);
+    a block of the slots is recorded in the cache's ``seq_block``."""
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    rows, _, kv = kv_block(cfg, batch, mesh)
+    rows, _, kv, s0, sl = kv_block(cfg, batch, mesh, size)
     hd = cfg.resolved_head_dim
-    shape = (rows, size, kv, hd)
+    shape = (rows, sl, kv, hd)
     if cfg.kv_quant_int8:
-        return QuantKVCache(
+        cache = QuantKVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
-            k_scale=torch.ones((rows, size, kv), device=device),
-            v_scale=torch.ones((rows, size, kv), device=device))
-    dt = dtype or _dtype(cfg)
-    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
-                   v=torch.zeros(shape, dtype=dt, device=device))
+            k_scale=torch.ones((rows, sl, kv), device=device),
+            v_scale=torch.ones((rows, sl, kv), device=device))
+    else:
+        dt = dtype or _dtype(cfg)
+        cache = KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                        v=torch.zeros(shape, dtype=dt, device=device))
+    if sl < size:
+        cache.seq_block = SeqBlock(s0, sl, size, SH.dim_axes(
+            CACHE_AXES, (batch, size, kv, hd), 1, mesh))
+    return cache
+
+
+def _write_slots(cache, at, k: torch.Tensor, v: torch.Tensor) -> None:
+    """k and v (rows, n, KV, hd) written to the cache's slots ``at`` (a
+    slice of n slots), quantized per (row, position, kv head) for an
+    int8 cache."""
+    if isinstance(cache, QuantKVCache):
+        k8, ks = _kv_quant(k)
+        v8, vs = _kv_quant(v)
+        cache.k[:, at] = k8
+        cache.v[:, at] = v8
+        cache.k_scale[:, at] = ks
+        cache.v_scale[:, at] = vs
+    else:
+        cache.k[:, at] = k
+        cache.v[:, at] = v
 
 
 def _on_kv_block(fn: Callable, q: torch.Tensor | None, k: torch.Tensor,
@@ -446,19 +515,27 @@ def _on_kv_block(fn: Callable, q: torch.Tensor | None, k: torch.Tensor,
                              (Q_AXES,))(q, k, v)
 
 
+# the (B, S, KV, hd) keys and values, or (B, 1, H, hd) queries, with every
+# head on each rank of a row block: what a striped cache's block reads
+WHOLE_HEADS = ("batch", None, None, None)
+
+
 @SH.in_mesh_context
 def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
     """Full-sequence causal attention that also fills the KV cache in
     place: position ``p`` of the last ``min(S, size)`` lands in slot
     ``p % size``, the slot decode writes it to. (The reference writes the
     kept tail to slots ``0..size-1``, which misaligns the sliding-window
-    ring when S > size and S % size != 0; the port follows the ring.)"""
+    ring when S > size and S % size != 0; the port follows the ring.) A
+    cache striped by ``kv_seq`` is filled with the slots of its block
+    alone, from k and v with every kv head gathered."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
     route = attention_full if s <= 8192 else attention_chunked
     out = _on_kv_block(lambda q, k, v: route(q, k, v, cfg), q, k, v, cfg)
-    size = cache.k.shape[1]
+    blk = cache.seq_block
+    size = blk.size if blk else cache.k.shape[1]
     n = min(s, size)
     shift = s % size if s > size else 0
 
@@ -466,22 +543,66 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, cache):
         return torch.roll(t, shift, dims=1) if shift else t
 
     def fill(_, k, v):
-        if isinstance(cache, QuantKVCache):
-            k8, ks = _kv_quant(k[:, -size:])
-            v8, vs = _kv_quant(v[:, -size:])
-            cache.k[:, :n] = ring(k8)
-            cache.v[:, :n] = ring(v8)
-            cache.k_scale[:, :n] = ring(ks)
-            cache.v_scale[:, :n] = ring(vs)
-        else:
-            cache.k[:, :n] = ring(k[:, -size:])
-            cache.v[:, :n] = ring(v[:, -size:])
+        _write_slots(cache, slice(0, n), ring(k[:, -size:]),
+                     ring(v[:, -size:]))
 
-    _on_kv_block(fill, None, k, v, cfg)
+    def fill_block(k, v):
+        # slot j of the ring holds position j - shift of the kept tail
+        lo, hi = blk.first, min(blk.first + blk.length, n)
+        if hi > lo:
+            idx = (torch.arange(lo, hi, device=k.device) - shift) % n
+            _write_slots(cache, slice(0, hi - lo), k[:, -size:][:, idx],
+                         v[:, -size:][:, idx])
+
+    if blk is None:
+        _on_kv_block(fill, None, k, v, cfg)
+    else:
+        SH.local_map_axes(fill_block, (WHOLE_HEADS, WHOLE_HEADS), ())(k, v)
     return _out_proj(SH.constrain(out, *Q_AXES), p["wo"]), cache
 
 
 Attend = Callable[..., torch.Tensor]
+
+
+def _dense_logits(qg: torch.Tensor, k: torch.Tensor, valid_len: int
+                  ) -> torch.Tensor:
+    """(b, kv, g, S) float32 logits of grouped queries over a float cache
+    block, the slots from ``valid_len`` on masked to -1e30."""
+    hd = qg.shape[-1]
+    logits = torch.einsum("bngk,bsnk->bngs", qg, k.float()) / (hd ** 0.5)
+    valid = torch.arange(k.shape[1], device=qg.device) < valid_len
+    return torch.where(valid, logits, -1e30)
+
+
+def dense_partial(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bfloat16 cache's counterpart of ``decode_attention_partial``:
+    (out (b, kv, g, hd), lse (b, kv, g)) float32 of grouped queries ``qg``
+    over the slots ``< valid_len`` of a (b, S, kv, hd) block; zeros and
+    ``-inf`` when ``valid_len <= 0``."""
+    if valid_len <= 0:
+        return qg.new_zeros(qg.shape), qg.new_full(qg.shape[:-1],
+                                                   float("-inf"))
+    logits = _dense_logits(qg, k, valid_len)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngs,bsnk->bngk", w, v.float())
+    return out, torch.logsumexp(logits, dim=-1)
+
+
+def combine_partials(out: torch.Tensor, lse: torch.Tensor,
+                     reduce: Callable) -> torch.Tensor:
+    """The attention over a whole cache from each rank's block of it:
+    ``out`` (..., hd) and ``lse`` (...) float32 of this rank's block,
+    combined by ``reduce(t, op)`` (``t`` reduced over the ranks that hold
+    the blocks, ``op`` "max" or "sum"; every rank takes part): a MAX of
+    ``lse`` to ``m``, then one SUM of ``[exp(lse - m) * out, exp(lse -
+    m)]`` and a division. An empty block (``lse = -inf``) weighs exactly
+    0; some block holds slot 0, so the sum of the weights is at least
+    1."""
+    m = reduce(lse.clone(), "max")
+    w = torch.exp(lse - m)[..., None]
+    packed = reduce(torch.cat([out * w, w], dim=-1), "sum")
+    return packed[..., :-1] / packed[..., -1:]
 
 
 @SH.in_mesh_context
@@ -501,46 +622,81 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache,
     past the cache raises a ``ValueError`` (the reference's clamped write
     would overwrite the last slot). On a mesh the slot's write and the
     attention run in one local region on the rank's (batch, kv-head)
-    block of the cache, the kernel on the rank's local shapes."""
+    block of the cache, the kernel on the rank's local shapes.
+
+    A cache striped by ``kv_seq`` (its ``seq_block``) takes
+    :func:`_decode_seq_block` instead; there ``attend`` takes the partial
+    form's arguments and returns (out, lse) (by default
+    ``decode_attention_partial``)."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
-    size = cache.k.shape[1]
+    blk = cache.seq_block
+    size = blk.size if blk else cache.k.shape[1]
     if not cfg.sliding_window and pos >= size:
         raise ValueError(f"decode position {pos} is past the KV cache's "
                          f"{size} positions (no sliding window)")
     slot = pos % size if cfg.sliding_window else pos
     valid_len = min(pos + 1, size)
+    if blk is not None:
+        out = _decode_seq_block(q, k, v, cache, slot, valid_len, attend)
+        return _out_proj(out, p["wo"]), cache
 
     def attend_cached(q, k, v):
         """The cache's slot written and attended, on this rank's block."""
         b, _, h, hd = q.shape
         kv = cache.k.shape[2]
+        _write_slots(cache, slice(slot, slot + 1), k, v)
         if isinstance(cache, QuantKVCache):
-            k8, ks = _kv_quant(k)
-            v8, vs = _kv_quant(v)
-            cache.k[:, slot] = k8[:, 0]
-            cache.v[:, slot] = v8[:, 0]
-            cache.k_scale[:, slot] = ks[:, 0]
-            cache.v_scale[:, slot] = vs[:, 0]
             qg = _group_q(q, kv)[:, 0].float() * hd ** -0.5  # (b, kv, g, hd)
             out = (attend or decode_attention)(
                 qg.contiguous(), cache.k, cache.v, cache.k_scale,
                 cache.v_scale, valid_len)
         else:
-            cache.k[:, slot] = k[:, 0]
-            cache.v[:, slot] = v[:, 0]
             qg = _group_q(q, kv)[:, 0].float()              # (b, kv, g, hd)
-            logits = torch.einsum("bngk,bsnk->bngs", qg,
-                                  cache.k.float()) / (hd ** 0.5)
-            valid = torch.arange(size, device=q.device) < valid_len
-            logits = torch.where(valid, logits, -1e30)
-            w = torch.softmax(logits, dim=-1)
+            w = torch.softmax(_dense_logits(qg, cache.k, valid_len), dim=-1)
             out = torch.einsum("bngs,bsnk->bngk", w, cache.v.float())
         return out.reshape(b, 1, h, hd).to(q.dtype)
 
     out = _on_kv_block(attend_cached, q, k, v, cfg)
     return _out_proj(out, p["wo"]), cache
+
+
+def _decode_seq_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cache, slot: int, valid_len: int,
+                      attend: Attend | None) -> torch.Tensor:
+    """One decode step's attention over a cache striped by ``kv_seq``.
+    q, k and v are gathered to every head of the rank's rows (small:
+    (B, 1, H, hd)); the rank that owns ``slot`` writes it; every rank
+    attends every head of its rows over its block of slots, the slots
+    below ``clamp(valid_len - first, 0, length)`` (the int8 cache on the
+    ``decode_attention_partial`` kernel, the bfloat16 one in
+    :func:`dense_partial`), and the blocks' outputs are combined over the
+    ranks that stripe the slots (:func:`combine_partials`). Returns the
+    output placed as q (``Q_AXES``: the rank's own head block)."""
+    blk = cache.seq_block
+
+    def local(q, k, v):
+        b, _, h, hd = q.shape
+        kv = cache.k.shape[2]
+        if blk.first <= slot < blk.first + blk.length:
+            at = slot - blk.first
+            _write_slots(cache, slice(at, at + 1), k, v)
+        count = min(max(valid_len - blk.first, 0), blk.length)
+        qg = _group_q(q, kv)[:, 0].float()                  # (b, kv, g, hd)
+        if isinstance(cache, QuantKVCache):
+            out, lse = (attend or decode_attention_partial)(
+                (qg * hd ** -0.5).contiguous(), cache.k, cache.v,
+                cache.k_scale, cache.v_scale, count)
+        else:
+            out, lse = dense_partial(qg, cache.k, cache.v, count)
+        out = combine_partials(out, lse, lambda t, op: SH.all_reduce_axes(
+            t, op, blk.axes))
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+
+    out = SH.local_map_axes(local, (WHOLE_HEADS,) * 3, (WHOLE_HEADS,))(
+        q, k, v)
+    return SH.constrain(out, *Q_AXES)
 
 
 # ---------------------------------------------------------------------------
@@ -649,13 +805,9 @@ def _imc_linear(x: torch.Tensor, w: torch.Tensor, cfg: ArchConfig
     _, fl = SH.local_range(IMC_X_AXES, x.shape, 2)
     tiled = fl < x.shape[-1] and fl % cols == 0
     axes = SH.dim_axes(IMC_X_AXES, x.shape, 2) if tiled else ()
-    mesh = SH.get_mesh()
 
     def amax(t):
-        for a in axes:
-            torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MAX,
-                                         group=mesh.get_group(a))
-        return t
+        return SH.all_reduce_axes(t, "max", axes)
 
     def local(xl, wl):
         y_exact, y_imc = _imc_parts(xl, wl, cfg, amax if axes else None)

@@ -17,7 +17,9 @@ A recurrent layer's cache entry is its state (``models.recurrent``); a
 ``dec_cross`` layer's holds its cross K/V (``transformer.CrossKV``).
 
 ``build_model(cfg, device, mesh=)`` with a ``DeviceMesh`` installs it as
-the global mesh (``sharding.set_mesh``): the parameters are DTensors
+the global mesh (``sharding.set_mesh``, keeping the installed rules, so
+``set_mesh(mesh, rules.replace(kv_seq="model"))`` before it stripes the
+caches' sequence): the parameters are DTensors
 placed by ``param_axes``, a batch is placed by its ``batch`` dim, and the
 forwards run on DTensors. Every family runs over a mesh of more than one
 rank: the dense, MoE (expert-parallel), VLM and encoder-decoder ones, the
@@ -138,7 +140,8 @@ def _vlm_inputs(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
                 mesh=None) -> Model:
     """The model on ``device``; over ``mesh`` (installed as the global
-    mesh when it is a ``DeviceMesh``; see the module docstring)."""
+    mesh with the installed rules when it is a ``DeviceMesh``; see the
+    module docstring)."""
     if SH.is_device_mesh(mesh):
-        SH.set_mesh(mesh)
+        SH.set_mesh(mesh, SH.get_rules())
     return Model(cfg=cfg, device=resolve_device(device), mesh=mesh)

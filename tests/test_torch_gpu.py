@@ -815,6 +815,98 @@ def test_decode_attention_masked_tail_is_bit_identical(cuda):
     assert torch.equal(decode_attention(q, k8b, v8b, ks, vs, 70), out)
 
 
+# decode_attention_partial cases: (B, S, KV, G, hd, valid lengths): a
+# rank's block of granite_20b's cache striped over 2 and 4 ranks (8 rows,
+# 1,032 and 516 slots, 1 kv head, G = 48), the served Qwen2-7B shape at
+# its split boundary, hd 48 and 256; valid_len 0 (an empty block: out 0,
+# lse -inf), 1, mid-block and at and past S. Tolerance as decode_attention.
+PARTIAL_CASES = [
+    (8, 1032, 1, 48, 128, (0, 1, 517, 1032, 5000)),
+    (8, 516, 1, 48, 128, (0, 258, 516, 517)),
+    (32, 1088, 4, 7, 128, (0, 362, 363, 364, 1088)),
+    (2, 300, 2, 5, 48, (1, 150, 300, 301)),
+    (1, 64, 1, 1, 256, (0, 64)),
+]
+
+
+def _partial_matches_plain(got, want, vl):
+    out, lse = got
+    if vl <= 0:
+        assert bool((out == 0).all()) and bool((lse == float("-inf")).all())
+        return
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(out, want[0], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(lse, want[1], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,valid", PARTIAL_CASES)
+def test_decode_attention_partial_kernel_matches_plain(cuda, B, S, KV, G, hd,
+                                                       valid):
+    """The output and the log-sum-exp, one launch a call."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_partial,
+        decode_attention_partial_plain,
+    )
+    ops = _decode_operands(cuda, B, S, KV, G, hd)
+    for vl in valid:
+        before = decode_attention.launches
+        got = decode_attention_partial(*ops, vl)
+        want = decode_attention_partial_plain(*ops, vl)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        assert got[0].shape == ops[0].shape and got[1].shape == (B, KV, G)
+        _partial_matches_plain(got, want, vl)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 17])
+def test_decode_attention_partial_forced_splits_match_plain(cuda, splits):
+    """S = 300 cut into each split count: valid_len 0, 1 (every later
+    split empty) and around the first boundary."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partial_plain,
+    )
+    from repro_torch.kernels.decode_attention.ops import _launch, split_plan
+    ops = _decode_operands(cuda, 2, 300, 2, 7, 128, seed=splits)
+    _, per = split_plan(300, splits)
+    for vl in (0, 1, per - 1, per, per + 1, 300):
+        got = _launch(*ops, vl, splits, partial=True)
+        want = decode_attention_partial_plain(*ops, vl)
+        torch.cuda.synchronize()
+        _partial_matches_plain(got, want, vl)
+
+
+@pytest.mark.parametrize("edges", [(0, 516, 1032), (0, 258, 516, 774, 1032)])
+def test_decode_attention_partial_blocks_combine_on_the_card(cuda, edges):
+    """granite_20b's 1,032 slots cut into 2 and 4 blocks, each on the
+    partial kernel with its own count, combined (``layers.
+    combine_partials``): ``decode_attention`` over the whole cache, with
+    valid lengths that leave later blocks empty."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_partial,
+    )
+    from repro_torch.models import layers as L
+
+    ops = _decode_operands(cuda, 8, 1032, 1, 48, 128, seed=11)
+
+    def stacked(t, op):
+        r = t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
+        return r.expand_as(t).clone()
+
+    for vl in (1, 300, 516, 517, 1032):
+        parts = [decode_attention_partial(
+            ops[0], *(t[:, s0:s1].contiguous() for t in ops[1:]),
+            min(max(vl - s0, 0), s1 - s0))
+            for s0, s1 in zip(edges[:-1], edges[1:])]
+        got = L.combine_partials(torch.stack([p[0] for p in parts]),
+                                 torch.stack([p[1] for p in parts]), stacked)
+        want = decode_attention(*ops, vl)
+        torch.cuda.synchronize()
+        for r in range(len(parts)):
+            torch.testing.assert_close(got[r], want, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("hd", [8, 24, 272])
 def test_decode_attention_raises_on_unsupported_head_dim(cuda, hd):
     from repro_torch.kernels.decode_attention import decode_attention

@@ -313,13 +313,70 @@ def test_the_cli_runs_the_full_size_cell_on_256_fake_ranks(tmp_path):
     assert "[ok] qwen2_7b__train_4k__single" in r.stdout
 
 
-def test_the_cli_refuses_kv_seq_shard():
+# the decode_32k cells with and without --kv-seq-shard: each process
+# traces one full-size cell on 256 fake ranks (a (16, 16) mesh: 8 rows a
+# rank of decode_32k's 128)
+KV_SEQ_ARCHS = ("granite_20b", "qwen2_7b")
+
+
+@pytest.fixture(scope="module")
+def kv_seq_cells(tmp_path_factory):
+    """Every (arch, flag) decode_32k cell, the CLIs started at once."""
+    out = tmp_path_factory.mktemp("kv_seq")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "qwen2_7b", "--shape", "decode_32k", "--kv-seq-shard"],
-        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
-    assert r.returncode != 0 and "not ported" in r.stderr
+    runs = {(arch, flag): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "decode_32k", "--out", str(out)]
+        + (["--kv-seq-shard", "--tag", "_kv_seq"] if flag else []),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=REPO) for arch in KV_SEQ_ARCHS for flag in (False, True)}
+    cells = {}
+    for (arch, flag), p in runs.items():
+        text, _ = p.communicate(timeout=240)
+        assert p.returncode == 0, text[-3000:]
+        assert f"[ok] {arch}__decode_32k__single" in text
+        name = f"{arch}__decode_32k__single{'_kv_seq' if flag else ''}.json"
+        cells[arch, flag] = json.loads((out / name).read_text())
+    return cells
+
+
+@pytest.mark.parametrize("arch", KV_SEQ_ARCHS)
+def test_kv_seq_shard_cuts_the_decode_cache_by_the_model_axis(
+        kv_seq_cells, arch):
+    """The flag stripes each cache's 32,768 slots over the 16-way model
+    axis: a rank's cache bytes are 1/16 of the cell without it (granite's
+    1 kv head and qwen2_7b's 4, which model does not divide, are whole on
+    every rank without it: 6.5 and 14 GiB in bfloat16)."""
+    cfg = get_config(arch)
+    plain, striped = (kv_seq_cells[arch, f] for f in (False, True))
+    assert plain["status"] == striped["status"] == "ok"
+    rows = SHAPES["decode_32k"].global_batch // 16
+    whole = (cfg.num_layers * rows * 32_768 * cfg.num_kv_heads
+             * cfg.resolved_head_dim * 2 * 2)
+    assert whole == {"granite_20b": 6.5, "qwen2_7b": 14}[arch] * 2**30
+    assert plain["memory"]["cache_size_in_bytes"] == whole
+    assert striped["memory"]["cache_size_in_bytes"] == whole // 16
+
+
+@pytest.mark.parametrize("arch", KV_SEQ_ARCHS)
+def test_kv_seq_shard_counts_the_gather_and_the_combine(kv_seq_cells,
+                                                        arch):
+    """A step's collectives gain, a layer: the combine's two all-reduces
+    over a rank's rows and every query head (the log-sum-exp's MAX, then
+    the SUM of the weighted output and its weight: hd + 2 floats a
+    head), and the gather of the bfloat16 query heads where model splits
+    them (granite's 48 over 16; qwen2_7b's 28 are whole on every rank;
+    both models' kv heads are)."""
+    cfg = get_config(arch)
+    plain, striped = (kv_seq_cells[arch, f]["roofline"]["coll_breakdown"]
+                      for f in (False, True))
+    rows = SHAPES["decode_32k"].global_batch // 16
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    combine = cfg.num_layers * rows * h * (hd + 2) * 4
+    assert striped["all-reduce"] - plain["all-reduce"] == combine
+    heads = h // 16 if h % 16 == 0 else 0
+    assert (striped["all-gather"] - plain["all-gather"]
+            == cfg.num_layers * rows * heads * hd * 2)
 
 
 # ------------------------------------------------- dryrun's axes (no group)
@@ -378,6 +435,47 @@ def test_cache_axes_for_matches_the_references(jdryrun, arch, kv_quant):
     want = {tuple(a for a in axes if a != "layer") for axes in jleaves(
         jdryrun.cache_axes_for(jcfg, jcache), is_leaf=jdryrun._leaf_axes)}
     assert got == want
+
+
+@pytest.mark.parametrize("arch", KV_SEQ_ARCHS)
+def test_cache_axes_under_kv_seq_are_the_references(jdryrun, arch):
+    """Under ``kv_seq="model"`` on the (16, 16) mesh, every cache leaf's
+    axes, and the spec they resolve to, are the reference's
+    ``cache_axes_for``'s (less its stacked-layer dim)."""
+    import dataclasses
+    import types
+
+    import jax
+    from jax.tree_util import tree_leaves as jleaves
+
+    from repro.dist import sharding as JSH
+    from repro.models.model_zoo import build_model as jbuild
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model_zoo import build_model
+
+    sizes = {"data": 16, "model": 16}
+    cfg = dataclasses.replace(get_config(arch), kv_quant_int8=True)
+    jcfg = dataclasses.replace(jget_config(arch), kv_quant_int8=True,
+                               num_layers=2)
+    cache = build_model(cfg, "meta").init_cache(128, 32_768)
+    jcache = jax.eval_shape(lambda: jbuild(jcfg).init_cache(128, 32_768))
+    jaxes = jleaves(jdryrun.cache_axes_for(jcfg, jcache),
+                    is_leaf=jdryrun._leaf_axes)
+    rules = JSH.ShardingRules().replace(kv_seq="model")
+    want = {(tuple(a for a in axes if a != "layer"), tuple(
+        JSH.logical_to_spec(axes, leaf.shape, types.SimpleNamespace(
+            shape=sizes), rules))[1:]) for axes, leaf in zip(
+                jaxes, jleaves(jcache), strict=True)}
+    with SH.rules_override(kv_seq="model"):
+        got = set()
+        for entry in cache[:1]:
+            for f in dataclasses.fields(entry):
+                axes = getattr(dryrun.cache_axes_for(cfg, entry), f.name)
+                got.add((axes, SH.logical_to_spec(
+                    axes, getattr(entry, f.name).shape, sizes)))
+    assert got == want
+    assert all(spec[1] == "model" and spec[2] is None for _, spec in got)
 
 
 def test_batch_axes_and_shardings_of_place_the_batch():
