@@ -12,7 +12,8 @@ flush-sync loop or ``scheduler.ContinuousScheduler``'s slots over the
 ``encode_search`` kernels (their banded twins in OMS mode, planned by
 ``oms``) and routing results through target-decoy FDR; clustering
 requests go to per-tenant ``clustering.StreamingClusterer`` state, whose
-distance step is the ``hamming_pop`` kernel.
+distance step is the ``hamming_pop`` kernel. A ``trace.SpanRecorder``
+attached to the server records spans of its serving path.
 ``repro_torch.launch.serve_db`` and ``repro_torch.launch.serve_cluster``
 are the runnable entry points.
 """
@@ -69,6 +70,7 @@ from repro_torch.serve.scheduler import (
     CoordinatedScheduler,
     Slot,
 )
+from repro_torch.serve.trace import SpanRecorder
 
 __all__ = [
     "BankRegistry",
@@ -94,6 +96,7 @@ __all__ = [
     "SearchExecutor",
     "ShardedDatabase",
     "Slot",
+    "SpanRecorder",
     "StreamingClusterer",
     "bucket_for",
     "build_precursor_index",

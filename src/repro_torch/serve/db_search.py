@@ -111,6 +111,7 @@ from repro_torch.serve.scheduler import (
     CoordinatedScheduler,
 )
 from repro_torch.serve.staging import PinnedArena, StagingPool
+from repro_torch.serve.trace import SpanRecorder
 from repro_torch.spectra.fdr import fdr_filter
 
 _OMS_ALIGN = 128  # shard_rows alignment of OMS banks (the 128-row tile the
@@ -889,22 +890,22 @@ class BatchHandle:
     host_vals: torch.Tensor | None = None
     misses: "_Misses | None" = None
     arena: PinnedArena | None = None
+    bid: int | None = None  # its spans' batch id (a recorder attached)
 
 
 @dataclasses.dataclass
 class ClusterBatchHandle:
-    """One dispatched clustering batch. ``dists`` is the (bucket, c0)
-    device distance matrix against the tenant's snapshot (None when the
-    tenant had no cluster yet); ``start`` and ``done`` are timing events
-    around its launch, ``ready`` after its copy to the host (None on the
-    CPU). The sequential assign-or-spawn decision runs on the host at
-    finalize."""
+    """One dispatched clustering batch. ``host_dists`` is its (n, c0)
+    distances against the tenant's snapshot, copied to the host (None
+    when the tenant had no cluster yet); ``start`` and ``done`` are timing
+    events around their launch, ``ready`` after their copy to the host
+    (None on the CPU). The sequential assign-or-spawn decision runs on the
+    host at finalize."""
 
     reqs: list[Request]
     tenant: str
     n: int                       # real rows (the rest is bucket padding)
     hvs: np.ndarray              # (bucket, D) int8 batch
-    dists: torch.Tensor | None
     c0: int                      # clusters covered by the snapshot
     struct_version: int          # clusterer structure at dispatch
     start: torch.cuda.Event | None = None
@@ -912,6 +913,7 @@ class ClusterBatchHandle:
     ready: torch.cuda.Event | None = None
     host_dists: torch.Tensor | None = None
     arena: PinnedArena | None = None
+    bid: int | None = None
 
 
 @dataclasses.dataclass
@@ -929,12 +931,23 @@ class _Misses:
     host: torch.Tensor | None = None
 
 
-def _add_device_time(srv: "DBSearchServer", start, done) -> None:
+def _add_device_time(srv: "DBSearchServer", start, done) -> float | None:
     """Adds the device time between two recorded events (waited for) to
-    ``srv.device_busy_s``."""
-    if start is not None:
-        srv.device_busy_s = ((srv.device_busy_s or 0.0)
-                             + start.elapsed_time(done) / 1e3)
+    ``srv.device_busy_s``; returns it (ms), None without events."""
+    if start is None:
+        return None
+    ms = start.elapsed_time(done)
+    srv.device_busy_s = (srv.device_busy_s or 0.0) + ms / 1e3
+    return ms
+
+
+def _route(h) -> str:
+    """The route a dispatched batch took, as its ``dispatch`` span names
+    it."""
+    if isinstance(h, ClusterBatchHandle):
+        return "cluster"
+    return ("merged" if h.delta is not None else
+            "banded" if h.plan is not None else "exact")
 
 
 def _timing_events(device: torch.device):
@@ -990,6 +1003,9 @@ class SearchExecutor:
     snapshot distances at dispatch, timed and copied back the same way,
     and run the assign-or-spawn loop at finalize.
 
+    With a span recorder attached (``server.tracer``), dispatch and
+    finalize record their steps as spans (:mod:`repro_torch.serve.trace`).
+
     Pass a subclass as ``DBSearchServer(executor_cls=...)`` to observe or
     replace batches.
     """
@@ -1000,12 +1016,26 @@ class SearchExecutor:
 
     def dispatch(self, reqs: list[Request]) -> BatchHandle | ClusterBatchHandle:
         srv = self.server
+        tr = srv.tracer
+        if tr is not None:
+            span = tr.begin("dispatch", bid=tr.next_id, cache_hits=0,
+                            cache_misses=0)
         t = srv._clock()
         for r in reqs:
             r.t_dispatch = t
         tenant = reqs[0].tenant
         if reqs[0].kind == "cluster":
-            return self._dispatch_cluster(reqs, tenant)
+            h = self._dispatch_cluster(reqs, tenant)
+        else:
+            h = self._dispatch_search(reqs, tenant, tr)
+        if tr is not None:
+            h.bid = span
+            tr.end(span, n=h.n, route=_route(h))
+        return h
+
+    def _dispatch_search(self, reqs: list[Request], tenant: str,
+                         tr: SpanRecorder | None) -> BatchHandle:
+        srv = self.server
         db, delta = srv.banks.get_with_delta(tenant)  # lazy build on first use
         n = len(reqs)
         bucket = bucket_for(n, srv.buckets)
@@ -1015,35 +1045,48 @@ class SearchExecutor:
         start, done = _timing_events(dev)
         if srv.oms is not None:
             h = self._dispatch_oms(reqs, db, delta, n, bucket, tenant, arena,
-                                   start)
-        elif delta is not None:
-            # merged base + delta search (bit-identical to a rebuilt
-            # bank). The fused-e2e route has no encoded intermediate to
-            # hand the delta, so delta batches take the staged encode,
-            # bit-identical to the fused one.
-            from repro_torch.serve.delta import merged_search_encoded
-            batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
-                                              start=start)
-            raw = srv._raw_batch(reqs, bucket, arena)
-            idx, vals = merged_search_encoded(db, delta, batch, raw, srv.k)
+                                   start, tr)
+        else:
+            # delta batches take the staged encode: the fused-e2e route has
+            # no encoded intermediate to hand the delta, and the staged
+            # encode is bit-identical to the fused one
+            fused = srv.encoder is not None and srv.fused_e2e
+            raw = misses = None
+            if delta is not None or not fused:
+                batch, misses = srv._encode_batch(reqs, db, bucket, tenant,
+                                                  arena, start=start, tr=tr)
+                if delta is not None:
+                    raw = srv._raw_batch(reqs, bucket, arena, tr=tr)
+            else:
+                if tr is not None:
+                    t_span = tr.clock()
+                levels = srv._levels_batch(reqs, bucket)
+                if tr is not None:
+                    tr.span("dispatch.assemble", t_span)
+                _record(start)
+                batch = arena.upload("levels", levels)
+            if tr is not None:
+                t_span = tr.clock()
+            if delta is not None:
+                # merged base + delta search (bit-identical to a rebuilt
+                # bank)
+                from repro_torch.serve.delta import merged_search_encoded
+                idx, vals = merged_search_encoded(db, delta, batch, raw,
+                                                  srv.k)
+            elif fused:
+                idx, vals = search_database_levels(db, srv.encoder, batch,
+                                                   srv.k, fused_e2e=True)
+            else:
+                idx, vals = search_database_encoded(db, batch, srv.k)
+            if tr is not None:
+                tr.span("dispatch.search", t_span)
             h = BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n,
                             batch=batch, idx=idx, vals=vals, misses=misses,
-                            num_decoys=db.num_decoys + delta.num_decoys,
+                            num_decoys=(None if delta is None else
+                                        db.num_decoys + delta.num_decoys),
                             delta=delta, raw=raw)
-        elif srv.encoder is not None and srv.fused_e2e:
-            levels = srv._levels_batch(reqs, bucket)
-            _record(start)
-            batch = arena.upload("levels", levels)
-            idx, vals = search_database_levels(db, srv.encoder, batch, srv.k,
-                                               fused_e2e=True)
-            h = BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n,
-                            batch=batch, idx=idx, vals=vals)
-        else:
-            batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
-                                              start=start)
-            idx, vals = search_database_encoded(db, batch, srv.k)
-            h = BatchHandle(reqs=reqs, tenant=tenant, db=db, n=n,
-                            batch=batch, idx=idx, vals=vals, misses=misses)
+        if tr is not None:
+            t_span = tr.clock()
         h.start, h.done, h.arena = start, done, arena
         if done is not None:
             done.record()
@@ -1052,11 +1095,14 @@ class SearchExecutor:
         if h.misses is not None:
             h.misses.host = arena.download("misses", h.misses.enc)
         h.ready = _recorded(dev)
+        if tr is not None:
+            tr.span("dispatch.copy_out", t_span)
         return h
 
     def _dispatch_oms(self, reqs: list[Request], db: ShardedDatabase, delta,
                       n: int, bucket: int, tenant: str, arena: PinnedArena,
-                      start: torch.cuda.Event | None = None) -> BatchHandle:
+                      start: torch.cuda.Event | None = None,
+                      tr: SpanRecorder | None = None) -> BatchHandle:
         """OMS dispatch: precursor-sort the batch (neighbouring masses
         share the banded kernels' tiles; pad rows take the highest real
         precursor), plan it on the host, launch the banded search. Results
@@ -1065,37 +1111,56 @@ class SearchExecutor:
         (:mod:`repro_torch.serve.delta`); fused-e2e servers take the
         staged encode for those batches, which is bit-identical."""
         srv = self.server
+        if tr is not None:
+            t_span = tr.clock()
         prec = np.asarray([r.precursor for r in reqs], np.float32)
         order = np.argsort(prec, kind="stable")
         inv = np.argsort(order, kind="stable")
         prec_padded = np.concatenate(
             [prec[order], np.full(bucket - n, prec[order][-1], np.float32)])
-        raw = misses = num_decoys = None
+        if tr is not None:
+            tr.span("dispatch.assemble", t_span)
+            t_span = tr.clock()
         if delta is not None:
             from repro_torch.serve.delta import (
                 merged_oms_plan,
                 merged_oms_search_encoded,
             )
             plan = merged_oms_plan(db, delta, prec_padded, srv.oms)
+        else:
+            plan = oms_plan(db, prec_padded, srv.oms)
+        if tr is not None:
+            tr.span("dispatch.plan", t_span,
+                    scanned_fraction=plan.scanned_fraction)
+        fused = srv.encoder is not None and srv.fused_e2e
+        raw = misses = num_decoys = None
+        if delta is not None or not fused:
             batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
-                                              rows=inv, start=start)
-            raw = srv._raw_batch(reqs, bucket, arena, rows=inv)
+                                              rows=inv, start=start, tr=tr)
+            if delta is not None:
+                raw = srv._raw_batch(reqs, bucket, arena, rows=inv, tr=tr)
+        else:
+            if tr is not None:
+                t_span = tr.clock()
+            levels = srv._levels_batch(reqs, bucket, rows=inv)
+            if tr is not None:
+                tr.span("dispatch.assemble", t_span)
+            _record(start)
+            batch = arena.upload("levels", levels)
+        if tr is not None:
+            t_span = tr.clock()
+        if delta is not None:
             idx, vals = merged_oms_search_encoded(db, delta, batch, raw, plan,
                                                   srv.k, arena=arena)
             num_decoys = db.num_decoys + delta.num_decoys
-        elif srv.encoder is not None and srv.fused_e2e:
-            plan = oms_plan(db, prec_padded, srv.oms)
-            levels = srv._levels_batch(reqs, bucket, rows=inv)
-            _record(start)
-            batch = arena.upload("levels", levels)
+        elif fused:
             idx, vals = oms_search_levels(db, srv.encoder, batch, plan, srv.k,
                                           fused_e2e=True, arena=arena)
         else:
-            plan = oms_plan(db, prec_padded, srv.oms)
-            batch, misses = srv._encode_batch(reqs, db, bucket, tenant, arena,
-                                              rows=inv, start=start)
             idx, vals = oms_search_encoded(db, batch, plan, srv.k,
                                            arena=arena)
+        if tr is not None:
+            tr.span("dispatch.search", t_span)
         valid = plan.has_candidate[:n][inv]
         srv._oms_batches += 1
         srv._oms_cand_frac += plan.candidate_fraction
@@ -1132,7 +1197,7 @@ class SearchExecutor:
             done.record()
         host = None if dists is None else arena.download("dists", dists[:n])
         return ClusterBatchHandle(reqs=reqs, tenant=tenant, n=n, hvs=hvs,
-                                  dists=dists, c0=c0, struct_version=version,
+                                  c0=c0, struct_version=version,
                                   start=start, done=done,
                                   ready=_recorded(cl.device), host_dists=host,
                                   arena=arena)
@@ -1143,9 +1208,16 @@ class SearchExecutor:
     def _wait(self, handle: BatchHandle | ClusterBatchHandle) -> None:
         """Waits for the handle's copies to the host (its ``ready``
         event) and adds its device time."""
+        tr = self.server.tracer
+        if tr is not None:
+            t_span = tr.clock()
         if handle.ready is not None:
             handle.ready.synchronize()
-        _add_device_time(self.server, handle.start, handle.done)
+        if tr is not None:
+            tr.span("finalize.wait", t_span)
+        ms = _add_device_time(self.server, handle.start, handle.done)
+        if tr is not None and ms is not None:
+            tr.add(device_ms=ms)
 
     def _finalize_cluster(self, handle: ClusterBatchHandle) -> list[Request]:
         srv = self.server
@@ -1176,16 +1248,33 @@ class SearchExecutor:
 
     def finalize(self, handle: BatchHandle | ClusterBatchHandle
                  ) -> list[Request]:
+        tr = self.server.tracer
+        if tr is not None:
+            span = tr.begin("finalize", bid=handle.bid)
         if isinstance(handle, ClusterBatchHandle):
-            return self._finalize_cluster(handle)
+            live = self._finalize_cluster(handle)
+        else:
+            live = self._finalize_search(handle, tr)
+        if tr is not None:
+            tr.end(span)
+        return live
+
+    def _finalize_search(self, handle: BatchHandle,
+                         tr: SpanRecorder | None) -> list[Request]:
         srv = self.server
         self._wait(handle)
         idx = handle.host_idx.clone()
         vals = handle.host_vals.clone()
         if handle.misses is not None:
+            if tr is not None:
+                t_span = tr.clock()
             srv._fill_misses(handle.misses)
+            if tr is not None:
+                tr.span("finalize.cache", t_span)
         if handle.arena is not None:
             self.staging.release(handle.arena)
+        if tr is not None:
+            t_span = tr.clock()
         valid = None
         if handle.inv is not None:
             inv = torch.from_numpy(handle.inv)
@@ -1193,6 +1282,9 @@ class SearchExecutor:
             valid = torch.from_numpy(handle.valid)
         routed = fdr_route(handle.db, idx, vals, fdr=srv.fdr, valid=valid,
                            num_decoys=handle.num_decoys)
+        if tr is not None:
+            tr.span("finalize.fdr", t_span)
+            t_span = tr.clock()
         t_done = srv._clock()
         live: list[Request] = []
         for i, r in enumerate(handle.reqs):
@@ -1210,6 +1302,8 @@ class SearchExecutor:
             srv.stats.record_batch(live)
             srv.tenant_stats.setdefault(
                 handle.tenant, LatencyStats()).record_batch(live)
+        if tr is not None:
+            tr.span("finalize.results", t_span)
         return live
 
 
@@ -1318,7 +1412,11 @@ class DBSearchServer:
     plan (their state is each rank's own; nothing of theirs is sharded).
 
     ``executor_cls`` is the :class:`SearchExecutor` subclass built on this
-    server (to observe or replace batches).
+    server (to observe or replace batches). ``tracer`` (also the attribute
+    ``tracer``, which may be set or cleared at any time) is a
+    :class:`~repro_torch.serve.trace.SpanRecorder` that records spans of
+    the serving path: ``dispatch`` and ``finalize`` of each batch and
+    their parts, ``compact``; ``summary()["trace"]`` sums them.
     """
 
     def __init__(self, db: ShardedDatabase | BankRegistry, *, k: int = 4,
@@ -1335,7 +1433,8 @@ class DBSearchServer:
                  executor_cls: type[SearchExecutor] = SearchExecutor,
                  compact_threshold: float | None = None,
                  clustering: ClusteringConfig | None = None,
-                 cluster_device: str | torch.device = "cuda"):
+                 cluster_device: str | torch.device = "cuda",
+                 tracer: SpanRecorder | None = None):
         if isinstance(db, BankRegistry):
             self.db = None
             self.banks = db
@@ -1393,15 +1492,16 @@ class DBSearchServer:
         if continuous and _ranks(self.mesh) > 1:
             import torch.distributed as dist
             self.scheduler = CoordinatedScheduler(
-                self.queue, self.executor, num_slots=num_slots, clock=clock,
+                self.queue, self.executor, num_slots=num_slots,
                 exchange=functools.partial(_gather_rows, self.mesh),
                 rank=dist.get_rank())
         elif continuous:
             self.scheduler = ContinuousScheduler(
-                self.queue, self.executor, num_slots=num_slots, clock=clock)
+                self.queue, self.executor, num_slots=num_slots)
         # seconds the device spent on served batches' searches and
         # clustering distances (None until a batch ran on a CUDA device)
         self.device_busy_s: float | None = None
+        self.tracer = tracer
 
     def submit(self, query_hv, tenant: str = "default",
                precursor: float | None = None) -> int:
@@ -1485,8 +1585,8 @@ class DBSearchServer:
         return out
 
     def _raw_batch(self, reqs: list[Request], bucket: int,
-                   arena: PinnedArena, rows: np.ndarray | None = None
-                   ) -> torch.Tensor:
+                   arena: PinnedArena, rows: np.ndarray | None = None,
+                   tr: SpanRecorder | None = None) -> torch.Tensor:
         """The (bucket, D) raw bipolar int8 batch on the device: the query
         form the *unpacked* delta side of a merged search scores against;
         request i at row ``rows[i]``. Encoder servers run the staged
@@ -1495,8 +1595,13 @@ class DBSearchServer:
         same bytes)."""
         if self.encoder is not None:
             levels = self._levels_batch(reqs, bucket, rows)
-            return self._encode_levels(arena.upload("raw_levels", levels),
-                                       levels)
+            if tr is not None:
+                t_span = tr.clock()
+            out = self._encode_levels(arena.upload("raw_levels", levels),
+                                      levels)
+            if tr is not None:
+                tr.span("dispatch.encode", t_span)
+            return out
         out = np.zeros((bucket, len(reqs[0].query)), np.int8)
         for i, r in enumerate(reqs):
             out[i if rows is None else rows[i]] = r.query
@@ -1505,7 +1610,8 @@ class DBSearchServer:
     def _encode_batch(self, reqs: list[Request], db: ShardedDatabase,
                       bucket: int, tenant: str, arena: PinnedArena,
                       rows: np.ndarray | None = None,
-                      start: torch.cuda.Event | None = None
+                      start: torch.cuda.Event | None = None,
+                      tr: SpanRecorder | None = None
                       ) -> tuple[torch.Tensor, _Misses | None]:
         """The (bucket, width) encoded batch on the bank's device, request
         i at row ``rows[i]`` (default i), through the cache: hits are
@@ -1515,6 +1621,8 @@ class DBSearchServer:
         the reference's, in its order. ``start`` is recorded between the
         host-side lookups and the first device operation. Returns (batch,
         the misses whose cache entries finalize fills, or None)."""
+        if tr is not None:
+            t_span = tr.clock()
         width = db.data.shape[-1]
         dtype = _NUMPY_DTYPE[db.data.dtype]
         out = np.zeros((bucket, width), dtype=dtype)
@@ -1540,6 +1648,11 @@ class DBSearchServer:
             tc = self._tenant_cache.setdefault(tenant, [0, 0])
             tc[0] += len(reqs) - len(miss)
             tc[1] += len(miss)
+            if tr is not None:
+                tr.add(cache_hits=len(reqs) - len(miss),
+                       cache_misses=len(miss))
+        if tr is not None:
+            tr.span("dispatch.assemble", t_span)
         _record(start)
         batch = arena.upload("batch", out)
         for p, enc, j in in_flight:
@@ -1547,7 +1660,11 @@ class DBSearchServer:
         if not miss:
             return batch, None
         host = np.stack([reqs[i].query for i in miss])
+        if tr is not None:
+            t_span = tr.clock()
         enc = self._encode_rows(db, arena.upload("queries", host), host)
+        if tr is not None:
+            tr.span("dispatch.encode", t_span)
         batch.index_copy_(0, arena.upload(
             "miss_rows", pos[miss].astype(np.int64)), enc)
         if miss_keys is None:
@@ -1613,11 +1730,18 @@ class DBSearchServer:
         into its base bank; returns the number of tenants compacted."""
         if self.compact_threshold is None:
             return 0
+        tr = self.tracer
         done = 0
         for t in self.banks.tenants_with_delta():
             if self.banks.delta_fraction(t) >= self.compact_threshold:
-                if self.banks.compact(t):
-                    done += 1
+                if tr is not None:
+                    t_span = tr.clock()
+                    rows = self.banks.delta(t).num_rows
+                folded = self.banks.compact(t)
+                if tr is not None:
+                    tr.span("compact", t_span,
+                            rows=rows if folded else 0)
+                done += folded
         return done
 
     def run_until_drained(self) -> list[Request]:
@@ -1633,7 +1757,8 @@ class DBSearchServer:
     def summary(self) -> dict:
         """Aggregate latency stats plus per-tenant accounting, query-cache
         and bank-registry counters, bucket usage, the queue mode and its
-        scheduler, and ingestion counters."""
+        scheduler, ingestion counters, and (``trace``) the attached
+        recorder's span summary, None without one."""
         s = self.stats.summary()
         tenants = {}
         for t, st in self.tenant_stats.items():
@@ -1659,6 +1784,7 @@ class DBSearchServer:
             "tenants_with_delta": self.banks.tenants_with_delta(),
         }
         s["device_busy_s"] = self.device_busy_s
+        s["trace"] = None if self.tracer is None else self.tracer.summary()
         s["clustering"] = (None if self.clustering is None else {
             "requests": self._cluster_requests,
             "tenants": {t: c.summary() for t, c in self.clusterers.items()},

@@ -17,8 +17,9 @@ around two injectable seams so every scheduling decision is
 deterministically unit-testable (the seams are as much the deliverable
 as the scheduler — see ``tests/test_torch_scheduler.py``):
 
-  * **time** — the ``clock`` callable (shared with
-    :class:`~repro_torch.serve.queue.MicroBatchQueue`), so admission order,
+  * **time** — the queue's ``clock`` callable
+    (:class:`~repro_torch.serve.queue.MicroBatchQueue`) and the
+    executor's: the scheduler itself reads no clock, so admission order,
     fairness, and latency accounting run against a fake clock in tests;
   * **device dispatch** — an *executor* object with three methods::
 
@@ -70,7 +71,6 @@ With one rank (or no mesh) the server builds the plain
 from __future__ import annotations
 
 import dataclasses
-import time
 import zlib
 from typing import Any, Callable
 
@@ -87,7 +87,6 @@ class Slot:
     sid: int
     reqs: list[Request]
     handle: Any
-    t_dispatch: float
 
 
 class ContinuousScheduler:
@@ -101,14 +100,12 @@ class ContinuousScheduler:
     """
 
     def __init__(self, queue: MicroBatchQueue, executor, *,
-                 num_slots: int = 2,
-                 clock: Callable[[], float] = time.monotonic):
+                 num_slots: int = 2):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.queue = queue
         self.executor = executor
         self.num_slots = int(num_slots)
-        self._clock = clock
         self._slots: dict[int, Slot] = {}
         self._next_sid = 0
         self.dispatched_batches = 0
@@ -162,8 +159,7 @@ class ContinuousScheduler:
     def _dispatch(self, reqs: list[Request]) -> None:
         """Dispatches one batch into a new slot."""
         handle = self.executor.dispatch(reqs)
-        slot = Slot(sid=self._next_sid, reqs=reqs, handle=handle,
-                    t_dispatch=self._clock())
+        slot = Slot(sid=self._next_sid, reqs=reqs, handle=handle)
         self._next_sid += 1
         self._slots[slot.sid] = slot
         self.dispatched_batches += 1
@@ -250,9 +246,8 @@ class CoordinatedScheduler(ContinuousScheduler):
     HEADER = 3
 
     def __init__(self, queue: MicroBatchQueue, executor, *,
-                 exchange: Callable, rank: int, num_slots: int = 2,
-                 clock: Callable[[], float] = time.monotonic):
-        super().__init__(queue, executor, num_slots=num_slots, clock=clock)
+                 exchange: Callable, rank: int, num_slots: int = 2):
+        super().__init__(queue, executor, num_slots=num_slots)
         self._exchange = exchange
         self.rank = int(rank)
         self.exchanges = 0

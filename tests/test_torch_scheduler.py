@@ -129,7 +129,7 @@ def _make(clock, *, max_batch=2, num_slots=2, fairness_cap=None,
                             flush_timeout_s=flush_timeout_s, clock=clock,
                             fairness_cap=fairness_cap)
     ex = RecordingExecutor(clock)
-    sched = ContinuousScheduler(queue, ex, num_slots=num_slots, clock=clock)
+    sched = ContinuousScheduler(queue, ex, num_slots=num_slots)
     return queue, ex, sched
 
 
@@ -193,7 +193,7 @@ class TestAdmission:
         clock = Clock()
         queue, ex, _ = _make(clock)
         with pytest.raises(ValueError, match="num_slots"):
-            ContinuousScheduler(queue, ex, num_slots=0, clock=clock)
+            ContinuousScheduler(queue, ex, num_slots=0)
 
 
 # --------------------------------------------------------------------------
@@ -297,7 +297,7 @@ class TestLatencyAccounting:
         clock = Clock()
         queue = MicroBatchQueue(max_batch_size=4, clock=clock)
         ex = SimulatedExecutor(clock, c0=0.1, c1=0.0)
-        sched = ContinuousScheduler(queue, ex, num_slots=1, clock=clock)
+        sched = ContinuousScheduler(queue, ex, num_slots=1)
         queue.submit(0)
         clock.now = 0.3
         (r,) = sched.drain()
@@ -322,7 +322,7 @@ class TestLatencyAccounting:
         clock = Clock()
         queue = MicroBatchQueue(max_batch_size=2, clock=clock)
         ex = SimulatedExecutor(clock, c0=0.05, c1=0.0)
-        sched = ContinuousScheduler(queue, ex, num_slots=1, clock=clock)
+        sched = ContinuousScheduler(queue, ex, num_slots=1)
         stats = LatencyStats()
         for _ in range(4):
             queue.submit(0)
@@ -392,7 +392,7 @@ class TestTailLatency:
                                 flush_timeout_s=self.FLUSH_TIMEOUT,
                                 clock=clock)
         sched = ContinuousScheduler(queue, SimulatedExecutor(clock),
-                                    num_slots=2, clock=clock)
+                                    num_slots=2)
         return _drive(trace, clock, queue, sched.step, sched.drain)
 
     def test_continuous_holds_p95_within_4x_p50(self):
@@ -697,7 +697,7 @@ def _ranks(world, script, *, done=lambda h: True, max_batch=3,
                                 fairness_cap=fairness_cap)
         ex = PolledExecutor(clock, done)
         sched = CoordinatedScheduler(queue, ex, num_slots=num_slots,
-                                     clock=clock, rank=rank,
+                                     rank=rank,
                                      exchange=ex_all.for_rank(rank))
         try:
             script(rank, queue, sched)
